@@ -1,0 +1,150 @@
+"""Shared building blocks: param specs, norms, RoPE, the config-routed GEMM.
+
+Port of `repro.models.layers` (without sharding, `grouped_gemm` and
+`softmax_xent`, which arrive with their slices).  Each model family defines
+a `param_specs(cfg)` tree whose leaves are `PSpec(shape, logical_axes,
+scale, dtype, init)`; `init_params` materializes it from a
+`torch.Generator` on an explicit device.  All GEMMs go through the
+plan/execute API (`repro_torch.kernels.api`): `gemm` builds a typed
+GemmSpec, `api.plan` resolves the backend once per logical shape
+(cfg.use_mesh_kernel selects the mesh kernel), and the cached plan executes
+per call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import api as _api
+
+__all__ = [
+    "PSpec",
+    "apply_rope",
+    "dense",
+    "gemm",
+    "init_params",
+    "padded_vocab",
+    "rmsnorm",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class PSpec:
+    """Declarative parameter: shape + logical axes + init scale."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    scale: float = 0.02
+    dtype: Any = None  # filled from cfg.param_dtype at materialization
+    init: str = "normal"  # normal | zeros | ones
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
+
+
+def _map_specs(fn, specs):
+    if isinstance(specs, PSpec):
+        return fn(specs)
+    return {k: _map_specs(fn, v) for k, v in specs.items()}
+
+
+def init_params(
+    generator: torch.Generator, specs, dtype: torch.dtype, *, device
+) -> Any:
+    """Materialize a PSpec tree into tensors on `device`.
+
+    Normal leaves draw N(0, 1) in f32 from `generator` (which must live on
+    `device`), in the tree's key order, then scale and cast — the
+    reference's recipe, with torch's generator in place of JAX's keys.
+    """
+    def make(s: PSpec) -> torch.Tensor:
+        dt = s.dtype or dtype
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=dt, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=dt, device=device)
+        x = torch.randn(s.shape, generator=generator, dtype=torch.float32, device=device)
+        return (x * s.scale).to(dt)
+
+    return _map_specs(make, specs)
+
+
+def padded_vocab(cfg) -> int:
+    """Embedding/lm_head row count, padded to cfg.vocab_pad_multiple (0 =
+    exact).  Padded logits are masked out of argmax."""
+    m = cfg.vocab_pad_multiple
+    if not m:
+        return cfg.vocab_size
+    return ((cfg.vocab_size + m - 1) // m) * m
+
+
+def gemm(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    cfg,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Config-routed GEMM via plan/execute: the `torch` backend, or the mesh
+    kernel (`cuda_mesh`) when cfg.use_mesh_kernel.
+
+    The epilogue (y = act(xW + bias) + residual) is fused into the kernel on
+    the mesh path and applied as plain ops on the torch backend — one call
+    site, identical semantics.  Block shapes come from cfg.mesh_block_m/n/k
+    when set (> 0).
+    """
+    backend = "cuda_mesh" if cfg.use_mesh_kernel else "torch"
+    blocks = (cfg.mesh_block_m or None, cfg.mesh_block_n or None, cfg.mesh_block_k or None)
+    spec = _api.GemmSpec.from_operands(
+        x,
+        w,
+        epilogue=_api.Epilogue(
+            bias=bias is not None,
+            activation=activation,
+            residual=residual is not None,
+        ),
+        out_dtype=x.dtype,
+        blocks=blocks,
+    )
+    return _api.plan(spec, backend=backend, device=x.device)(
+        x, w, bias=bias, residual=residual
+    )
+
+
+def dense(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    cfg,
+    b: Optional[torch.Tensor] = None,
+    *,
+    activation: Optional[str] = None,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Dense projection with the fused epilogue: one kernel on the mesh path."""
+    return gemm(x, w, cfg, bias=b, activation=activation, residual=residual)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, T, H, hd); positions: (B, T) or (T,).  Rotate pairs (even, odd)."""
+    hd = x.shape[-1]
+    inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd))
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * inv  # (B, T, hd/2)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape)

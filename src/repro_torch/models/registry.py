@@ -1,0 +1,88 @@
+"""Uniform model API the launch/serve layer talks to (port of
+`repro.models.registry`, dense family only).
+
+`get_model(cfg)` returns a `Model` with a family-independent interface:
+  init(generator, device)                 parameter tree (1 source: PSpec)
+  prefill / decode + decode_state_specs   dense-cache serving path
+  paged_decode + paged_pool_specs         continuous-batching path
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
+from repro_torch.models.layers import init_params
+
+__all__ = ["Model", "get_model"]
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+    _specs: Callable
+    _prefill: Callable
+    _decode: Callable
+    _state_specs: Callable  # (batch, max_len) -> {name: (shape, dtype)}
+    _paged_decode: Optional[Callable] = None
+
+    # -- parameters ---------------------------------------------------------
+    def specs(self):
+        return self._specs(self.cfg)
+
+    def init(self, generator: torch.Generator, device=None):
+        """Random parameters from `generator` on `device` (cuda unless the
+        caller names another; the generator must live on that device)."""
+        return init_params(generator, self.specs(), self.cfg.pdtype,
+                           device=resolve_device(device))
+
+    # -- compute ------------------------------------------------------------
+    def prefill(self, params, batch: Dict[str, torch.Tensor]):
+        return self._prefill(params, batch, self.cfg)
+
+    def decode(self, params, tokens, state, pos):
+        return self._decode(params, tokens, state, pos, self.cfg)
+
+    def decode_state_specs(self, batch: int, max_len: int):
+        return self._state_specs(self.cfg, batch, max_len)
+
+    # -- paged serving (continuous batching) ---------------------------------
+    @property
+    def supports_paged(self) -> bool:
+        return self._paged_decode is not None
+
+    def paged_decode(self, params, tokens, pools, block_tables, positions, *,
+                     impl: Optional[str] = None):
+        """One continuous-batching decode step against paged KV pools."""
+        if self._paged_decode is None:
+            raise NotImplementedError(f"family {self.cfg.family!r} has no paged decode path")
+        return self._paged_decode(
+            params, tokens, pools, block_tables, positions, self.cfg, impl=impl
+        )
+
+    def paged_pool_specs(self, num_pages: int, page_size: int):
+        if self._paged_decode is None:
+            raise NotImplementedError(f"family {self.cfg.family!r} has no paged decode path")
+        return transformer.paged_pool_specs(self.cfg, num_pages, page_size)
+
+
+def _lm_prefill(params, batch, cfg):
+    return transformer.lm_prefill(params, batch["tokens"], cfg)
+
+
+def get_model(cfg: ArchConfig) -> Model:
+    if cfg.family == "dense":
+        return Model(
+            cfg,
+            transformer.lm_specs,
+            _lm_prefill,
+            transformer.lm_decode,
+            transformer.decode_cache_specs,
+            _paged_decode=transformer.lm_decode_paged,
+        )
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet (dense only)")

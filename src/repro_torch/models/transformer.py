@@ -1,0 +1,216 @@
+"""Decoder-only transformer LM, dense family (port of `repro.models.transformer`).
+
+Layers are stacked on a leading (L,) axis, as in the reference, and run by
+a Python loop over that axis where the reference uses `jax.lax.scan`.
+Serving entry points: `lm_prefill`, `lm_decode` (dense per-layer KV caches)
+and `lm_decode_paged` (paged KV pools, the continuous-batching step).
+`lm_forward` and the paper's activation scramble (`_maybe_scramble`) arrive
+with the training slice; the serving path never runs them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.attention import attention, attention_paged_decode, attn_specs
+from repro_torch.models.layers import PSpec, gemm, padded_vocab, rmsnorm
+from repro_torch.models.moe import swiglu, swiglu_specs
+
+__all__ = [
+    "block_apply",
+    "block_apply_paged",
+    "block_specs",
+    "embed_tokens",
+    "lm_decode",
+    "lm_decode_paged",
+    "lm_prefill",
+    "lm_specs",
+    "paged_pool_specs",
+    "stack_specs",
+    "unembed",
+]
+
+
+def stack_specs(specs: Any, num: int) -> Any:
+    """Prepend a stacked 'layers' dim to every PSpec leaf."""
+    if isinstance(specs, PSpec):
+        return PSpec((num,) + specs.shape, ("layers",) + specs.axes, specs.scale,
+                     specs.dtype, specs.init)
+    return {k: stack_specs(v, num) for k, v in specs.items()}
+
+
+def block_specs(cfg) -> Dict[str, Any]:
+    """One transformer block: attn + SwiGLU + 2 norms."""
+    if cfg.is_moe:
+        raise NotImplementedError("the MoE family is not ported yet")
+    return {
+        "ln1": PSpec((cfg.d_model,), ("embed",), init="ones"),
+        "ln2": PSpec((cfg.d_model,), ("embed",), init="ones"),
+        "attn": attn_specs(cfg),
+        "mlp": swiglu_specs(cfg, cfg.d_ff),
+    }
+
+
+def lm_specs(cfg) -> Dict[str, Any]:
+    vpad = padded_vocab(cfg)
+    specs: Dict[str, Any] = {
+        "embed": PSpec((vpad, cfg.d_model), ("vocab", "embed"), 0.02),
+        "blocks": stack_specs(block_specs(cfg), cfg.num_layers),
+        "final_norm": PSpec((cfg.d_model,), ("embed",), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = PSpec((cfg.d_model, vpad), ("embed", "vocab"), 0.02)
+    return specs
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer i of a stacked (L, ...) parameter tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return {k: _layer(v, i) for k, v in tree.items()}
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(cfg.adtype)
+
+
+def unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = gemm(x, head.to(x.dtype), cfg)
+    # Padded vocab rows (vocab_pad_multiple) never win argmax.
+    if head.shape[-1] != cfg.vocab_size:
+        mask = torch.arange(head.shape[-1], device=x.device) < cfg.vocab_size
+        logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=logits.dtype,
+                                                         device=x.device))
+    return logits
+
+
+def block_apply(
+    p: Dict[str, Any],
+    x: torch.Tensor,
+    cfg,
+    *,
+    cache=None,
+    cache_pos=None,
+    write_cache: bool = False,
+) -> Tuple[torch.Tensor, Any]:
+    """Pre-norm block.  Returns (x, new_cache)."""
+    h, new_cache = attention(
+        p["attn"],
+        rmsnorm(x, p["ln1"], cfg.norm_eps),
+        cfg,
+        cache=cache,
+        cache_pos=cache_pos,
+        write_cache=write_cache,
+    )
+    x = x + h
+    h2 = swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + h2, new_cache
+
+
+def lm_prefill(params, tokens: torch.Tensor, cfg):
+    """Prefill: returns (logits (B, T, V), stacked caches (L, B, T, KV, hd))."""
+    x = embed_tokens(params, tokens, cfg)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, cache = block_apply(_layer(params["blocks"], i), x, cfg, write_cache=True)
+        ks.append(cache["k"])
+        vs.append(cache["v"])
+    logits = unembed(params, x, cfg)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def lm_decode(
+    params,
+    tokens: torch.Tensor,  # (B, T_new) — usually T_new = 1
+    caches,  # stacked (L, B, T_max, KV, hd) {"k","v"}
+    pos: int,  # current length
+    cfg,
+):
+    """One decode step against per-layer KV caches; returns (logits, caches)."""
+    x = embed_tokens(params, tokens, cfg)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        layer_cache = {"k": caches["k"][i], "v": caches["v"][i]}
+        x, new_cache = block_apply(
+            _layer(params["blocks"], i), x, cfg, cache=layer_cache, cache_pos=int(pos)
+        )
+        ks.append(new_cache["k"])
+        vs.append(new_cache["v"])
+    logits = unembed(params, x, cfg)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def block_apply_paged(
+    p: Dict[str, Any],
+    x: torch.Tensor,  # (S, 1, D)
+    cfg,
+    *,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    positions: torch.Tensor,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """`block_apply`'s decode branch against a paged KV pool."""
+    h, pools = attention_paged_decode(
+        p["attn"],
+        rmsnorm(x, p["ln1"], cfg.norm_eps),
+        cfg,
+        k_pool=k_pool,
+        v_pool=v_pool,
+        block_tables=block_tables,
+        positions=positions,
+        impl=impl,
+    )
+    x = x + h
+    h2 = swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + h2, pools
+
+
+def lm_decode_paged(
+    params,
+    tokens: torch.Tensor,  # (S, 1) — one token per sequence slot
+    pools,  # {"k","v"}: (L, P, page_size, KV, hd) shared page pools
+    block_tables: torch.Tensor,  # (S, n_pages) int32
+    positions: torch.Tensor,  # (S,) int32 per-slot lengths
+    cfg,
+    *,
+    impl: Optional[str] = None,
+):
+    """One continuous-batching decode step: every slot advances one token
+    against its own block-table pages.  The new K/V rows are written into
+    `pools` in place (see `attention_paged_decode`).  Returns
+    (logits (S, 1, V), pools)."""
+    x = embed_tokens(params, tokens, cfg)
+    for i in range(cfg.num_layers):
+        x, _ = block_apply_paged(
+            _layer(params["blocks"], i),
+            x,
+            cfg,
+            k_pool=pools["k"][i],
+            v_pool=pools["v"][i],
+            block_tables=block_tables,
+            positions=positions,
+            impl=impl,
+        )
+    logits = unembed(params, x, cfg)
+    return logits, pools
+
+
+def paged_pool_specs(cfg, num_pages: int, page_size: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Stacked page pools for the serving scheduler (one per layer), as
+    {name: (shape, dtype)}."""
+    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+    shp = (cfg.num_layers, num_pages, page_size, kv, hd)
+    return {"k": (shp, cfg.adtype), "v": (shp, cfg.adtype)}
+
+
+def decode_cache_specs(cfg, batch: int, max_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Stacked dense KV cache shapes, as {name: (shape, dtype)}."""
+    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+    shp = (cfg.num_layers, batch, max_len, kv, hd)
+    return {"k": (shp, cfg.adtype), "v": (shp, cfg.adtype)}

@@ -1,0 +1,74 @@
+"""Import hygiene of the port, checked in fresh interpreters.
+
+`repro_torch` must import neither `jax` nor anything of the reference
+package `repro`; this test process cannot tell (tests/conftest.py imports
+jax), so each check runs in a subprocess.  The entry points must refuse to
+run on the CPU unless asked: with CUDA reported absent, calling them without
+a device raises.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=300
+    )
+
+
+def test_port_imports_neither_jax_nor_reference():
+    code = """
+import importlib, pkgutil, sys
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), "modules")
+print("BAD", bad)
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+    assert int(res.stdout.split()[0]) >= 20  # every module was walked
+
+
+def test_entry_points_refuse_cpu_without_device():
+    code = """
+import torch
+torch.cuda.is_available = lambda: False  # a machine with no CUDA card
+from repro_torch.configs import get_config
+from repro_torch.launch import serve
+from repro_torch.launch.scheduler import ContinuousBatchingServer, ServeConfig
+from repro_torch.models import get_model
+model = get_model(get_config("mesh-paper").reduced())
+calls = {
+    "init": lambda: model.init(torch.Generator()),
+    "server": lambda: ContinuousBatchingServer(model, None, ServeConfig()),
+    "main": lambda: serve.main(["--arch", "mesh-paper", "--reduced"]),
+}
+for name, call in calls.items():
+    try:
+        call()
+    except RuntimeError as e:
+        assert "CUDA" in str(e), e
+        print("refused", name)
+    else:
+        print("RAN", name)
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split("\n")[:3] == ["refused init", "refused server", "refused main"], (
+        res.stdout
+    )
