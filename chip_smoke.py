@@ -3,22 +3,32 @@
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
-Three phases; any failure raises and the script exits non-zero:
+Phases; any failure raises and the script exits non-zero:
 
-  1. build   every CUDA kernel of the serving path from `src/repro_torch/csrc`
-             with nvcc (sm_90a), printing ptxas' register/spill report;
-  2. kernels each kernel against its plain PyTorch version at the shapes the
-             serving path gives it, with a stated tolerance, then its time, the
-             plain version's time, one library call computing the same
-             function (timed here only, never used by the port) and the
-             least time the card could take (bytes at 3.35 TB/s or
-             operations at the peak rate of their type, whichever is larger);
-  3. serve   full-width mesh-paper (4 layers, d_model 2048, 16 heads, d_ff
-             8192, vocab 32768, bf16, random weights from a seed) through
-             `ContinuousBatchingServer`: 8 requests x 128-token prompts x 32
-             new tokens on 4 slots, with every kernel's launch count read
-             around the run, and the output checked against the dense-cache
-             path (`generate`, plain `_sdpa` attention).
+  1. build    every CUDA kernel of the port from `src/repro_torch/csrc` with
+              nvcc (sm_90a), all sources at once, printing ptxas'
+              register/spill report;
+  2. kernels  each kernel against its plain PyTorch version at the shapes the
+              serving and training paths give it, with a stated tolerance,
+              then its time, the plain version's time, one library call
+              computing the same function (timed here only, never used by
+              the port) and the least time the card could take (bytes at
+              3.35 TB/s or operations at the peak rate of their type,
+              whichever is larger): K1 (mesh GEMM, 2D and batched), K4
+              (paged decode attention), K3 (block scramble), and K1's
+              backward (the `_mm` VJP) against the same backward run with the
+              plain GEMM;
+  3. serve    full-width mesh-paper (4 layers, d_model 2048, 16 heads, d_ff
+              8192, vocab 32768, bf16, random weights from a seed) through
+              `ContinuousBatchingServer`: 8 requests x 128-token prompts x 32
+              new tokens on 4 slots, with every kernel's launch count read
+              around the run, and the output checked against the dense-cache
+              path (`generate`, plain `_sdpa` attention);
+  4. train    the same model through `build_trainer` and `train_loop`: 6 AdamW
+              steps at batch 2 x seq 2048 with the sigma scramble firing,
+              launch counts per step checked (K1 75, K3 4), losses finite and
+              falling, one step and each parameter's gradient held against
+              the `torch` backend's, and one step profiled.
 
 The last lines are the card's `nvidia-smi` name and power limit, the
 `{"kernels": [...]}` JSON, and `{"ok": true, "device": {...}}`.  It imports
@@ -49,6 +59,13 @@ MESH_PAPER_GEMMS = {
 # K1 launches per decode tick: 4 layers x (4 attn + wi + wo) + lm_head.
 TICK_LAUNCHES = {"attn (wq|wk|wv|wo)": 16, "mlp wi": 4, "mlp wo": 4, "lm_head": 1}
 SLOTS, PROMPT, NEW_TOKENS, REQUESTS, PAGE = 4, 128, 32, 8, 8
+# Training: batch x seq tokens per step (seq = d_model, so the scramble's
+# (T, D) block grid is square and fires), steps, and launches per step:
+# K1 25 forward + 2 x 25 backward (dA, dB; no GEMM of mesh-paper fuses an
+# activation, so none recomputes z); K3 scramble + unscramble, forward and
+# backward.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 6, 1e-3
+STEP_LAUNCHES = {"mesh_matmul": 75, "scramble_blocks": 4}
 
 
 def log(msg: str) -> None:
@@ -68,11 +85,11 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, calls, iters: int) -> float:
+def time_ms(torch, calls, iters: int, warmup: int = 3) -> float:
     """Mean device time of one call, CUDA events around `iters` calls that
     cycle through `calls` (distinct operands, so weights come from HBM)."""
-    for c in calls[:3]:
-        c()
+    for i in range(warmup):
+        calls[i % len(calls)]()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -82,6 +99,23 @@ def time_ms(torch, calls, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, calls, iters: int) -> float:
+    """Mean device time of one call: the kernels torch.profiler sees over
+    `iters` calls that cycle through `calls`, summed, over `iters`.  For
+    calls shorter than their own host-side launch cost, where CUDA events
+    around a loop time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in kernel_rows(prof)) / iters / 1e3
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -176,7 +210,18 @@ def phase_k1(torch):
         share[per[(lbl, SLOTS)][4]] += per[(lbl, SLOTS)][3] * count
     tick["bound_by"] = max(share, key=share.get)
     log(f"[K1] one decode tick (25 launches, M={SLOTS}): " + json.dumps(tick))
-    return max_err, tick
+
+    # K1b: the fully batched kernel (blockIdx.z) at the checked batched case.
+    nb, m, k, n = 4, PROMPT, 1024, 512
+    a3, b3 = rnd(nb, m, k), rnd(nb, k, n)
+    ms = time_ms(torch, [lambda: mesh_matmul(a3, b3)], 30)
+    plain = time_ms(torch, [lambda: mesh_matmul_torch(a3, b3)], 5)
+    lib = time_ms(torch, [lambda: torch.matmul(a3, b3)], 30)
+    bms, by = bound_ms(2 * nb * (m * k + k * n + m * n), 2 * nb * m * k * n, "bfloat16")
+    k1b = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+    log(f"[K1b] time B={nb} M={m} K={k} N={n} bf16: kernel={ms:.4f} ms plain={plain:.4f} ms"
+        f" torch.matmul={lib:.4f} ms bound={bms:.5f} ms ({by})")
+    return max_err, tick, k1b
 
 
 def _paged_inputs(torch, g, s, h, kvh, hd, lengths, dtype):
@@ -191,8 +236,8 @@ def _paged_inputs(torch, g, s, h, kvh, hd, lengths, dtype):
     return q, kp, vp, bt, ln
 
 
-def phase_k2(torch):
-    """K2 (paged_attention_cuda) against paged_attention_torch, then timings."""
+def phase_k4(torch):
+    """K4 (paged_attention_cuda) against paged_attention_torch, then timings."""
     from repro_torch.kernels.paged_attention import (
         gather_pages,
         paged_attention_cuda,
@@ -221,9 +266,9 @@ def phase_k2(torch):
         tol = (2.0**-6 if dtype == torch.bfloat16 else 1e-5) * vmax
         why = ("2^-6 max|v|: p rounded to bf16 at different points, bf16 output"
                if dtype == torch.bfloat16 else "1e-5 max|v|: summation order only")
-        log(f"[K2] {label:22s} {dtype} lengths={lengths} err={err:.3e} tol={tol:.3e} ({why})")
-        check(bool(torch.isfinite(out.float()).all()), f"K2 {label}: non-finite output")
-        check(err <= tol, f"K2 {label}: err {err} > tol {tol}")
+        log(f"[K4] {label:22s} {dtype} lengths={lengths} err={err:.3e} tol={tol:.3e} ({why})")
+        check(bool(torch.isfinite(out.float()).all()), f"K4 {label}: non-finite output")
+        check(err <= tol, f"K4 {label}: err {err} > tol {tol}")
         max_err = max(max_err, err)
 
     # Timing at the serving decode shape (one launch per layer and tick).
@@ -240,10 +285,171 @@ def phase_k2(torch):
     nbytes = 2 * (2 * q.numel() + 2 * tokens * kvh * hd) + 4 * (bt.numel() + ln.numel())
     bms, by = bound_ms(nbytes, 4 * h * hd * tokens, "bfloat16")
     log(
-        f"[K2] time S={s} H={h} KV={kvh} hd={hd} lengths={live}: kernel={ms:.4f} ms"
+        f"[K4] time S={s} H={h} KV={kvh} hd={hd} lengths={live}: kernel={ms:.4f} ms"
         f" plain={plain:.4f} ms sdpa={lib:.4f} ms bound={bms:.5f} ms ({by})"
     )
     return max_err, dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def phase_k3(torch):
+    """K3 (scramble_blocks_cuda) against scramble_blocks_torch, bit for bit,
+    then timings at the training activations' shape."""
+    from repro_torch.kernels.scramble import scramble_blocks_cuda, scramble_blocks_torch
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    act = (TRAIN_BATCH, TRAIN_SEQ, 2048)  # mesh-paper's (B, T, D) activations
+    cases = [
+        ("mesh-paper activations k=1", act, 128, 128, 1, torch.bfloat16),
+        ("mesh-paper activations k=-1", act, 128, 128, -1, torch.bfloat16),
+        ("mesh-paper activations k=3", act, 128, 128, 3, torch.bfloat16),
+        ("f32 8x8 grid k=1", (2, 1024, 1024), 128, 128, 1, torch.float32),
+        ("g=5 k=2", (3, 640, 640), 128, 128, 2, torch.bfloat16),
+        ("g=5, 40-byte rows k=-1", (3, 5 * 24, 5 * 20), 24, 20, -1, torch.bfloat16),
+    ]
+    max_err = 0.0
+    for label, shape, bm, bn, k, dtype in cases:
+        x = torch.randn(*shape, generator=g, device="cuda").to(dtype)
+        out = scramble_blocks_cuda(x, block_m=bm, block_n=bn, k=k)
+        ref = scramble_blocks_torch(x, block_m=bm, block_n=bn, k=k)
+        torch.cuda.synchronize()
+        equal = torch.equal(out, ref)
+        err = (out.float() - ref.float()).abs().max().item()
+        max_err = max(max_err, err)
+        log(f"[K3] {label:28s} {tuple(shape)} {dtype} bitwise equal: {equal} max|d|={err}")
+        check(equal, f"K3 {label}: kernel differs from its plain version")
+
+    # Device time from the profiler: a launch of K3 is about as short as its
+    # host-side cost, so CUDA events around a loop would time the host.  The
+    # calls cycle through copies of x that exceed twice the L2, so each reads
+    # its input from HBM, as the bound assumes.
+    xs = [torch.randn(*act, generator=g, device="cuda").to(torch.bfloat16)]
+    nbytes = xs[0].numel() * xs[0].element_size()
+    xs += [xs[0].clone() for _ in range(math.ceil(2 * L2_BYTES / nbytes))]
+    events = time_ms(torch, [lambda x=x: scramble_blocks_cuda(x) for x in xs], 50)
+    ms = device_ms(torch, [lambda x=x: scramble_blocks_cuda(x) for x in xs], 50)
+    plain = device_ms(torch, [lambda x=x: scramble_blocks_torch(x) for x in xs], 20)
+    lib = device_ms(torch, [lambda x=x: x.clone() for x in xs], 50)
+    bms, by = bound_ms(2 * nbytes, 0, "bfloat16")
+    log(f"[K3] time {act} bf16 k=1 (device time): kernel={ms:.4f} ms plain={plain:.4f} ms"
+        f" clone (same bytes, no permutation)={lib:.4f} ms bound={bms:.5f} ms ({by});"
+        f" CUDA events over 50 back-to-back calls, host included: {events:.4f} ms;"
+        f" {len(xs)} inputs cycled (cold L2)")
+    return max_err, dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def phase_k1_backward(torch):
+    """K1's backward (api.mm_backward, the `_mm` VJP) run with the kernel
+    against the same backward run with mesh_matmul_torch, then the f32 dA/dB
+    GEMMs and the bf16 forward timed and checked at the training shapes
+    (M = 4096).  Returns the largest error of K1 against its plain version."""
+    from repro_torch.kernels import api
+    from repro_torch.kernels.mesh_matmul import mesh_matmul, mesh_matmul_torch
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    cases = [
+        ("bias+gelu+residual", (PROMPT, 2048, 2048), False, "gelu"),
+        ("scramble_out 8x8 grid", (1024, 2048, 1024), True, None),
+    ]
+    max_err = 0.0
+    for label, (m, k, n), scramble, act in cases:
+        # bf16 values; the backward's GEMMs run in f32 either way, so f32
+        # operands hold dA, dB and dbias before their cast to the operands'
+        # dtype, where the tolerance is stated.
+        a, b, bias = rnd(m, k).float(), rnd(k, n).float(), rnd(n).float()
+        ct = rnd(m, n)
+        opts = api.MMOpts(128, 128, 128, True, scramble, torch.bfloat16, act)
+        got = api.mm_backward(ct, a, b, bias, torch.bfloat16, opts, matmul=mesh_matmul)
+        want = api.mm_backward(ct, a, b, bias, torch.bfloat16, opts, matmul=mesh_matmul_torch)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dA", "dB", "dbias"), got[:3], want[:3]):
+            err = (x - y).abs().max().item()
+            tol = 1e-5 * y.abs().max().item()
+            max_err = max(max_err, err)
+            log(f"[K1 bwd] {label:22s} {name:5s} err={err:.3e} tol={tol:.3e} (1e-5 max|ref|:"
+                f" f32 outputs, summation order only)")
+            check(bool(torch.isfinite(x).all()), f"K1 bwd {label} {name}: non-finite")
+            check(err <= tol, f"K1 bwd {label} {name}: err {err} > tol {tol}")
+        check(torch.equal(got[3], want[3]), f"K1 bwd {label}: dresidual differs")
+
+    # Through autograd on the card: a bf16 GEMM's gradients come from K1.
+    a = rnd(PROMPT, 2048).requires_grad_(True)
+    b = rnd(2048, 2048).requires_grad_(True)
+    spec = api.GemmSpec.from_operands(a, b, epilogue=api.Epilogue(activation="gelu"),
+                                      out_dtype=torch.bfloat16)
+    y = api.plan(spec, backend="cuda_mesh", device="cuda")(a, b)
+    before = mesh_matmul.launches
+    y.backward(rnd(PROMPT, 2048))
+    torch.cuda.synchronize()
+    launched = mesh_matmul.launches - before
+    log(f"[K1 bwd] autograd through a cuda_mesh plan: grad_fn={type(y.grad_fn).__name__},"
+        f" {launched} K1 launches in backward (z remat, dA, dB)")
+    check(launched == 3 and a.grad is not None and b.grad is not None,
+          "cuda_mesh backward did not run on K1")
+
+    # Timings at the training shapes: 2 x 2048 tokens.  The last timed call
+    # of the kernel and of the plain version are held against each other at
+    # the tolerances of phase_k1: 1e-5·max|ref| for the f32 dA/dB GEMMs
+    # (summation order only), 2^-7·max|ref| for the bf16 forward.
+    m = TRAIN_BATCH * TRAIN_SEQ
+    rows, failed = {}, []
+    for label, (k, n) in MESH_PAPER_GEMMS.items():
+        x, w = rnd(m, k), rnd(k, n)
+        dz, w_t, x_t = rnd(m, n).float(), w.t().float().contiguous(), x.t().float().contiguous()
+        work = {
+            "fwd bf16": (x, w, dict(block_m=128, block_n=128, block_k=128), "bfloat16", 2),
+            "dA f32": (dz, w_t, dict(block_m=128, block_n=128, block_k=128), "float32", 4),
+            "dB f32": (x_t, dz, dict(block_m=128, block_n=128, block_k=128), "float32", 4),
+        }
+        for kind, (p, q, blocks, dt, size) in work.items():
+            mm, kk, nn = p.shape[0], p.shape[1], q.shape[1]
+            iters = 2 if mm * kk * nn > 2**34 else 5
+            out = {}
+            ms = time_ms(torch, [lambda: out.update(kernel=mesh_matmul(p, q, **blocks))],
+                         iters, warmup=1)
+            plain = time_ms(torch, [lambda: out.update(plain=mesh_matmul_torch(p, q, **blocks))],
+                            1, warmup=1)
+            lib = time_ms(torch, [lambda: torch.matmul(p, q)], iters, warmup=1)
+            bms, by = bound_ms(size * (mm * kk + kk * nn + mm * nn), 2 * mm * kk * nn, dt)
+            rows[(label, kind)] = (ms, plain, lib, bms, by)
+            ref = out["plain"].float()
+            err = (out["kernel"].float() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            tol = (1e-5 if dt == "float32" else 2.0**-7) * scale
+            max_err = max(max_err, err)
+            if not (err <= tol and bool(torch.isfinite(out["kernel"]).all())):
+                failed.append(f"{label} {kind}: err {err} > tol {tol}")
+            log(f"[K1 train] {label:20s} {kind:8s} {mm}x{kk}x{nn}: kernel={ms:.3f} ms"
+                f" plain={plain:.3f} ms torch.matmul={lib:.3f} ms (TF32 off)"
+                f" bound={bms:.3f} ms ({by}) {2 * mm * kk * nn / ms / 1e9:.2f} TFLOP/s;"
+                f" err={err:.3e} tol={tol:.3e} (err/max|ref|={err / scale:.2e})")
+            del out, ref
+        del x, w, dz, w_t, x_t
+    per_layer = {"attn (wq|wk|wv|wo)": 16, "mlp wi": 4, "mlp wo": 4, "lm_head": 1}
+    step = {kind: sum(rows[(lbl, kind)][0] * c for lbl, c in per_layer.items())
+            for kind in ("fwd bf16", "dA f32", "dB f32")}
+    bound = {kind: sum(rows[(lbl, kind)][3] * c for lbl, c in per_layer.items())
+             for kind in ("fwd bf16", "dA f32", "dB f32")}
+    log(f"[K1 train] one step's 75 K1 launches at these times: "
+        f"{sum(step.values()):.1f} ms (fwd {step['fwd bf16']:.1f}, dA {step['dA f32']:.1f},"
+        f" dB {step['dB f32']:.1f}); bound {sum(bound.values()):.1f} ms")
+    check(not failed, f"K1 at the training shapes differs from its plain version: {failed}")
+    return max_err
+
+
+def kernel_rows(prof):
+    """(device us, count, name) of each kernel in a torch.profiler run, most
+    time first.  Kernel events only: a CPU op's row repeats its kernels' time."""
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return rows
 
 
 def phase_serve(torch):
@@ -301,7 +507,7 @@ def phase_serve(torch):
     # Greedy tokens of a random bf16 model are full of near-ties, so beyond
     # the first token (same prefill on both paths, equal exactly) the check
     # is on logits: teacher-forced with the server's tokens, paged decode
-    # (K1 + K2) and dense decode (K1 + _sdpa) must agree within LOGIT_TOL,
+    # (K1 + K4) and dense decode (K1 + _sdpa) must agree within LOGIT_TOL,
     # and each of the server's tokens must be within LOGIT_TOL of the dense
     # argmax.  LOGIT_TOL = 0.125: 8 bf16 ulps at |logit| in [4, 8), for two
     # attention implementations that round probabilities at different points,
@@ -362,19 +568,194 @@ def profile_window(torch, model, params, scfg, prompts) -> None:
         server.run(reqs)
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        # Kernel events only: a CPU op's row repeats its kernels' time.
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if str(getattr(ev, "device_type", "")).endswith("CUDA") and dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(prof)
     busy_us = sum(r[0] for r in rows)
     log(f"[profile] {len(reqs)} requests x {NEW_TOKENS} tokens, {server.counters['ticks']} "
         f"ticks: wall={wall_us / 1e3:.1f} ms device busy={busy_us / 1e3:.1f} ms "
         f"({100 * busy_us / wall_us:.1f}% of wall; device time not seen = 'not measured')")
     for dev_us, count, key in rows[:10]:
         log(f"[profile]   {dev_us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+
+
+def grads_of(torch, model, params, batch):
+    """Gradients of model.loss at `params` on a host batch, in tree order."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    dev = tree_leaves(ps)[0].device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    with torch.enable_grad():
+        loss, _ = model.loss(ps, batch)
+        return torch.autograd.grad(loss, tree_leaves(ps))
+
+
+def phase_train(torch):
+    """Full-width mesh-paper training through the port's entry points."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.kernels.scramble import scramble_blocks_cuda
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import get_model
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.metrics import MetricsLogger
+    from repro_torch.tree import tree_map, tree_paths
+
+    cfg = get_config("mesh-paper")
+    check(cfg.scramble_privacy and cfg.use_mesh_kernel and TRAIN_SEQ == cfg.d_model,
+          f"mesh-paper must scramble at seq {TRAIN_SEQ}: {cfg}")
+    step_fn, state, data = build_trainer(
+        cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+        seed=0, device="cuda",
+    )
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # One step from the same state and batch on the kernel path and on the
+    # `torch` backend (f32 cuBLAS GEMMs, TF32 off, differentiated by
+    # autograd).  Every operand of mesh-paper's GEMMs, forward and backward,
+    # holds bf16 values (bf16 activations and weights, bf16 cotangents, no
+    # fused activation and so no f32 dz), whose products f32 holds exactly,
+    # and every dA/dB is cast to bf16: the two steps differ only in
+    # summation order.  So does the same torch step with TF32 on, whose
+    # 10-bit mantissas hold bf16 values exactly too; it is printed as a
+    # reading beside the checked pair.  Limits, an order above the readings
+    # of sound runs (loss 0.00013, grad norm 0.0033 %): loss within 1e-3,
+    # grad norm within 0.1 %.  The global norm barely sees a wrong gradient
+    # of the right size, so each parameter's gradient is held too:
+    # ||g_kernel - g_torch|| within 0.05·||g_torch||, where a sound run reads
+    # up to 0.0155 (rounding differences of bf16 activations, compounded
+    # over 4 layers).  The torch gradient of the next batch (the right
+    # scale and structure, but wrong) read 0.89 at least, and must exceed
+    # the limit.
+    def with_tf32(fn):
+        def run(*args):
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return fn(*args)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        return run
+
+    plain_step, _, _ = build_trainer(
+        dataclasses.replace(cfg, use_mesh_kernel=False), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        lr=TRAIN_LR, total_steps=TRAIN_STEPS, seed=0, device="cuda",
+    )
+    stream = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    batch, next_batch = stream._host_batch(0), stream._host_batch(1)
+    compare = {}
+    for name, fn in (("kernel", step_fn), ("torch", plain_step),
+                     ("torch TF32", with_tf32(plain_step))):
+        copy = tree_map(lambda t: t.detach().clone(), state)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        _, met = fn(copy, batch)
+        torch.cuda.synchronize()
+        compare[name] = (float(met["loss"]), float(met["grad_norm"]), time.monotonic() - t0)
+        del copy, met
+    lt, gt, tt = compare["torch"]
+    for name in ("kernel", "torch TF32"):
+        lk, gk, tk = compare[name]
+        log(f"[train] one step, {name} vs torch backend: loss {lk:.5f} vs {lt:.5f}"
+            f" (|d|={abs(lk - lt):.5f}, tol 0.001), grad_norm {gk:.5f} vs {gt:.5f}"
+            f" ({100 * abs(gk - gt) / gt:.4f} %, tol 0.1 %), wall {tk:.3f} s vs {tt:.3f} s")
+    lk, gk, _ = compare["kernel"]
+    check(abs(lk - lt) <= 1e-3, f"kernel step loss {lk} vs torch step {lt}")
+    check(abs(gk - gt) <= 1e-3 * gt, f"kernel step grad norm {gk} vs torch step {gt}")
+
+    names = [path for path, _ in tree_paths(state["params"])]
+    params = state["params"]
+    plain_model = get_model(dataclasses.replace(cfg, use_mesh_kernel=False))
+    g_ref = grads_of(torch, plain_model, params, batch)
+
+    def rel(grads):
+        """[(||g - g_torch|| / ||g_torch||, name)] over the parameters, sorted."""
+        return sorted(((x - y).float().norm().item() / max(y.float().norm().item(), 1e-30), n)
+                      for n, x, y in zip(names, grads, g_ref))
+
+    readings = {
+        "kernel": rel(grads_of(torch, get_model(cfg), params, batch)),
+        "torch TF32": rel(with_tf32(grads_of)(torch, plain_model, params, batch)),
+        "next batch": rel(grads_of(torch, plain_model, params, next_batch)),
+    }
+    del g_ref
+    tol = 0.05
+    for name in ("kernel", "torch TF32"):
+        top = ", ".join(f"{n} {r:.3e}" for r, n in reversed(readings[name][-4:]))
+        log(f"[train] per-parameter gradient, {name} vs torch backend,"
+            f" ||d||/||g|| largest: {top} (tol {tol})")
+    (same_hi, same_at), (next_lo, next_at) = readings["kernel"][-1], readings["next batch"][0]
+    log(f"[train] per-parameter gradient, the next batch's torch gradient vs this batch's,"
+        f" smallest ||d||/||g||: {next_lo:.3e} ({next_at}), which must exceed tol")
+    check(same_hi <= tol, f"kernel gradient of {same_at} differs from torch's by {same_hi}")
+    check(next_lo > tol, f"a wrong gradient of {next_at} passes the check ({next_lo})")
+
+    per_step = []
+
+    def timed(st, b):
+        k1, k3 = mesh_matmul.launches, scramble_blocks_cuda.launches
+        t0 = time.monotonic()
+        st, met = step_fn(st, b)
+        torch.cuda.synchronize()
+        per_step.append((time.monotonic() - t0, mesh_matmul.launches - k1,
+                         scramble_blocks_cuda.launches - k3))
+        return st, met
+
+    logger = MetricsLogger()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_matmul.launches = 0
+    scramble_blocks_cuda.launches = 0
+    t0 = time.monotonic()
+    state = train_loop(timed, state, data, LoopConfig(total_steps=TRAIN_STEPS, log_every=1),
+                       logger=logger)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"mesh_matmul": mesh_matmul.launches,
+                "scramble_blocks": scramble_blocks_cuda.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    losses = [h["loss"] for h in logger.history]
+    for i, (h, (dt, k1, k3)) in enumerate(zip(logger.history, per_step)):
+        log(f"[train] step {i + 1}: loss={h['loss']:.5f} grad_norm={h['grad_norm']:.5f}"
+            f" lr={h['lr']:.3e} wall={dt * 1e3:.1f} ms tokens/s={tokens / dt:.1f}"
+            f" launches K1={k1} K3={k3}")
+    log(f"[train] {TRAIN_STEPS} steps x {TRAIN_BATCH}x{TRAIN_SEQ} tokens: wall={wall:.3f} s,"
+        f" {TRAIN_STEPS * tokens / wall:.1f} tokens/s, peak device memory {peak_gib:.2f} GiB,"
+        f" launches={launches}")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"non-finite or missing losses: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name, per in STEP_LAUNCHES.items():
+        check(launches[name] == per * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, want {per} per step")
+    check(all((k1, k3) == (75, 4) for _, k1, k3 in per_step), f"per-step launches {per_step}")
+
+    profile_train_step(torch, step_fn, state, data)
+    return launches
+
+
+def profile_train_step(torch, step_fn, state, data) -> None:
+    """Where a training step's time goes: one more step under torch.profiler,
+    device time by kernel and the device-busy share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = next(data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    rows = kernel_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    log(f"[profile train] one step: wall={wall_us / 1e3:.1f} ms device busy="
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% of wall)")
+    for dev_us, count, key in rows[:10]:
+        log(f"[profile train]   {dev_us / 1e3:9.3f} ms {count:6d}x"
+            f" {100 * dev_us / busy_us:5.1f}% {key[:80]}")
 
 
 def main() -> int:
@@ -394,24 +775,34 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.monotonic()
     phase_build(torch)
-    k1_err, k1 = phase_k1(torch)
-    k2_err, k2 = phase_k2(torch)
+    k1_err, k1, k1b = phase_k1(torch)
+    k4_err, k4 = phase_k4(torch)
+    k3_err, k3 = phase_k3(torch)
+    k1_err = max(k1_err, phase_k1_backward(torch))
     torch.cuda.synchronize()
-    launches = phase_serve(torch)
+    serve = phase_serve(torch)
+    train = phase_train(torch)
+
+    def row(name, source, replaces, launches, err, t, shape, **extra):
+        return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
+                    replaces=replaces, launches=launches, max_abs_err=err, ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"], shape=shape, **extra)
+
     kernels = [
-        dict(name="mesh_matmul", route="cuda", source="src/repro_torch/csrc/mesh_matmul.cu",
-             replaces="src/repro/kernels/mesh_matmul.py:341",
-             launches=launches["mesh_matmul"], max_abs_err=k1_err, max_err=k1_err,
-             ms=k1["ms"], kernel_ms=k1["ms"], plain_ms=k1["plain_ms"],
-             bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=k1["library_ms"],
-             shape="one decode tick: 25 launches at M=4"),
-        dict(name="paged_attention", route="cuda",
-             source="src/repro_torch/csrc/paged_attention.cu",
-             replaces="src/repro/kernels/paged_attention.py:182",
-             launches=launches["paged_attention"], max_abs_err=k2_err, max_err=k2_err,
-             ms=k2["ms"], kernel_ms=k2["ms"], plain_ms=k2["plain_ms"],
-             bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=k2["library_ms"],
-             shape="one launch: S=4 H=KV=16 hd=128 bf16, 128-160 token contexts"),
+        row("mesh_matmul", "mesh_matmul.cu", "src/repro/kernels/mesh_matmul.py:341",
+            serve["mesh_matmul"] + train["mesh_matmul"], k1_err, k1,
+            "one decode tick: 25 launches at M=4",
+            launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"]},
+            batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
+                     "shape": "B=4 M=128 K=1024 N=512 bf16"}),
+        row("paged_attention", "paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:182", serve["paged_attention"], k4_err, k4,
+            "one launch: S=4 H=KV=16 hd=128 bf16, 128-160 token contexts"),
+        row("scramble_blocks", "scramble_blocks.cu",
+            "src/repro/kernels/scramble_kernel.py:41", train["scramble_blocks"], k3_err, k3,
+            f"one launch: ({TRAIN_BATCH}, {TRAIN_SEQ}, 2048) bf16, 16x16 blocks of 128^2;"
+            " library_ms is x.clone() (same bytes, no permutation)"),
     ]
     log(f"[done] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,12 @@
-"""Parameters from the JAX package, carried into the port bit for bit.
+"""Parameters and train states carried between the JAX package and the port,
+bit for bit.
 
 `params_from_numpy(tree, device)` turns a nested dict of numpy arrays —
 the reference's parameter tree after `jax.tree.map(np.asarray, params)`,
 done by the caller — into the port's tensors, so both packages compute on
-the same weights.  bfloat16 arrays arrive as `ml_dtypes.bfloat16`, which
+the same weights.  `train_state_from_numpy` does the same for a whole train
+state (params, AdamW `m`/`v`/`count`, `step`), and `train_state_to_numpy`
+goes back, so a port state can be handed to the reference.  bfloat16 arrays arrive as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses; they travel as their 16-bit patterns
 (`view(np.uint16)`) and are reinterpreted as `torch.bfloat16`.  Neither
 `jax` nor `ml_dtypes` is imported here.
@@ -17,8 +20,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.tree import tree_map
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "train_state_from_numpy", "train_state_to_numpy"]
 
 
 def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -29,8 +33,8 @@ def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
-    """Nested dict of numpy arrays -> the same tree of tensors on `device`
-    (cuda unless the caller names another)."""
+    """Nested dict of numpy arrays (params, or any other tree) -> the same
+    tree of tensors on `device` (cuda unless the caller names another)."""
     dev = resolve_device(device)
 
     def convert(node):
@@ -39,3 +43,29 @@ def params_from_numpy(tree: Any, device=None) -> Any:
         return _tensor(node, dev)
 
     return convert(tree)
+
+
+def train_state_from_numpy(state: Any, device=None) -> Any:
+    """The reference's train state {"params", "opt": {"m", "v", "count"},
+    "step"} as numpy arrays -> the port's train state on `device`.  Raises
+    ValueError for a tree of another layout, which `make_train_step` would
+    only reject mid-step."""
+    if (not isinstance(state, dict) or set(state) != {"params", "opt", "step"}
+            or not isinstance(state["opt"], dict)
+            or set(state["opt"]) != {"m", "v", "count"}):
+        raise ValueError("not a train state {'params', 'opt': {'m', 'v', 'count'}, 'step'}")
+    return params_from_numpy(state, device)
+
+
+def train_state_to_numpy(state: Any) -> Any:
+    """A port tree of tensors -> the same tree of numpy arrays.  bfloat16
+    tensors come back as their uint16 bit patterns (the caller views them as
+    its bfloat16 type, e.g. `ml_dtypes.bfloat16`)."""
+
+    def convert(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy().copy()
+
+    return tree_map(convert, state)

@@ -21,6 +21,13 @@ Backends:
 Blocks come from `spec.blocks` when set, else (128, 128, 128); the
 autotuner arrives in a later slice.  There is no fallback chain yet: a
 `cuda_mesh` plan whose kernel fails to build or launch raises.
+
+Gradients.  A `cuda_mesh` GEMM runs through `_MeshMM`, a
+`torch.autograd.Function` on both devices, whose backward is the
+reference's `_mm` VJP op for op (`mm_backward`): unscramble the cotangent,
+recompute the pre-activation z with one plain f32 kernel call where there is
+an activation, then dA = dz·Bᵀ and dB = Aᵀ·dz as two more f32 kernel GEMMs.
+The `torch` and `ref` backends are plain ops that autograd differentiates.
 """
 
 from __future__ import annotations
@@ -33,7 +40,14 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.mesh_matmul import ACTIVATIONS, mesh_matmul, sigma_block_table
+from repro_torch.kernels.mesh_matmul import (
+    ACTIVATIONS,
+    GELU_A,
+    GELU_C,
+    mesh_matmul,
+    sigma_block_table,
+)
+from repro_torch.kernels.scramble import scramble_blocks
 
 __all__ = [
     "DEFAULT_BLOCKS",
@@ -42,11 +56,13 @@ __all__ = [
     "CapabilityError",
     "Epilogue",
     "GemmSpec",
+    "MMOpts",
     "Plan",
     "PlanValidationError",
     "apply_epilogue",
     "backend_names",
     "clear_plan_cache",
+    "mm_backward",
     "plan",
     "plan_cache_info",
     "register_backend",
@@ -494,27 +510,118 @@ def _ref_impl(p: Plan, a, b, bias, residual):
     return y.to(_NAME_DTYPES[p.out_dtype])
 
 
+# d/dz of each fused activation as a function of the pre-activation z (the
+# backward recomputes z — remat, not an extra forward output).
+def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
+    """Analytic derivative of ACTIVATIONS['gelu'] (same GELU_C/GELU_A)."""
+    u = torch.tanh(GELU_C * (z + GELU_A * z**3))
+    return 0.5 * (1 + u) + 0.5 * z * (1 - u**2) * GELU_C * (1 + 3 * GELU_A * z**2)
+
+
+_ACT_GRADS = {
+    "relu": lambda z: (z > 0).to(z.dtype),
+    "silu": lambda z: torch.sigmoid(z) * (1 + z * (1 - torch.sigmoid(z))),
+    "sigmoid": lambda z: torch.sigmoid(z) * (1 - torch.sigmoid(z)),
+    "tanh": lambda z: 1 - torch.tanh(z) ** 2,
+    "gelu": _gelu_grad,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MMOpts:
+    """The static options of one mesh GEMM (the reference's `_mm` opts)."""
+
+    block_m: int
+    block_n: int
+    block_k: int
+    stagger: bool
+    scramble: bool
+    out_dtype: torch.dtype
+    activation: Optional[str]
+
+
+def mm_backward(
+    g: torch.Tensor,
+    a2: torch.Tensor,
+    b2: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    res_dtype: Optional[torch.dtype],
+    opts: MMOpts,
+    matmul: Callable = mesh_matmul,
+):
+    """The mesh GEMM's VJP, op for op the reference's `_mm_bwd`.
+
+    `matmul` is the GEMM it runs (mesh_matmul's signature): the kernel
+    wrapper in training, `mesh_matmul_torch` to hold the kernel's backward
+    against the plain one on the same device.  Returns (dA, dB, dbias,
+    dresidual), each in its operand's dtype (None where there is none).
+    """
+    bm, bn, bk = opts.block_m, opts.block_n, opts.block_k
+    if opts.scramble:
+        # The permutation's transpose is its inverse: a pure gather (K3 on
+        # the card), so the rest of the backward runs in standard order.
+        g = scramble_blocks(g, block_m=bm, block_n=bn, k=-1)
+    gf = g.float()
+    dresidual = None if res_dtype is None else g.to(res_dtype)
+    f32 = dict(stagger=opts.stagger, out_dtype=torch.float32)
+    if opts.activation in (None, "none"):
+        dz = gf
+    else:
+        # Remat z = A·B + bias with one plain (no epilogue, unscrambled) call.
+        z = matmul(a2.float(), b2.float(), block_m=bm, block_n=bn, block_k=bk, **f32)
+        if bias is not None:
+            z = z + bias.float()
+        dz = gf * _ACT_GRADS[opts.activation](z)
+    b_t = b2.transpose(-1, -2).float()
+    a_t = a2.transpose(-1, -2).float()
+    da = matmul(dz, b_t, block_m=bm, block_n=bk, block_k=bn, **f32)
+    db = matmul(a_t, dz, block_m=bk, block_n=bn, block_k=bm, **f32)
+    dbias = None if bias is None else dz.sum(dim=tuple(range(dz.dim() - 1))).to(bias.dtype)
+    return da.to(a2.dtype), db.to(b2.dtype), dbias, dresidual
+
+
+class _MeshMM(torch.autograd.Function):
+    """K1 forward with the reference's `_mm` VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, a2, b2, bias, residual, opts: MMOpts, sigma):
+        ctx.opts = opts
+        ctx.res_dtype = None if residual is None else residual.dtype
+        ctx.save_for_backward(a2, b2, bias)
+        return mesh_matmul(
+            a2, b2, bias=bias, residual=residual, block_m=opts.block_m,
+            block_n=opts.block_n, block_k=opts.block_k, stagger=opts.stagger,
+            scramble_out=opts.scramble, activation=opts.activation,
+            out_dtype=opts.out_dtype, sigma=sigma,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, b2, bias = ctx.saved_tensors
+        grads = mm_backward(g, a2, b2, bias, ctx.res_dtype, ctx.opts)
+        return (*grads, None, None)
+
+
 def _cuda_mesh_impl(p: Plan, a, b, bias, residual):
-    """K1: 2D, batch-folded 2D, or fully batched (one launch, blockIdx.z)."""
+    """K1: 2D, batch-folded 2D, or fully batched (one launch, blockIdx.z),
+    differentiable through `_MeshMM`."""
     spec = p.spec
     bm, bn, bk = p.blocks
-    kw = dict(
-        block_m=bm, block_n=bn, block_k=bk, stagger=spec.stagger,
-        scramble_out=spec.structure == "scrambled", activation=p.activation,
-        out_dtype=_NAME_DTYPES[p.out_dtype], sigma=p.sigma_on(a.device),
-    )
+    opts = MMOpts(bm, bn, bk, spec.stagger, spec.structure == "scrambled",
+                  _NAME_DTYPES[p.out_dtype], p.activation)
+    sigma = p.sigma_on(a.device)
     if not spec.batch:
-        return mesh_matmul(a, b, bias=bias, residual=residual, **kw)
+        return _MeshMM.apply(a, b, bias, residual, opts, sigma)
     if not spec.batched_b:
         # Fold leading batch dims of `a` into M — still one 2D kernel.
         a2 = a.reshape(-1, spec.k)
         res2 = None if residual is None else residual.reshape(-1, spec.n)
-        out = mesh_matmul(a2, b, bias=bias, residual=res2, **kw)
+        out = _MeshMM.apply(a2, b, bias, res2, opts, sigma)
         return out.reshape(*spec.batch, spec.m, spec.n)
     af = a.reshape(-1, spec.m, spec.k)
     bf = b.reshape(-1, spec.k, spec.n)
     resf = None if residual is None else residual.reshape(-1, spec.m, spec.n)
-    out = mesh_matmul(af, bf, bias=bias, residual=resf, **kw)
+    out = _MeshMM.apply(af, bf, bias, resf, opts, sigma)
     return out.reshape(*spec.batch, spec.m, spec.n)
 
 

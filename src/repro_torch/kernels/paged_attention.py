@@ -5,7 +5,7 @@ fixed-size pages of one shared pool per layer, named by the sequence's block
 table, and decode attention reads K/V through the table.  Two impls sit
 behind a capability door (`resolve_paged_impl`):
 
-  cuda_paged    the hand-written CUDA kernel K2 (`csrc/paged_attention.cu`,
+  cuda_paged    the hand-written CUDA kernel K4 (`csrc/paged_attention.cu`,
                 see its header for the design): one CTA per (slot, kv head)
                 walks the slot's live pages with an online softmax, and no
                 gathered copy of the context is made.  CUDA tensors only.
@@ -13,7 +13,7 @@ behind a capability door (`resolve_paged_impl`):
                 reference's `paged_attention_xla` (and the port's
                 `models.attention._sdpa`), so decode through pages equals
                 decode against the dense cache **bitwise** on the same
-                device.  Runs on any device; the plain version K2 is held
+                device.  Runs on any device; the plain version K4 is held
                 against.
 
 With no request the door resolves by the tensors' device: CUDA gives
@@ -135,7 +135,7 @@ def paged_attention_cuda(
     block_tables: torch.Tensor,
     lengths: torch.Tensor,
 ) -> torch.Tensor:
-    """Launch K2 on CUDA tensors (no fallback: a refused launch raises).
+    """Launch K4 on CUDA tensors (no fallback: a refused launch raises).
     `paged_attention_cuda.launches` counts launches."""
     _check(q, k_pool, v_pool, block_tables, lengths)
     tensors = (q, k_pool, v_pool, block_tables, lengths)

@@ -1,7 +1,7 @@
 """Shared building blocks: param specs, norms, RoPE, the config-routed GEMM.
 
-Port of `repro.models.layers` (without sharding, `grouped_gemm` and
-`softmax_xent`, which arrive with their slices).  Each model family defines
+Port of `repro.models.layers` (without sharding and `grouped_gemm`, which
+arrive with their slices).  Each model family defines
 a `param_specs(cfg)` tree whose leaves are `PSpec(shape, logical_axes,
 scale, dtype, init)`; `init_params` materializes it from a
 `torch.Generator` on an explicit device.  All GEMMs go through the
@@ -28,6 +28,7 @@ __all__ = [
     "init_params",
     "padded_vocab",
     "rmsnorm",
+    "softmax_xent",
 ]
 
 
@@ -148,3 +149,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x[..., 0::2], x[..., 1::2]
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.reshape(x.shape)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable mean token cross-entropy.  Returns (loss, acc)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(lse - gold)
+    acc = torch.mean((torch.argmax(lf, dim=-1) == labels).float())
+    return loss, acc

@@ -3,6 +3,8 @@
 
 `get_model(cfg)` returns a `Model` with a family-independent interface:
   init(generator, device)                 parameter tree (1 source: PSpec)
+  forward(params, batch)                  train/eval logits
+  loss(params, batch)                     scalar loss + metrics
   prefill / decode + decode_state_specs   dense-cache serving path
   paged_decode + paged_pool_specs         continuous-batching path
 """
@@ -17,7 +19,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
-from repro_torch.models.layers import init_params
+from repro_torch.models.layers import init_params, softmax_xent
 
 __all__ = ["Model", "get_model"]
 
@@ -26,6 +28,7 @@ __all__ = ["Model", "get_model"]
 class Model:
     cfg: ArchConfig
     _specs: Callable
+    _forward: Callable
     _prefill: Callable
     _decode: Callable
     _state_specs: Callable  # (batch, max_len) -> {name: (shape, dtype)}
@@ -42,6 +45,15 @@ class Model:
                            device=resolve_device(device))
 
     # -- compute ------------------------------------------------------------
+    def forward(self, params, batch: Dict[str, torch.Tensor]):
+        return self._forward(params, batch, self.cfg)
+
+    def loss(self, params, batch):
+        logits, aux = self.forward(params, batch)
+        loss, acc = softmax_xent(logits, batch["labels"])
+        metrics = {"loss": loss, "accuracy": acc, **aux}
+        return loss, metrics
+
     def prefill(self, params, batch: Dict[str, torch.Tensor]):
         return self._prefill(params, batch, self.cfg)
 
@@ -71,6 +83,10 @@ class Model:
         return transformer.paged_pool_specs(self.cfg, num_pages, page_size)
 
 
+def _lm_forward(params, batch, cfg):
+    return transformer.lm_forward(params, batch["tokens"], cfg)
+
+
 def _lm_prefill(params, batch, cfg):
     return transformer.lm_prefill(params, batch["tokens"], cfg)
 
@@ -80,6 +96,7 @@ def get_model(cfg: ArchConfig) -> Model:
         return Model(
             cfg,
             transformer.lm_specs,
+            _lm_forward,
             _lm_prefill,
             transformer.lm_decode,
             transformer.decode_cache_specs,

@@ -2,10 +2,19 @@
 
 Layers are stacked on a leading (L,) axis, as in the reference, and run by
 a Python loop over that axis where the reference uses `jax.lax.scan`.
-Serving entry points: `lm_prefill`, `lm_decode` (dense per-layer KV caches)
-and `lm_decode_paged` (paged KV pools, the continuous-batching step).
-`lm_forward` and the paper's activation scramble (`_maybe_scramble`) arrive
-with the training slice; the serving path never runs them.
+Entry points: `lm_forward` (train), `lm_prefill`, `lm_decode` (dense
+per-layer KV caches) and `lm_decode_paged` (paged KV pools, the
+continuous-batching step).
+
+The paper's scrambling system is an optional privacy transform of training:
+with cfg.scramble_privacy, `lm_forward` scrambles the embedding output's
+(T, D) block grid with S (kernel K3) and unscrambles it before the head —
+square grids only.  The serving path never runs it.
+
+The reference's `remat_policy` is not ported yet: autograd stores every
+activation of `lm_forward` (about 6 GB for full-width mesh-paper at
+2 x 2048 tokens, most of it attention scores); recompute
+(`torch.utils.checkpoint`) is later work.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.ops import scramble_blocks
 from repro_torch.models.attention import attention, attention_paged_decode, attn_specs
 from repro_torch.models.layers import PSpec, gemm, padded_vocab, rmsnorm
 from repro_torch.models.moe import swiglu, swiglu_specs
@@ -25,6 +35,7 @@ __all__ = [
     "embed_tokens",
     "lm_decode",
     "lm_decode_paged",
+    "lm_forward",
     "lm_prefill",
     "lm_specs",
     "paged_pool_specs",
@@ -109,6 +120,31 @@ def block_apply(
     x = x + h
     h2 = swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
     return x + h2, new_cache
+
+
+def _maybe_scramble(x: torch.Tensor, cfg, inverse: bool = False) -> torch.Tensor:
+    """Paper scrambling system on (T, D) activation block grids (square only)."""
+    if not cfg.scramble_privacy:
+        return x
+    t, d = x.shape[-2], x.shape[-1]
+    bm, bn = 128, 128
+    if t % bm or d % bn or t // bm != d // bn:
+        return x  # non-square grid: scrambling skipped (demo feature)
+    return scramble_blocks(x, block_m=bm, block_n=bn, k=-1 if inverse else 1)
+
+
+def lm_forward(params, tokens: torch.Tensor, cfg):
+    """Train/eval forward: (B, T) int32 -> (logits (B, T, V), aux dict)."""
+    x = embed_tokens(params, tokens, cfg)
+    x = _maybe_scramble(x, cfg)
+    for i in range(cfg.num_layers):
+        x, _ = block_apply(_layer(params["blocks"], i), x, cfg)
+    x = _maybe_scramble(x, cfg, inverse=True)
+    logits = unembed(params, x, cfg)
+    # The dense family has no router: the reference's per-layer aux stack
+    # is all zeros.
+    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, {"lb_loss": zero, "router_z": zero}
 
 
 def lm_prefill(params, tokens: torch.Tensor, cfg):

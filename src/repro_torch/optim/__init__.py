@@ -1,0 +1,17 @@
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+    global_norm,
+)
+from repro_torch.optim.schedules import warmup_cosine
+
+__all__ = [
+    "AdamWConfig",
+    "adamw_init",
+    "adamw_update",
+    "clip_by_global_norm",
+    "global_norm",
+    "warmup_cosine",
+]

@@ -1,0 +1,108 @@
+"""Fault-tolerant training loop (port of `repro.train.loop`).
+
+Mechanics:
+  * periodic checkpoints + auto-resume from latest,
+  * crash recovery: a step that raises is retried from the last checkpoint
+    (up to max_restarts); the deterministic step-indexed data pipeline makes
+    recovery bit-exact,
+  * straggler mitigation: per-step wall-clock deadline; slow steps are logged
+    and counted,
+  * failure injection hook for tests (`failure_hook(step) -> None|raise`).
+
+A step's time is taken after `torch.cuda.synchronize()` on the card (the
+reference's `block_until_ready`), so it is the device's time, not the
+enqueue.  The reference's asynchronous checkpointer is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.train.metrics import MetricsLogger
+
+__all__ = ["LoopConfig", "train_loop"]
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    total_steps: int
+    ckpt_every: int = 50
+    max_restarts: int = 3
+    step_deadline_s: Optional[float] = None  # straggler threshold
+    log_every: int = 10
+
+
+def _sync(state: Dict[str, Any]) -> None:
+    if state["step"].device.type == "cuda":
+        torch.cuda.synchronize(state["step"].device)
+
+
+def train_loop(
+    train_step: Callable,
+    state: Dict[str, Any],
+    data_iter,
+    cfg: LoopConfig,
+    ckpt: Optional[CheckpointManager] = None,
+    logger: Optional[MetricsLogger] = None,
+    failure_hook: Optional[Callable[[int], None]] = None,
+) -> Dict[str, Any]:
+    """Runs to cfg.total_steps; returns the final state.
+
+    `data_iter` must expose .state()/.restore(step) (see data/pipeline.py);
+    checkpoint metadata records the data position so resume is exact.
+    """
+    owns_logger = logger is None
+    logger = logger or MetricsLogger()
+    step = int(state["step"])
+    restarts = 0
+    stragglers = 0
+
+    def save(step_i: int) -> None:
+        if ckpt is not None:
+            ckpt.save(step_i, state, {"data_step": data_iter.state()})
+
+    while step < cfg.total_steps:
+        try:
+            if failure_hook is not None:
+                failure_hook(step)
+            batch = next(data_iter)
+            t0 = time.monotonic()
+            state, metrics = train_step(state, batch)
+            _sync(state)
+            dt = time.monotonic() - t0
+            if cfg.step_deadline_s is not None and dt > cfg.step_deadline_s:
+                stragglers += 1
+                logger.warn(
+                    f"straggler: step {step} took {dt:.3f}s "
+                    f"(deadline {cfg.step_deadline_s}s) — count={stragglers}"
+                )
+            step += 1
+            if step % cfg.log_every == 0 or step == cfg.total_steps:
+                logger.log(step, {k: float(v) for k, v in metrics.items()})
+            if step % cfg.ckpt_every == 0 or step == cfg.total_steps:
+                save(step)
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:  # crash recovery path
+            restarts += 1
+            if ckpt is None or restarts > cfg.max_restarts:
+                raise
+            latest = ckpt.latest_step()
+            logger.warn(
+                f"step {step} failed ({type(e).__name__}: {e}); "
+                f"restoring step {latest} (restart {restarts}/{cfg.max_restarts})"
+            )
+            if latest is None:
+                raise
+            state = ckpt.restore(latest, state)
+            data_iter.restore(ckpt.meta(latest)["data_step"])
+            step = latest
+    logger.summary({"restarts": restarts, "stragglers": stragglers, "final_step": step})
+    if owns_logger:
+        logger.close()  # a caller-provided logger stays open for the caller
+    return state

@@ -37,11 +37,17 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxl
              or m == "repro" or m.startswith("repro."))
 print(len(names), "modules")
 print("BAD", bad)
+print("WALKED", " ".join(names))
 """
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     assert int(res.stdout.split()[0]) >= 20  # every module was walked
+    walked = res.stdout.split("WALKED")[1].split()
+    for name in ("optim.adamw", "optim.schedules", "data.pipeline", "train.train_step",
+                 "train.loop", "train.metrics", "checkpoint.manager", "launch.train",
+                 "kernels.scramble", "kernels.ops"):
+        assert "repro_torch." + name in walked, name
 
 
 def test_entry_points_refuse_cpu_without_device():
@@ -49,7 +55,7 @@ def test_entry_points_refuse_cpu_without_device():
 import torch
 torch.cuda.is_available = lambda: False  # a machine with no CUDA card
 from repro_torch.configs import get_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.launch.scheduler import ContinuousBatchingServer, ServeConfig
 from repro_torch.models import get_model
 model = get_model(get_config("mesh-paper").reduced())
@@ -57,6 +63,7 @@ calls = {
     "init": lambda: model.init(torch.Generator()),
     "server": lambda: ContinuousBatchingServer(model, None, ServeConfig()),
     "main": lambda: serve.main(["--arch", "mesh-paper", "--reduced"]),
+    "train": lambda: train.main(["--arch", "mesh-paper", "--reduced", "--steps", "1"]),
 }
 for name, call in calls.items():
     try:
@@ -66,9 +73,13 @@ for name, call in calls.items():
         print("refused", name)
     else:
         print("RAN", name)
+train.main(["--arch", "mesh-paper", "--reduced", "--device", "cpu", "--steps", "1",
+            "--batch", "2", "--seq", "8"])
 """
     res = _run(code)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.split("\n")[:3] == ["refused init", "refused server", "refused main"], (
+    lines = res.stdout.split("\n")
+    assert lines[:4] == ["refused init", "refused server", "refused main", "refused train"], (
         res.stdout
     )
+    assert "[done] mesh-paper steps=1" in res.stdout and "device=cpu" in res.stdout

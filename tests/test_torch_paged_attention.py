@@ -1,4 +1,4 @@
-"""Port parity: paged decode attention (K2) and its capability door.
+"""Port parity: paged decode attention (K4) and its capability door.
 
 The plain version `paged_attention_torch` (the `torch_gather` impl) is held
 against the reference's `paged_attention_xla` and `paged_attention_pallas`
