@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch + CUDA port (`src/repro_torch`) on one GPU.
 
     python3 chip_smoke.py            # from the repository root; needs one card
+    python3 chip_smoke.py --only k5,k5_bwd   # the build and the named phases only
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -15,9 +16,10 @@ Phases; any failure raises and the script exits non-zero:
               the port) and the least time the card could take (bytes at
               3.35 TB/s or operations at the peak rate of their type,
               whichever is larger): K1 (mesh GEMM, 2D and batched), K4
-              (paged decode attention), K3 (block scramble), and K1's
-              backward (the `_mm` VJP) against the same backward run with the
-              plain GEMM;
+              (paged decode attention), K3 (block scramble), K1's backward
+              (the `_mm` VJP) against the same backward run with the plain
+              GEMM, K5 (grouped mesh GEMM) at OLMoE's decode and prefill
+              shapes, and K5's backward (the `_gmm` VJP);
   3. serve    full-width mesh-paper (4 layers, d_model 2048, 16 heads, d_ff
               8192, vocab 32768, bf16, random weights from a seed) through
               `ContinuousBatchingServer`: 8 requests x 128-token prompts x 32
@@ -28,7 +30,13 @@ Phases; any failure raises and the script exits non-zero:
               steps at batch 2 x seq 2048 with the sigma scramble firing,
               launch counts per step checked (K1 75, K3 4), losses finite and
               falling, one step and each parameter's gradient held against
-              the `torch` backend's, and one step profiled.
+              the `torch` backend's, and one step profiled;
+  5. serve_moe  full-width OLMoE-1B-7B (16 layers, d_model 2048, 16 heads, 64
+              experts top-8, expert d_ff 1024, vocab 50304, bf16, random
+              weights from a seed) with `use_mesh_kernel=True` through the
+              same server and requests: K1, K4 and K5 launch counts checked
+              against the server's prefills and decode steps, the output
+              checked against the dense-cache path, one window profiled.
 
 The last lines are the card's `nvidia-smi` name and power limit, the
 `{"kernels": [...]}` JSON, and `{"ok": true, "device": {...}}`.  It imports
@@ -66,6 +74,23 @@ SLOTS, PROMPT, NEW_TOKENS, REQUESTS, PAGE = 4, 128, 32, 8, 8
 # backward.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 6, 1e-3
 STEP_LAUNCHES = {"mesh_matmul": 75, "scramble_blocks": 4}
+# OLMoE-1B-7B served with use_mesh_kernel=True.  Its expert GEMMs, (K, N):
+# the fused gate+up wi and wo, over 64 experts; each token picks 8.
+OLMOE_EXPERTS, OLMOE_TOPK, OLMOE_LAYERS = 64, 8, 16
+K5_GEMMS = {"wi": (2048, 2048), "wo": (1024, 2048)}
+# K5's (rows per group, block_m) on the path: a decode step of SLOTS tokens
+# routes exactly (capacity SLOTS, rounded up to 8 rows); a PROMPT-token
+# prefill has capacity PROMPT.
+K5_SHAPES = {"decode": (8, 8), "prefill": (PROMPT, PROMPT)}
+# Launches per prefill and per decode step: K5 for wi and wo of 16 layers;
+# K1 for 4 attention projections of 16 layers and lm_head; K4 16 per decode
+# step.  The server's warmup adds one K1 launch (its canary plan).
+MOE_STEP_LAUNCHES = {"grouped_mesh_matmul": 32, "mesh_matmul": 65}
+# Teacher-forced paged (K4) vs dense (_sdpa) decode logits of OLMoE: the
+# reading is 0.0806 on logits up to 4.28, with 9 of 112 (step, layer)
+# routing sets flipped by the two paths' rounding; 0.25 is about 3x that,
+# 8 bf16 ulps at |logit| in [4, 8).
+MOE_LOGIT_TOL = 0.25
 
 
 def log(msg: str) -> None:
@@ -440,6 +465,179 @@ def phase_k1_backward(torch):
     return max_err
 
 
+def _routed_sizes(rng, tokens: int):
+    """Rows per expert when each of `tokens` tokens picks OLMOE_TOPK distinct
+    experts of OLMOE_EXPERTS, uniformly: the sizes a decode step or a
+    prefill gives K5 under a router with no preference."""
+    import numpy as np
+
+    picks = [rng.choice(OLMOE_EXPERTS, OLMOE_TOPK, replace=False) for _ in range(tokens)]
+    return np.bincount(np.concatenate(picks), minlength=OLMOE_EXPERTS).astype(np.int32)
+
+
+def phase_k5(torch):
+    """K5 (grouped_mesh_matmul) against grouped_mesh_matmul_torch at OLMoE's
+    decode and prefill shapes, then timings: the kernel, the plain version,
+    `torch.bmm` + segment mask (the reference's `xla` grouped impl, timed
+    here only) and the bound, all as profiler device time."""
+    import numpy as np
+
+    from repro_torch.kernels.grouped import grouped_mesh_matmul, grouped_mesh_matmul_torch
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(5)
+    n_grp = OLMOE_EXPERTS
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    def valid_rows(sizes, rpg):
+        return torch.arange(rpg, device="cuda")[None, :] < sizes[:, None]  # (G, rpg)
+
+    routed = {"decode": _routed_sizes(rng, SLOTS), "prefill": _routed_sizes(rng, PROMPT)}
+    cases = []
+    for phase, (rpg, bm) in K5_SHAPES.items():
+        edge = rng.integers(0, rpg + 1, n_grp).astype(np.int32)
+        edge[:3] = (0, rpg, rpg // 2)  # empty, full, and in between
+        for label, (k, n) in K5_GEMMS.items():
+            for how, sizes in (("edge sizes", edge), ("routed", routed[phase])):
+                cases.append((f"{phase} {label} {how}", n_grp, rpg, bm, k, n, sizes,
+                              torch.bfloat16, {}))
+    cases.append(("f32 bias+silu+residual", 8, PROMPT, PROMPT, 1024, 512,
+                  np.array([0, 128, 64, 1, 100, 128, 17, 0], np.int32), torch.float32,
+                  dict(bias=True, residual=True, activation="silu")))
+    max_err = 0.0
+    for label, grp, rpg, bm, k, n, sizes_np, dtype, kw in cases:
+        kw = dict(kw)
+        sizes = torch.as_tensor(sizes_np, device="cuda")
+        tokens, w = rnd(grp * rpg, k, dtype=dtype), rnd(grp, k, n, dtype=dtype)
+        if kw.pop("bias", False):
+            kw["bias"] = rnd(grp, n, dtype=dtype)
+        if kw.pop("residual", False):
+            kw["residual"] = rnd(grp * rpg, n, dtype=dtype)
+        blocks = dict(block_m=bm, block_n=128, block_k=128)
+        out = grouped_mesh_matmul(tokens, sizes, w, **blocks, **kw)
+        ref = grouped_mesh_matmul_torch(tokens, sizes, w, **blocks, **kw)
+        torch.cuda.synchronize()
+        masked = out.reshape(grp, rpg, n)[~valid_rows(sizes, rpg)]
+        nonzero = int(torch.count_nonzero(masked))
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = (1e-5 if dtype == torch.float32 else 2.0**-7) * ref.float().abs().max().item()
+        why = ("1e-5 max|ref|: summation order only" if dtype == torch.float32
+               else "2^-7 max|ref|: adjacent bf16 roundings")
+        log(f"[K5] {label:30s} {dtype} G={grp} rpg={rpg} K={k} N={n} non-empty="
+            f"{int((sizes > 0).sum())} masked rows nonzero={nonzero} err={err:.3e}"
+            f" tol={tol:.3e} ({why})")
+        check(nonzero == 0, f"K5 {label}: {nonzero} masked values are not exact zeros")
+        check(bool(torch.isfinite(out.float()).all()), f"K5 {label}: non-finite output")
+        check(err <= tol, f"K5 {label}: err {err} > tol {tol}")
+        max_err = max(max_err, err)
+        del tokens, w, out, ref, kw
+
+    # Timings with routed sizes.  Calls cycle through two weight sets (each
+    # read over 2 x the L2 in every shape but decode wo, 106 MB), so weights
+    # come from HBM, as the bound assumes.  Bound: the valid token rows,
+    # the non-empty experts' weights and the whole output once, at 3.35
+    # TB/s, or the FLOPs of the non-empty block_m-row blocks at 989 TFLOP/s.
+    per = {}
+    for phase, (rpg, bm) in K5_SHAPES.items():
+        sizes_np = routed[phase]
+        sizes = torch.as_tensor(sizes_np, device="cuda")
+        valid = valid_rows(sizes, rpg)[..., None]
+        live = int((sizes_np > 0).sum())
+        for label, (k, n) in K5_GEMMS.items():
+            tokens = torch.where(valid, rnd(n_grp, rpg, k), 0).reshape(n_grp * rpg, k)
+            ws = [rnd(n_grp, k, n) for _ in range(2)]
+            blocks = dict(block_m=bm, block_n=128, block_k=128)
+            ms = device_ms(torch, [lambda w=w: grouped_mesh_matmul(tokens, sizes, w, **blocks)
+                                   for w in ws], 20)
+            plain = device_ms(torch, [lambda w=w: grouped_mesh_matmul_torch(
+                tokens, sizes, w, **blocks) for w in ws], 2)
+            t3 = tokens.view(n_grp, rpg, k)
+            lib = device_ms(torch, [lambda w=w: torch.where(valid, torch.bmm(t3, w), 0)
+                                    for w in ws], 20)
+            row_blocks = int(np.sum(-(-sizes_np // bm)))
+            nbytes = 2 * (int(sizes_np.sum()) * k + live * k * n + n_grp * rpg * n)
+            bms, by = bound_ms(nbytes, 2 * row_blocks * bm * k * n, "bfloat16")
+            per[(phase, label)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                                       bound_by=by)
+            log(f"[K5] time {phase:7s} {label} G={n_grp} rpg={rpg} K={k} N={n} non-empty={live}"
+                f" rows={int(sizes_np.sum())}: kernel={ms:.4f} ms plain={plain:.4f} ms"
+                f" bmm+mask={lib:.4f} ms bound={bms:.4f} ms ({by}) (device time)")
+            del tokens, ws, t3
+
+    def per_layer_sum(phase):
+        """wi + wo, times the 16 layers: one decode step's or prefill's K5."""
+        rows = [per[(phase, label)] for label in K5_GEMMS]
+        out = {key: OLMOE_LAYERS * sum(r[key] for r in rows)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        share = {"bytes": 0.0, "operations": 0.0}
+        for r in rows:
+            share[r["bound_by"]] += r["bound_ms"]
+        out["bound_by"] = max(share, key=share.get)
+        return out
+
+    tick, prefill = per_layer_sum("decode"), per_layer_sum("prefill")
+    log(f"[K5] one decode step (32 launches, {SLOTS} tokens): " + json.dumps(tick))
+    log(f"[K5] one {PROMPT}-token prefill (32 launches): " + json.dumps(prefill))
+    return max_err, tick, prefill
+
+
+def phase_k5_backward(torch):
+    """K5's backward (api.gmm_backward, the `_gmm` VJP) run with the kernel
+    against the same backward run with grouped_mesh_matmul_torch, then
+    autograd through a cuda_mesh grouped plan."""
+    from repro_torch.kernels import api
+    from repro_torch.kernels.grouped import grouped_mesh_matmul, grouped_mesh_matmul_torch
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    grp, rpg, k, n = 8, PROMPT, 1024, 512
+    sizes = torch.tensor([0, 128, 64, 1, 100, 128, 17, 0], dtype=torch.int32, device="cuda")
+    # bf16 values in f32 operands: the backward's GEMMs run in f32 either way.
+    tokens, w, bias = rnd(grp * rpg, k).float(), rnd(grp, k, n).float(), rnd(grp, n).float()
+    ct = rnd(grp * rpg, n)
+    opts = api.MMOpts(PROMPT, 128, 128, True, False, torch.bfloat16, "silu")
+    got = api.gmm_backward(ct, tokens, sizes, w, bias, torch.bfloat16, opts,
+                           matmul=grouped_mesh_matmul)
+    want = api.gmm_backward(ct, tokens, sizes, w, bias, torch.bfloat16, opts,
+                            matmul=grouped_mesh_matmul_torch)
+    torch.cuda.synchronize()
+    max_err = 0.0
+    for name, x, y in zip(("dtokens", "dW", "dbias"), got[:3], want[:3]):
+        err = (x - y).abs().max().item()
+        tol = 1e-5 * y.abs().max().item()
+        max_err = max(max_err, err)
+        log(f"[K5 bwd] G={grp} rpg={rpg} K={k} N={n} bias+silu+residual {name:7s}"
+            f" err={err:.3e} tol={tol:.3e} (1e-5 max|ref|: f32 outputs, summation order only)")
+        check(bool(torch.isfinite(x).all()), f"K5 bwd {name}: non-finite")
+        check(err <= tol, f"K5 bwd {name}: err {err} > tol {tol}")
+    check(torch.equal(got[3], want[3]), "K5 bwd: dresidual differs")
+
+    # Through autograd on the card: a bf16 grouped GEMM's gradients come from K5.
+    off = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
+                     torch.cumsum(sizes, 0).to(torch.int32)])
+    t = rnd(grp * rpg, k).requires_grad_(True)
+    wb = rnd(grp, k, n).requires_grad_(True)
+    spec = api.GemmSpec.for_groups(api.GroupSpec(grp, rpg), k, n, dtype_a=torch.bfloat16,
+                                   dtype_b=torch.bfloat16, out_dtype=torch.bfloat16,
+                                   epilogue=api.Epilogue(activation="silu"))
+    y = api.plan(spec, backend="cuda_mesh", device="cuda")(t, off, wb)
+    before = grouped_mesh_matmul.launches
+    y.backward(rnd(grp * rpg, n))
+    torch.cuda.synchronize()
+    launched = grouped_mesh_matmul.launches - before
+    log(f"[K5 bwd] autograd through a cuda_mesh grouped plan: grad_fn="
+        f"{type(y.grad_fn).__name__}, {launched} K5 launches in backward (z remat, dtokens);"
+        f" grads None: tokens {t.grad is None}, W {wb.grad is None}")
+    check(launched == 2 and t.grad is not None and wb.grad is not None,
+          "cuda_mesh grouped backward did not run on K5")
+    return max_err
+
+
 def kernel_rows(prof):
     """(device us, count, name) of each kernel in a torch.profiler run, most
     time first.  Kernel events only: a CPU op's row repeats its kernels' time."""
@@ -550,7 +748,7 @@ def phase_serve(torch):
     return launches
 
 
-def profile_window(torch, model, params, scfg, prompts) -> None:
+def profile_window(torch, model, params, scfg, prompts, tag: str = "profile") -> None:
     """Where the serving time goes: one more run (4 requests, one wave of
     prefills then decode ticks) under torch.profiler, reporting device time
     by kernel and the device-busy share of the window's wall time.  The
@@ -570,11 +768,11 @@ def profile_window(torch, model, params, scfg, prompts) -> None:
         wall_us = (time.monotonic() - t0) * 1e6
     rows = kernel_rows(prof)
     busy_us = sum(r[0] for r in rows)
-    log(f"[profile] {len(reqs)} requests x {NEW_TOKENS} tokens, {server.counters['ticks']} "
+    log(f"[{tag}] {len(reqs)} requests x {NEW_TOKENS} tokens, {server.counters['ticks']} "
         f"ticks: wall={wall_us / 1e3:.1f} ms device busy={busy_us / 1e3:.1f} ms "
         f"({100 * busy_us / wall_us:.1f}% of wall; device time not seen = 'not measured')")
     for dev_us, count, key in rows[:10]:
-        log(f"[profile]   {dev_us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+        log(f"[{tag}]   {dev_us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
 
 
 def grads_of(torch, model, params, batch):
@@ -758,7 +956,185 @@ def profile_train_step(torch, step_fn, state, data) -> None:
             f" {100 * dev_us / busy_us:5.1f}% {key[:80]}")
 
 
+def phase_serve_moe(torch):
+    """Full-width OLMoE-1B-7B on the kernel path through the
+    continuous-batching server."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grouped import grouped_mesh_matmul
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
+    from repro_torch.launch.serve import generate, serving_steps
+    from repro_torch.models import get_model, transformer
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), use_mesh_kernel=True)
+    check(
+        (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_experts, cfg.num_experts_per_tok,
+         cfg.moe_d_ff, cfg.vocab_size, cfg.num_shared_experts)
+        == (OLMOE_LAYERS, 2048, 16, OLMOE_EXPERTS, OLMOE_TOPK, 1024, 50304, 0)
+        and cfg.param_dtype == "bfloat16",
+        f"unexpected OLMoE config {cfg}",
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[serve_moe] device memory before init: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    model = get_model(cfg)
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[serve_moe] OLMoE-1B-7B init: {n_params / 1e9:.3f} B parameters,"
+        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak"
+        f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {time.monotonic() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32) for _ in range(REQUESTS)]
+    pages = -(-(PROMPT + NEW_TOKENS) // PAGE)
+    scfg = ServeConfig(
+        max_slots=SLOTS, page_size=PAGE, num_pages=1 + SLOTS * pages,
+        max_pages_per_seq=pages, queue_capacity=REQUESTS, warmup_prompt_lens=(PROMPT,),
+    )
+
+    mesh_matmul.launches = 0
+    paged_attention_cuda.launches = 0
+    grouped_mesh_matmul.launches = 0
+    server = ContinuousBatchingServer(model, params, scfg, device="cuda")
+    server.warmup()
+    reqs = [Request(rid=f"req{i}", prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    results = server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"mesh_matmul": mesh_matmul.launches,
+                "paged_attention": paged_attention_cuda.launches,
+                "grouped_mesh_matmul": grouped_mesh_matmul.launches}
+
+    for r in reqs:
+        res = results[r.rid]
+        check(res.status == "ok" and len(res.tokens) == NEW_TOKENS,
+              f"{r.rid}: {res.status} with {len(res.tokens)} tokens ({res.reason})")
+    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    c = server.counters
+    steps = c["prefills"] + c["decode_steps"]
+    want = {"grouped_mesh_matmul": MOE_STEP_LAUNCHES["grouped_mesh_matmul"] * steps,
+            "mesh_matmul": MOE_STEP_LAUNCHES["mesh_matmul"] * steps + 1,
+            "paged_attention": OLMOE_LAYERS * c["decode_steps"]}
+    generated = sum(len(results[r.rid].tokens) for r in reqs)
+    log(f"[serve_moe] {REQUESTS} requests x {NEW_TOKENS} tokens: wall={wall:.3f} s "
+        f"tokens/s={generated / wall:.1f} ticks={c['ticks']} prefills={c['prefills']} "
+        f"decode steps={c['decode_steps']} (warmup included) launches={launches} "
+        f"expected={want} peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches == want, f"launches {launches} != {want} from the server's counters")
+
+    # No host sync on the model's path: one paged decode step (all-zero
+    # tables, the scratch page) and one prefill under CUDA's sync debug
+    # mode, which warns on every op that waits for the device.
+    import warnings
+
+    prefill, _ = serving_steps(model)
+    zeros = {name: torch.zeros(shape, dtype=torch.int32, device="cuda")
+             for name, shape in (("tokens", (SLOTS, 1)), ("tables", (SLOTS, pages)),
+                                 ("positions", (SLOTS,)))}
+    prompt = torch.as_tensor(prompts[0], device="cuda")[None]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught, torch.inference_mode():
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.paged_decode(params, zeros["tokens"], server.pools, zeros["tables"],
+                               zeros["positions"])
+            prefill(params, {"tokens": prompt})
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # Every warning counts (c10 warns "called a synchronizing CUDA
+    # operation") except the mode's own notice that it is a prototype.
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "is a prototype feature" not in str(w.message)]
+    log(f"[serve_moe] host syncs in one paged decode step and one prefill: {len(syncs)}"
+        f" {syncs[:3]} ({len(caught)} warnings caught)")
+    check(not syncs, f"the OLMoE serving path waits for the device: {syncs[:3]}")
+
+    # Output check against the dense-cache path (plain _sdpa attention), as
+    # in phase_serve.  Routing is discrete: where the two attention paths
+    # round differently, a near-tie can flip one of a token's 8 experts, so
+    # the routing sets of the tracked token are compared layer by layer.
+    served = results["req0"].tokens
+    ref_tokens, _ = generate(model, params, torch.as_tensor(prompts[0], device="cuda")[None],
+                             gen_len=8)
+    ref_tokens = ref_tokens[0].tolist()
+    check(served[0] == ref_tokens[0], f"first token {served[0]} != generate's {ref_tokens[0]}")
+    routes = []
+    original = transformer.moe_block
+
+    def recording(p, x, cfg_, **kw):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"].float(), dim=-1)
+        top = torch.argsort(probs, dim=-1, descending=True, stable=True)
+        routes.append(top[:, : cfg_.num_experts_per_tok].sort(dim=-1).values)
+        return original(p, x, cfg_, **kw)
+
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim_
+    transformer.moe_block = recording
+    try:
+        with torch.inference_mode():
+            _, caches = prefill(params, {"tokens": prompt})
+            dense = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 8)) for k, c in caches.items()}
+            n_pages = -(-(PROMPT + 8) // PAGE)
+            pools = {k: torch.zeros((cfg.num_layers, 1 + n_pages, PAGE, kvh, hd),
+                                    dtype=cfg.adtype, device="cuda") for k in ("k", "v")}
+            for k in ("k", "v"):
+                c = torch.nn.functional.pad(caches[k][:, 0],
+                                            (0, 0, 0, 0, 0, n_pages * PAGE - PROMPT))
+                pools[k][:, 1:] = c.reshape(cfg.num_layers, n_pages, PAGE, kvh, hd)
+            del caches
+            bt = torch.arange(1, 1 + n_pages, dtype=torch.int32, device="cuda")[None]
+            worst_diff = worst_gap = 0.0
+            flips = []
+            for i in range(7):
+                tok = torch.tensor([[served[i]]], dtype=torch.int32, device="cuda")
+                pos = PROMPT + i
+                routes.clear()
+                lg_d, dense = model.decode(params, tok, dense, pos)
+                routes_d = list(routes)
+                routes.clear()
+                lg_p, pools = model.paged_decode(
+                    params, tok, pools, bt, torch.tensor([pos], dtype=torch.int32, device="cuda"))
+                flips.append(sum(not torch.equal(a, b) for a, b in zip(routes_d, routes)))
+                lg_d, lg_p = lg_d[0, -1].float(), lg_p[0, -1].float()
+                worst_diff = max(worst_diff, (lg_d - lg_p).abs().max().item())
+                worst_gap = max(worst_gap, (lg_d.max() - lg_d[served[i + 1]]).item())
+            scale = lg_d.abs().max().item()
+    finally:
+        transformer.moe_block = original
+    exact = sum(a == b for a, b in zip(served[:8], ref_tokens))
+    log(f"[serve_moe] req0 first 8 tokens: server={served[:8]} generate={ref_tokens} "
+        f"(equal: {exact}/8); teacher-forced paged-vs-dense max |dlogit|={worst_diff:.4f} "
+        f"(max |logit| {scale:.3f}), worst server-token gap to dense argmax={worst_gap:.4f} "
+        f"(tol {MOE_LOGIT_TOL}); (step, layer) routing sets that differ: {flips} of "
+        f"{cfg.num_layers} per step")
+    check(worst_diff <= MOE_LOGIT_TOL, f"paged vs dense logits differ by {worst_diff}")
+    check(worst_gap <= MOE_LOGIT_TOL, f"server token {worst_gap} below the dense argmax")
+    del dense, pools
+    profile_window(torch, model, params, scfg, prompts[:SLOTS], tag="profile serve_moe")
+    return launches
+
+
 def main() -> int:
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        only = set(sys.argv[2].split(","))
+    elif len(sys.argv) != 1:
+        print("usage: chip_smoke.py [--only PHASE,...]", file=sys.stderr)
+        return 2
     src = ROOT / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; run it from "
@@ -775,13 +1151,28 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.monotonic()
     phase_build(torch)
+    if only is not None:
+        phases = {"k1": phase_k1, "k4": phase_k4, "k3": phase_k3, "k1_bwd": phase_k1_backward,
+                  "serve": phase_serve, "train": phase_train, "k5": phase_k5,
+                  "k5_bwd": phase_k5_backward, "serve_moe": phase_serve_moe}
+        unknown = only - set(phases)
+        check(not unknown, f"unknown phases {sorted(unknown)}; known: {sorted(phases)}")
+        for name, fn in phases.items():
+            if name in only:
+                fn(torch)
+        log(f"[done] phases {sorted(only)} only, {time.monotonic() - t_start:.1f} s;"
+            " no result line")
+        return 0
     k1_err, k1, k1b = phase_k1(torch)
     k4_err, k4 = phase_k4(torch)
     k3_err, k3 = phase_k3(torch)
     k1_err = max(k1_err, phase_k1_backward(torch))
+    k5_err, k5_tick, k5_prefill = phase_k5(torch)
+    k5_err = max(k5_err, phase_k5_backward(torch))
     torch.cuda.synchronize()
     serve = phase_serve(torch)
     train = phase_train(torch)
+    serve_moe = phase_serve_moe(torch)
 
     def row(name, source, replaces, launches, err, t, shape, **extra):
         return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
@@ -791,18 +1182,29 @@ def main() -> int:
 
     kernels = [
         row("mesh_matmul", "mesh_matmul.cu", "src/repro/kernels/mesh_matmul.py:341",
-            serve["mesh_matmul"] + train["mesh_matmul"], k1_err, k1,
+            serve["mesh_matmul"] + train["mesh_matmul"] + serve_moe["mesh_matmul"], k1_err, k1,
             "one decode tick: 25 launches at M=4",
-            launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"]},
+            launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"],
+                              "serve_moe": serve_moe["mesh_matmul"]},
             batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
                      "shape": "B=4 M=128 K=1024 N=512 bf16"}),
         row("paged_attention", "paged_attention.cu",
-            "src/repro/kernels/paged_attention.py:182", serve["paged_attention"], k4_err, k4,
-            "one launch: S=4 H=KV=16 hd=128 bf16, 128-160 token contexts"),
+            "src/repro/kernels/paged_attention.py:182",
+            serve["paged_attention"] + serve_moe["paged_attention"], k4_err, k4,
+            "one launch: S=4 H=KV=16 hd=128 bf16, 128-160 token contexts",
+            launches_by_path={"serve": serve["paged_attention"],
+                              "serve_moe": serve_moe["paged_attention"]}),
         row("scramble_blocks", "scramble_blocks.cu",
             "src/repro/kernels/scramble_kernel.py:41", train["scramble_blocks"], k3_err, k3,
             f"one launch: ({TRAIN_BATCH}, {TRAIN_SEQ}, 2048) bf16, 16x16 blocks of 128^2;"
             " library_ms is x.clone() (same bytes, no permutation)"),
+        row("grouped_mesh_matmul", "grouped_matmul.cu", "src/repro/kernels/grouped.py:119",
+            serve_moe["grouped_mesh_matmul"], k5_err, k5_tick,
+            f"one OLMoE decode step: 32 launches (wi, wo x 16 layers), 64 experts x 8 rows,"
+            f" {SLOTS} tokens routed; library_ms is torch.bmm + segment mask",
+            launches_by_path={"serve_moe": serve_moe["grouped_mesh_matmul"]},
+            prefill={**k5_prefill, "shape": f"one {PROMPT}-token prefill: 32 launches,"
+                     " 64 experts x 128 rows"}),
     ]
     log(f"[done] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

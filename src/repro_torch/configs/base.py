@@ -27,7 +27,7 @@ _DTYPES = {
 class ArchConfig:
     # identity
     arch_id: str
-    family: str  # dense (the only family ported so far)
+    family: str  # dense | moe (the families ported so far)
     source: str  # citation tag
 
     # transformer backbone
@@ -43,8 +43,12 @@ class ArchConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
 
-    # MoE (kept so `is_moe` and `reduced()` read like the reference)
+    # MoE
     num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0  # expert hidden dim (d_ff above = dense fallback/shared)
+    router_aux_coef: float = 0.01
 
     # numerics / kernel levers
     param_dtype: str = "bfloat16"
@@ -87,6 +91,9 @@ class ArchConfig:
             d_ff=128,
             vocab_size=256,
             num_experts=min(self.num_experts, 8) if self.is_moe else 0,
+            num_experts_per_tok=min(self.num_experts_per_tok, 2) if self.is_moe else 0,
+            num_shared_experts=min(self.num_shared_experts, 1),
+            moe_d_ff=64 if self.is_moe else 0,
             param_dtype="float32",
             activation_dtype="float32",
         )

@@ -5,8 +5,9 @@ Each source is compiled on first use by `nvcc` for Hopper
 C interface under `build/repro_torch_kernels/` at the repository root, and
 loaded with `ctypes`.  Sources include no PyTorch header, so a build takes
 seconds; every source not yet built is compiled by its own `nvcc`, all
-started together.  A library is named by a digest of its source and flags,
-so an edited source rebuilds and an unchanged one is reused.
+started together.  A library is named by a digest of its source, the
+shared headers (`csrc/*.cuh`) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 
 Nothing falls back: a missing `nvcc` or a failed build raises.
 """
@@ -49,7 +50,12 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of `src`, named by a digest of the source, the headers
+    beside it (which it may include) and the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,6 +1,6 @@
 """Plan/execute operator API: typed GEMM specs + capability-based backends.
 
-Port of `repro.kernels.api`, trimmed to what the dense serving path runs.
+Port of `repro.kernels.api`, trimmed to what the dense and MoE paths run.
 Planning — resolve a backend against declared capabilities, fix the block
 shapes, precompute the sigma table — is separated from execution,
 a cached reusable callable that serving invokes per request:
@@ -18,8 +18,17 @@ Backends:
              `pallas_mesh`: launched on CUDA tensors, its plain version on
              CPU tensors the way `pallas_mesh` runs interpret mode off-TPU
 
+The planner also covers grouped (ragged-batch) GEMMs, the MoE experts:
+attach a `GroupSpec` (num_groups, static rows-per-group bound; K/N shared)
+via `GemmSpec.for_groups`, and `plan(spec)` returns a `GroupedPlan` taking
+`(tokens, group_offsets, weights)`.  A backend executes such specs only
+when it declares the `grouped` capability with a dedicated impl: `torch`
+(a segment-masked `bmm`, the reference's `xla`), `ref` (a per-group loop)
+and `cuda_mesh` (kernel K5, `kernels/grouped.py`).
+
 Blocks come from `spec.blocks` when set, else (128, 128, 128); the
-autotuner arrives in a later slice.  There is no fallback chain yet: a
+autotuner arrives in a later slice.  A grouped plan clamps block_m to
+divide the rows-per-group bound.  There is no fallback chain yet: a
 `cuda_mesh` plan whose kernel fails to build or launch raises.
 
 Gradients.  A `cuda_mesh` GEMM runs through `_MeshMM`, a
@@ -27,7 +36,12 @@ Gradients.  A `cuda_mesh` GEMM runs through `_MeshMM`, a
 reference's `_mm` VJP op for op (`mm_backward`): unscramble the cotangent,
 recompute the pre-activation z with one plain f32 kernel call where there is
 an activation, then dA = dz·Bᵀ and dB = Aᵀ·dz as two more f32 kernel GEMMs.
-The `torch` and `ref` backends are plain ops that autograd differentiates.
+A `cuda_mesh` grouped GEMM runs through `_GroupedMM`, whose backward
+is the reference's `_gmm` VJP (`gmm_backward`): segment-mask the
+cotangent, recompute z with one f32 grouped call where there is an
+activation, dtokens = the grouped kernel on Wᵀ, and dW = one batched
+product over the (G, rpg) view.  The `torch` and `ref` backends are plain
+ops that autograd differentiates.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.grouped import grouped_mesh_matmul
 from repro_torch.kernels.mesh_matmul import (
     ACTIVATIONS,
     GELU_A,
@@ -56,12 +71,15 @@ __all__ = [
     "CapabilityError",
     "Epilogue",
     "GemmSpec",
+    "GroupSpec",
+    "GroupedPlan",
     "MMOpts",
     "Plan",
     "PlanValidationError",
     "apply_epilogue",
     "backend_names",
     "clear_plan_cache",
+    "gmm_backward",
     "mm_backward",
     "plan",
     "plan_cache_info",
@@ -121,6 +139,36 @@ class Epilogue:
 
 
 @dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    """Ragged-batch structure of one grouped GEMM.
+
+    `num_groups` weight slabs share K/N; tokens arrive concatenated
+    group-major in a capacity layout with a STATIC `rows_per_group` bound —
+    group g owns rows [g*rows_per_group, g*rows_per_group + size_g), where
+    the runtime sizes ride in the `group_offsets` execution operand
+    (cumulative counts, (num_groups+1,)).  Rows at or beyond a group's size
+    are zero on output.  Hashable and frozen: part of the plan-cache key.
+    """
+
+    num_groups: int
+    rows_per_group: int
+
+    def __post_init__(self):
+        object.__setattr__(self, "num_groups", int(self.num_groups))
+        object.__setattr__(self, "rows_per_group", int(self.rows_per_group))
+        if self.num_groups <= 0 or self.rows_per_group <= 0:
+            raise ValueError(
+                f"GroupSpec dims must be positive, got num_groups="
+                f"{self.num_groups}, rows_per_group={self.rows_per_group}"
+            )
+
+    @property
+    def rows(self) -> int:
+        """Total (static) token rows of the capacity layout."""
+        return self.num_groups * self.rows_per_group
+
+
+@dataclasses.dataclass(frozen=True)
 class GemmSpec:
     """Logical description of one GEMM: (batch..., M, K) @ (K, N) — or, when
     `batched_b`, (batch..., M, K) @ (batch..., K, N).
@@ -130,7 +178,10 @@ class GemmSpec:
     the paper's sigma block arrangement).  `blocks` is an optional
     (bm, bn, bk) override; entries left None take DEFAULT_BLOCKS.  `repeats`
     is a caller hint (products run back to back with the same B); numerics
-    are unaffected.  Hashable and frozen — specs are the plan-cache key.
+    are unaffected.  `group` attaches a GroupSpec, turning the spec into a
+    grouped (ragged-batch) GEMM: (num_groups * rows_per_group, K) tokens
+    against (num_groups, K, N) stacked weights, `m` the total row bound.
+    Hashable and frozen — specs are the plan-cache key.
     """
 
     m: int
@@ -146,6 +197,7 @@ class GemmSpec:
     blocks: Optional[Tuple[Optional[int], Optional[int], Optional[int]]] = None
     stagger: bool = True
     repeats: int = 1
+    group: Optional[GroupSpec] = None
 
     def __post_init__(self):
         if self.structure not in STRUCTURES:
@@ -156,6 +208,24 @@ class GemmSpec:
             raise ValueError(f"dims must be positive, got {(self.m, self.k, self.n)}")
         if self.batched_b and not self.batch:
             raise ValueError("batched_b requires leading batch dims")
+        if self.group is not None:
+            if not isinstance(self.group, GroupSpec):
+                raise TypeError(f"group must be a GroupSpec, got {type(self.group).__name__}")
+            if self.structure != "general":
+                raise ValueError(
+                    "grouped specs are structure='general' only (the σ and symmetric"
+                    f" regimes are defined on one product), got {self.structure!r}"
+                )
+            if self.batch or self.batched_b:
+                raise ValueError(
+                    "grouped specs carry their batching in the GroupSpec;"
+                    " leading batch dims are not supported"
+                )
+            if self.m != self.group.rows:
+                raise ValueError(
+                    f"grouped spec m={self.m} must equal num_groups*rows_per_group="
+                    f"{self.group.rows} (use GemmSpec.for_groups)"
+                )
         object.__setattr__(self, "repeats", int(self.repeats))
         if self.repeats < 1:
             raise ValueError(f"repeats must be >= 1, got {self.repeats}")
@@ -208,6 +278,37 @@ class GemmSpec:
             repeats=repeats,
         )
 
+    @classmethod
+    def for_groups(
+        cls,
+        group: GroupSpec,
+        k: int,
+        n: int,
+        *,
+        dtype_a="float32",
+        dtype_b="float32",
+        out_dtype=None,
+        epilogue: Optional[Epilogue] = None,
+        blocks=None,
+        stagger: bool = True,
+        repeats: int = 1,
+    ) -> "GemmSpec":
+        """Spec for a grouped GEMM: (group.rows, k) tokens in the capacity
+        layout against (group.num_groups, k, n) stacked weights."""
+        return cls(
+            m=group.rows,
+            k=k,
+            n=n,
+            dtype_a=dtype_a,
+            dtype_b=dtype_b,
+            out_dtype=out_dtype,
+            epilogue=epilogue or Epilogue(),
+            blocks=blocks,
+            stagger=stagger,
+            group=group,
+            repeats=repeats,
+        )
+
     @property
     def eff_m(self) -> int:
         """M after folding leading batch dims (b 2D folds batch into M)."""
@@ -251,6 +352,8 @@ class BackendCapabilities:
     epilogue          the epilogue contract (fused or not)
     epilogue_fusion   the epilogue runs inside the kernel (provenance only)
     devices           device types the impl executes on
+    grouped           executes ragged-batch specs carrying a GroupSpec
+                      (requires a `grouped_impl` at registration)
     """
 
     structures: FrozenSet[str] = frozenset({"general"})
@@ -258,6 +361,7 @@ class BackendCapabilities:
     epilogue: bool = True
     epilogue_fusion: bool = False
     devices: FrozenSet[str] = frozenset({"cpu", "cuda"})
+    grouped: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "structures", frozenset(self.structures))
@@ -271,6 +375,8 @@ _CAP_FIELDS = {f.name for f in dataclasses.fields(BackendCapabilities)}
 
 # impl(plan, a, b, bias, residual) -> tensor
 BackendImpl = Callable[["Plan", torch.Tensor, torch.Tensor, Any, Any], torch.Tensor]
+# grouped_impl(plan, tokens, group_offsets, weights, bias, residual) -> tensor
+GroupedImpl = Callable[..., torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,6 +384,7 @@ class _Backend:
     name: str
     impl: BackendImpl
     caps: BackendCapabilities
+    grouped_impl: Optional[GroupedImpl] = None
 
 
 _REGISTRY: Dict[str, _Backend] = {}
@@ -300,12 +407,15 @@ def register_backend(
     impl: BackendImpl,
     capabilities: Union[BackendCapabilities, Mapping[str, Any]],
     *,
+    grouped_impl: Optional[GroupedImpl] = None,
     override: bool = False,
 ) -> None:
     """Register a GEMM backend under `name` with declared capabilities.
 
     `capabilities` is a BackendCapabilities or a mapping with only its field
     names — unknown keys are rejected so typos never grant an ability.
+    Declaring the `grouped` capability requires a matching `grouped_impl`
+    (the ragged-batch entry point has a different operand signature).
     Duplicate names are rejected unless `override=True`.
     """
     if not isinstance(capabilities, BackendCapabilities):
@@ -315,9 +425,13 @@ def register_backend(
                 f"unknown capabilities {sorted(unknown)}; known: {sorted(_CAP_FIELDS)}"
             )
         capabilities = BackendCapabilities(**capabilities)
+    if capabilities.grouped and grouped_impl is None:
+        raise ValueError(
+            f"backend {name!r} declares the 'grouped' capability but provides no grouped_impl"
+        )
     if name in _REGISTRY and not override:
         raise ValueError(f"backend {name!r} already registered (pass override=True to replace)")
-    _REGISTRY[name] = _Backend(name, impl, capabilities)
+    _REGISTRY[name] = _Backend(name, impl, capabilities, grouped_impl)
     _evict_plans(name)
 
 
@@ -351,6 +465,11 @@ def _check_capabilities(spec: GemmSpec, be: _Backend, device: str) -> Optional[s
         return f"backend {be.name!r} does not support the fused-epilogue contract"
     if device not in caps.devices:
         return f"backend {be.name!r} runs on {sorted(caps.devices)}, not {device!r}"
+    if spec.group is not None and not caps.grouped:
+        return (
+            f"backend {be.name!r} does not support grouped (ragged-batch) specs"
+            " (no 'grouped' capability)"
+        )
     return None
 
 
@@ -396,6 +515,21 @@ def apply_epilogue(
 # ---------------------------------------------------------------------------
 
 
+def _check_declared(spec: GemmSpec, bias, residual) -> None:
+    """The epilogue operands passed must be the ones the spec declared."""
+    epi = spec.epilogue
+    for name, arr, declared in (
+        ("bias", bias, epi.bias),
+        ("residual", residual, epi.residual),
+    ):
+        if (arr is not None) != declared:
+            state = "with" if declared else "without"
+            raise ValueError(
+                f"plan was built {state} {name}; pass a matching "
+                f"Epilogue in the GemmSpec to change the contract"
+            )
+
+
 @dataclasses.dataclass
 class Plan:
     """A resolved, reusable GEMM executable with provenance.
@@ -434,6 +568,7 @@ class Plan:
 
     def describe(self) -> Dict[str, Any]:
         """JSON-able provenance record (serving telemetry)."""
+        grp = self.spec.group
         return {
             "backend": self.backend,
             "device": self.device,
@@ -452,6 +587,11 @@ class Plan:
             "fused_epilogue": self.capabilities.epilogue_fusion,
             "out_dtype": self.out_dtype,
             "flops": self.flops,
+            "grouped": None if grp is None else {
+                "num_groups": grp.num_groups,
+                "rows_per_group": grp.rows_per_group,
+                "per_group_flops": 2 * grp.rows_per_group * self.spec.k * self.spec.n,
+            },
         }
 
     def _check_operands(self, a, b, bias, residual):
@@ -473,17 +613,7 @@ class Plan:
             raise ValueError(
                 f"plan was built for {self.device!r} tensors, got {a.device} @ {b.device}"
             )
-        epi = spec.epilogue
-        for name, arr, declared in (
-            ("bias", bias, epi.bias),
-            ("residual", residual, epi.residual),
-        ):
-            if (arr is not None) != declared:
-                state = "with" if declared else "without"
-                raise ValueError(
-                    f"plan was built {state} {name}; pass a matching "
-                    f"Epilogue in the GemmSpec to change the contract"
-                )
+        _check_declared(spec, bias, residual)
         if bias is not None and tuple(bias.shape) != (spec.n,):
             raise ValueError(f"bias must have shape ({spec.n},), got {tuple(bias.shape)}")
         want_res = spec.batch + (spec.m, spec.n)
@@ -529,7 +659,8 @@ _ACT_GRADS = {
 
 @dataclasses.dataclass(frozen=True)
 class MMOpts:
-    """The static options of one mesh GEMM (the reference's `_mm` opts)."""
+    """The static options of one mesh GEMM (the reference's `_mm` opts); a
+    grouped GEMM's (`_gmm` opts) have `scramble` False."""
 
     block_m: int
     block_n: int
@@ -625,18 +756,216 @@ def _cuda_mesh_impl(p: Plan, a, b, bias, residual):
     return out.reshape(*spec.batch, spec.m, spec.n)
 
 
+# ---------------------------------------------------------------------------
+# Grouped (ragged-batch) GEMMs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GroupedPlan(Plan):
+    """A Plan for a grouped (ragged-batch) GEMM.
+
+    Execution takes `(tokens, group_offsets, weights)` — tokens in the
+    group-major capacity layout, `group_offsets` the (num_groups+1,)
+    cumulative valid-row counts whose diffs are the per-group sizes, weights
+    stacked (num_groups, K, N), bias per group (num_groups, N).  Rows at or
+    beyond a group's size come back zero.  One plan serves every routing
+    outcome of its logical group shape: the offsets are an execution-time
+    operand, not part of the spec.
+    """
+
+    def _check_grouped_operands(self, tokens, group_offsets, weights, bias, residual):
+        spec, grp = self.spec, self.spec.group
+        want_t = (grp.rows, spec.k)
+        want_w = (grp.num_groups, spec.k, spec.n)
+        if tuple(tokens.shape) != want_t or tuple(weights.shape) != want_w:
+            raise ValueError(
+                f"grouped operands {tuple(tokens.shape)} / {tuple(weights.shape)} do not"
+                f" match plan spec tokens {want_t} / weights {want_w}"
+            )
+        if tuple(group_offsets.shape) != (grp.num_groups + 1,):
+            raise ValueError(
+                f"group_offsets must have shape ({grp.num_groups + 1},) — cumulative row"
+                f" counts — got {tuple(group_offsets.shape)}"
+            )
+        if group_offsets.dtype.is_floating_point or group_offsets.dtype == torch.bool:
+            raise ValueError(f"group_offsets must be integer-typed, got {group_offsets.dtype}")
+        got_dt = (_dtype_name(tokens.dtype), _dtype_name(weights.dtype))
+        if got_dt != (spec.dtype_a, spec.dtype_b):
+            raise ValueError(
+                f"operand dtypes {got_dt} do not match plan spec "
+                f"({spec.dtype_a}, {spec.dtype_b}); build a new GemmSpec"
+            )
+        if tokens.device.type != self.device or any(
+            t.device != tokens.device for t in (group_offsets, weights)
+        ):
+            raise ValueError(
+                f"plan was built for {self.device!r} tensors, got {tokens.device},"
+                f" {group_offsets.device}, {weights.device}"
+            )
+        _check_declared(spec, bias, residual)
+        if bias is not None and tuple(bias.shape) != (grp.num_groups, spec.n):
+            raise ValueError(
+                f"grouped bias must have shape ({grp.num_groups}, {spec.n}),"
+                f" got {tuple(bias.shape)}"
+            )
+        if residual is not None and tuple(residual.shape) != (grp.rows, spec.n):
+            raise ValueError(
+                f"residual must have shape ({grp.rows}, {spec.n}), got {tuple(residual.shape)}"
+            )
+
+    def __call__(self, tokens, group_offsets, weights, bias=None, residual=None):
+        self._check_grouped_operands(tokens, group_offsets, weights, bias, residual)
+        return self._fn(tokens, group_offsets, weights, bias, residual)
+
+
+def _grouped_sizes(group_offsets: torch.Tensor) -> torch.Tensor:
+    """Per-group sizes from the cumulative offsets: a diff on the offsets'
+    device, so the host never reads routing data."""
+    return (group_offsets[1:] - group_offsets[:-1]).to(torch.int32)
+
+
+def _grouped_valid_mask(sizes: torch.Tensor, n_groups: int, rpg: int) -> torch.Tensor:
+    """(rows, 1) f32 segment mask: 1 for rows inside their group's size."""
+    valid = torch.arange(rpg, device=sizes.device)[None, :] < sizes[:, None]
+    return valid.reshape(n_groups * rpg, 1).float()
+
+
+def _torch_grouped_impl(p: Plan, tokens, group_offsets, w, bias, residual):
+    """Segment-masked batched product (the reference's `xla` grouped impl):
+    the capacity layout makes the ragged batch a dense (G, rpg, K) @
+    (G, K, N) product; the mask zeroes rows past each group's size."""
+    grp = p.spec.group
+    rpg = grp.rows_per_group
+    z = torch.bmm(tokens.reshape(grp.num_groups, rpg, p.spec.k).float(), w.float())
+    z = apply_epilogue(
+        z,
+        None if bias is None else bias[:, None, :],
+        p.activation,
+        None if residual is None else residual.reshape(z.shape),
+    )
+    valid = torch.arange(rpg, device=tokens.device)[None, :] < _grouped_sizes(group_offsets)[:, None]
+    z = torch.where(valid[..., None], z, 0.0)
+    return z.reshape(grp.rows, p.spec.n).to(_NAME_DTYPES[p.out_dtype])
+
+
+def _ref_grouped_impl(p: Plan, tokens, group_offsets, w, bias, residual):
+    """Oracle: one plain product per group in a Python loop, same epilogue
+    and segment-mask contract as every other grouped backend."""
+    grp = p.spec.group
+    sizes = _grouped_sizes(group_offsets)
+    rpg = grp.rows_per_group
+    rows_idx = torch.arange(rpg, device=tokens.device)[:, None]
+    outs = []
+    for g in range(grp.num_groups):
+        sl = slice(g * rpg, (g + 1) * rpg)
+        z = apply_epilogue(
+            torch.matmul(tokens[sl].float(), w[g].float()),
+            None if bias is None else bias[g],
+            p.activation,
+            None if residual is None else residual[sl],
+        )
+        outs.append(torch.where(rows_idx < sizes[g], z, 0.0))
+    return torch.cat(outs, dim=0).to(_NAME_DTYPES[p.out_dtype])
+
+
+def gmm_backward(
+    g: torch.Tensor,
+    tokens: torch.Tensor,
+    sizes: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    res_dtype: Optional[torch.dtype],
+    opts: MMOpts,
+    matmul: Callable = grouped_mesh_matmul,
+):
+    """The grouped GEMM's VJP, op for op the reference's `_gmm_bwd`.
+
+    The cotangent is segment-masked (the forward zeroed padding rows),
+    dz = g·act'(z) with z recomputed by one plain f32 grouped call,
+    dtokens = grouped(dz, Wᵀ) reuses the ragged kernel with the N/K block
+    roles swapped, and dW is one batched product over the (G, rpg) view,
+    padding rows contributing exact zeros.  `matmul` is the grouped GEMM it
+    runs (grouped_mesh_matmul's signature): the kernel wrapper in training,
+    `grouped_mesh_matmul_torch` to hold the kernel's backward against the
+    plain one.  Returns (dtokens, dW, dbias, dresidual), each in its
+    operand's dtype (None where there is none).
+    """
+    bm, bn, bk = opts.block_m, opts.block_n, opts.block_k
+    n_groups, _, n = w.shape
+    rpg = tokens.shape[0] // n_groups
+    mask = _grouped_valid_mask(sizes, n_groups, rpg)
+    gf = g.float() * mask
+    dresidual = None if res_dtype is None else gf.to(res_dtype)
+    f32 = dict(stagger=opts.stagger, out_dtype=torch.float32)
+    if opts.activation in (None, "none"):
+        dz = gf
+    else:
+        z = matmul(tokens.float(), sizes, w.float(), block_m=bm, block_n=bn, block_k=bk, **f32)
+        if bias is not None:
+            z = (z.reshape(n_groups, rpg, n) + bias[:, None, :].float()).reshape(-1, n)
+        dz = gf * _ACT_GRADS[opts.activation](z)  # gf already carries the mask
+    w_t = w.transpose(-1, -2).float()
+    dtokens = matmul(dz, sizes, w_t, block_m=bm, block_n=bk, block_k=bn, **f32)
+    dw = torch.einsum(
+        "grk,grn->gkn",
+        (tokens.float() * mask).reshape(n_groups, rpg, -1),
+        dz.reshape(n_groups, rpg, n),
+    )
+    dbias = None if bias is None else dz.reshape(n_groups, rpg, n).sum(dim=1).to(bias.dtype)
+    return dtokens.to(tokens.dtype), dw.to(w.dtype), dbias, dresidual
+
+
+class _GroupedMM(torch.autograd.Function):
+    """K5 forward with the reference's `_gmm` VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, tokens, sizes, w, bias, residual, opts: MMOpts):
+        ctx.opts = opts
+        ctx.res_dtype = None if residual is None else residual.dtype
+        ctx.save_for_backward(tokens, sizes, w, bias)
+        return grouped_mesh_matmul(
+            tokens, sizes, w, bias=bias, residual=residual, block_m=opts.block_m,
+            block_n=opts.block_n, block_k=opts.block_k, stagger=opts.stagger,
+            activation=opts.activation, out_dtype=opts.out_dtype,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, sizes, w, bias = ctx.saved_tensors
+        dtokens, dw, dbias, dresidual = gmm_backward(
+            g, tokens, sizes, w, bias, ctx.res_dtype, ctx.opts
+        )
+        return dtokens, None, dw, dbias, dresidual, None
+
+
+def _cuda_mesh_grouped_impl(p: Plan, tokens, group_offsets, w, bias, residual):
+    """K5, differentiable through `_GroupedMM`."""
+    bm, bn, bk = p.blocks
+    opts = MMOpts(bm, bn, bk, p.spec.stagger, False, _NAME_DTYPES[p.out_dtype], p.activation)
+    return _GroupedMM.apply(tokens, _grouped_sizes(group_offsets), w, bias, residual, opts)
+
+
 _ALL = frozenset(STRUCTURES)
 register_backend(
     "torch",
     _torch_impl,
-    BackendCapabilities(structures=frozenset({"general", "symmetric"}), batching=True),
+    BackendCapabilities(structures=frozenset({"general", "symmetric"}), batching=True,
+                        grouped=True),
+    grouped_impl=_torch_grouped_impl,
 )
 register_backend(
     "cuda_mesh",
     _cuda_mesh_impl,
-    BackendCapabilities(structures=_ALL, batching=True, epilogue_fusion=True),
+    BackendCapabilities(structures=_ALL, batching=True, epilogue_fusion=True, grouped=True),
+    grouped_impl=_cuda_mesh_grouped_impl,
 )
-register_backend("ref", _ref_impl, BackendCapabilities(structures=_ALL, batching=True))
+register_backend(
+    "ref",
+    _ref_impl,
+    BackendCapabilities(structures=_ALL, batching=True, grouped=True),
+    grouped_impl=_ref_grouped_impl,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -677,7 +1006,40 @@ def plan(spec: GemmSpec, *, backend: Optional[str] = None, device="cpu") -> Plan
     return p
 
 
+def _grouped_block_m(rpg: int, bm: int) -> int:
+    """Largest block_m that both divides rows_per_group and respects the
+    chosen bm — the (g, i, j, k) grid needs whole row blocks per group."""
+    if rpg % bm == 0:
+        return bm
+    g = math.gcd(rpg, bm)
+    return g if g >= 8 else rpg
+
+
+def _build_grouped_plan(spec: GemmSpec, be: _Backend, device: str) -> GroupedPlan:
+    """Grouped planning: the blocks of the logical group shape (m = the
+    rows-per-group bound), with block_m clamped to divide it."""
+    blocks = None
+    if be.name == "cuda_mesh":
+        partial = spec.blocks or (None, None, None)
+        bm, bn, bk = tuple(p or d for p, d in zip(partial, DEFAULT_BLOCKS))
+        blocks = (_grouped_block_m(spec.group.rows_per_group, bm), bn, bk)
+    p = GroupedPlan(
+        spec=spec,
+        backend=be.name,
+        capabilities=be.caps,
+        device=device,
+        blocks=blocks,
+        out_dtype=spec.resolved_out_dtype(),
+        flops=spec.flops(),
+    )
+    impl = be.grouped_impl
+    p._fn = lambda t, off, w, bias, residual: impl(p, t, off, w, bias, residual)
+    return p
+
+
 def _build_plan(spec: GemmSpec, be: _Backend, device: str) -> Plan:
+    if spec.group is not None:
+        return _build_grouped_plan(spec, be, device)
     blocks = None
     if be.name == "cuda_mesh" or spec.structure == "scrambled":
         partial = spec.blocks or (None, None, None)

@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.scramble import _scramble_perm_np, inverse_perm
 
 __all__ = [
+    "grouped_matmul_ref",
     "matmul_ref",
     "mesh_matmul_ref",
     "scramble_blocks_ref",
@@ -73,3 +74,21 @@ def unscramble_blocks_ref(x: torch.Tensor, *, block_m: int, block_n: int) -> tor
     """Inverse of scramble_blocks_ref."""
     g = x.shape[-2] // block_m
     return _permute_blocks(x, inverse_perm(_scramble_perm_np(g)), block_m, block_n)
+
+
+def grouped_matmul_ref(
+    tokens: torch.Tensor,  # (num_groups * rows_per_group, K), group-major
+    sizes: torch.Tensor,  # (num_groups,) valid-row counts
+    weights: torch.Tensor,  # (num_groups, K, N)
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Grouped (ragged-batch) matmul oracle: row r of the capacity-layout
+    buffer multiplies its group's weight slab; rows at or beyond a group's
+    size are zero regardless of their contents."""
+    n_groups, k, n = weights.shape
+    rpg = tokens.shape[0] // n_groups
+    out_dtype = out_dtype or torch.promote_types(tokens.dtype, weights.dtype)
+    z = torch.bmm(tokens.reshape(n_groups, rpg, k).float(), weights.float())
+    valid = torch.arange(rpg, device=tokens.device)[None, :] < sizes[:, None]
+    z = torch.where(valid[..., None], z, 0.0)
+    return z.reshape(n_groups * rpg, n).to(out_dtype)

@@ -32,7 +32,7 @@ Robustness contract:
   drain         `drain()` / context-manager exit runs the loop until every
                 admitted request has retired (graceful shutdown)
 
-Families: dense serves through the paged path (the only family ported).
+Families: dense and moe serve through the paged path (the families ported).
 The decode step runs at a fixed (max_slots,) shape; each tick writes its
 new K/V rows into the pools in place (see `attention_paged_decode`).
 The reference's obs spans and serving metrics arrive with the obs slice.
@@ -59,7 +59,7 @@ __all__ = [
     "ServeConfig",
 ]
 
-_SCHEDULABLE = ("dense",)
+_SCHEDULABLE = ("dense", "moe")
 
 
 class PagesExhausted(RuntimeError):
@@ -202,6 +202,9 @@ class ContinuousBatchingServer:
         self.counters = {
             "served": 0, "shed": 0, "timeout": 0, "preempted": 0,
             "ticks": 0, "skipped_ticks": 0, "decode_tokens": 0,
+            # device steps run, warmup included: kernel launches per step
+            # times these counts are the launches a run must show
+            "prefills": 0, "decode_steps": 0,
         }
         self.alloc = PageAllocator(cfg.num_pages)
         self.pools = {
@@ -219,6 +222,7 @@ class ContinuousBatchingServer:
     @torch.inference_mode()
     def _decode(self, tokens: np.ndarray, tables: np.ndarray, positions: np.ndarray):
         dev = self.device
+        self.counters["decode_steps"] += 1
         logits, self.pools = self.model.paged_decode(
             self.params,
             torch.as_tensor(tokens, device=dev),
@@ -408,6 +412,7 @@ class ContinuousBatchingServer:
                 self._evict(seq, "ok", "")
 
     def _run_prefill(self, req: Request):
+        self.counters["prefills"] += 1
         prompts = torch.as_tensor(np.asarray(req.prompt, np.int32), device=self.device)[None, :]
         return self._prefill(self.params, {"tokens": prompts, "labels": prompts})
 

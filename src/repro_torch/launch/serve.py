@@ -66,10 +66,12 @@ def report_plan_cache(prefix: str = "[serve]") -> dict:
             + (f"+{epi['activation']}" if epi["activation"] else "")
             + ("+r" if epi["residual"] else "")
         ) or "-"
+        grp = p["grouped"]
+        grp_s = f" grouped {grp['num_groups']}x{grp['rows_per_group']} rows" if grp else ""
         print(
             f"{prefix}   {p['backend']:9s} {p['device']:4s} {p['structure']:9s} "
             f"{p['mkn']:>18s} batch={p['batch'] or '-'} blocks={blocks} "
-            f"epi={epi_s:12s} flops={p['flops']:.2e}"
+            f"epi={epi_s:12s} flops={p['flops']:.2e}{grp_s}"
         )
     return info
 

@@ -1,14 +1,15 @@
 """Shared building blocks: param specs, norms, RoPE, the config-routed GEMM.
 
-Port of `repro.models.layers` (without sharding and `grouped_gemm`, which
-arrive with their slices).  Each model family defines
+Port of `repro.models.layers` (without sharding, which arrives with its
+slice).  Each model family defines
 a `param_specs(cfg)` tree whose leaves are `PSpec(shape, logical_axes,
 scale, dtype, init)`; `init_params` materializes it from a
 `torch.Generator` on an explicit device.  All GEMMs go through the
 plan/execute API (`repro_torch.kernels.api`): `gemm` builds a typed
 GemmSpec, `api.plan` resolves the backend once per logical shape
 (cfg.use_mesh_kernel selects the mesh kernel), and the cached plan executes
-per call.
+per call; `grouped_gemm` does the same for the MoE experts' ragged
+products.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ __all__ = [
     "apply_rope",
     "dense",
     "gemm",
+    "grouped_gemm",
     "init_params",
     "padded_vocab",
     "rmsnorm",
@@ -59,8 +61,9 @@ def init_params(
     """Materialize a PSpec tree into tensors on `device`.
 
     Normal leaves draw N(0, 1) in f32 from `generator` (which must live on
-    `device`), in the tree's key order, then scale and cast — the
-    reference's recipe, with torch's generator in place of JAX's keys.
+    `device`), in the tree's key order, then scale (in place, so a leaf's
+    transient is its f32 draw) and cast — the reference's recipe, with
+    torch's generator in place of JAX's keys.
     """
     def make(s: PSpec) -> torch.Tensor:
         dt = s.dtype or dtype
@@ -69,7 +72,7 @@ def init_params(
         if s.init == "ones":
             return torch.ones(s.shape, dtype=dt, device=device)
         x = torch.randn(s.shape, generator=generator, dtype=torch.float32, device=device)
-        return (x * s.scale).to(dt)
+        return x.mul_(s.scale).to(dt)
 
     return _map_specs(make, specs)
 
@@ -116,6 +119,36 @@ def gemm(
     return _api.plan(spec, backend=backend, device=x.device)(
         x, w, bias=bias, residual=residual
     )
+
+
+def grouped_gemm(
+    tokens: torch.Tensor,  # (num_groups * rows_per_group, K), group-major
+    group_offsets: torch.Tensor,  # (num_groups + 1,) cumulative valid-row counts
+    weights: torch.Tensor,  # (num_groups, K, N) stacked per-group slabs
+    cfg,
+) -> torch.Tensor:
+    """Config-routed grouped (ragged-batch) GEMM via plan/execute.
+
+    The MoE expert path: row blocks of the capacity-layout `tokens` buffer
+    multiply their group's (K, N) weight slab in ONE kernel (K5 on the
+    `cuda_mesh` backend when cfg.use_mesh_kernel, else a segment-masked
+    `bmm` on the `torch` backend), with rows past each group's size coming
+    back zero.  Plans are cached per logical group shape exactly like
+    `gemm`: every layer and step reuses one plan per expert projection.
+    """
+    backend = "cuda_mesh" if cfg.use_mesh_kernel else "torch"
+    num_groups, kd, n = weights.shape
+    blocks = (cfg.mesh_block_m or None, cfg.mesh_block_n or None, cfg.mesh_block_k or None)
+    spec = _api.GemmSpec.for_groups(
+        _api.GroupSpec(num_groups, tokens.shape[0] // num_groups),
+        k=kd,
+        n=n,
+        dtype_a=tokens.dtype,
+        dtype_b=weights.dtype,
+        out_dtype=tokens.dtype,
+        blocks=blocks,
+    )
+    return _api.plan(spec, backend=backend, device=tokens.device)(tokens, group_offsets, weights)
 
 
 def dense(

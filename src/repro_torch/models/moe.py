@@ -1,16 +1,39 @@
-"""Feed-forward blocks (port of `repro.models.moe`, dense SwiGLU only; the
-routed expert block arrives with the grouped-GEMM slice)."""
+"""Feed-forward blocks: dense SwiGLU and the routed Mixture-of-Experts block
+(port of `repro.models.moe`, without sharding and expert parallelism).
+
+Expert compute rides the grouped-GEMM planner: each (token, choice) pair is
+ranked within its expert by a stable sort and scattered into a group-major
+capacity buffer (expert e owns rows [e*rows_per_group, e*rows_per_group +
+size_e)), and the two expert projections run as grouped plans
+(`layers.grouped_gemm`), ONE ragged kernel per projection.  Small token
+counts (n or per-group s <= 256: decode steps, one prompt) use cap = n,
+exact drop-free routing; larger ones get cap = cf * n * k / e per expert and
+may drop pairs.
+
+Nothing here reads routing data on the host: sizes, offsets and the
+scatter/gather indices stay on the device, and no op whose output size
+depends on the data is used (`bincount` and `repeat_interleave` read
+their input's size on the host, so counts are a `scatter_add_` and token
+ids an integer division).
+
+Aux: Switch load-balance loss + router z-loss, returned for the train loop.
+Configs with shared experts (qwen2-moe) are not ported yet.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import PSpec, gemm
+from repro_torch.models.layers import PSpec, gemm, grouped_gemm
 
-__all__ = ["swiglu", "swiglu_specs"]
+__all__ = ["moe_block", "moe_specs", "swiglu", "swiglu_specs"]
+
+_GROUP_SIZE = 1024  # tokens per dispatch group at scale (capacity scaling)
+_EXACT_GROUP = 256  # groups this small route exactly (no capacity drops)
+_ROW_ALIGN = 8  # capacity rounds up so row blocks tile the ragged grid
 
 
 def swiglu_specs(cfg, d_ff: int) -> Dict[str, PSpec]:
@@ -27,3 +50,105 @@ def swiglu(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg) -> torch.Tensor:
     gate, up = torch.chunk(gate_up, 2, dim=-1)
     h = F.silu(gate) * up
     return gemm(h, p["wo"], cfg)
+
+
+def _no_shared_experts(cfg) -> None:
+    if cfg.num_shared_experts:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: shared experts (num_shared_experts="
+            f"{cfg.num_shared_experts}) are not ported yet"
+        )
+
+
+def moe_specs(cfg) -> Dict[str, PSpec]:
+    _no_shared_experts(cfg)
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    out_scale = 0.02 / max(1.0, (2 * cfg.num_layers) ** 0.5)
+    return {
+        "router": PSpec((d, e), ("embed", None), 0.02, dtype=torch.float32),
+        "wi": PSpec((e, d, 2 * f), ("experts", "embed", "mlp"), 0.02),
+        "wo": PSpec((e, f, d), ("experts", "mlp", "embed"), out_scale),
+    }
+
+
+def _capacity(n: int, t: int, e: int, k: int, capacity_factor: float) -> int:
+    """Per-expert row capacity: tokens notionally split into (n // s) groups
+    of s = min(_GROUP_SIZE, ...), each granting cf * s * k / e slots —
+    except small groups, which route exactly (cap = n, drop-free)."""
+    s = min(_GROUP_SIZE, t) if t > 1 else min(_GROUP_SIZE, n)
+    while n % s:
+        s //= 2
+    if s <= _EXACT_GROUP:
+        return n
+    return (n // s) * max(1, int(capacity_factor * s * k / e))
+
+
+def moe_block(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # (B, T, D)
+    cfg,
+    *,
+    capacity_factor: float = 1.25,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (output, aux) with aux = {'lb_loss', 'router_z'}."""
+    _no_shared_experts(cfg)
+    b, t, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    n = b * t
+    dev = x.device
+
+    xf = x.reshape(n, d)
+    logits = torch.matmul(xf.float(), p["router"].float())  # (n, e)
+    probs = torch.softmax(logits, dim=-1)
+    # top-k as jax.lax.top_k: on ties the lower expert index comes first,
+    # which a stable descending sort keeps.
+    topi = torch.argsort(probs, dim=-1, descending=True, stable=True)[:, :k]
+    topv = torch.gather(probs, 1, topi)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+
+    cap = _capacity(n, t, e, k, capacity_factor)
+    rpg = -(-cap // _ROW_ALIGN) * _ROW_ALIGN  # static rows-per-group bound
+    rows = e * rpg
+
+    # Sort/segment permutation: rank each (token, choice) pair within its
+    # expert (the stable sort keeps token order), keep the first `cap`, and
+    # scatter kept tokens into the group-major capacity buffer.
+    flat_e = topi.reshape(-1)  # (n*k,) expert id per pair, token-major
+    flat_t = torch.arange(n * k, device=dev) // k  # token id per pair
+    order = torch.argsort(flat_e, stable=True)  # pairs grouped by expert
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))  # (e,) demand per expert
+    starts = torch.cumsum(counts, 0) - counts
+    rank_sorted = torch.arange(n * k, device=dev) - starts[flat_e[order]]
+    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    keep = rank < cap
+    gate = topv.reshape(-1) * keep.to(topv.dtype)
+    dest = torch.where(keep, flat_e * rpg + rank, rows)  # rows => dropped
+
+    sizes = torch.clamp(counts, max=cap)
+    group_offsets = torch.cat(
+        [torch.zeros(1, dtype=torch.int32, device=dev), torch.cumsum(sizes, 0).to(torch.int32)]
+    )
+
+    # Dropped pairs land in one extra row past the buffer, sliced away (an
+    # index of `rows` is out of range for a rows-long buffer; clipping it
+    # would overwrite row rows - 1).
+    buf = torch.zeros((rows + 1, d), dtype=x.dtype, device=dev)
+    buf = buf.index_put((dest,), xf[flat_t])[:rows]
+
+    gate_up = grouped_gemm(buf, group_offsets, p["wi"], cfg)  # (rows, 2f)
+    gate_h, up_h = torch.chunk(gate_up, 2, dim=-1)
+    h = F.silu(gate_h) * up_h
+    ex_out = grouped_gemm(h, group_offsets, p["wo"], cfg)  # (rows, d)
+
+    # Combine: gather each pair's expert output back and weight by its gate
+    # (dropped pairs carry gate 0, so the clipped gather never contributes).
+    contrib = ex_out[torch.clamp(dest, 0, rows - 1)] * gate.to(x.dtype)[:, None]
+    y = contrib.float().reshape(n, k, d).sum(dim=1).to(x.dtype).reshape(b, t, d)
+
+    # Switch load-balance + router z-loss (means over all tokens).
+    load = counts.float() / n  # fraction routed per expert
+    imp = probs.mean(dim=0)
+    lb_loss = e * torch.sum(load * imp) / k
+    router_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return y, {"lb_loss": lb_loss, "router_z": router_z}

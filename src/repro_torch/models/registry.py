@@ -1,5 +1,5 @@
 """Uniform model API the launch/serve layer talks to (port of
-`repro.models.registry`, dense family only).
+`repro.models.registry`, dense and moe families).
 
 `get_model(cfg)` returns a `Model` with a family-independent interface:
   init(generator, device)                 parameter tree (1 source: PSpec)
@@ -51,6 +51,8 @@ class Model:
     def loss(self, params, batch):
         logits, aux = self.forward(params, batch)
         loss, acc = softmax_xent(logits, batch["labels"])
+        if self.cfg.is_moe:
+            loss = loss + self.cfg.router_aux_coef * aux["lb_loss"] + 1e-3 * aux["router_z"]
         metrics = {"loss": loss, "accuracy": acc, **aux}
         return loss, metrics
 
@@ -92,7 +94,7 @@ def _lm_prefill(params, batch, cfg):
 
 
 def get_model(cfg: ArchConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return Model(
             cfg,
             transformer.lm_specs,
@@ -102,4 +104,4 @@ def get_model(cfg: ArchConfig) -> Model:
             transformer.decode_cache_specs,
             _paged_decode=transformer.lm_decode_paged,
         )
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet (dense only)")
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet (dense and moe only)")

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM, dense family (port of `repro.models.transformer`).
+"""Decoder-only transformer LM, dense and MoE families (port of
+`repro.models.transformer`).
 
 Layers are stacked on a leading (L,) axis, as in the reference, and run by
 a Python loop over that axis where the reference uses `jax.lax.scan`.
@@ -26,7 +27,7 @@ import torch
 from repro_torch.kernels.ops import scramble_blocks
 from repro_torch.models.attention import attention, attention_paged_decode, attn_specs
 from repro_torch.models.layers import PSpec, gemm, padded_vocab, rmsnorm
-from repro_torch.models.moe import swiglu, swiglu_specs
+from repro_torch.models.moe import moe_block, moe_specs, swiglu, swiglu_specs
 
 __all__ = [
     "block_apply",
@@ -53,15 +54,17 @@ def stack_specs(specs: Any, num: int) -> Any:
 
 
 def block_specs(cfg) -> Dict[str, Any]:
-    """One transformer block: attn + SwiGLU + 2 norms."""
-    if cfg.is_moe:
-        raise NotImplementedError("the MoE family is not ported yet")
-    return {
+    """One transformer block: attn + (SwiGLU | MoE) + 2 norms."""
+    specs: Dict[str, Any] = {
         "ln1": PSpec((cfg.d_model,), ("embed",), init="ones"),
         "ln2": PSpec((cfg.d_model,), ("embed",), init="ones"),
         "attn": attn_specs(cfg),
-        "mlp": swiglu_specs(cfg, cfg.d_ff),
     }
+    if cfg.is_moe:
+        specs["moe"] = moe_specs(cfg)
+    else:
+        specs["mlp"] = swiglu_specs(cfg, cfg.d_ff)
+    return specs
 
 
 def lm_specs(cfg) -> Dict[str, Any]:
@@ -107,8 +110,9 @@ def block_apply(
     cache=None,
     cache_pos=None,
     write_cache: bool = False,
-) -> Tuple[torch.Tensor, Any]:
-    """Pre-norm block.  Returns (x, new_cache)."""
+) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
+    """Pre-norm block.  Returns (x, new_cache, aux); aux is the MoE block's
+    {'lb_loss', 'router_z'} and empty for the dense family."""
     h, new_cache = attention(
         p["attn"],
         rmsnorm(x, p["ln1"], cfg.norm_eps),
@@ -118,8 +122,15 @@ def block_apply(
         write_cache=write_cache,
     )
     x = x + h
-    h2 = swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
-    return x + h2, new_cache
+    h2, aux = _ffn(p, x, cfg)
+    return x + h2, new_cache, aux
+
+
+def _ffn(p: Dict[str, Any], x: torch.Tensor, cfg):
+    """The block's feed-forward half on rmsnorm(x): (output, aux)."""
+    if cfg.is_moe:
+        return moe_block(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+    return swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), {}
 
 
 def _maybe_scramble(x: torch.Tensor, cfg, inverse: bool = False) -> torch.Tensor:
@@ -137,14 +148,17 @@ def lm_forward(params, tokens: torch.Tensor, cfg):
     """Train/eval forward: (B, T) int32 -> (logits (B, T, V), aux dict)."""
     x = embed_tokens(params, tokens, cfg)
     x = _maybe_scramble(x, cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_stack = []
     for i in range(cfg.num_layers):
-        x, _ = block_apply(_layer(params["blocks"], i), x, cfg)
+        x, _, aux = block_apply(_layer(params["blocks"], i), x, cfg)
+        # A dense block has no router: its entries are zeros, as in the
+        # reference's per-layer aux stack.
+        aux_stack.append(torch.stack([aux.get("lb_loss", zero), aux.get("router_z", zero)]))
     x = _maybe_scramble(x, cfg, inverse=True)
     logits = unembed(params, x, cfg)
-    # The dense family has no router: the reference's per-layer aux stack
-    # is all zeros.
-    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
-    return logits, {"lb_loss": zero, "router_z": zero}
+    aux_mean = torch.stack(aux_stack).mean(dim=0)
+    return logits, {"lb_loss": aux_mean[0], "router_z": aux_mean[1]}
 
 
 def lm_prefill(params, tokens: torch.Tensor, cfg):
@@ -152,7 +166,7 @@ def lm_prefill(params, tokens: torch.Tensor, cfg):
     x = embed_tokens(params, tokens, cfg)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, cache = block_apply(_layer(params["blocks"], i), x, cfg, write_cache=True)
+        x, cache, _ = block_apply(_layer(params["blocks"], i), x, cfg, write_cache=True)
         ks.append(cache["k"])
         vs.append(cache["v"])
     logits = unembed(params, x, cfg)
@@ -171,7 +185,7 @@ def lm_decode(
     ks, vs = [], []
     for i in range(cfg.num_layers):
         layer_cache = {"k": caches["k"][i], "v": caches["v"][i]}
-        x, new_cache = block_apply(
+        x, new_cache, _ = block_apply(
             _layer(params["blocks"], i), x, cfg, cache=layer_cache, cache_pos=int(pos)
         )
         ks.append(new_cache["k"])
@@ -203,7 +217,7 @@ def block_apply_paged(
         impl=impl,
     )
     x = x + h
-    h2 = swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+    h2, _ = _ffn(p, x, cfg)
     return x + h2, pools
 
 

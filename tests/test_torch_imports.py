@@ -46,7 +46,8 @@ print("WALKED", " ".join(names))
     walked = res.stdout.split("WALKED")[1].split()
     for name in ("optim.adamw", "optim.schedules", "data.pipeline", "train.train_step",
                  "train.loop", "train.metrics", "checkpoint.manager", "launch.train",
-                 "kernels.scramble", "kernels.ops"):
+                 "kernels.scramble", "kernels.ops", "kernels.grouped", "models.moe",
+                 "configs.olmoe_1b_7b"):
         assert "repro_torch." + name in walked, name
 
 
@@ -59,8 +60,11 @@ from repro_torch.launch import serve, train
 from repro_torch.launch.scheduler import ContinuousBatchingServer, ServeConfig
 from repro_torch.models import get_model
 model = get_model(get_config("mesh-paper").reduced())
+moe = get_model(get_config("olmoe-1b-7b").reduced())
 calls = {
     "init": lambda: model.init(torch.Generator()),
+    "init moe": lambda: moe.init(torch.Generator()),
+    "server moe": lambda: ContinuousBatchingServer(moe, None, ServeConfig()),
     "server": lambda: ContinuousBatchingServer(model, None, ServeConfig()),
     "main": lambda: serve.main(["--arch", "mesh-paper", "--reduced"]),
     "train": lambda: train.main(["--arch", "mesh-paper", "--reduced", "--steps", "1"]),
@@ -79,7 +83,6 @@ train.main(["--arch", "mesh-paper", "--reduced", "--device", "cpu", "--steps", "
     res = _run(code)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.split("\n")
-    assert lines[:4] == ["refused init", "refused server", "refused main", "refused train"], (
-        res.stdout
-    )
+    assert lines[:6] == ["refused init", "refused init moe", "refused server moe",
+                         "refused server", "refused main", "refused train"], res.stdout
     assert "[done] mesh-paper steps=1" in res.stdout and "device=cpu" in res.stdout
