@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch + CUDA port (`src/repro_torch`) on one GPU.
 
     python3 chip_smoke.py            # from the repository root; needs one card
-    python3 chip_smoke.py --only k5,k5_bwd   # the build and the named phases only
+    python3 chip_smoke.py --only k6,k6_bwd   # the build and the named phases only
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -19,7 +19,11 @@ Phases; any failure raises and the script exits non-zero:
               (paged decode attention), K3 (block scramble), K1's backward
               (the `_mm` VJP) against the same backward run with the plain
               GEMM, K5 (grouped mesh GEMM) at OLMoE's decode and prefill
-              shapes, and K5's backward (the `_gmm` VJP);
+              shapes, K5's backward (the `_gmm` VJP), K6 (flash attention)
+              at Qwen2-7B's prefill and mesh-paper's training shapes in bf16
+              and f32, held by output-relative measures, and K6 under
+              `_FlashAttention` yielding gradients; K4 is also timed at
+              Qwen2-7B's decode (GQA rep 7, 2-4k-token contexts);
   3. serve    full-width mesh-paper (4 layers, d_model 2048, 16 heads, d_ff
               8192, vocab 32768, bf16, random weights from a seed) through
               `ContinuousBatchingServer`: 8 requests x 128-token prompts x 32
@@ -36,7 +40,19 @@ Phases; any failure raises and the script exits non-zero:
               weights from a seed) with `use_mesh_kernel=True` through the
               same server and requests: K1, K4 and K5 launch counts checked
               against the server's prefills and decode steps, the output
-              checked against the dense-cache path, one window profiled.
+              checked against the dense-cache path, one window profiled;
+  6. serve_qwen2  full-width Qwen2-7B (28 layers, d_model 3584, 28 heads over
+              4 KV heads, d_ff 18944, vocab 152064, QKV bias, bf16, random
+              weights from a seed) with attn_chunk=1024: 4 requests with
+              prompts of 2048-4096 tokens x 16 new tokens on 4 slots, every
+              prefill through K6 and every decode step through K4 (launch
+              counts checked against the server's counters), K6 prefill
+              logits held against the plain chunked path's and plain
+              `_sdpa`'s (bf16, and f32 weights for the tight check), paged
+              decode against dense, one window profiled;
+  7. train_flash  one mesh-paper training step at 2 x 2048 tokens with
+              attn_chunk=1024 (K6 forward, recomputed backward) against the
+              same step with full attention.
 
 The last lines are the card's `nvidia-smi` name and power limit, the
 `{"kernels": [...]}` JSON, and `{"ok": true, "device": {...}}`.  It imports
@@ -45,6 +61,7 @@ nothing of JAX and nothing of the JAX package `repro`.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -91,6 +108,29 @@ MOE_STEP_LAUNCHES = {"grouped_mesh_matmul": 32, "mesh_matmul": 65}
 # routing sets flipped by the two paths' rounding; 0.25 is about 3x that,
 # 8 bf16 ulps at |logit| in [4, 8).
 MOE_LOGIT_TOL = 0.25
+# Qwen2-7B served with attn_chunk=1024 (the reference's tuned() value): its
+# prompts take the chunked prefill through K6, one launch per layer; decode
+# runs K4 at GQA rep 7 over 2-4k-token contexts.
+QWEN_LAYERS, QWEN_CHUNK, QWEN_NEW_TOKENS = 28, 1024, 16
+QWEN_PROMPTS = (2048, 2048, 3072, 4096)
+QWEN_HEADS = (28, 4, 128)  # query heads, KV heads, head dim
+# K4's contexts in the middle of that run's decode: each prompt plus 8 tokens.
+QWEN_LIVE = [t + 8 for t in QWEN_PROMPTS]
+# K6 prefill logits against plain `_sdpa` ones (all 2048 positions): the
+# first reading was 0.3655 on logits up to 7.28, the two attentions'
+# bf16 roundings of p and of the output compounded over 28 layers; 1.1 is
+# about 3x that.  Teacher-forced paged (K4) against dense (`_sdpa`) decode
+# logits: the first reading was 0.2363 on logits up to 5.59; 0.7 is about
+# 3x that.
+QWEN_PREFILL_TOL = 1.1
+QWEN_LOGIT_TOL = 0.7
+# K6 prefill logits against the same chunked path through K6's plain
+# version: in bf16 the first reading was 0.3516 (plain chunked vs `_sdpa`
+# 0.3691: the formulations' one-ulp differences, amplified by 28 layers),
+# 1.1 is about 3x that; in f32, where the two differ in summation order
+# only, the first reading was 8.446e-05, and 2.5e-4 is about 3x that.
+QWEN_K6_CHUNKED_TOL = 1.1
+QWEN_F32_TOL = 2.5e-4
 
 
 def log(msg: str) -> None:
@@ -263,11 +303,7 @@ def _paged_inputs(torch, g, s, h, kvh, hd, lengths, dtype):
 
 def phase_k4(torch):
     """K4 (paged_attention_cuda) against paged_attention_torch, then timings."""
-    from repro_torch.kernels.paged_attention import (
-        gather_pages,
-        paged_attention_cuda,
-        paged_attention_torch,
-    )
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_torch
 
     g = torch.Generator(device="cuda").manual_seed(2)
     live = [PROMPT + NEW_TOKENS, PROMPT + 1, PROMPT + 21, PROMPT + 9]  # mid-page ends
@@ -275,6 +311,7 @@ def phase_k4(torch):
         ("mesh-paper H=KV=16", (SLOTS, 16, 16, 128), live, torch.bfloat16),
         ("GQA rep=4", (SLOTS, 16, 4, 128), live, torch.bfloat16),
         ("f32 rep=2, length 1", (3, 8, 4, 64), [1, 13, 40], torch.float32),
+        ("qwen2-7b rep=7, 2-4k tokens", (SLOTS, *QWEN_HEADS), QWEN_LIVE, torch.bfloat16),
     ]
     max_err = 0.0
     for label, (s, h, kvh, hd), lengths, dtype in cases:
@@ -296,8 +333,23 @@ def phase_k4(torch):
         check(err <= tol, f"K4 {label}: err {err} > tol {tol}")
         max_err = max(max_err, err)
 
-    # Timing at the serving decode shape (one launch per layer and tick).
-    s, h, kvh, hd = SLOTS, 16, 16, 128
+    # Timings at the serving decode shapes (one launch per layer and tick):
+    # mesh-paper's and Qwen2-7B's.
+    mesh = _k4_time(torch, g, (SLOTS, 16, 16, 128), live)
+    return max_err, mesh, _k4_time(torch, g, (SLOTS, *QWEN_HEADS), QWEN_LIVE)
+
+
+def _k4_time(torch, g, shape, live):
+    """K4's time at one decode shape: the kernel, the plain version, SDPA on
+    the gathered context (timed here only) and the bound (each live K/V row,
+    q and the output once; the tables and lengths)."""
+    from repro_torch.kernels.paged_attention import (
+        gather_pages,
+        paged_attention_cuda,
+        paged_attention_torch,
+    )
+
+    s, h, kvh, hd = shape
     q, kp, vp, bt, ln = _paged_inputs(torch, g, s, h, kvh, hd, live, torch.bfloat16)
     ms = time_ms(torch, [lambda: paged_attention_cuda(q, kp, vp, bt, ln)], 50)
     plain = time_ms(torch, [lambda: paged_attention_torch(q, kp, vp, bt, ln)], 20)
@@ -305,7 +357,8 @@ def phase_k4(torch):
     mask = (torch.arange(kg.shape[2], device="cuda")[None, :] < ln[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(torch, [lambda: sdpa(q4, kg, vg, attn_mask=mask)], 50)
+    enable_gqa = dict(enable_gqa=True) if h != kvh else {}
+    lib = time_ms(torch, [lambda: sdpa(q4, kg, vg, attn_mask=mask, **enable_gqa)], 50)
     tokens = sum(live)
     nbytes = 2 * (2 * q.numel() + 2 * tokens * kvh * hd) + 4 * (bt.numel() + ln.numel())
     bms, by = bound_ms(nbytes, 4 * h * hd * tokens, "bfloat16")
@@ -313,7 +366,7 @@ def phase_k4(torch):
         f"[K4] time S={s} H={h} KV={kvh} hd={hd} lengths={live}: kernel={ms:.4f} ms"
         f" plain={plain:.4f} ms sdpa={lib:.4f} ms bound={bms:.5f} ms ({by})"
     )
-    return max_err, dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
 
 
 def phase_k3(torch):
@@ -638,6 +691,142 @@ def phase_k5_backward(torch):
     return max_err
 
 
+# K6 against its plain version, per input type, on measures scaled by the
+# output (late causal rows average thousands of keys, so their outputs are
+# far below max|v|): "rel" ||d|| / ||ref|| over the whole output; "row" the
+# largest ||d|| / ||ref|| of one (token, head) row; "elem" the largest
+# |d| / (|ref| + rms of the element's row of ref); f32 also "abs", max |d| /
+# max |ref|.  bf16 (unit roundoff 2^-8): p rounds to bf16 against other
+# running maxima (64-key tiles in the kernel, block_k chunks in the plain
+# version), the plain version rounds each chunk's P.V to bf16, and both
+# round the output: about 2^-8 / sqrt(3) relative noise from each, so 2^-6
+# for the norms and 2^-5 for the largest of millions of elements.  f32:
+# summation order only.
+K6_LIMITS = {"bfloat16": dict(rel=2.0**-6, row=2.0**-6, elem=2.0**-5),
+             "float32": dict(rel=1e-5, row=1e-5, elem=1e-4, abs=1e-5)}
+
+
+def k6_disagreement(torch, out, ref):
+    """K6's output against its plain version's: {measure: value} for each
+    measure of K6_LIMITS, and max |d| as "err"."""
+    d = (out.float() - ref.float()).abs()
+    r = ref.float()
+    row_norm = r.norm(dim=-1)
+    rms = (row_norm / r.shape[-1] ** 0.5)[..., None]
+    return dict(err=d.max().item(), rel=(d.norm() / r.norm()).item(),
+                row=(d.norm(dim=-1) / row_norm.clamp_min(1e-30)).max().item(),
+                elem=(d / (r.abs() + rms).clamp_min(1e-30)).max().item(),
+                abs=(d.max() / r.abs().max()).item())
+
+
+def _causal_flash_work(b, t, h, kvh, hd, size):
+    """(bytes, FLOPs) causal K6 needs: Q, K, V read and O written once; two
+    hd-long products per (query, key) pair the mask keeps, t (t + 1) / 2 a
+    head."""
+    pairs = t * (t + 1) // 2
+    return size * (2 * b * t * h * hd + 2 * b * t * kvh * hd), 4 * b * h * hd * pairs
+
+
+def phase_k6(torch):
+    """K6 (flash_attention_cuda) against flash_attention_torch at the shapes
+    the serving and training paths give it, in bf16 (as they run) and f32
+    (where the two agree to summation order), then timings: the kernel, the
+    plain version, SDPA (causal, GQA; timed here only) and the bound.  Every
+    case is checked before a failure is raised, so one run shows which cases
+    a fault breaks."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_torch
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    h, kvh, hd = QWEN_HEADS
+    bf16, f32 = torch.bfloat16, torch.float32
+    blocks = (QWEN_CHUNK, QWEN_CHUNK)
+    qwen, mesh = (1, 2048, h, kvh, hd), (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
+    # label, (B, T, H, KV, hd), causal, dtype, (block_q, block_k)
+    cases = [
+        ("qwen2-7b prefill T=2048", qwen, True, bf16, blocks),
+        ("qwen2-7b prefill T=2048", qwen, True, f32, blocks),
+        ("qwen2-7b prefill T=4096", (1, 4096, h, kvh, hd), True, bf16, blocks),
+        ("mesh-paper train", mesh, True, bf16, blocks),
+        ("mesh-paper train", mesh, True, f32, blocks),
+        ("f32 full MQA", (2, 192, 8, 1, 64), False, f32, (64, 64)),
+        ("f32 rep=3 causal, ragged tiles", (1, 100, 6, 2, 32), True, f32, (150, 50)),
+        ("bf16 rep=3 causal", (2, 320, 6, 2, 128), True, bf16, (64, 64)),
+    ]
+    max_err, failed = 0.0, []
+    for label, (b, t, hq, kv, d), causal, dtype, (bq, bk) in cases:
+        q = torch.randn(b, t, hq, d, generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn(b, t, kv, d, generator=g, device="cuda").to(dtype) for _ in "kv")
+        out = flash_attention_cuda(q, k, v, causal=causal)
+        ref = flash_attention_torch(q, k, v, causal=causal, block_q=bq, block_k=bk)
+        torch.cuda.synchronize()
+        got = k6_disagreement(torch, out, ref)
+        lim = K6_LIMITS[str(dtype).removeprefix("torch.")]
+        bad = [f"{name} {got[name]:.3e} > {x:.3e}" for name, x in lim.items()
+               if not got[name] <= x]
+        if not bool(torch.isfinite(out.float()).all()):
+            bad.append("non-finite output")
+        log(f"[K6] {label:30s} {str(dtype)[6:]:8s} causal={causal} blocks=({bq},{bk}): "
+            + " ".join(f"{name}={x:.3e}" for name, x in got.items())
+            + f" (max|v| {v.float().abs().max().item():.3f}) limits {lim}: "
+            + ("FAIL " + "; ".join(bad) if bad else "ok"))
+        if bad:
+            failed.append(f"{label} {dtype}: {'; '.join(bad)}")
+        max_err = max(max_err, got["err"])
+        del q, k, v, out, ref
+    check(not failed, f"K6 disagrees with its plain version: {failed}")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    per = {}
+    for label, (b, t, hq, kv, d) in (("qwen2 T=2048", qwen), ("qwen2 T=4096", (1, 4096, h, kvh, hd)),
+                                     ("mesh-paper train", mesh)):
+        q = torch.randn(b, t, hq, d, generator=g, device="cuda").to(bf16)
+        k, v = (torch.randn(b, t, kv, d, generator=g, device="cuda").to(bf16) for _ in "kv")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        gqa = dict(enable_gqa=True) if hq != kv else {}
+        ms = time_ms(torch, [lambda: flash_attention_cuda(q, k, v, causal=True)], 10)
+        plain = time_ms(torch, [lambda: flash_attention_torch(
+            q, k, v, causal=True, block_q=QWEN_CHUNK, block_k=QWEN_CHUNK)], 3, warmup=1)
+        lib = time_ms(torch, [lambda: sdpa(qt, kt, vt, is_causal=True, **gqa)], 20)
+        nbytes, flops = _causal_flash_work(b, t, hq, kv, d, 2)
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        per[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                          shape=f"B={b} T={t} H={hq} KV={kv} hd={d} bf16 causal")
+        log(f"[K6] time {label:16s} B={b} T={t} H={hq} KV={kv} hd={d} bf16 causal:"
+            f" kernel={ms:.4f} ms plain={plain:.4f} ms sdpa={lib:.4f} ms bound={bms:.4f} ms"
+            f" ({by}) {flops / ms / 1e9:.2f} TFLOP/s")
+        del q, k, v, qt, kt, vt
+    return max_err, per
+
+
+def phase_k6_backward(torch):
+    """`flash_attention` on the card runs K6 under `_FlashAttention` and
+    yields gradients.  The backward recomputes the plain chunked recurrence
+    and never reads K6's output, so its values are held against `jax.grad`
+    by the CPU tests and through a training step by `[train_flash]`; here
+    only the launch, the autograd node and real gradients are checked."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, 16, 128)
+    qkv = [torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16).requires_grad_(True)
+           for _ in range(3)]
+    ct = torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+    before = flash_attention.launches
+    out = flash_attention(*qkv, causal=True, block_q=QWEN_CHUNK, block_k=QWEN_CHUNK)
+    launched = flash_attention.launches - before
+    grads = torch.autograd.grad(out, qkv, ct)
+    torch.cuda.synchronize()
+    check(launched == 1 and type(out.grad_fn).__name__ == "_FlashAttentionBackward",
+          f"flash_attention did not run K6 under _FlashAttention ({launched} launches,"
+          f" grad_fn {type(out.grad_fn).__name__})")
+    for name, x in zip(("dq", "dk", "dv"), grads):
+        check(x is not None and x.shape == out.shape and x.dtype == out.dtype
+              and bool(torch.isfinite(x.float()).all()) and bool(x.abs().max() > 0),
+              f"K6 bwd {name}: {None if x is None else (x.shape, x.dtype)}")
+    log(f"[K6 bwd] {TRAIN_BATCH}x{TRAIN_SEQ} H=KV=16 hd=128 bf16 causal: 1 K6 launch under"
+        f" _FlashAttention; dq, dk, dv finite, non-zero, of q's shape and type")
+
+
 def kernel_rows(prof):
     """(device us, count, name) of each kernel in a torch.profiler run, most
     time first.  Kernel events only: a CPU op's row repeats its kernels' time."""
@@ -720,24 +909,7 @@ def phase_serve(torch):
     with torch.inference_mode():
         prompt = torch.as_tensor(prompts[0], device="cuda")[None]
         _, caches = prefill(params, {"tokens": prompt})
-        dense = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 8)) for k, c in caches.items()}
-        n_pages = -(-(PROMPT + 8) // PAGE)
-        pools = {k: torch.zeros((cfg.num_layers, 1 + n_pages, PAGE, 16, 128),
-                                dtype=torch.bfloat16, device="cuda") for k in ("k", "v")}
-        for k in ("k", "v"):
-            c = torch.nn.functional.pad(caches[k][:, 0], (0, 0, 0, 0, 0, n_pages * PAGE - PROMPT))
-            pools[k][:, 1:] = c.reshape(cfg.num_layers, n_pages, PAGE, 16, 128)
-        bt = torch.arange(1, 1 + n_pages, dtype=torch.int32, device="cuda")[None]
-        worst_diff = worst_gap = 0.0
-        for i in range(7):
-            tok = torch.tensor([[served[i]]], dtype=torch.int32, device="cuda")
-            pos = PROMPT + i
-            lg_d, dense = model.decode(params, tok, dense, pos)
-            lg_p, pools = model.paged_decode(
-                params, tok, pools, bt, torch.tensor([pos], dtype=torch.int32, device="cuda"))
-            lg_d, lg_p = lg_d[0, -1].float(), lg_p[0, -1].float()
-            worst_diff = max(worst_diff, (lg_d - lg_p).abs().max().item())
-            worst_gap = max(worst_gap, (lg_d.max() - lg_d[served[i + 1]]).item())
+    worst_diff, worst_gap, _ = paged_vs_dense(torch, model, params, caches, served, PROMPT)
     exact = sum(a == b for a, b in zip(served[:8], ref_tokens))
     log(f"[serve] req0 first 8 tokens: server={served[:8]} generate={ref_tokens} "
         f"(equal: {exact}/8); teacher-forced paged-vs-dense max |dlogit|={worst_diff:.4f}, "
@@ -748,7 +920,38 @@ def phase_serve(torch):
     return launches
 
 
-def profile_window(torch, model, params, scfg, prompts, tag: str = "profile") -> None:
+def paged_vs_dense(torch, model, params, caches, served, t_prompt: int):
+    """Teacher-forced decode of the server's tokens `served[:7]` after a
+    `t_prompt`-token prefill's `caches`: paged (K4) against dense (`_sdpa`).
+    Returns the largest |dlogit|, the largest gap of a server token below
+    the dense argmax, and the last dense step's largest |logit|."""
+    cfg = model.cfg
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim_
+    with torch.inference_mode():
+        dense = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 8)) for k, c in caches.items()}
+        n_pages = -(-(t_prompt + 8) // PAGE)
+        pools = {k: torch.zeros((cfg.num_layers, 1 + n_pages, PAGE, kvh, hd),
+                                dtype=cfg.adtype, device="cuda") for k in ("k", "v")}
+        for k in ("k", "v"):
+            c = torch.nn.functional.pad(caches[k][:, 0],
+                                        (0, 0, 0, 0, 0, n_pages * PAGE - t_prompt))
+            pools[k][:, 1:] = c.reshape(cfg.num_layers, n_pages, PAGE, kvh, hd)
+        bt = torch.arange(1, 1 + n_pages, dtype=torch.int32, device="cuda")[None]
+        worst_diff = worst_gap = 0.0
+        for i in range(7):
+            tok = torch.tensor([[served[i]]], dtype=torch.int32, device="cuda")
+            pos = t_prompt + i
+            lg_d, dense = model.decode(params, tok, dense, pos)
+            lg_p, pools = model.paged_decode(
+                params, tok, pools, bt, torch.tensor([pos], dtype=torch.int32, device="cuda"))
+            lg_d, lg_p = lg_d[0, -1].float(), lg_p[0, -1].float()
+            worst_diff = max(worst_diff, (lg_d - lg_p).abs().max().item())
+            worst_gap = max(worst_gap, (lg_d.max() - lg_d[served[i + 1]]).item())
+    return worst_diff, worst_gap, lg_d.abs().max().item()
+
+
+def profile_window(torch, model, params, scfg, prompts, tag: str = "profile",
+                   new_tokens: int = NEW_TOKENS) -> None:
     """Where the serving time goes: one more run (4 requests, one wave of
     prefills then decode ticks) under torch.profiler, reporting device time
     by kernel and the device-busy share of the window's wall time.  The
@@ -758,7 +961,7 @@ def profile_window(torch, model, params, scfg, prompts, tag: str = "profile") ->
     from repro_torch.launch.scheduler import ContinuousBatchingServer, Request
 
     server = ContinuousBatchingServer(model, params, scfg, device="cuda")
-    reqs = [Request(rid=f"prof{i}", prompt=p, max_new_tokens=NEW_TOKENS)
+    reqs = [Request(rid=f"prof{i}", prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -768,7 +971,7 @@ def profile_window(torch, model, params, scfg, prompts, tag: str = "profile") ->
         wall_us = (time.monotonic() - t0) * 1e6
     rows = kernel_rows(prof)
     busy_us = sum(r[0] for r in rows)
-    log(f"[{tag}] {len(reqs)} requests x {NEW_TOKENS} tokens, {server.counters['ticks']} "
+    log(f"[{tag}] {len(reqs)} requests x {new_tokens} tokens, {server.counters['ticks']} "
         f"ticks: wall={wall_us / 1e3:.1f} ms device busy={busy_us / 1e3:.1f} ms "
         f"({100 * busy_us / wall_us:.1f}% of wall; device time not seen = 'not measured')")
     for dev_us, count, key in rows[:10]:
@@ -1128,6 +1331,250 @@ def phase_serve_moe(torch):
     return launches
 
 
+def phase_serve_qwen2(torch):
+    """Full-width Qwen2-7B with a chunked prefill (K6) through the
+    continuous-batching server; decode on K4 at GQA rep 7."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    base = get_config("qwen2-7b")
+    cfg = dataclasses.replace(base, attn_chunk=QWEN_CHUNK)
+    h, kvh, hd = QWEN_HEADS
+    check(
+        (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.d_ff,
+         cfg.vocab_size, cfg.qkv_bias, cfg.rope_theta, cfg.use_mesh_kernel)
+        == (QWEN_LAYERS, 3584, h, kvh, hd, 18944, 152064, True, 1e6, False)
+        and cfg.param_dtype == "bfloat16",
+        f"unexpected Qwen2-7B config {cfg}",
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[serve_qwen2] device memory before init: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    model = get_model(cfg)
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[serve_qwen2] Qwen2-7B init: {n_params / 1e9:.3f} B parameters,"
+        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak"
+        f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {time.monotonic() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, t).astype(np.int32) for t in QWEN_PROMPTS]
+    pages = [-(-(t + QWEN_NEW_TOKENS) // PAGE) for t in QWEN_PROMPTS]
+    scfg = ServeConfig(
+        max_slots=SLOTS, page_size=PAGE, num_pages=1 + sum(pages), max_pages_per_seq=max(pages),
+        queue_capacity=len(prompts), warmup_prompt_lens=(QWEN_PROMPTS[0],),
+    )
+
+    flash_attention.launches = 0
+    paged_attention_cuda.launches = 0
+    server = ContinuousBatchingServer(model, params, scfg, device="cuda")
+    server.warmup()
+    reqs = [Request(rid=f"req{i}", prompt=p, max_new_tokens=QWEN_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    results = server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "paged_attention": paged_attention_cuda.launches}
+
+    for r in reqs:
+        res = results[r.rid]
+        check(res.status == "ok" and len(res.tokens) == QWEN_NEW_TOKENS,
+              f"{r.rid}: {res.status} with {len(res.tokens)} tokens ({res.reason})")
+    c = server.counters
+    # Every prefill (the warmup's too) is a multiple of the chunk and longer
+    # than one, so each takes the flash path: one K6 launch per layer.
+    chunked = sum(1 for t in (*scfg.warmup_prompt_lens, *QWEN_PROMPTS)
+                  if t > QWEN_CHUNK and t % QWEN_CHUNK == 0)
+    check(chunked == c["prefills"], f"{c['prefills']} prefills, {chunked} chunked lengths")
+    want = {"flash_attention": QWEN_LAYERS * chunked,
+            "paged_attention": QWEN_LAYERS * c["decode_steps"]}
+    generated = sum(len(results[r.rid].tokens) for r in reqs)
+    log(f"[serve_qwen2] {len(reqs)} requests (prompts {list(QWEN_PROMPTS)}) x {QWEN_NEW_TOKENS}"
+        f" tokens: wall={wall:.3f} s tokens/s={generated / wall:.1f} ticks={c['ticks']}"
+        f" prefills={c['prefills']} decode steps={c['decode_steps']} (warmup included)"
+        f" launches={launches} expected={want} peak device memory"
+        f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches == want, f"launches {launches} != {want} from the server's counters")
+
+    # Prefill logits of the first prompt three ways on the same weights: K6
+    # (attn_chunk=1024), its plain version on the same chunked path, and
+    # attn_chunk=0 (plain `_sdpa`).  K6 vs the plain chunked path is the
+    # kernel's end-to-end check; plain chunked vs `_sdpa` shows what the
+    # chunked formulation alone moves.
+    plain_model = get_model(base)
+    prompt = torch.as_tensor(prompts[0], device="cuda")[None]
+    with torch.inference_mode():
+        before = flash_attention.launches
+        lg_k6, caches = model.prefill(params, {"tokens": prompt})
+        k6_calls = flash_attention.launches - before
+        with plain_flash():
+            lg_chunked = model.prefill(params, {"tokens": prompt})[0]
+        lg_full, _ = plain_model.prefill(params, {"tokens": prompt})
+        check(flash_attention.launches - before == k6_calls == QWEN_LAYERS,
+              f"K6 prefill launched {k6_calls}, the plain ones {flash_attention.launches - before}")
+        check(bool(torch.isfinite(lg_k6.float()).all()), "non-finite K6 prefill logits")
+        pairs = logit_gaps(torch, lg_k6, lg_chunked, lg_full)
+        del lg_chunked, lg_full
+    prefill_scale = pairs.pop("scale")
+    log(f"[serve_qwen2] bf16 prefill logits, T={QWEN_PROMPTS[0]} (max |logit| {prefill_scale:.3f}):"
+        + "".join(f" {name}: max |d|={d:.4f}, argmax equal at {100 * same:.2f} %;"
+                  for name, (d, same) in pairs.items())
+        + f" tol K6 vs chunked {QWEN_K6_CHUNKED_TOL}, K6 vs _sdpa {QWEN_PREFILL_TOL}")
+    check(pairs["K6 vs chunked"][0] <= QWEN_K6_CHUNKED_TOL,
+          f"K6 vs plain chunked prefill logits differ by {pairs['K6 vs chunked'][0]}")
+    check(pairs["K6 vs _sdpa"][0] <= QWEN_PREFILL_TOL,
+          f"K6 vs _sdpa prefill logits differ by {pairs['K6 vs _sdpa'][0]}")
+
+    # First token against generate() (the same K6 prefill, dense decode),
+    # then teacher-forced paged decode (K4, rep 7) against dense (`_sdpa`).
+    served = results["req0"].tokens
+    ref_tokens, _ = generate(model, params, prompt, gen_len=8)
+    ref_tokens = ref_tokens[0].tolist()
+    check(served[0] == ref_tokens[0], f"first token {served[0]} != generate's {ref_tokens[0]}")
+    del lg_k6
+    worst_diff, worst_gap, scale = paged_vs_dense(torch, model, params, caches, served,
+                                                  QWEN_PROMPTS[0])
+    exact = sum(a == b for a, b in zip(served[:8], ref_tokens))
+    log(f"[serve_qwen2] req0 first 8 tokens: server={served[:8]} generate={ref_tokens} "
+        f"(equal: {exact}/8); teacher-forced paged-vs-dense max |dlogit|={worst_diff:.4f} "
+        f"(max |logit| {scale:.3f}), worst server-token gap to dense argmax={worst_gap:.4f} "
+        f"(tol {QWEN_LOGIT_TOL})")
+    check(worst_diff <= QWEN_LOGIT_TOL, f"paged vs dense logits differ by {worst_diff}")
+    check(worst_gap <= QWEN_LOGIT_TOL, f"server token {worst_gap} below the dense argmax")
+    del caches, server
+    profile_window(torch, model, params, scfg, prompts, tag="profile serve_qwen2",
+                   new_tokens=QWEN_NEW_TOKENS)
+
+    # The same three prefills with f32 weights and activations, where K6 and
+    # its plain version differ in summation order only: the tight check.
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
+    params = tree_map(lambda t: t.float(), params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model32 = get_model(cfg32)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        lg_k6 = model32.prefill(params, {"tokens": prompt})[0]
+        check(flash_attention.launches - before == QWEN_LAYERS, "f32 prefill skipped K6")
+        with plain_flash():
+            lg_chunked = model32.prefill(params, {"tokens": prompt})[0]
+        lg_full = get_model(dataclasses.replace(cfg32, attn_chunk=0)).prefill(
+            params, {"tokens": prompt})[0]
+        pairs = logit_gaps(torch, lg_k6, lg_chunked, lg_full)
+    scale = pairs.pop("scale")
+    log(f"[serve_qwen2] f32 prefill logits, T={QWEN_PROMPTS[0]} (max |logit| {scale:.3f}):"
+        + "".join(f" {name}: max |d|={d:.3e}, argmax equal at {100 * same:.2f} %;"
+                  for name, (d, same) in pairs.items())
+        + f" tol K6 vs chunked {QWEN_F32_TOL}")
+    check(pairs["K6 vs chunked"][0] <= QWEN_F32_TOL,
+          f"f32 K6 vs plain chunked prefill logits differ by {pairs['K6 vs chunked'][0]}")
+    return launches
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Within the block, the model's chunked attention calls K6's plain
+    version (`flash_attention_torch`, torch ops on the card) instead of the
+    kernel: the witness K6's end-to-end logits are held against."""
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.models import attention
+
+    kernel = attention.flash_attention
+    attention.flash_attention = flash_attention_torch
+    try:
+        yield
+    finally:
+        attention.flash_attention = kernel
+
+
+def logit_gaps(torch, k6, chunked, full):
+    """{pair: (max |d|, share of positions with equal argmax)} of three
+    prefills' logits, and the largest |logit| of the plain `_sdpa` one."""
+    out = {"scale": full.float().abs().max().item()}
+    for name, x, y in (("K6 vs chunked", k6, chunked), ("chunked vs _sdpa", chunked, full),
+                       ("K6 vs _sdpa", k6, full)):
+        out[name] = ((x.float() - y.float()).abs().max().item(),
+                     (x.argmax(-1) == y.argmax(-1)).float().mean().item())
+    return out
+
+
+def phase_train_flash(torch):
+    """One full-width mesh-paper training step at 2 x 2048 tokens with
+    attn_chunk=1024 (K6 forward, recomputed chunked backward) against the
+    same step with full attention (attn_chunk=0)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_map, tree_paths
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = get_config("mesh-paper")
+    cfg = dataclasses.replace(base, attn_chunk=QWEN_CHUNK)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, total_steps=TRAIN_STEPS, seed=0,
+              device="cuda")
+    step_flash, state, _ = build_trainer(cfg, **kw)
+    step_full, _, _ = build_trainer(base, **kw)
+    stream = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    batch = stream._host_batch(0)
+    compare = {}
+    for name, fn in (("full", step_full), ("flash", step_flash)):
+        copy = tree_map(lambda t: t.detach().clone(), state)
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.monotonic()
+        _, met = fn(copy, batch)
+        torch.cuda.synchronize()
+        compare[name] = (float(met["loss"]), float(met["grad_norm"]), time.monotonic() - t0,
+                         flash_attention.launches)
+        del copy, met
+    (lf, gf, tf, kf), (lk, gk, tk, launches) = compare["full"], compare["flash"]
+    log(f"[train_flash] one step, attn_chunk={QWEN_CHUNK} vs 0: loss {lk:.5f} vs {lf:.5f}"
+        f" (|d|={abs(lk - lf):.5f}, tol 0.001), grad_norm {gk:.5f} vs {gf:.5f}"
+        f" ({100 * abs(gk - gf) / gf:.4f} %, tol 0.1 %), wall {tk:.3f} s vs {tf:.3f} s,"
+        f" K6 launches {launches} vs {kf} (want {base.num_layers} vs 0)")
+    check(launches == base.num_layers and kf == 0,
+          f"K6 launched {launches} times in the flash step and {kf} in the full one")
+    check(abs(lk - lf) <= 1e-3, f"flash step loss {lk} vs full step {lf}")
+    check(abs(gk - gf) <= 1e-3 * gf, f"flash step grad norm {gk} vs full step {gf}")
+
+    # Each parameter's gradient, as in phase_train: within 0.05 relative.
+    names = [path for path, _ in tree_paths(state["params"])]
+    g_full = grads_of(torch, get_model(base), state["params"], batch)
+    g_flash = grads_of(torch, get_model(cfg), state["params"], batch)
+    rel = sorted(((x - y).float().norm().item() / max(y.float().norm().item(), 1e-30), n)
+                 for n, x, y in zip(names, g_flash, g_full))
+    top = ", ".join(f"{n} {r:.3e}" for r, n in reversed(rel[-4:]))
+    log(f"[train_flash] per-parameter gradient, flash vs full attention, ||d||/||g|| largest:"
+        f" {top} (tol 0.05)")
+    check(all(x is not None and bool(torch.isfinite(x.float()).all()) for x in g_flash),
+          "flash gradients missing or non-finite")
+    check(rel[-1][0] <= 0.05, f"flash gradient of {rel[-1][1]} differs by {rel[-1][0]}")
+    return {"flash_attention": launches}
+
+
 def main() -> int:
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
@@ -1154,7 +1601,9 @@ def main() -> int:
     if only is not None:
         phases = {"k1": phase_k1, "k4": phase_k4, "k3": phase_k3, "k1_bwd": phase_k1_backward,
                   "serve": phase_serve, "train": phase_train, "k5": phase_k5,
-                  "k5_bwd": phase_k5_backward, "serve_moe": phase_serve_moe}
+                  "k5_bwd": phase_k5_backward, "serve_moe": phase_serve_moe, "k6": phase_k6,
+                  "k6_bwd": phase_k6_backward, "serve_qwen2": phase_serve_qwen2,
+                  "train_flash": phase_train_flash}
         unknown = only - set(phases)
         check(not unknown, f"unknown phases {sorted(unknown)}; known: {sorted(phases)}")
         for name, fn in phases.items():
@@ -1164,15 +1613,19 @@ def main() -> int:
             " no result line")
         return 0
     k1_err, k1, k1b = phase_k1(torch)
-    k4_err, k4 = phase_k4(torch)
+    k4_err, k4, k4_qwen = phase_k4(torch)
     k3_err, k3 = phase_k3(torch)
     k1_err = max(k1_err, phase_k1_backward(torch))
     k5_err, k5_tick, k5_prefill = phase_k5(torch)
     k5_err = max(k5_err, phase_k5_backward(torch))
+    k6_err, k6 = phase_k6(torch)
+    phase_k6_backward(torch)
     torch.cuda.synchronize()
     serve = phase_serve(torch)
     train = phase_train(torch)
     serve_moe = phase_serve_moe(torch)
+    serve_qwen2 = phase_serve_qwen2(torch)
+    train_flash = phase_train_flash(torch)
 
     def row(name, source, replaces, launches, err, t, shape, **extra):
         return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
@@ -1190,10 +1643,14 @@ def main() -> int:
                      "shape": "B=4 M=128 K=1024 N=512 bf16"}),
         row("paged_attention", "paged_attention.cu",
             "src/repro/kernels/paged_attention.py:182",
-            serve["paged_attention"] + serve_moe["paged_attention"], k4_err, k4,
+            serve["paged_attention"] + serve_moe["paged_attention"]
+            + serve_qwen2["paged_attention"], k4_err, k4,
             "one launch: S=4 H=KV=16 hd=128 bf16, 128-160 token contexts",
             launches_by_path={"serve": serve["paged_attention"],
-                              "serve_moe": serve_moe["paged_attention"]}),
+                              "serve_moe": serve_moe["paged_attention"],
+                              "serve_qwen2": serve_qwen2["paged_attention"]},
+            qwen2={**k4_qwen, "shape": f"one launch: S=4 H=28 KV=4 hd=128 bf16, contexts"
+                   f" {QWEN_LIVE}"}),
         row("scramble_blocks", "scramble_blocks.cu",
             "src/repro/kernels/scramble_kernel.py:41", train["scramble_blocks"], k3_err, k3,
             f"one launch: ({TRAIN_BATCH}, {TRAIN_SEQ}, 2048) bf16, 16x16 blocks of 128^2;"
@@ -1205,6 +1662,14 @@ def main() -> int:
             launches_by_path={"serve_moe": serve_moe["grouped_mesh_matmul"]},
             prefill={**k5_prefill, "shape": f"one {PROMPT}-token prefill: 32 launches,"
                      " 64 experts x 128 rows"}),
+        row("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:97",
+            serve_qwen2["flash_attention"] + train_flash["flash_attention"], k6_err,
+            k6["qwen2 T=2048"],
+            "one launch: Qwen2-7B prefill B=1 T=2048 H=28 KV=4 hd=128 bf16 causal; library_ms"
+            " is scaled_dot_product_attention (is_causal, enable_gqa)",
+            launches_by_path={"serve_qwen2": serve_qwen2["flash_attention"],
+                              "train_flash": train_flash["flash_attention"]},
+            t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"]),
     ]
     log(f"[done] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -58,6 +58,8 @@ class ArchConfig:
     mesh_block_n: int = 0
     mesh_block_k: int = 0
     scramble_privacy: bool = False  # applies only to lm_forward (training)
+    attn_chunk: int = 0  # >0: flash-style chunked attention (KV-chunk online
+    # softmax) for train/prefill — kills the O(S^2) score materialization
     vocab_pad_multiple: int = 0  # pad embedding/lm_head rows (0 = exact)
 
     @property

@@ -7,6 +7,9 @@ mesh_matmul.py      K1, the mesh-array GEMM (CUDA kernel + plain version)
 paged_attention.py  K4, paged decode attention (CUDA kernel + plain version)
                     behind the cuda_paged / torch_gather door
 scramble.py         K3, the block scramble S^k (CUDA kernel + plain version)
+grouped.py          K5, the grouped (MoE) mesh GEMM (CUDA kernel + plain version)
+flash_attention.py  K6, flash attention for the chunked prefill / training
+                    path (CUDA kernel + plain version, recompute backward)
 ops.py              scramble_blocks with its gradient (S^-k)
 ref.py              plain-torch oracles the kernels are tested against
 _build.py           nvcc build + ctypes loading of csrc/*.cu

@@ -1,11 +1,14 @@
 """GQA attention with RoPE and a KV cache, dense or paged.
 
-Port of `repro.models.attention` for the serving path: full causal prefill
-(which also returns the fresh cache), single-token decode against a dense
-cache, and single-token decode against a paged KV pool
-(`attention_paged_decode`, the continuous-batching path).  Sharding
-constraints, cross-attention and the chunked flash path arrive with their
-slices.
+Port of `repro.models.attention`: full causal attention (training) and
+prefill (which also returns the fresh cache), single-token decode against a
+dense cache, and single-token decode against a paged KV pool
+(`attention_paged_decode`, the continuous-batching path).  With
+cfg.attn_chunk > 0, a cache-free call whose length is a multiple of the
+chunk (and longer than one) takes the flash path: `kernels.flash_attention`,
+kernel K6 on the card and `_sdpa_chunked` on the CPU.  Sharding constraints
+(the reference's 'seq_attn' rule among them) and cross-attention arrive
+with their slices.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import PSpec, apply_rope, dense
 
 __all__ = [
@@ -188,7 +192,11 @@ def attention(
             q, ck, cv, causal=True, q_offset=cache_pos, kv_valid_len=cache_pos + t
         )
     else:
-        out = _sdpa(q, k, v, causal=causal)
+        chunk = cfg.attn_chunk
+        if chunk and t > chunk and t % chunk == 0:
+            out = flash_attention(q, k, v, causal=causal, block_q=chunk, block_k=chunk)
+        else:
+            out = _sdpa(q, k, v, causal=causal)
         if write_cache:
             new_cache = {"k": k, "v": v}
 

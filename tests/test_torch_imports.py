@@ -47,7 +47,7 @@ print("WALKED", " ".join(names))
     for name in ("optim.adamw", "optim.schedules", "data.pipeline", "train.train_step",
                  "train.loop", "train.metrics", "checkpoint.manager", "launch.train",
                  "kernels.scramble", "kernels.ops", "kernels.grouped", "models.moe",
-                 "configs.olmoe_1b_7b"):
+                 "configs.olmoe_1b_7b", "kernels.flash_attention", "configs.qwen2_7b"):
         assert "repro_torch." + name in walked, name
 
 
@@ -61,10 +61,13 @@ from repro_torch.launch.scheduler import ContinuousBatchingServer, ServeConfig
 from repro_torch.models import get_model
 model = get_model(get_config("mesh-paper").reduced())
 moe = get_model(get_config("olmoe-1b-7b").reduced())
+qwen = get_model(get_config("qwen2-7b").reduced())
 calls = {
     "init": lambda: model.init(torch.Generator()),
     "init moe": lambda: moe.init(torch.Generator()),
+    "init qwen": lambda: qwen.init(torch.Generator()),
     "server moe": lambda: ContinuousBatchingServer(moe, None, ServeConfig()),
+    "server qwen": lambda: ContinuousBatchingServer(qwen, None, ServeConfig()),
     "server": lambda: ContinuousBatchingServer(model, None, ServeConfig()),
     "main": lambda: serve.main(["--arch", "mesh-paper", "--reduced"]),
     "train": lambda: train.main(["--arch", "mesh-paper", "--reduced", "--steps", "1"]),
@@ -83,6 +86,25 @@ train.main(["--arch", "mesh-paper", "--reduced", "--device", "cpu", "--steps", "
     res = _run(code)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.split("\n")
-    assert lines[:6] == ["refused init", "refused init moe", "refused server moe",
-                         "refused server", "refused main", "refused train"], res.stdout
+    assert lines[:8] == ["refused init", "refused init moe", "refused init qwen",
+                         "refused server moe", "refused server qwen", "refused server",
+                         "refused main", "refused train"], res.stdout
     assert "[done] mesh-paper steps=1" in res.stdout and "device=cpu" in res.stdout
+
+
+def test_kernel_layer_imports_no_model_module():
+    """The kernels (and their plain versions) sit below the models: importing
+    every `repro_torch.kernels` module loads nothing of `repro_torch.models`."""
+    code = """
+import importlib, pkgutil, sys
+import repro_torch.kernels as kernels
+names = sorted(m.name for m in pkgutil.walk_packages(kernels.__path__, "repro_torch.kernels."))
+for name in names:
+    importlib.import_module(name)
+print(len(names), "kernel modules")
+print("MODELS", sorted(m for m in sys.modules if m.startswith("repro_torch.models")))
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[0]) >= 8, res.stdout  # every kernel module was walked
+    assert "MODELS []" in res.stdout, res.stdout
