@@ -15,20 +15,26 @@ Phases; any failure raises and the script exits non-zero:
               computing the same function (timed here only, never used by
               the port) and the least time the card could take (bytes at
               3.35 TB/s or operations at the peak rate of their type,
-              whichever is larger): K1 (mesh GEMM, 2D and batched), K4
-              (paged decode attention), K3 (block scramble), K1's backward
+              whichever is larger): K1 (mesh GEMM, 2D and batched, on each
+              of its tile families, every case checked to launch the tile
+              `tile_config` names), K4 (split-context paged decode
+              attention: split boundaries, empty splits, rep 1-8, f32, a
+              16k-token context; held by output-relative measures), K3 (block scramble), K1's backward
               (the `_mm` VJP) against the same backward run with the plain
               GEMM, K5 (grouped mesh GEMM) at OLMoE's decode and prefill
               shapes, K5's backward (the `_gmm` VJP), K6 (flash attention)
               at Qwen2-7B's prefill and mesh-paper's training shapes in bf16
               and f32, held by output-relative measures, and K6 under
               `_FlashAttention` yielding gradients; K4 is also timed at
-              Qwen2-7B's decode (GQA rep 7, 2-4k-token contexts);
+              Qwen2-7B's decode (GQA rep 7, 2-4k-token contexts), and K1's
+              decode shapes and K4 are timed by the profiler's device time
+              beside CUDA events, which the host sets for short calls;
   3. serve    full-width mesh-paper (4 layers, d_model 2048, 16 heads, d_ff
               8192, vocab 32768, bf16, random weights from a seed) through
               `ContinuousBatchingServer`: 8 requests x 128-token prompts x 32
               new tokens on 4 slots, with every kernel's launch count read
-              around the run, and the output checked against the dense-cache
+              around the run (K1's per tile: no main-path call on a first
+              SIMT tile), and the output checked against the dense-cache
               path (`generate`, plain `_sdpa` attention);
   4. train    the same model through `build_trainer` and `train_loop`: 6 AdamW
               steps at batch 2 x seq 2048 with the sigma scramble firing,
@@ -166,21 +172,30 @@ def time_ms(torch, calls, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, calls, iters: int) -> float:
+def device_ms(torch, calls, iters: int, rows=None) -> float:
     """Mean device time of one call: the kernels torch.profiler sees over
     `iters` calls that cycle through `calls`, summed, over `iters`.  For
     calls shorter than their own host-side launch cost, where CUDA events
-    around a loop time the host."""
+    around a loop time the host.  A window in which the profiler saw no
+    kernel is taken again (at most twice more), then fails.  `rows`, if
+    given, receives (device us, count, name) per kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     for c in calls:
         c()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            calls[i % len(calls)]()
-        torch.cuda.synchronize()
-    return sum(r[0] for r in kernel_rows(prof)) / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                calls[i % len(calls)]()
+            torch.cuda.synchronize()
+        seen = kernel_rows(prof)
+        if seen:
+            break
+    check(bool(seen), "torch.profiler saw no kernel in three windows")
+    if rows is not None:
+        rows.extend(seen)
+    return sum(r[0] for r in seen) / iters / 1e3
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -203,35 +218,87 @@ def phase_build(torch):
                 log(f"[build] {name}: {line.strip()}")
 
 
+# K1's tile families (kernels/mesh_matmul.py: tile_config): the tensor-core
+# tiles for bf16, the f32 SIMT tile for f32; the first SIMT tiles only for
+# logical blocks those cannot take, never on a main path.
+OLD_TILES = ("simt64", "simt_decode")
+
+
+# K1's launches per tile config on each main path, for the kernels line.
+K1_TILES = {}
+# The server's warmup canary, an 8x8 f32 GEMM on 8-wide blocks, checks the
+# build: only the first SIMT decode tile takes it.  It is no main-path product.
+CANARY_TILES = {"simt_decode": 1}
+
+
+def check_main_path_tiles(path, tiles, canary: bool) -> None:
+    """No K1 launch of a main path takes a first SIMT tile (the warmup
+    canary aside)."""
+    K1_TILES[path] = tiles
+    old = {c: n for c, n in tiles.items() if c in OLD_TILES}
+    want = CANARY_TILES if canary else {}
+    log(f"[{path}] K1 launches per tile: {tiles}")
+    check(old == want, f"{path}: K1 launches on the first SIMT tiles {old}, want {want}")
+
+
+def tile_counts(mesh_matmul):
+    """K1's launches per tile config since its counters were last reset."""
+    return dict(sorted(mesh_matmul.launches_by_config.items()))
+
+
+def reset_k1(mesh_matmul):
+    mesh_matmul.launches = 0
+    mesh_matmul.launches_by_config = {}
+
+
 def phase_k1(torch):
-    """K1 (mesh_matmul) against mesh_matmul_torch, then timings."""
-    from repro_torch.kernels.mesh_matmul import mesh_matmul, mesh_matmul_torch
+    """K1 (mesh_matmul) against mesh_matmul_torch on every tile family, then
+    timings."""
+    from repro_torch.kernels.mesh_matmul import mesh_matmul, mesh_matmul_torch, tile_config
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
 
-    def rnd(*shape, dtype=torch.bfloat16):
+    def rnd(*shape, dtype=bf16):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
     def tol_of(ref, dtype):
         # f32: only the summation order differs (<< 1e-5 relative; TF32 would
         # show ~5e-4).  bf16 output: the two f32 sums may round to adjacent
         # bf16 values, 2^-7 relative at most.
-        return (1e-5 if dtype == torch.float32 else 2.0**-7) * ref.abs().max().item()
+        return (1e-5 if dtype == f32 else 2.0**-7) * ref.abs().max().item()
 
+    # label, (M, K, N), dtype, options; every case on its tile of tile_config.
+    epi = dict(activation="gelu", bias=True, residual=True)
     cases = []
     for label, (k, n) in MESH_PAPER_GEMMS.items():
         for m in (SLOTS, PROMPT):
-            cases.append((f"{label} M={m}", (m, k, n), torch.bfloat16, {}))
+            cases.append((f"{label} M={m}", (m, k, n), bf16, {}))
     cases += [
-        ("f32 no-TF32", (PROMPT, 2048, 2048), torch.float32, {}),
-        ("bias+gelu+residual", (PROMPT, 2048, 2048), torch.bfloat16,
-         dict(activation="gelu", bias=True, residual=True)),
-        ("stagger=False", (PROMPT, 2048, 2048), torch.bfloat16, dict(stagger=False)),
-        ("scramble_out 8x8 grid", (1024, 2048, 1024), torch.bfloat16, dict(scramble_out=True)),
-        ("batched B=4", (PROMPT, 1024, 512), torch.bfloat16, dict(batch=4)),
+        ("f32 no-TF32", (PROMPT, 2048, 2048), f32, {}),
+        ("bias+gelu+residual", (PROMPT, 2048, 2048), bf16, epi),
+        ("stagger=False", (PROMPT, 2048, 2048), bf16, dict(stagger=False)),
+        ("scramble_out 8x8 grid", (1024, 2048, 1024), bf16, dict(scramble_out=True)),
+        ("batched B=4", (PROMPT, 1024, 512), bf16, dict(batch=4)),
+        ("ragged M, N, K", (200, 2008, 200), bf16, {}),
+        ("M=16, decode side", (16, 2048, 2048), bf16, {}),
+        ("M=17, prompt side", (17, 2048, 2048), bf16, {}),
+        ("decode ragged N, K", (SLOTS + 1, 2008, 1000), bf16, epi),
+        ("decode N=32768", (SLOTS, 2048, 32768), bf16, {}),
+        ("decode 16-wide blocks", (SLOTS, 512, 512), bf16, dict(block_n=16)),
+        ("scramble_out+bias+gelu+residual", (1024, 2048, 1024), bf16,
+         dict(scramble_out=True, **epi)),
+        ("scramble_out+bias+gelu+residual", (1024, 2048, 1024), f32,
+         dict(scramble_out=True, **epi)),
+        ("f32 bias+silu+residual", (PROMPT, 2048, 2048), f32,
+         dict(activation="silu", bias=True, residual=True)),
+        ("f32 ragged M, N, K", (200, 2004, 196), f32, {}),
+        ("f32 M=4", (SLOTS, 2048, 2048), f32, {}),
+        ("16-deep k blocks", (PROMPT, 512, 512), bf16, dict(block_k=16)),
+        ("16-deep k blocks M=4", (SLOTS, 512, 512), bf16, dict(block_k=16)),
     ]
-    max_err = 0.0
+    max_err, failed = 0.0, []
     for label, (m, k, n), dtype, kw in cases:
         kw = dict(kw)
         lead = (kw.pop("batch"),) if "batch" in kw else ()
@@ -240,57 +307,83 @@ def phase_k1(torch):
             kw["bias"] = rnd(n, dtype=dtype)
         if kw.pop("residual", False):
             kw["residual"] = rnd(*lead, m, n, dtype=dtype)
+        blocks = [kw.get(f"block_{x}", 128) for x in "mnk"]
+        tile = tile_config(m, n, k, *blocks, dtype)
+        reset_k1(mesh_matmul)
         out = mesh_matmul(a, b, **kw)
+        ran = tile_counts(mesh_matmul)
         ref = mesh_matmul_torch(a, b, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = tol_of(ref.float(), dtype)
         why = ("1e-5 max|ref|: summation order only, TF32 would show ~1e-4"
-               if dtype == torch.float32 else "2^-7 max|ref|: adjacent bf16 roundings")
-        log(f"[K1] {label:28s} {dtype} err={err:.3e} tol={tol:.3e} ({why})")
-        check(bool(torch.isfinite(out.float()).all()), f"K1 {label}: non-finite output")
-        check(err <= tol, f"K1 {label}: err {err} > tol {tol}")
+               if dtype == f32 else "2^-7 max|ref|: adjacent bf16 roundings")
+        bad = []
+        if not bool(torch.isfinite(out.float()).all()):
+            bad.append("non-finite output")
+        if not err <= tol:
+            bad.append(f"err {err} > tol {tol}")
+        if ran != {tile: 1}:
+            bad.append(f"launched {ran}, want {tile}")
+        log(f"[K1] {label:32s} {str(dtype)[6:]:8s} M={m} K={k} N={n} tile={tile:12s}"
+            f" err={err:.3e} tol={tol:.3e} ({why}): " + ("FAIL " + "; ".join(bad) if bad else "ok"))
+        if bad:
+            failed.append(f"{label} {dtype}: {'; '.join(bad)}")
         max_err = max(max_err, err)
+    check(not failed, f"K1 disagrees with its plain version: {failed}")
 
-    # Timings at the decode tick's shapes (M = 4 slots) and the prefill's.
+    # Timings at the decode tick's shapes (M = 4 slots) and the prefill's:
+    # CUDA events over a loop (the wrapper's host cost sets the short ones)
+    # and the profiler's device time, for the kernel and torch.matmul.
     per = {}
     for label, (k, n) in MESH_PAPER_GEMMS.items():
         for m in (SLOTS, PROMPT):
             copies = max(1, math.ceil(2 * L2_BYTES / (k * n * 2)))
             a = rnd(m, k)
             bs = [rnd(k, n) for _ in range(copies)]
-            ms = time_ms(torch, [lambda b=b: mesh_matmul(a, b) for b in bs], 30)
+            kernel_calls = [lambda b=b: mesh_matmul(a, b) for b in bs]
+            lib_calls = [lambda b=b: torch.matmul(a, b) for b in bs]
+            ms = time_ms(torch, kernel_calls, 30)
             plain = time_ms(torch, [lambda b=b: mesh_matmul_torch(a, b) for b in bs], 5)
-            lib = time_ms(torch, [lambda b=b: torch.matmul(a, b) for b in bs], 30)
+            lib = time_ms(torch, lib_calls, 30)
+            dev_ms = device_ms(torch, kernel_calls, 30)
+            lib_dev = device_ms(torch, lib_calls, 30)
             bms, by = bound_ms(2 * (m * k + k * n + m * n), 2 * m * k * n, "bfloat16")
-            per[(label, m)] = (ms, plain, lib, bms, by)
+            per[(label, m)] = (ms, plain, lib, bms, by, dev_ms, lib_dev)
             log(
-                f"[K1] time {label:20s} M={m:<4d} K={k:<5d} N={n:<6d} kernel={ms:.4f} ms"
-                f" plain={plain:.4f} ms torch.matmul={lib:.4f} ms bound={bms:.4f} ms ({by})"
+                f"[K1] time {label:20s} M={m:<4d} K={k:<5d} N={n:<6d}"
+                f" tile={tile_config(m, n, k, 128, 128, 128, bf16)}: kernel={ms:.4f} ms"
+                f" (device {dev_ms:.4f}) plain={plain:.4f} ms torch.matmul={lib:.4f} ms"
+                f" (device {lib_dev:.4f}) bound={bms:.4f} ms ({by})"
             )
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     tick = {key: sum(per[(lbl, SLOTS)][i] * TICK_LAUNCHES[lbl] for lbl in TICK_LAUNCHES)
-            for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))}
+            for i, key in enumerate(keys)}
     share = {"bytes": 0.0, "operations": 0.0}  # which limit most of the tick's bound is
     for lbl, count in TICK_LAUNCHES.items():
         share[per[(lbl, SLOTS)][4]] += per[(lbl, SLOTS)][3] * count
     tick["bound_by"] = max(share, key=share.get)
+    for i, key in ((5, "device_ms"), (6, "library_device_ms")):
+        tick[key] = sum(per[(lbl, SLOTS)][i] * c for lbl, c in TICK_LAUNCHES.items())
     log(f"[K1] one decode tick (25 launches, M={SLOTS}): " + json.dumps(tick))
 
     # K1b: the fully batched kernel (blockIdx.z) at the checked batched case.
     nb, m, k, n = 4, PROMPT, 1024, 512
     a3, b3 = rnd(nb, m, k), rnd(nb, k, n)
     ms = time_ms(torch, [lambda: mesh_matmul(a3, b3)], 30)
+    dev_ms = device_ms(torch, [lambda: mesh_matmul(a3, b3)], 30)
     plain = time_ms(torch, [lambda: mesh_matmul_torch(a3, b3)], 5)
     lib = time_ms(torch, [lambda: torch.matmul(a3, b3)], 30)
     bms, by = bound_ms(2 * nb * (m * k + k * n + m * n), 2 * nb * m * k * n, "bfloat16")
-    k1b = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
-    log(f"[K1b] time B={nb} M={m} K={k} N={n} bf16: kernel={ms:.4f} ms plain={plain:.4f} ms"
-        f" torch.matmul={lib:.4f} ms bound={bms:.5f} ms ({by})")
+    k1b = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+               device_ms=dev_ms)
+    log(f"[K1b] time B={nb} M={m} K={k} N={n} bf16: kernel={ms:.4f} ms (device {dev_ms:.4f})"
+        f" plain={plain:.4f} ms torch.matmul={lib:.4f} ms bound={bms:.5f} ms ({by})")
     return max_err, tick, k1b
 
 
-def _paged_inputs(torch, g, s, h, kvh, hd, lengths, dtype):
-    n_pages = max(-(-ln // PAGE) for ln in lengths) + 2
+def _paged_inputs(torch, g, s, h, kvh, hd, lengths, dtype, n_pages=None):
+    n_pages = n_pages or max(-(-ln // PAGE) for ln in lengths) + 2
     pool_pages = 1 + s * n_pages
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda").to(dtype)  # noqa: E731
     q = rnd(s, h, hd)
@@ -301,48 +394,107 @@ def _paged_inputs(torch, g, s, h, kvh, hd, lengths, dtype):
     return q, kp, vp, bt, ln
 
 
+# K4 against its plain version on K6's measures (see K6_LIMITS; rows are
+# (slot, head) rows, and bf16 also gets "abs"), beside the max|v| limit.
+# Each limit is 3-8x the largest reading over the cases on an NVIDIA H100
+# 80GB HBM3 at 700 W: bf16 rel 2.80e-3, row 4.12e-3, elem 7.52e-3, abs
+# 5.24e-3; f32 rel 4.79e-7, row 8.82e-7, elem 1.84e-6, abs 7.80e-7.  Faults
+# planted in the kernel (a lane group's keys dropped, one key of each page
+# dropped, bf16 halves swapped, one key past the length) fail every case
+# they change by 3.6x or more, on each measure; the max|v| limit alone let
+# the dropped keys pass at 2-4k tokens and the key past the length at 16k.
+K4_LIMITS = {"bfloat16": dict(rel=2.0**-7, row=2.0**-6, elem=2.0**-5, abs=2.0**-6),
+             "float32": dict(rel=2e-6, row=4e-6, elem=8e-6, abs=4e-6)}
+
+
 def phase_k4(torch):
-    """K4 (paged_attention_cuda) against paged_attention_torch, then timings."""
-    from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_torch
+    """K4 (paged_attention_cuda) against paged_attention_torch, every case
+    checked before a failure is raised, then timings."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_cuda,
+        paged_attention_torch,
+        split_plan,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf16, f32 = torch.bfloat16, torch.float32
     live = [PROMPT + NEW_TOKENS, PROMPT + 1, PROMPT + 21, PROMPT + 9]  # mid-page ends
+    qwen = (SLOTS, *QWEN_HEADS)
+    # Contexts ending on a split boundary and one token past it, at Qwen2-7B's
+    # shape with a 130-page table: the split's tokens come from split_plan.
+    edge_pages = 130
+    run = split_plan(edge_pages, SLOTS * QWEN_HEADS[1], sms)[0] * PAGE
+    edges = [5 * run, 5 * run + 1, 17 * run, 17 * run + 1]
+    # label, (S, H, KV, hd), lengths, dtype, table width (None: from lengths)
     cases = [
-        ("mesh-paper H=KV=16", (SLOTS, 16, 16, 128), live, torch.bfloat16),
-        ("GQA rep=4", (SLOTS, 16, 4, 128), live, torch.bfloat16),
-        ("f32 rep=2, length 1", (3, 8, 4, 64), [1, 13, 40], torch.float32),
-        ("qwen2-7b rep=7, 2-4k tokens", (SLOTS, *QWEN_HEADS), QWEN_LIVE, torch.bfloat16),
+        ("mesh-paper H=KV=16 rep=1", (SLOTS, 16, 16, 128), live, bf16, None),
+        ("GQA rep=4", (SLOTS, 16, 4, 128), live, bf16, None),
+        ("f32 rep=2, length 1", (3, 8, 4, 64), [1, 13, 40], f32, None),
+        ("qwen2-7b rep=7, 2-4k tokens", qwen, QWEN_LIVE, bf16, None),
+        ("qwen2-7b rep=7 f32", qwen, QWEN_LIVE, f32, None),
+        ("split boundary / one past", qwen, edges, bf16, edge_pages),
+        ("split boundary / one past f32", qwen, edges, f32, edge_pages),
+        ("later splits empty, length 1", qwen, [1, 40, QWEN_LIVE[-1], 9], bf16, None),
+        ("GQA rep=8", (SLOTS, 32, 4, 128), live, bf16, None),
+        ("16k-token context", (2, *QWEN_HEADS), [16384 + 5, 700], bf16, None),
+        ("16k-token context f32", (2, *QWEN_HEADS), [16384 + 5, 700], f32, None),
     ]
-    max_err = 0.0
-    for label, (s, h, kvh, hd), lengths, dtype in cases:
-        q, kp, vp, bt, ln = _paged_inputs(torch, g, s, h, kvh, hd, lengths, dtype)
+    max_err, failed = 0.0, []
+    for label, (s, h, kvh, hd), lengths, dtype, width in cases:
+        q, kp, vp, bt, ln = _paged_inputs(torch, g, s, h, kvh, hd, lengths, dtype, width)
+        split_pages, n_splits = split_plan(bt.shape[1], s * kvh, sms)
+        before = paged_attention_cuda.launches
         out = paged_attention_cuda(q, kp, vp, bt, ln)
+        launched = paged_attention_cuda.launches - before
         ref = paged_attention_torch(q, kp, vp, bt, ln)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
+        got = disagreement(torch, out, ref)
+        err = got["err"]
         # bf16: probabilities round to bf16 before the p.v product at
-        # different points (unnormalized per page in the kernel, normalized in
-        # the plain version), each term off by <= 2^-8 relative, plus the
-        # output rounding: 2^-6 of the largest |v|.  f32: summation order.
+        # different points (unnormalized per key group in the kernel,
+        # normalized in the plain version), each term off by <= 2^-8
+        # relative, plus the output rounding: 2^-6 of the largest |v|.  f32:
+        # summation order only.  That bound does not scale with the output
+        # (|out| is about sqrt(e / n) over n live keys), so the measures
+        # relative to the output, K4_LIMITS, hold each case beside it.
         vmax = vp.float().abs().max().item()
-        tol = (2.0**-6 if dtype == torch.bfloat16 else 1e-5) * vmax
+        tol = (2.0**-6 if dtype == bf16 else 1e-5) * vmax
         why = ("2^-6 max|v|: p rounded to bf16 at different points, bf16 output"
-               if dtype == torch.bfloat16 else "1e-5 max|v|: summation order only")
-        log(f"[K4] {label:22s} {dtype} lengths={lengths} err={err:.3e} tol={tol:.3e} ({why})")
-        check(bool(torch.isfinite(out.float()).all()), f"K4 {label}: non-finite output")
-        check(err <= tol, f"K4 {label}: err {err} > tol {tol}")
+               if dtype == bf16 else "1e-5 max|v|: summation order only")
+        lim = K4_LIMITS[str(dtype).removeprefix("torch.")]
+        bad = [f"{name} {got[name]:.3e} > {x:.3e}" for name, x in lim.items()
+               if not got[name] <= x]
+        if not bool(torch.isfinite(out.float()).all()):
+            bad.append("non-finite output")
+        if not err <= tol:
+            bad.append(f"err {err} > tol {tol}")
+        if launched != 1:
+            bad.append(f"{launched} counted launches")
+        log(f"[K4] {label:30s} {str(dtype)[6:]:8s} S={s} H={h} KV={kvh} hd={hd}"
+            f" lengths={lengths} splits={n_splits}x{split_pages} pages"
+            f" max|out|={ref.float().abs().max().item():.3e} "
+            + " ".join(f"{name}={x:.3e}" for name, x in got.items())
+            + f" tol={tol:.3e} ({why}) limits {lim}: "
+            + ("FAIL " + "; ".join(bad) if bad else "ok"))
+        if bad:
+            failed.append(f"{label} {dtype}: {'; '.join(bad)}")
         max_err = max(max_err, err)
+        del q, kp, vp, bt, ln, out, ref
+    check(not failed, f"K4 disagrees with its plain version: {failed}")
 
     # Timings at the serving decode shapes (one launch per layer and tick):
     # mesh-paper's and Qwen2-7B's.
     mesh = _k4_time(torch, g, (SLOTS, 16, 16, 128), live)
-    return max_err, mesh, _k4_time(torch, g, (SLOTS, *QWEN_HEADS), QWEN_LIVE)
+    return max_err, mesh, _k4_time(torch, g, qwen, QWEN_LIVE)
 
 
 def _k4_time(torch, g, shape, live):
-    """K4's time at one decode shape: the kernel, the plain version, SDPA on
-    the gathered context (timed here only) and the bound (each live K/V row,
-    q and the output once; the tables and lengths)."""
+    """K4's time at one decode shape: the kernel (CUDA events over a loop,
+    which the wrapper's host cost sets at small sizes, and the profiler's
+    device time, its combine included), the plain version, SDPA on the
+    gathered context (timed here only, both ways) and the bound (each live
+    K/V row, q and the output once; the tables and lengths)."""
     from repro_torch.kernels.paged_attention import (
         gather_pages,
         paged_attention_cuda,
@@ -351,22 +503,31 @@ def _k4_time(torch, g, shape, live):
 
     s, h, kvh, hd = shape
     q, kp, vp, bt, ln = _paged_inputs(torch, g, s, h, kvh, hd, live, torch.bfloat16)
-    ms = time_ms(torch, [lambda: paged_attention_cuda(q, kp, vp, bt, ln)], 50)
+    kernel = [lambda: paged_attention_cuda(q, kp, vp, bt, ln)]
+    ms = time_ms(torch, kernel, 50)
+    parts = []
+    dev_ms = device_ms(torch, kernel, 50, rows=parts)
+    split = ", ".join(f"{name.split('<')[0].split('::')[-1]} {us / 50e3:.5f} ms"
+                      for us, _, name in parts)
     plain = time_ms(torch, [lambda: paged_attention_torch(q, kp, vp, bt, ln)], 20)
     kg, vg = gather_pages(kp, bt).transpose(1, 2), gather_pages(vp, bt).transpose(1, 2)
     mask = (torch.arange(kg.shape[2], device="cuda")[None, :] < ln[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     enable_gqa = dict(enable_gqa=True) if h != kvh else {}
-    lib = time_ms(torch, [lambda: sdpa(q4, kg, vg, attn_mask=mask, **enable_gqa)], 50)
+    lib_call = [lambda: sdpa(q4, kg, vg, attn_mask=mask, **enable_gqa)]
+    lib = time_ms(torch, lib_call, 50)
+    lib_dev = device_ms(torch, lib_call, 50)
     tokens = sum(live)
     nbytes = 2 * (2 * q.numel() + 2 * tokens * kvh * hd) + 4 * (bt.numel() + ln.numel())
     bms, by = bound_ms(nbytes, 4 * h * hd * tokens, "bfloat16")
     log(
         f"[K4] time S={s} H={h} KV={kvh} hd={hd} lengths={live}: kernel={ms:.4f} ms"
-        f" plain={plain:.4f} ms sdpa={lib:.4f} ms bound={bms:.5f} ms ({by})"
+        f" (device {dev_ms:.5f} ms: {split}) plain={plain:.4f} ms sdpa={lib:.4f} ms"
+        f" (device {lib_dev:.5f} ms) bound={bms:.5f} ms ({by})"
     )
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                device_ms=dev_ms, library_device_ms=lib_dev)
 
 
 def phase_k3(torch):
@@ -421,7 +582,7 @@ def phase_k1_backward(torch):
     GEMMs and the bf16 forward timed and checked at the training shapes
     (M = 4096).  Returns the largest error of K1 against its plain version."""
     from repro_torch.kernels import api
-    from repro_torch.kernels.mesh_matmul import mesh_matmul, mesh_matmul_torch
+    from repro_torch.kernels.mesh_matmul import mesh_matmul, mesh_matmul_torch, tile_config
 
     g = torch.Generator(device="cuda").manual_seed(4)
 
@@ -459,14 +620,15 @@ def phase_k1_backward(torch):
     spec = api.GemmSpec.from_operands(a, b, epilogue=api.Epilogue(activation="gelu"),
                                       out_dtype=torch.bfloat16)
     y = api.plan(spec, backend="cuda_mesh", device="cuda")(a, b)
-    before = mesh_matmul.launches
+    reset_k1(mesh_matmul)
     y.backward(rnd(PROMPT, 2048))
     torch.cuda.synchronize()
-    launched = mesh_matmul.launches - before
+    launched, tiles = mesh_matmul.launches, tile_counts(mesh_matmul)
     log(f"[K1 bwd] autograd through a cuda_mesh plan: grad_fn={type(y.grad_fn).__name__},"
-        f" {launched} K1 launches in backward (z remat, dA, dB)")
+        f" {launched} K1 launches in backward (z remat, dA, dB), tiles {tiles}")
     check(launched == 3 and a.grad is not None and b.grad is not None,
           "cuda_mesh backward did not run on K1")
+    check(tiles == {"f32_128": 3}, f"the _mm backward took tiles {tiles}, want f32_128")
 
     # Timings at the training shapes: 2 x 2048 tokens.  The last timed call
     # of the kernel and of the plain version are held against each other at
@@ -484,7 +646,7 @@ def phase_k1_backward(torch):
         }
         for kind, (p, q, blocks, dt, size) in work.items():
             mm, kk, nn = p.shape[0], p.shape[1], q.shape[1]
-            iters = 2 if mm * kk * nn > 2**34 else 5
+            iters = 3 if dt == "float32" and mm * kk * nn > 2**34 else 10
             out = {}
             ms = time_ms(torch, [lambda: out.update(kernel=mesh_matmul(p, q, **blocks))],
                          iters, warmup=1)
@@ -500,7 +662,10 @@ def phase_k1_backward(torch):
             max_err = max(max_err, err)
             if not (err <= tol and bool(torch.isfinite(out["kernel"]).all())):
                 failed.append(f"{label} {kind}: err {err} > tol {tol}")
-            log(f"[K1 train] {label:20s} {kind:8s} {mm}x{kk}x{nn}: kernel={ms:.3f} ms"
+            tile = tile_config(mm, nn, kk, 128, 128, 128, p.dtype)
+            if tile in OLD_TILES:
+                failed.append(f"{label} {kind}: takes the old tile {tile}")
+            log(f"[K1 train] {label:20s} {kind:8s} {mm}x{kk}x{nn} {tile}: kernel={ms:.3f} ms"
                 f" plain={plain:.3f} ms torch.matmul={lib:.3f} ms (TF32 off)"
                 f" bound={bms:.3f} ms ({by}) {2 * mm * kk * nn / ms / 1e9:.2f} TFLOP/s;"
                 f" err={err:.3e} tol={tol:.3e} (err/max|ref|={err / scale:.2e})")
@@ -706,9 +871,10 @@ K6_LIMITS = {"bfloat16": dict(rel=2.0**-6, row=2.0**-6, elem=2.0**-5),
              "float32": dict(rel=1e-5, row=1e-5, elem=1e-4, abs=1e-5)}
 
 
-def k6_disagreement(torch, out, ref):
-    """K6's output against its plain version's: {measure: value} for each
-    measure of K6_LIMITS, and max |d| as "err"."""
+def disagreement(torch, out, ref):
+    """A kernel's output against its plain version's, rows on the last axis:
+    {measure: value} for each measure of K6_LIMITS and K4_LIMITS, and max
+    |d| as "err"."""
     d = (out.float() - ref.float()).abs()
     r = ref.float()
     row_norm = r.norm(dim=-1)
@@ -759,7 +925,7 @@ def phase_k6(torch):
         out = flash_attention_cuda(q, k, v, causal=causal)
         ref = flash_attention_torch(q, k, v, causal=causal, block_q=bq, block_k=bk)
         torch.cuda.synchronize()
-        got = k6_disagreement(torch, out, ref)
+        got = disagreement(torch, out, ref)
         lim = K6_LIMITS[str(dtype).removeprefix("torch.")]
         bad = [f"{name} {got[name]:.3e} > {x:.3e}" for name, x in lim.items()
                if not got[name] <= x]
@@ -866,7 +1032,7 @@ def phase_serve(torch):
         max_pages_per_seq=pages, queue_capacity=REQUESTS, warmup_prompt_lens=(PROMPT,),
     )
 
-    mesh_matmul.launches = 0
+    reset_k1(mesh_matmul)
     paged_attention_cuda.launches = 0
     server = ContinuousBatchingServer(model, params, scfg, device="cuda")
     server.warmup()
@@ -879,6 +1045,7 @@ def phase_serve(torch):
     wall = time.monotonic() - t0
     launches = {"mesh_matmul": mesh_matmul.launches,
                 "paged_attention": paged_attention_cuda.launches}
+    check_main_path_tiles("serve", tile_counts(mesh_matmul), canary=True)
 
     for r in reqs:
         res = results[r.rid]
@@ -1107,7 +1274,7 @@ def phase_train(torch):
     logger = MetricsLogger()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mesh_matmul.launches = 0
+    reset_k1(mesh_matmul)
     scramble_blocks_cuda.launches = 0
     t0 = time.monotonic()
     state = train_loop(timed, state, data, LoopConfig(total_steps=TRAIN_STEPS, log_every=1),
@@ -1117,6 +1284,7 @@ def phase_train(torch):
     launches = {"mesh_matmul": mesh_matmul.launches,
                 "scramble_blocks": scramble_blocks_cuda.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check_main_path_tiles("train", tile_counts(mesh_matmul), canary=False)
 
     losses = [h["loss"] for h in logger.history]
     for i, (h, (dt, k1, k3)) in enumerate(zip(logger.history, per_step)):
@@ -1205,7 +1373,7 @@ def phase_serve_moe(torch):
         max_pages_per_seq=pages, queue_capacity=REQUESTS, warmup_prompt_lens=(PROMPT,),
     )
 
-    mesh_matmul.launches = 0
+    reset_k1(mesh_matmul)
     paged_attention_cuda.launches = 0
     grouped_mesh_matmul.launches = 0
     server = ContinuousBatchingServer(model, params, scfg, device="cuda")
@@ -1220,6 +1388,7 @@ def phase_serve_moe(torch):
     launches = {"mesh_matmul": mesh_matmul.launches,
                 "paged_attention": paged_attention_cuda.launches,
                 "grouped_mesh_matmul": grouped_mesh_matmul.launches}
+    check_main_path_tiles("serve_moe", tile_counts(mesh_matmul), canary=True)
 
     for r in reqs:
         res = results[r.rid]
@@ -1639,6 +1808,7 @@ def main() -> int:
             "one decode tick: 25 launches at M=4",
             launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"],
                               "serve_moe": serve_moe["mesh_matmul"]},
+            launches_by_tile=K1_TILES,
             batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
                      "shape": "B=4 M=128 K=1024 N=512 bf16"}),
         row("paged_attention", "paged_attention.cu",

@@ -14,20 +14,48 @@
 //                  column and residual block follow (p, q), the output lands
 //                  at (i, j);
 //   * batch        blockIdx.z, with element strides per operand (0 = shared).
+// A CTA tile never crosses a logical block: the sigma placement and the k
+// order stay those of the logical blocks, and ragged M, N and K edges are
+// masked in the kernel (zero-filled loads, guarded stores), not padded.  f32
+// operands are never multiplied in TF32: the reference contract is f32
+// accumulation of exact products.
 //
-// What bounds it on this card.  On the serving path M is the number of decode
-// slots (4-8 rows) or a prompt (128 rows), so every GEMM reads its weight once
-// and does few operations per byte: decode is bound by the bytes of B (3.35
-// TB/s), prefill sits near the bf16 ridge.  This first version is the simple
-// one: thread-block tiles staged through shared memory and SIMT FMA in f32
-// (never TF32: the reference contract is f32 accumulation of exact products).
-// Two tile shapes are built: 64x64 (16 outputs per thread) for prompt-sized M,
-// and 8x32 with a deep 128-element k step for decode, so that a 4-row product
-// launches one CTA per 32 output columns and keeps 8 KB of B in flight per
-// step instead of padding M to 128 rows (16-32x the work).  A tile never
-// crosses a logical block: the sigma placement and the k order stay those of
-// the logical blocks, and ragged M, N and K edges are masked in the kernel,
-// not padded.  wgmma, TMA and a multi-stage pipeline are later work.
+// What bounds it on this card.  Training runs M = 4096-row products: bound by
+// operations, 989 TFLOP/s for bf16 on the tensor cores, 67 TFLOP/s for f32 on
+// the FMA units.  Decode runs M = 4-8 rows: every GEMM reads its weight once
+// and does a few operations per byte, so B's bytes at 3.35 TB/s bound it.
+// Prefill (M = 128) sits near the bf16 ridge.  Three tile families, chosen by
+// the wrapper from (M, N, K, blocks, dtypes) (`tile_config` in
+// kernels/mesh_matmul.py, passed here as `config`):
+//
+//   (a) tc128, bf16, M > 16: a 128x128 CTA tile on the tensor cores.  8 warps
+//       of 64x32, `mma.sync.m16n8k16` bf16 with f32 accumulation, fragments
+//       from shared memory through `ldmatrix` (B, (K, N) row-major, through
+//       `ldmatrix.trans`), fed by a 4-stage ring of 16-byte `cp.async` copies
+//       32 deep in k: 74 KB of dynamic shared memory, rows padded by 16 bytes
+//       so that `ldmatrix` reads are free of bank conflicts.  The ring's
+//       prefetch follows the staggered logical-block order.  The epilogue
+//       (bias, activation, residual, sigma placement, cast) runs on the
+//       accumulator fragments.
+//   (b) f32_128, f32 operands (the `_mm` backward's dA, dB and z remat): a
+//       register-blocked SIMT tile, 128x128 with 256 threads of 8x8 outputs,
+//       16 deep in k, double-buffered: B by `cp.async`, A through registers
+//       into a k-major copy, so both are read from shared memory with float4
+//       loads.  Exact f32 `fmaf` only.
+//   (c) tc_decode, bf16, M <= 16: family (a)'s instructions on one 16-row
+//       m-tile and a narrow N tile of 32 columns, so that an N = 2048
+//       projection still launches 64 CTAs.  (A 16-column tile, 128 CTAs at
+//       N = 2048, was no faster at any of mesh-paper's decode shapes.)  Its 8
+//       warps split the cell's k tiles (warp w takes tiles w, w + 8, ...),
+//       each streaming A and B through its own 4-stage `cp.async` ring with
+//       no CTA barrier in the loop; the warps' sums are reduced in shared
+//       memory in warp order, so the result is deterministic.
+//
+// The first SIMT tiles stay for logical blocks the new tiles cannot take
+// (blocks narrower than 64, or 16 for decode, k blocks not a multiple of the
+// k step, rows not a multiple of 16 bytes): 64x64 (16 outputs per thread)
+// and 8x32 with a 128-deep k step for M <= 16.  wgmma with TMA would be faster
+// again on (a); it is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -145,6 +173,591 @@ mesh_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Shared by the new tile families
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Where a CTA's tile sits: the logical cell (i, j) (k order, output
+// placement), the standard block it computes (A rows, B columns, bias and
+// residual), and the tile's extent inside its logical block.
+struct TileAt {
+  int i, j;
+  int sr0, sc0;    // first standard row / column of the tile
+  int cr0, cc0;    // first output row / column (the cell's placement)
+  int rows, cols;  // rows and columns of the tile inside the logical block
+};
+
+// CTAs run in launch order, x fastest.  Walking a whole row of N tiles
+// before the next M tile would stream all of B through the 50 MB L2 once per
+// M tile; so consecutive CTAs walk kGroupM M tiles down one N tile first, and
+// the CTAs resident at once cover a compact block of the output.
+constexpr int kGroupM = 8;
+
+__device__ __forceinline__ void grouped_xy(int& x, int& y) {
+  const int gx = gridDim.x, gy = gridDim.y;
+  const int lin = blockIdx.y * gx + blockIdx.x;
+  const int group = lin / (kGroupM * gx);
+  const int y0 = group * kGroupM;
+  const int rows = min(gy - y0, kGroupM);
+  const int in = lin - group * kGroupM * gx;
+  y = y0 + in % rows;
+  x = in / rows;
+}
+
+__device__ __forceinline__ TileAt locate(const int* sigma, int bm, int bn, int g,
+                                         int tiles_m, int tiles_n, int tm, int tn) {
+  int x, y;
+  grouped_xy(x, y);
+  TileAt t;
+  t.j = x / tiles_n;
+  t.i = y / tiles_m;
+  const int lr0 = (y % tiles_m) * tm;
+  const int lc0 = (x % tiles_n) * tn;
+  t.rows = min(tm, bm - lr0);
+  t.cols = min(tn, bn - lc0);
+  int p = t.i, q = t.j;  // the standard block this cell computes
+  if (sigma != nullptr) {
+    const int flat = sigma[t.i * g + t.j];
+    p = flat / g;
+    q = flat % g;
+  }
+  t.sr0 = p * bm + lr0;
+  t.sc0 = q * bn + lc0;
+  t.cr0 = t.i * bm + lr0;
+  t.cc0 = t.j * bn + lc0;
+  return t;
+}
+
+// A cell's k tiles in order: logical block after logical block in the
+// staggered order (i + j + s) mod nk, each cut into tk-deep tiles.  A tile
+// (or 16-byte chunk) at or past its block's end, or K, loads zeros.
+// `at` finds any tile; a KCursor walks them one by one without dividing.
+struct KTiles {
+  int nk, per_block, i_plus_j, bk, K, stagger, tk;
+  __device__ __forceinline__ int count() const { return nk * per_block; }
+  __device__ __forceinline__ void at(int t, int& k0, int& k_end) const {
+    const int s = t / per_block;
+    const int kb = stagger ? (i_plus_j + s) % nk : s;
+    k0 = kb * bk + (t - s * per_block) * tk;
+    k_end = min(kb * bk + bk, K);
+  }
+};
+
+__device__ __forceinline__ KTiles k_tiles(const TileAt& t, int K, int bk, int stagger,
+                                          int tk) {
+  return KTiles{(K + bk - 1) / bk, (bk + tk - 1) / tk, t.i + t.j, bk, K, stagger, tk};
+}
+
+struct KCursor {
+  int kb, sub, k0, k_end;  // logical block, tile in it, its first k, the block's end
+  __device__ __forceinline__ KCursor(const KTiles& kt) : sub(0) {
+    kb = kt.stagger && kt.nk > 0 ? kt.i_plus_j % kt.nk : 0;
+    k0 = kb * kt.bk;
+    k_end = min(k0 + kt.bk, kt.K);
+  }
+  __device__ __forceinline__ void next(const KTiles& kt) {
+    if (++sub == kt.per_block) {
+      sub = 0;
+      kb = kb + 1 == kt.nk ? 0 : kb + 1;
+      k0 = kb * kt.bk;
+      k_end = min(k0 + kt.bk, kt.K);
+    } else {
+      k0 += kt.tk;
+    }
+  }
+};
+
+// The epilogue of one output: standard (sr, sc), stored at C[c_at].
+template <typename OutT>
+__device__ __forceinline__ void finish(OutT* C, const float* bias, const float* residual,
+                                       float v, int sr, int sc, long long c_at, int N,
+                                       int act) {
+  if (bias != nullptr) v += bias[sc];
+  v = apply_act(v, act);
+  if (residual != nullptr) v += residual[(long long)sr * N + sc];
+  C[c_at] = from_f32<OutT>(v);
+}
+
+// The epilogue of the tile's output (lr, lc), if it lies inside the block
+// and the matrix.
+template <typename OutT>
+__device__ __forceinline__ void finish_at(OutT* C, const float* bias, const float* residual,
+                                          float v, const TileAt& t, int lr, int lc, int M,
+                                          int N, int act) {
+  const int sr = t.sr0 + lr;
+  const int sc = t.sc0 + lc;
+  if (lr >= t.rows || sr >= M || lc >= t.cols || sc >= N) return;
+  finish(C, bias, residual, v, sr, sc, (long long)(t.cr0 + lr) * N + (t.cc0 + lc), N, act);
+}
+
+// Two neighbouring outputs (an even column, 4- or 8-byte aligned) at once.
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !ok
+// (`src` must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives row l % 8 of
+// matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a . b on a 16x8x16 bf16 tile with f32 accumulation.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3},"
+      " {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One 16-deep step of a warp's mma tile: MT 16-row A tiles at a_rows (row
+// stride a_ld), NT/2 pairs of 8-column B tiles at b_cols (row stride b_ld),
+// both at k offset kk of the stage.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_step(float (&acc)[MT][NT][4], const bf16* a_rows,
+                                         int a_ld, const bf16* b_cols, int b_ld, int kk,
+                                         int lane) {
+  unsigned af[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    ldsm_x4(af[mt], a_rows + (mt * 16 + (lane & 15)) * a_ld + kk + (lane >> 4) * 8);
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    unsigned b[4];  // (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+    ldsm_x4_trans(b, b_cols + (kk + (lane & 15)) * b_ld + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_16816(acc[mt][2 * np], af[mt], b[0], b[1]);
+      mma_16816(acc[mt][2 * np + 1], af[mt], b[2], b[3]);
+    }
+  }
+}
+
+// Copies one tk-deep stage of a tm x tn tile: A rows x k into `as` (row
+// stride a_ld) and B k rows x columns into `bs` (row stride b_ld), in 16-byte
+// chunks spread over THREADS threads.  Each thread's chunks keep their row,
+// column and source row pointer from stage to stage; only k moves.
+template <int TM, int TN, int TK, int THREADS>
+struct StageLoader {
+  static constexpr int kAPer = TM * TK / 8 / THREADS;
+  static constexpr int kBPer = TK * TN / 8 / THREADS;
+  static_assert(kAPer * THREADS * 8 == TM * TK && kBPer * THREADS * 8 == TK * TN,
+                "whole 16-byte chunks per thread");
+  const bf16* A;
+  const bf16* B;
+  long long n;
+  const bf16* a_src[kAPer];
+  const bf16* b_src[kBPer];
+  int a_dst[kAPer], a_k[kAPer], b_dst[kBPer], b_k[kBPer];
+  bool a_ok[kAPer], b_ok[kBPer];
+
+  __device__ __forceinline__ StageLoader(const bf16* A_, const bf16* B_, const TileAt& t,
+                                         int M, int N, int K, int a_ld, int b_ld, int me)
+      : A(A_), B(B_), n(N) {
+#pragma unroll
+    for (int it = 0; it < kAPer; ++it) {
+      const int c = me + it * THREADS;
+      const int r = c / (TK / 8);
+      const int kc = (c % (TK / 8)) * 8;
+      const int gr = t.sr0 + r;
+      a_ok[it] = r < t.rows && gr < M;
+      a_src[it] = A + (long long)(a_ok[it] ? gr : 0) * K + kc;
+      a_dst[it] = r * a_ld + kc;
+      a_k[it] = kc;
+    }
+#pragma unroll
+    for (int it = 0; it < kBPer; ++it) {
+      const int c = me + it * THREADS;
+      const int kr = c / (TN / 8);
+      const int nc = (c % (TN / 8)) * 8;
+      const int gc = t.sc0 + nc;
+      b_ok[it] = nc < t.cols && gc < N;
+      b_src[it] = B + (long long)kr * N + (b_ok[it] ? gc : 0);
+      b_dst[it] = kr * b_ld + nc;
+      b_k[it] = kr;
+    }
+  }
+
+  // The stage of k [k0, k0 + TK), zeros at or past k_end.
+  __device__ __forceinline__ void load(bf16* as, bf16* bs, int k0, int k_end) const {
+#pragma unroll
+    for (int it = 0; it < kAPer; ++it) {
+      const bool ok = a_ok[it] && k0 + a_k[it] < k_end;
+      cp_async16(as + a_dst[it], ok ? a_src[it] + k0 : A, ok);
+    }
+#pragma unroll
+    for (int it = 0; it < kBPer; ++it) {
+      const bool ok = b_ok[it] && k0 + b_k[it] < k_end;
+      cp_async16(bs + b_dst[it], ok ? b_src[it] + k0 * n : B, ok);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// (a) tc128: bf16 on the tensor cores, 128x128 CTA tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kTcM = 128, kTcN = 128, kTcK = 32, kTcStages = 4, kTcThreads = 256;
+constexpr int kTcALd = kTcK + 8;  // bf16 per A row in shared memory (80 bytes)
+constexpr int kTcBLd = kTcN + 8;  // bf16 per B row (272 bytes)
+constexpr int kTcAStage = kTcM * kTcALd;
+constexpr int kTcBStage = kTcK * kTcBLd;
+constexpr int kTcSmem = kTcStages * (kTcAStage + kTcBStage) * 2;
+
+template <typename OutT>
+__global__ void __launch_bounds__(kTcThreads, 2)
+mesh_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                const float* __restrict__ bias, const float* __restrict__ residual,
+                OutT* __restrict__ C, const int* __restrict__ sigma, int M, int N, int K,
+                int bm, int bn, int bk, int g, int tiles_m, int tiles_n, long long a_bs,
+                long long b_bs, long long r_bs, long long c_bs, int stagger, int act) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sa = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sb = sa + kTcStages * kTcAStage;
+
+  const TileAt t = locate(sigma, bm, bn, g, tiles_m, tiles_n, kTcM, kTcN);
+  if (t.sr0 >= M || t.sc0 >= N) return;  // whole tile past the ragged edge
+  const long long z = blockIdx.z;
+  A += z * a_bs;
+  B += z * b_bs;
+  C += z * c_bs;
+  if (residual != nullptr) residual += z * r_bs;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2;  // rows wm * 64 of the tile
+  const int wn = warp & 3;   // columns wn * 32
+  const KTiles kt = k_tiles(t, K, bk, stagger, kTcK);
+  const int total = kt.count();
+  const StageLoader<kTcM, kTcN, kTcK, kTcThreads> loader(A, B, t, M, N, K, kTcALd, kTcBLd,
+                                                          tid);
+  KCursor cursor(kt);  // the next tile to load; tiles load in order
+  auto load_next = [&](int stage) {
+    loader.load(sa + stage * kTcAStage, sb + stage * kTcBStage, cursor.k0, cursor.k_end);
+    cursor.next(kt);
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  // Ring: stage s holds tile s, s + kTcStages, ...; one group committed per
+  // tile (empty past the end), so waiting for all but kTcStages - 2 groups
+  // leaves tile `it` resident.
+#pragma unroll
+  for (int st = 0; st < kTcStages - 1; ++st) {
+    if (st < total) load_next(st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // tile `it` visible; every warp is done with tile it - 1
+    const int next = it + kTcStages - 1;
+    if (next < total) load_next(next % kTcStages);
+    cp_async_commit();
+    const bf16* as = sa + (it % kTcStages) * kTcAStage + wm * 64 * kTcALd;
+    const bf16* bs = sb + (it % kTcStages) * kTcBStage + wn * 32;
+#pragma unroll
+    for (int kk = 0; kk < kTcK; kk += 16) mma_step<4, 4>(acc, as, kTcALd, bs, kTcBLd, kk, lane);
+  }
+  cp_async_wait<0>();
+
+  // Epilogue on the fragments: acc[mt][nt] holds rows lane / 4 (+8) and
+  // columns 2 (lane % 4) (+1) of its 16x8 tile.  A tile wholly inside its
+  // block and the matrix stores column pairs with no per-element test.
+  const bool inside = t.rows == kTcM && t.cols == kTcN && t.sr0 + kTcM <= M &&
+                      t.sc0 + kTcN <= N;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int lc = wn * 32 + nt * 8 + (lane & 3) * 2;
+    if (inside) {
+      const int sc = t.sc0 + lc;
+      const float2 b2 = bias != nullptr ? *reinterpret_cast<const float2*>(bias + sc)
+                                        : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int lr = wm * 64 + mt * 16 + (lane >> 2) + h * 8;
+          float v0 = apply_act(acc[mt][nt][2 * h] + b2.x, act);
+          float v1 = apply_act(acc[mt][nt][2 * h + 1] + b2.y, act);
+          if (residual != nullptr) {
+            const float2 r2 =
+                *reinterpret_cast<const float2*>(residual + (long long)(t.sr0 + lr) * N + sc);
+            v0 += r2.x;
+            v1 += r2.y;
+          }
+          store2(C + (long long)(t.cr0 + lr) * N + t.cc0 + lc, v0, v1);
+        }
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int lr = wm * 64 + mt * 16 + (lane >> 2) + h * 8;
+          finish_at(C, bias, residual, acc[mt][nt][2 * h], t, lr, lc, M, N, act);
+          finish_at(C, bias, residual, acc[mt][nt][2 * h + 1], t, lr, lc + 1, M, N, act);
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (c) tc_decode: bf16, M <= 16, the warps of a CTA split the k tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kDecM = 16, kDecN = 32, kDecK = 32, kDecStages = 4, kDecWarps = 8;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecALd = kDecK + 8;  // 80 bytes a row
+constexpr int kDecBLd = kDecN + 8;  // 80 bytes a row
+constexpr int kDecAStage = kDecM * kDecALd;
+constexpr int kDecBStage = kDecK * kDecBLd;
+constexpr int kDecRing = kDecStages * (kDecAStage + kDecBStage);  // bf16 per warp
+constexpr int kDecSmem = kDecWarps * kDecRing * 2;
+
+template <typename OutT>
+__global__ void __launch_bounds__(kDecThreads)
+mesh_mma_decode_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                       const float* __restrict__ bias, const float* __restrict__ residual,
+                       OutT* __restrict__ C, const int* __restrict__ sigma, int M, int N,
+                       int K, int bm, int bn, int bk, int g, int tiles_m, int tiles_n,
+                       long long a_bs, long long b_bs, long long r_bs, long long c_bs,
+                       int stagger, int act) {
+  constexpr int NT = kDecN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const TileAt t = locate(sigma, bm, bn, g, tiles_m, tiles_n, kDecM, kDecN);
+  if (t.sr0 >= M || t.sc0 >= N) return;
+  const long long z = blockIdx.z;
+  A += z * a_bs;
+  B += z * b_bs;
+  C += z * c_bs;
+  if (residual != nullptr) residual += z * r_bs;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  bf16* sa = reinterpret_cast<bf16*>(smem_raw) + warp * kDecRing;  // this warp's ring
+  bf16* sb = sa + kDecStages * kDecAStage;
+  const KTiles kt = k_tiles(t, K, bk, stagger, kDecK);
+  const int total = kt.count();
+  const int mine = total > warp ? (total - warp + kDecWarps - 1) / kDecWarps : 0;
+
+  const StageLoader<kDecM, kDecN, kDecK, 32> loader(A, B, t, M, N, K, kDecALd, kDecBLd, lane);
+  auto load = [&](int stage, int u) {  // this warp's u-th tile: warp + u * kDecWarps
+    int k0, k_end;
+    kt.at(warp + u * kDecWarps, k0, k_end);
+    loader.load(sa + stage * kDecAStage, sb + stage * kDecBStage, k0, k_end);
+  };
+
+  float acc[1][NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][nt][e] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < kDecStages - 1; ++st) {
+    if (st < mine) load(st, st);
+    cp_async_commit();
+  }
+  for (int u = 0; u < mine; ++u) {
+    cp_async_wait<kDecStages - 2>();
+    __syncwarp();  // the warp's copies visible; its lanes are done with tile u - 1
+    const int next = u + kDecStages - 1;
+    if (next < mine) load(next % kDecStages, next);
+    cp_async_commit();
+    const bf16* as = sa + (u % kDecStages) * kDecAStage;
+    const bf16* bs = sb + (u % kDecStages) * kDecBStage;
+#pragma unroll
+    for (int kk = 0; kk < kDecK; kk += 16) mma_step<1, NT>(acc, as, kDecALd, bs, kDecBLd, kk, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every ring is drained: reuse the memory for the reduction
+
+  float* red = reinterpret_cast<float*>(smem_raw);  // [kDecWarps][kDecM][kDecN]
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (lane >> 2) + h * 8;
+      const int c = nt * 8 + (lane & 3) * 2;
+      red[(warp * kDecM + r) * kDecN + c] = acc[0][nt][2 * h];
+      red[(warp * kDecM + r) * kDecN + c + 1] = acc[0][nt][2 * h + 1];
+    }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kDecM * kDecN; e += kDecThreads) {
+    const int lr = e / kDecN;
+    const int lc = e % kDecN;
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) v += red[(w * kDecM + lr) * kDecN + lc];
+    finish_at(C, bias, residual, v, t, lr, lc, M, N, act);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (b) f32_128: f32 operands on the FMA units, 128x128 CTA tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kFM = 128, kFN = 128, kFK = 16, kFThreads = 256;
+constexpr int kFALd = kFM + 4;  // k-major A rows: float4-aligned, fewer store conflicts
+
+template <typename OutT>
+__global__ void __launch_bounds__(kFThreads)
+mesh_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                const float* __restrict__ bias, const float* __restrict__ residual,
+                OutT* __restrict__ C, const int* __restrict__ sigma, int M, int N, int K,
+                int bm, int bn, int bk, int g, int tiles_m, int tiles_n, long long a_bs,
+                long long b_bs, long long r_bs, long long c_bs, int stagger, int act) {
+  __shared__ __align__(16) float As[2][kFK][kFALd];  // A^T: k rows of 128 m values
+  __shared__ __align__(16) float Bs[2][kFK][kFN];
+
+  const TileAt t = locate(sigma, bm, bn, g, tiles_m, tiles_n, kFM, kFN);
+  if (t.sr0 >= M || t.sc0 >= N) return;
+  const long long z = blockIdx.z;
+  A += z * a_bs;
+  B += z * b_bs;
+  C += z * c_bs;
+  if (residual != nullptr) residual += z * r_bs;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;  // columns tx * 4 + {0..3} and 64 + tx * 4 + {0..3}
+  const int ty = tid >> 4;  // rows ty * 4 + {0..3} and 64 + ty * 4 + {0..3}
+  const KTiles kt = k_tiles(t, K, bk, stagger, kFK);
+  const int total = kt.count();
+
+  float4 ar[2];  // the next A tile on its way through registers
+  KCursor cursor(kt);  // the tile being fetched; tiles are fetched in order
+  auto fetch_a = [&]() {
+    const int k0 = cursor.k0, k_end = cursor.k_end;
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int c = tid + it * kFThreads;
+      const int r = c >> 2;
+      const int gr = t.sr0 + r;
+      const int gk = k0 + (c & 3) * 4;
+      ar[it] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < t.rows && gr < M && gk < k_end)
+        ar[it] = __ldg(reinterpret_cast<const float4*>(A + (long long)gr * K + gk));
+    }
+  };
+  auto stash_a = [&](int buf) {
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int c = tid + it * kFThreads;
+      const int r = c >> 2;
+      const int kc = (c & 3) * 4;
+      As[buf][kc][r] = ar[it].x;
+      As[buf][kc + 1][r] = ar[it].y;
+      As[buf][kc + 2][r] = ar[it].z;
+      As[buf][kc + 3][r] = ar[it].w;
+    }
+  };
+  auto load_b = [&](int buf) {
+    const int k0 = cursor.k0, k_end = cursor.k_end;
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int c = tid + it * kFThreads;
+      const int kr = c >> 5;
+      const int nc = (c & 31) * 4;
+      const int gk = k0 + kr;
+      const int gc = t.sc0 + nc;
+      const bool ok = gk < k_end && nc < t.cols && gc < N;
+      cp_async16(&Bs[buf][kr][nc], ok ? B + (long long)gk * N + gc : B, ok);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+
+  if (total > 0) {
+    fetch_a();
+    stash_a(0);
+    load_b(0);
+    cp_async_commit();
+    cursor.next(kt);
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  for (int it = 0; it < total; ++it) {
+    const int cur = it & 1;
+    const bool more = it + 1 < total;
+    if (more) {  // the next tile's copies fly while this one is multiplied
+      load_b(cur ^ 1);
+      cp_async_commit();
+      fetch_a();
+      cursor.next(kt);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kFK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    }
+    if (more) {
+      stash_a(cur ^ 1);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int lr = (r < 4 ? 0 : 60) + ty * 4 + r;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int lc = (c < 4 ? 0 : 60) + tx * 4 + c;
+      finish_at(C, bias, residual, acc[r][c], t, lr, lc, M, N, act);
+    }
+  }
+}
+
 struct Args {
   const void* a;
   const void* b;
@@ -172,22 +785,79 @@ cudaError_t launch(const Args& x, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, typename OutT>
-cudaError_t launch_config(const Args& x, int config, cudaStream_t stream) {
-  if (config == 1) return launch<T, OutT, 8, 32, 128, 1, 1>(x, stream);  // decode
-  return launch<T, OutT, 64, 64, 16, 4, 4>(x, stream);                    // prompt
+// A new family's launch: one tm x tn tile per CTA inside each logical block
+// (a block taller or wider than the matrix needs only the tiles that reach
+// into it), `smem` bytes of dynamic shared memory.
+template <typename In, typename OutT, typename Kernel>
+cudaError_t launch_tiles(Kernel kernel, const Args& x, int tm, int tn, int threads, int smem,
+                         cudaStream_t stream) {
+  const int tiles_m = (min(x.bm, x.M) + tm - 1) / tm;
+  const int tiles_n = (min(x.bn, x.N) + tn - 1) / tn;
+  const int nm = (x.M + x.bm - 1) / x.bm;
+  const int nn = (x.N + x.bn - 1) / x.bn;
+  const dim3 grid(nn * tiles_n, nm * tiles_m, x.batch);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const In*>(x.a), static_cast<const In*>(x.b), x.bias, x.residual,
+      static_cast<OutT*>(x.out), x.sigma, x.M, x.N, x.K, x.bm, x.bn, x.bk, x.g, tiles_m,
+      tiles_n, x.a_bs, x.b_bs, x.r_bs, x.c_bs, x.stagger, x.act);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_out(const Args& x, int out_dtype, int config, cudaStream_t stream) {
-  if (out_dtype == 1) return launch_config<T, __nv_bfloat16>(x, config, stream);
-  return launch_config<T, float>(x, config, stream);
+// Dynamic shared memory above 48 KB needs the kernel's attribute raised
+// once; a refusal is returned like a launch error.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Tile configurations (kernels/mesh_matmul.py: TILE_CONFIGS).
+enum Config {
+  kSimt64 = 0,      // first SIMT tile, 64x64
+  kSimtDecode = 1,  // first SIMT decode tile, 8x32
+  kTc128 = 2,       // (a)
+  kF32Tile = 3,     // (b)
+  kTcDecode = 4,    // (c)
+};
+
+template <typename OutT>
+cudaError_t launch_bf16(const Args& x, int config, cudaStream_t stream) {
+  switch (config) {
+    case kSimt64: return launch<bf16, OutT, 64, 64, 16, 4, 4>(x, stream);
+    case kSimtDecode: return launch<bf16, OutT, 8, 32, 128, 1, 1>(x, stream);
+    case kTc128: {
+      static const cudaError_t attr = allow_smem(mesh_mma_kernel<OutT>, kTcSmem);
+      if (attr != cudaSuccess) return attr;
+      return launch_tiles<bf16, OutT>(mesh_mma_kernel<OutT>, x, kTcM, kTcN, kTcThreads,
+                                      kTcSmem, stream);
+    }
+    case kTcDecode: {
+      static const cudaError_t attr = allow_smem(mesh_mma_decode_kernel<OutT>, kDecSmem);
+      if (attr != cudaSuccess) return attr;
+      return launch_tiles<bf16, OutT>(mesh_mma_decode_kernel<OutT>, x, kDecM, kDecN,
+                                      kDecThreads, kDecSmem, stream);
+    }
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename OutT>
+cudaError_t launch_f32(const Args& x, int config, cudaStream_t stream) {
+  switch (config) {
+    case kSimt64: return launch<float, OutT, 64, 64, 16, 4, 4>(x, stream);
+    case kSimtDecode: return launch<float, OutT, 8, 32, 128, 1, 1>(x, stream);
+    case kF32Tile:
+      return launch_tiles<float, OutT>(mesh_f32_kernel<OutT>, x, kFM, kFN, kFThreads, 0,
+                                       stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  config: 0 = 64x64 tiles, 1 = 8x32
-// decode tiles.  Returns cudaGetLastError() after the launch (0 = launched).
+// dtype codes: 0 = float32, 1 = bfloat16.  config: enum Config above (the
+// wrapper checks that the tile takes the shapes and blocks: 16-byte rows and
+// k blocks a multiple of the k step for the new families).  Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int mesh_matmul_launch(const void* a, const void* b, const void* bias,
                                   const void* residual, void* out, const void* sigma,
                                   int batch, int M, int N, int K, int bm, int bn,
@@ -199,8 +869,12 @@ extern "C" int mesh_matmul_launch(const void* a, const void* b, const void* bias
                out, static_cast<const int*>(sigma), batch, M, N, K, bm, bn, bk, g,
                a_bs, b_bs, r_bs, c_bs, stagger, act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 1) return static_cast<int>(launch_out<__nv_bfloat16>(x, out_dtype, config, s));
-  return static_cast<int>(launch_out<float>(x, out_dtype, config, s));
+  cudaError_t err;
+  if (in_dtype == 1)
+    err = out_dtype == 1 ? launch_bf16<bf16>(x, config, s) : launch_bf16<float>(x, config, s);
+  else
+    err = out_dtype == 1 ? launch_f32<bf16>(x, config, s) : launch_f32<float>(x, config, s);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* mesh_matmul_error_string(int err) {

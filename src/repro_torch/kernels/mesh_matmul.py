@@ -11,10 +11,11 @@ computes standard block sigma(i, j) (bias column and residual block follow
 it) so the output lands in the paper's scrambled arrangement.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(`csrc/mesh_matmul.cu`, see its header for the design) or raises; on a CPU
+(`csrc/mesh_matmul.cu`, see its header for the design) with the tile that
+`tile_config` picks from the shapes, blocks and dtype, or raises; on a CPU
 tensor it runs `mesh_matmul_torch`, the plain version, which repeats the
 kernel's arithmetic block by block.  `mesh_matmul.launches` counts kernel
-launches.
+launches, `mesh_matmul.launches_by_config` the same launches per tile.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ __all__ = [
     "ACTIVATIONS",
     "GELU_A",
     "GELU_C",
+    "TILE_CONFIGS",
     "mesh_matmul",
     "mesh_matmul_torch",
     "sigma_block_table",
+    "tile_config",
 ]
 
 # Epilogue activations, f32 in, f32 out; the tanh GELU (the reference's
@@ -56,8 +59,33 @@ ACTIVATIONS = {
 # Activation codes of csrc/mesh_matmul.cu (enum Act).
 _ACT_CODES = {None: 0, "none": 0, "relu": 1, "silu": 2, "sigmoid": 3, "tanh": 4, "gelu": 5}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The kernel's 8-row decode tiles serve products up to this many rows.
+# The kernel's decode tiles serve products up to this many rows.
 _DECODE_ROWS = 16
+# Tile configurations of csrc/mesh_matmul.cu (enum Config), by code.
+TILE_CONFIGS = ("simt64", "simt_decode", "tc128", "f32_128", "tc_decode")
+
+
+def tile_config(m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
+                dtype: torch.dtype) -> str:
+    """The kernel's tile for an (M, K) @ (K, N) product of `dtype` operands on
+    (block_m, block_n, block_k) logical blocks.
+
+    The new families copy 16-byte row chunks and never let a k step cross a
+    logical block, so they need N, K and block_n in whole chunks and block_k
+    a multiple of their k step (32 for the tensor-core tiles, 16 for the f32
+    tile); the 128-wide tiles also need blocks at least 64 wide, the decode
+    tile 16.  Everything else takes the first SIMT tiles.
+    """
+    if dtype == torch.bfloat16 and n % 8 == 0 and k % 8 == 0 and block_n % 8 == 0 \
+            and block_k % 32 == 0:
+        if m <= _DECODE_ROWS and block_n >= 16:
+            return "tc_decode"
+        if m > _DECODE_ROWS and min(block_m, block_n) >= 64:
+            return "tc128"
+    if dtype == torch.float32 and n % 4 == 0 and k % 4 == 0 and block_n % 4 == 0 \
+            and block_k % 16 == 0 and min(block_m, block_n) >= 64:
+        return "f32_128"
+    return "simt_decode" if m <= _DECODE_ROWS else "simt64"
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,6 +210,12 @@ def mesh_matmul_torch(
     return out if batched else out[0]
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it that starts on 16 bytes: the kernel reads
+    operands in 16-byte chunks and the epilogue operands in pairs."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.library("mesh_matmul").mesh_matmul_launch
@@ -249,12 +283,13 @@ def mesh_matmul(
         return out
     if max(m, n, k) >= 2**31 or math.prod(a.shape[:-2]) > 65535:
         raise ValueError(f"shape {tuple(a.shape)} @ {tuple(b.shape)} exceeds the kernel's grid")
-    a = a.contiguous()
-    b = b.contiguous()
+    config = tile_config(m, n, k, block_m, block_n, block_k, a.dtype)
+    a = _aligned(a.contiguous())
+    b = _aligned(b.contiguous())
     # Epilogue operands travel as f32 (an exact upcast of bf16): the kernel
     # adds them to the f32 accumulator as the reference does.
-    bias_f = None if bias is None else bias.to(torch.float32).contiguous()
-    res_f = None if residual is None else residual.to(torch.float32).contiguous()
+    bias_f = None if bias is None else _aligned(bias.to(torch.float32).contiguous())
+    res_f = None if residual is None else _aligned(residual.to(torch.float32).contiguous())
     g = m // block_m if scramble_out else 0
     if scramble_out and sigma is None:
         sigma = torch.as_tensor(sigma_block_table(g), device=a.device)
@@ -271,13 +306,15 @@ def mesh_matmul(
         m * k if batched else 0, k * n if batched else 0,
         m * n if batched else 0, m * n if batched else 0,
         int(stagger), _ACT_CODES[activation], _DTYPE_CODES[a.dtype],
-        _DTYPE_CODES[out_dtype], 1 if m <= _DECODE_ROWS else 0,
+        _DTYPE_CODES[out_dtype], TILE_CONFIGS.index(config),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"mesh_matmul kernel launch failed: {_error_string(err)}")
+        raise RuntimeError(f"mesh_matmul kernel launch failed ({config}): {_error_string(err)}")
     mesh_matmul.launches += 1
+    mesh_matmul.launches_by_config[config] = mesh_matmul.launches_by_config.get(config, 0) + 1
     return out
 
 
 mesh_matmul.launches = 0
+mesh_matmul.launches_by_config = {}

@@ -6,9 +6,12 @@ table, and decode attention reads K/V through the table.  Two impls sit
 behind a capability door (`resolve_paged_impl`):
 
   cuda_paged    the hand-written CUDA kernel K4 (`csrc/paged_attention.cu`,
-                see its header for the design): one CTA per (slot, kv head)
-                walks the slot's live pages with an online softmax, and no
-                gathered copy of the context is made.  CUDA tensors only.
+                see its header for the design): split-context decoding, one
+                CTA per (slot, kv head, run of `split_pages` pages) with an
+                online softmax per warp, then a combine of the per-split
+                partials; no gathered copy of the context is made.  The
+                split is chosen by `split_plan` from the table width and the
+                SM count, never from `lengths`.  CUDA tensors only.
   torch_gather  `pool[block_table]` gather + masked softmax, op for op the
                 reference's `paged_attention_xla` (and the port's
                 `models.attention._sdpa`), so decode through pages equals
@@ -51,12 +54,39 @@ __all__ = [
     "paged_impl_names",
     "register_paged_impl",
     "resolve_paged_impl",
+    "split_plan",
 ]
 
 _NEG_INF = -1e30
 _MAX_REP = 8  # csrc/paged_attention.cu: kMaxRep
-_MAX_HEAD_DIM = 128  # one head dim per thread of a 128-thread CTA
+_MAX_HEAD_DIM = 128  # csrc/paged_attention.cu: kMaxHeadDim (one row per <= 32 lanes)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The split: at least one page per warp of a CTA, at most the kernel's
+# shared block-table slice (kMaxSplitPages), and about this many CTAs per SM.
+_MIN_SPLIT_PAGES = 4
+_MAX_SPLIT_PAGES = 64
+_CTAS_PER_SM = 4
+# The combine keeps each split's (m, l) in shared memory, beside its own 8
+# bytes (den_s, live_s): at most 48 KiB in all, so 6143 splits.
+_MAX_SPLITS = (48 * 1024 - 8) // 8
+
+
+def split_plan(n_pages: int, pairs: int, sm_count: int) -> tuple:
+    """(split_pages, n_splits) of K4's grid for a block table `n_pages`
+    wide and `pairs` = slots x kv heads: enough splits for about
+    `_CTAS_PER_SM` CTAs on each of `sm_count` SMs, each split covering
+    between `_MIN_SPLIT_PAGES` and `_MAX_SPLIT_PAGES` pages.  A function of
+    shapes the host holds, so choosing it never waits for the device."""
+    n_pages = max(1, n_pages)
+    want = -(-_CTAS_PER_SM * sm_count // max(1, pairs))
+    split_pages = -(-n_pages // want)
+    split_pages = min(_MAX_SPLIT_PAGES, max(_MIN_SPLIT_PAGES, split_pages))
+    return split_pages, -(-n_pages // split_pages)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
@@ -116,7 +146,7 @@ def paged_attention_torch(
 def _kernel():
     fn = _build.library("paged_attention").paged_attention_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 6 + [i32] * 6 + [ctypes.c_float, i32, ptr]
+    fn.argtypes = [ptr] * 9 + [i32] * 8 + [ctypes.c_float, i32, ptr]
     fn.restype = i32
     return fn
 
@@ -136,7 +166,18 @@ def paged_attention_cuda(
     lengths: torch.Tensor,
 ) -> torch.Tensor:
     """Launch K4 on CUDA tensors (no fallback: a refused launch raises).
-    `paged_attention_cuda.launches` counts launches."""
+    `paged_attention_cuda.launches` counts calls: the split kernel and its
+    combine are one call.  The split kernel's shared memory is fixed (the
+    split's table slice, at most `_MAX_SPLIT_PAGES` pages, and one (m, l,
+    acc) per warp); the combine's holds (m, l) per split and 8 bytes of its
+    own, which bounds the table width at 6143 splits of 64 pages."""
+    return _launch(q, k_pool, v_pool, block_tables, lengths)[0]
+
+
+def _launch(q, k_pool, v_pool, block_tables, lengths):
+    """`paged_attention_cuda`, returning besides the output the per-split
+    partials the combine merged: m (log2 units, -1e30 for an empty split),
+    l and the unnormalized acc; acc of an empty split is left unwritten."""
     _check(q, k_pool, v_pool, block_tables, lengths)
     tensors = (q, k_pool, v_pool, block_tables, lengths)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
@@ -149,32 +190,44 @@ def paged_attention_cuda(
     s, h, hd = q.shape
     _, ps, kvh, _ = k_pool.shape
     rep = h // kvh
-    if rep > _MAX_REP or hd > _MAX_HEAD_DIM:
+    vec = 16 // q.element_size()  # elements of one 16-byte load
+    if rep > _MAX_REP or hd > _MAX_HEAD_DIM or hd % vec:
         raise ValueError(
-            f"cuda_paged supports rep <= {_MAX_REP} and head_dim <= {_MAX_HEAD_DIM},"
-            f" got rep={rep}, hd={hd}"
+            f"cuda_paged supports rep <= {_MAX_REP} and head_dim <= {_MAX_HEAD_DIM}, a"
+            f" multiple of {vec} for {q.dtype}; got rep={rep}, hd={hd}"
         )
-    smem = 4 * (rep * hd + rep * ps + 3 * rep)
-    if smem > 48 * 1024:
-        raise ValueError(f"page_size {ps} needs {smem} B of shared memory (> 48 KiB)")
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out, None, None, None
     q = q.contiguous()
     k_pool = k_pool.contiguous()
     v_pool = v_pool.contiguous()
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("cuda_paged reads the pools with 16-byte loads; they must be"
+                         " 16-byte aligned")
     bt = block_tables.to(torch.int32).contiguous()
     ln = lengths.to(torch.int32).contiguous()
+    n_pages = bt.shape[1]
+    split_pages, n_splits = split_plan(n_pages, s * kvh, _sm_count(q.device.index or 0))
+    if n_splits > _MAX_SPLITS:
+        raise ValueError(f"a {n_pages}-page table needs {n_splits} splits; the combine holds"
+                         f" (m, l) of at most {_MAX_SPLITS} in shared memory")
+    # Per-split partials (m, l and the unnormalized acc), merged by the
+    # kernel's combine launch on the same stream.
+    part_m = torch.empty(s, kvh, n_splits, rep, dtype=torch.float32, device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty(s, kvh, n_splits, rep, hd, dtype=torch.float32, device=q.device)
     err = _kernel()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
-        ln.data_ptr(), out.data_ptr(), s, bt.shape[1], ps, kvh, hd, rep,
+        ln.data_ptr(), out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+        part_acc.data_ptr(), s, n_pages, ps, kvh, hd, rep, split_pages, n_splits,
         hd**-0.5, _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: {_error_string(err)}")
     paged_attention_cuda.launches += 1
-    return out
+    return out, part_m, part_l, part_acc
 
 
 paged_attention_cuda.launches = 0

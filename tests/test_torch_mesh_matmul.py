@@ -309,3 +309,47 @@ def test_batched_kernel_matches_plain_on_card(cuda):
     want = tmm.mesh_matmul_torch(a, b, block_m=16, block_n=16, block_k=16)
     # bf16 output: the two f32 sums may round to adjacent bf16 values.
     assert (got.float() - want.float()).abs().max().item() <= 2.0**-7 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize(
+    "m,k,n,dtype,kw,tile",
+    [
+        (200, 2008, 200, "bfloat16", {}, "tc128"),  # ragged M, N and K
+        (17, 512, 384, "bfloat16", dict(activation="gelu", bias=True), "tc128"),
+        (4, 2008, 1000, "bfloat16", dict(bias=True), "tc_decode"),
+        (16, 256, 8192, "bfloat16", {}, "tc_decode"),
+        (8, 512, 256, "bfloat16", dict(block_n=16), "tc_decode"),  # blocks under the tile
+        (512, 256, 512, "bfloat16", dict(scramble_out=True, activation="gelu", bias=True),
+         "tc128"),
+        (512, 256, 512, "float32", dict(scramble_out=True, activation="silu", bias=True),
+         "f32_128"),
+        (200, 2004, 196, "float32", {}, "f32_128"),
+    ],
+)
+def test_new_tiles_match_plain_on_card(cuda, m, k, n, dtype, kw, tile):
+    dt = getattr(torch, dtype)
+    kw = dict(kw)
+    a = torch.from_numpy(_np((m, k), 0)).to(cuda, dt)
+    b = torch.from_numpy(_np((k, n), 1)).to(cuda, dt)
+    if kw.pop("bias", False):
+        kw["bias"] = torch.from_numpy(_np((n,), 3)).to(cuda, dt)
+    res = torch.from_numpy(_np((m, n), 2)).to(cuda, dt)
+    before = dict(tmm.mesh_matmul.launches_by_config)
+    got = tmm.mesh_matmul(a, b, residual=res, **kw)
+    want = tmm.mesh_matmul_torch(a, b, residual=res, **kw)
+    torch.cuda.synchronize()
+    assert tmm.mesh_matmul.launches_by_config.get(tile, 0) == before.get(tile, 0) + 1
+    # f32: summation order only; bf16 output: adjacent roundings.
+    tol = (1e-5 if dt == torch.float32 else 2.0**-7) * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_batched_tensor_core_tile_matches_plain_on_card(cuda):
+    a = torch.from_numpy(_np((3, 128, 256), 0)).to(cuda).bfloat16()
+    b = torch.from_numpy(_np((3, 256, 384), 1)).to(cuda).bfloat16()
+    before = tmm.mesh_matmul.launches_by_config.get("tc128", 0)
+    got = tmm.mesh_matmul(a, b)
+    want = tmm.mesh_matmul_torch(a, b)
+    torch.cuda.synchronize()
+    assert tmm.mesh_matmul.launches_by_config.get("tc128", 0) == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= 2.0**-7 * want.float().abs().max().item()

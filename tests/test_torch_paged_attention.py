@@ -170,3 +170,21 @@ def test_kernel_matches_plain_on_card(cuda, h, kvh, lengths):
     torch.cuda.synchronize()
     assert pa.paged_attention_cuda.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["long and short", "split boundary"])
+def test_kernel_many_splits_match_plain_on_card(cuda, case):
+    # A 300-page table on 2 slots x 4 KV heads: dozens of splits, most of
+    # them empty for the short slot; or lengths on a split boundary and one
+    # token past it.
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    run = pa.split_plan(300, 2 * 4, sms)[0] * 8
+    lengths = (2300, 17) if case == "long and short" else (20 * run, 20 * run + 1)
+    arrays = [t.to(cuda) for t in _torch(_setup(s=2, h=28, kvh=4, hd=128, n_pages=300,
+                                                  lengths=lengths))]
+    before = pa.paged_attention_cuda.launches
+    got = pa.paged_attention_cuda(*arrays)
+    want = pa.paged_attention_torch(*arrays)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_cuda.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
