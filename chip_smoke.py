@@ -18,17 +18,21 @@ Phases; any failure raises and the script exits non-zero:
               whichever is larger): K1 (mesh GEMM, 2D and batched, on each
               of its tile families, every case checked to launch the tile
               `tile_config` names), K4 (split-context paged decode
-              attention: split boundaries, empty splits, rep 1-8, f32, a
-              16k-token context; held by output-relative measures), K3 (block scramble), K1's backward
-              (the `_mm` VJP) against the same backward run with the plain
-              GEMM, K5 (grouped mesh GEMM) at OLMoE's decode and prefill
-              shapes, K5's backward (the `_gmm` VJP), K6 (flash attention)
+              attention: split boundaries, empty splits, rep 1-8 and
+              mistral-large's rep 12 in chunks of 8 and 4, f32, a 16k-token
+              context; held by output-relative measures), K3 (block
+              scramble), K1's backward (the `_mm` VJP) against the same
+              backward run with the plain GEMM, K5 (grouped mesh GEMM) at
+              OLMoE's decode and prefill shapes, every case checked to
+              launch the tile its `tile_config` names (bf16 on the tensor
+              cores), K5's backward (the `_gmm` VJP), K6 (flash attention)
               at Qwen2-7B's prefill and mesh-paper's training shapes in bf16
-              and f32, held by output-relative measures, and K6 under
-              `_FlashAttention` yielding gradients; K4 is also timed at
-              Qwen2-7B's decode (GQA rep 7, 2-4k-token contexts), and K1's
-              decode shapes and K4 are timed by the profiler's device time
-              beside CUDA events, which the host sets for short calls;
+              (tensor cores) and f32 (SIMT), causal with Tq != Tk, held by
+              output-relative measures, and K6 under `_FlashAttention`
+              yielding gradients; K4 is also timed at Qwen2-7B's decode (GQA
+              rep 7, 2-4k-token contexts), and K1's decode shapes, K4 and K6
+              are timed by the profiler's device time beside CUDA events,
+              which the host sets for short calls;
   3. serve    full-width mesh-paper (4 layers, d_model 2048, 16 heads, d_ff
               8192, vocab 32768, bf16, random weights from a seed) through
               `ContinuousBatchingServer`: 8 requests x 128-token prompts x 32
@@ -45,7 +49,8 @@ Phases; any failure raises and the script exits non-zero:
               experts top-8, expert d_ff 1024, vocab 50304, bf16, random
               weights from a seed) with `use_mesh_kernel=True` through the
               same server and requests: K1, K4 and K5 launch counts checked
-              against the server's prefills and decode steps, the output
+              against the server's prefills and decode steps (K5's per tile:
+              no main-path call on a SIMT tile), 0 host syncs, the output
               checked against the dense-cache path, one window profiled;
   6. serve_qwen2  full-width Qwen2-7B (28 layers, d_model 3584, 28 heads over
               4 KV heads, d_ff 18944, vocab 152064, QKV bias, bf16, random
@@ -137,6 +142,9 @@ QWEN_LOGIT_TOL = 0.7
 # only, the first reading was 8.446e-05, and 2.5e-4 is about 3x that.
 QWEN_K6_CHUNKED_TOL = 1.1
 QWEN_F32_TOL = 2.5e-4
+# K4 at mistral-large-123b's decode: (slots, query heads, KV heads, head
+# dim), GQA rep 12, which the split kernel runs as chunks of 8 and 4 rows.
+MISTRAL_DECODE = (SLOTS, 96, 8, 128)
 
 
 def log(msg: str) -> None:
@@ -224,8 +232,10 @@ def phase_build(torch):
 OLD_TILES = ("simt64", "simt_decode")
 
 
-# K1's launches per tile config on each main path, for the kernels line.
+# K1's and K5's launches per tile config on each main path, for the kernels
+# line.
 K1_TILES = {}
+K5_TILES = {}
 # The server's warmup canary, an 8x8 f32 GEMM on 8-wide blocks, checks the
 # build: only the first SIMT decode tile takes it.  It is no main-path product.
 CANARY_TILES = {"simt_decode": 1}
@@ -439,6 +449,8 @@ def phase_k4(torch):
         ("GQA rep=8", (SLOTS, 32, 4, 128), live, bf16, None),
         ("16k-token context", (2, *QWEN_HEADS), [16384 + 5, 700], bf16, None),
         ("16k-token context f32", (2, *QWEN_HEADS), [16384 + 5, 700], f32, None),
+        ("mistral-large rep=12 (8 + 4)", MISTRAL_DECODE, QWEN_LIVE, bf16, None),
+        ("mistral-large rep=12 (8 + 4) f32", MISTRAL_DECODE, QWEN_LIVE, f32, None),
     ]
     max_err, failed = 0.0, []
     for label, (s, h, kvh, hd), lengths, dtype, width in cases:
@@ -700,6 +712,7 @@ def phase_k5(torch):
     here only) and the bound, all as profiler device time."""
     import numpy as np
 
+    from repro_torch.kernels import grouped as gr
     from repro_torch.kernels.grouped import grouped_mesh_matmul, grouped_mesh_matmul_torch
 
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -721,10 +734,22 @@ def phase_k5(torch):
             for how, sizes in (("edge sizes", edge), ("routed", routed[phase])):
                 cases.append((f"{phase} {label} {how}", n_grp, rpg, bm, k, n, sizes,
                               torch.bfloat16, {}))
-    cases.append(("f32 bias+silu+residual", 8, PROMPT, PROMPT, 1024, 512,
-                  np.array([0, 128, 64, 1, 100, 128, 17, 0], np.int32), torch.float32,
-                  dict(bias=True, residual=True, activation="silu")))
-    max_err = 0.0
+    epi_sizes = np.array([0, 128, 64, 1, 100, 128, 17, 0], np.int32)
+    epi = dict(bias=True, residual=True, activation="silu")
+    cases.append(("f32 bias+silu+residual", 8, PROMPT, PROMPT, 1024, 512, epi_sizes,
+                  torch.float32, epi))
+    cases.append(("bf16 bias+silu+residual", 8, PROMPT, PROMPT, 1024, 512, epi_sizes,
+                  torch.bfloat16, epi))
+    cases.append(("bf16 decode bias+gelu+residual", 8, 8, 8, 1024, 512,
+                  np.array([0, 8, 3, 1, 8, 5, 2, 0], np.int32), torch.bfloat16,
+                  dict(bias=True, residual=True, activation="gelu")))
+    # Ragged N and K (masked, not padded), 24-row blocks (a row tile cut at
+    # the block's end, sizes on both sides of it), and 16-row decode blocks.
+    cases.append(("bf16 ragged N, K", 6, 48, 24, 1000, 360,
+                  np.array([48, 0, 23, 24, 25, 7], np.int32), torch.bfloat16, {}))
+    cases.append(("bf16 decode ragged N, K, bm=16", 6, 16, 16, 1000, 360,
+                  np.array([16, 0, 15, 1, 9, 16], np.int32), torch.bfloat16, {}))
+    max_err, failed = 0.0, []
     for label, grp, rpg, bm, k, n, sizes_np, dtype, kw in cases:
         kw = dict(kw)
         sizes = torch.as_tensor(sizes_np, device="cuda")
@@ -734,7 +759,11 @@ def phase_k5(torch):
         if kw.pop("residual", False):
             kw["residual"] = rnd(grp * rpg, n, dtype=dtype)
         blocks = dict(block_m=bm, block_n=128, block_k=128)
+        want = gr.tile_config(n, k, bm, 128, 128, dtype)
+        before = dict(grouped_mesh_matmul.launches_by_config)
         out = grouped_mesh_matmul(tokens, sizes, w, **blocks, **kw)
+        ran = [c for c, x in grouped_mesh_matmul.launches_by_config.items()
+               if x != before.get(c, 0)]
         ref = grouped_mesh_matmul_torch(tokens, sizes, w, **blocks, **kw)
         torch.cuda.synchronize()
         masked = out.reshape(grp, rpg, n)[~valid_rows(sizes, rpg)]
@@ -743,14 +772,26 @@ def phase_k5(torch):
         tol = (1e-5 if dtype == torch.float32 else 2.0**-7) * ref.float().abs().max().item()
         why = ("1e-5 max|ref|: summation order only" if dtype == torch.float32
                else "2^-7 max|ref|: adjacent bf16 roundings")
-        log(f"[K5] {label:30s} {dtype} G={grp} rpg={rpg} K={k} N={n} non-empty="
-            f"{int((sizes > 0).sum())} masked rows nonzero={nonzero} err={err:.3e}"
-            f" tol={tol:.3e} ({why})")
-        check(nonzero == 0, f"K5 {label}: {nonzero} masked values are not exact zeros")
-        check(bool(torch.isfinite(out.float()).all()), f"K5 {label}: non-finite output")
-        check(err <= tol, f"K5 {label}: err {err} > tol {tol}")
+        bad = []
+        if nonzero:
+            bad.append(f"{nonzero} masked values are not exact zeros")
+        if not bool(torch.isfinite(out.float()).all()):
+            bad.append("non-finite output")
+        if not err <= tol:
+            bad.append(f"err {err} > tol {tol}")
+        if ran != [want]:
+            bad.append(f"ran on {ran}, tile_config names {want}")
+        if dtype == torch.bfloat16 and not want.startswith("tc"):
+            bad.append(f"a bf16 case on the SIMT tile {want}")
+        log(f"[K5] {label:30s} {str(dtype)[6:]:8s} G={grp} rpg={rpg} bm={bm} K={k} N={n}"
+            f" on {want}: non-empty={int((sizes > 0).sum())} masked rows nonzero={nonzero}"
+            f" err={err:.3e} tol={tol:.3e} ({why}): " + ("FAIL " + "; ".join(bad) if bad else "ok"))
+        if bad:
+            failed.append(f"{label} {dtype}: {'; '.join(bad)}")
         max_err = max(max_err, err)
         del tokens, w, out, ref, kw
+    failed += _k5_order_witness(torch, gr)
+    check(not failed, f"K5 disagrees with its plain version: {failed}")
 
     # Timings with routed sizes.  Calls cycle through two weight sets (each
     # read over 2 x the L2 in every shape but decode wo, 106 MB), so weights
@@ -767,6 +808,7 @@ def phase_k5(torch):
             tokens = torch.where(valid, rnd(n_grp, rpg, k), 0).reshape(n_grp * rpg, k)
             ws = [rnd(n_grp, k, n) for _ in range(2)]
             blocks = dict(block_m=bm, block_n=128, block_k=128)
+            tile = gr.tile_config(n, k, bm, 128, 128, torch.bfloat16)
             ms = device_ms(torch, [lambda w=w: grouped_mesh_matmul(tokens, sizes, w, **blocks)
                                    for w in ws], 20)
             plain = device_ms(torch, [lambda w=w: grouped_mesh_matmul_torch(
@@ -778,9 +820,9 @@ def phase_k5(torch):
             nbytes = 2 * (int(sizes_np.sum()) * k + live * k * n + n_grp * rpg * n)
             bms, by = bound_ms(nbytes, 2 * row_blocks * bm * k * n, "bfloat16")
             per[(phase, label)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                                       bound_by=by)
+                                       bound_by=by, tile=tile)
             log(f"[K5] time {phase:7s} {label} G={n_grp} rpg={rpg} K={k} N={n} non-empty={live}"
-                f" rows={int(sizes_np.sum())}: kernel={ms:.4f} ms plain={plain:.4f} ms"
+                f" rows={int(sizes_np.sum())} on {tile}: kernel={ms:.4f} ms plain={plain:.4f} ms"
                 f" bmm+mask={lib:.4f} ms bound={bms:.4f} ms ({by}) (device time)")
             del tokens, ws, t3
 
@@ -793,12 +835,47 @@ def phase_k5(torch):
         for r in rows:
             share[r["bound_by"]] += r["bound_ms"]
         out["bound_by"] = max(share, key=share.get)
+        out["tile"] = sorted({r["tile"] for r in rows})
         return out
 
     tick, prefill = per_layer_sum("decode"), per_layer_sum("prefill")
     log(f"[K5] one decode step (32 launches, {SLOTS} tokens): " + json.dumps(tick))
     log(f"[K5] one {PROMPT}-token prefill (32 launches): " + json.dumps(prefill))
     return max_err, tick, prefill
+
+
+def _k5_order_witness(torch, gr):
+    """K5's k order, exactly, on every tile family: each cell's three k
+    blocks of 32 carry one term each, 2^24, 1 and -2^24 (tokens one-hot at
+    k = 0, 32, 64; weights those values), so its f32 sum reads 0 when the
+    cell starts at block 0 ((2^24 + 1) rounds to 2^24) and 1 when it starts
+    at block 1 or 2.  A cell that walks its blocks in another order than
+    (g + i + j + s) mod 3 reads the other value.  The plain version sums in
+    that order; the kernel must match it bit for bit.  (With 32-deep blocks
+    the decode tile's warps take one block each and meet in warp order,
+    which is the same order.)  Returns the failing cases."""
+    grp, n, k = 6, 256, 96
+    failed = []
+    for rpg, bm, dtype in ((96, 32, torch.bfloat16), (16, 8, torch.bfloat16),
+                           (96, 32, torch.float32), (16, 8, torch.float32)):
+        tokens = torch.zeros(grp * rpg, k, dtype=dtype, device="cuda")
+        tokens[:, [0, 32, 64]] = 1
+        w = torch.zeros(grp, k, n, dtype=dtype, device="cuda")
+        w[:, 0], w[:, 32], w[:, 64] = 2.0**24, 1.0, -(2.0**24)
+        sizes = torch.full((grp,), rpg, dtype=torch.int32, device="cuda")
+        blocks = dict(block_m=bm, block_n=128, block_k=32)
+        tile = gr.tile_config(n, k, bm, 128, 32, dtype)
+        out = gr.grouped_mesh_matmul(tokens, sizes, w, **blocks)
+        ref = gr.grouped_mesh_matmul_torch(tokens, sizes, w, **blocks)
+        torch.cuda.synchronize()
+        ones = int((ref == 1).sum())
+        ok = torch.equal(out, ref) and 0 < ones < ref.numel()
+        log(f"[K5] k-order witness {str(dtype)[6:]:8s} G={grp} rpg={rpg} bm={bm} K={k} N={n}"
+            f" blocks of 32 on {tile}: {ones} of {ref.numel()} outputs read 1 in the plain"
+            f" version, {int((out != ref).sum())} differ: " + ("ok" if ok else "FAIL"))
+        if not ok:
+            failed.append(f"k-order witness {dtype} on {tile}: {int((out != ref).sum())} differ")
+    return failed
 
 
 def phase_k5_backward(torch):
@@ -895,11 +972,13 @@ def _causal_flash_work(b, t, h, kvh, hd, size):
 
 def phase_k6(torch):
     """K6 (flash_attention_cuda) against flash_attention_torch at the shapes
-    the serving and training paths give it, in bf16 (as they run) and f32
-    (where the two agree to summation order), then timings: the kernel, the
-    plain version, SDPA (causal, GQA; timed here only) and the bound.  Every
-    case is checked before a failure is raised, so one run shows which cases
-    a fault breaks."""
+    the serving and training paths give it, in bf16 (as they run: the
+    tensor-core kernel) and f32 (the SIMT kernel, where the two agree to
+    summation order), and causal with Tq != Tk (the reference's top-left
+    mask), then timings: the kernel (CUDA events and profiler device time),
+    the plain version, SDPA (causal, GQA; timed here only) and the bound.
+    Every case is checked before a failure is raised, so one run shows which
+    cases a fault breaks."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_torch
 
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -907,21 +986,28 @@ def phase_k6(torch):
     bf16, f32 = torch.bfloat16, torch.float32
     blocks = (QWEN_CHUNK, QWEN_CHUNK)
     qwen, mesh = (1, 2048, h, kvh, hd), (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
-    # label, (B, T, H, KV, hd), causal, dtype, (block_q, block_k)
+    # label, (B, Tq, H, KV, hd), Tk (None: Tq), causal, dtype, (block_q, block_k)
     cases = [
-        ("qwen2-7b prefill T=2048", qwen, True, bf16, blocks),
-        ("qwen2-7b prefill T=2048", qwen, True, f32, blocks),
-        ("qwen2-7b prefill T=4096", (1, 4096, h, kvh, hd), True, bf16, blocks),
-        ("mesh-paper train", mesh, True, bf16, blocks),
-        ("mesh-paper train", mesh, True, f32, blocks),
-        ("f32 full MQA", (2, 192, 8, 1, 64), False, f32, (64, 64)),
-        ("f32 rep=3 causal, ragged tiles", (1, 100, 6, 2, 32), True, f32, (150, 50)),
-        ("bf16 rep=3 causal", (2, 320, 6, 2, 128), True, bf16, (64, 64)),
+        ("qwen2-7b prefill T=2048", qwen, None, True, bf16, blocks),
+        ("qwen2-7b prefill T=2048", qwen, None, True, f32, blocks),
+        ("qwen2-7b prefill T=4096", (1, 4096, h, kvh, hd), None, True, bf16, blocks),
+        ("mesh-paper train", mesh, None, True, bf16, blocks),
+        ("mesh-paper train", mesh, None, True, f32, blocks),
+        ("f32 full MQA", (2, 192, 8, 1, 64), None, False, f32, (64, 64)),
+        ("f32 rep=3 causal, ragged tiles", (1, 100, 6, 2, 32), None, True, f32, (150, 50)),
+        ("bf16 rep=3 causal", (2, 320, 6, 2, 128), None, True, bf16, (64, 64)),
+        ("bf16 full rep=7 hd=64, ragged", (1, 200, 14, 2, 64), 136, False, bf16, (56, 8)),
+        ("causal Tq<Tk rep=1", (1, 256, 8, 8, 128), 640, True, bf16, (64, 64)),
+        ("causal Tq<Tk rep=1", (1, 256, 8, 8, 128), 640, True, f32, (64, 64)),
+        ("causal Tq>Tk rep=2", (2, 576, 8, 4, 128), 192, True, bf16, (64, 64)),
+        ("causal Tq>Tk rep=2", (2, 576, 8, 4, 128), 192, True, f32, (64, 64)),
+        ("causal Tq<Tk rep=2 hd=64", (1, 96, 8, 4, 64), 1024, True, bf16, (64, 64)),
     ]
     max_err, failed = 0.0, []
-    for label, (b, t, hq, kv, d), causal, dtype, (bq, bk) in cases:
+    for label, (b, t, hq, kv, d), tk, causal, dtype, (bq, bk) in cases:
+        tk = t if tk is None else tk
         q = torch.randn(b, t, hq, d, generator=g, device="cuda").to(dtype)
-        k, v = (torch.randn(b, t, kv, d, generator=g, device="cuda").to(dtype) for _ in "kv")
+        k, v = (torch.randn(b, tk, kv, d, generator=g, device="cuda").to(dtype) for _ in "kv")
         out = flash_attention_cuda(q, k, v, causal=causal)
         ref = flash_attention_torch(q, k, v, causal=causal, block_q=bq, block_k=bk)
         torch.cuda.synchronize()
@@ -931,7 +1017,9 @@ def phase_k6(torch):
                if not got[name] <= x]
         if not bool(torch.isfinite(out.float()).all()):
             bad.append("non-finite output")
-        log(f"[K6] {label:30s} {str(dtype)[6:]:8s} causal={causal} blocks=({bq},{bk}): "
+        kernel = "mma.sync" if dtype == bf16 else "SIMT f32"
+        log(f"[K6] {label:30s} {str(dtype)[6:]:8s} Tq={t} Tk={tk} causal={causal}"
+            f" blocks=({bq},{bk}) on {kernel}: "
             + " ".join(f"{name}={x:.3e}" for name, x in got.items())
             + f" (max|v| {v.float().abs().max().item():.3f}) limits {lim}: "
             + ("FAIL " + "; ".join(bad) if bad else "ok"))
@@ -939,29 +1027,76 @@ def phase_k6(torch):
             failed.append(f"{label} {dtype}: {'; '.join(bad)}")
         max_err = max(max_err, got["err"])
         del q, k, v, out, ref
+    failed += _k6_rounding_witness(torch, g)
     check(not failed, f"K6 disagrees with its plain version: {failed}")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     per = {}
-    for label, (b, t, hq, kv, d) in (("qwen2 T=2048", qwen), ("qwen2 T=4096", (1, 4096, h, kvh, hd)),
-                                     ("mesh-paper train", mesh)):
+    timed = (("qwen2 T=2048", qwen), ("qwen2 T=4096", (1, 4096, h, kvh, hd)),
+             ("mesh-paper train", mesh))
+    for label, (b, t, hq, kv, d) in timed:
         q = torch.randn(b, t, hq, d, generator=g, device="cuda").to(bf16)
         k, v = (torch.randn(b, t, kv, d, generator=g, device="cuda").to(bf16) for _ in "kv")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         gqa = dict(enable_gqa=True) if hq != kv else {}
-        ms = time_ms(torch, [lambda: flash_attention_cuda(q, k, v, causal=True)], 10)
+        call = [lambda: flash_attention_cuda(q, k, v, causal=True)]
+        ms = time_ms(torch, call, 10)
+        dev = device_ms(torch, call, 10)
         plain = time_ms(torch, [lambda: flash_attention_torch(
             q, k, v, causal=True, block_q=QWEN_CHUNK, block_k=QWEN_CHUNK)], 3, warmup=1)
-        lib = time_ms(torch, [lambda: sdpa(qt, kt, vt, is_causal=True, **gqa)], 20)
+        lib_call = [lambda: sdpa(qt, kt, vt, is_causal=True, **gqa)]
+        lib = time_ms(torch, lib_call, 20)
+        lib_dev = device_ms(torch, lib_call, 20)
         nbytes, flops = _causal_flash_work(b, t, hq, kv, d, 2)
         bms, by = bound_ms(nbytes, flops, "bfloat16")
         per[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                          device_ms=dev, library_device_ms=lib_dev,
                           shape=f"B={b} T={t} H={hq} KV={kv} hd={d} bf16 causal")
         log(f"[K6] time {label:16s} B={b} T={t} H={hq} KV={kv} hd={d} bf16 causal:"
-            f" kernel={ms:.4f} ms plain={plain:.4f} ms sdpa={lib:.4f} ms bound={bms:.4f} ms"
-            f" ({by}) {flops / ms / 1e9:.2f} TFLOP/s")
+            f" kernel={ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s) device={dev:.4f} ms"
+            f" ({flops / dev / 1e9:.2f} TFLOP/s) plain={plain:.4f} ms sdpa={lib:.4f} ms"
+            f" (device {lib_dev:.4f} ms) bound={bms:.4f} ms ({by})")
         del q, k, v, qt, kt, vt
     return max_err, per
+
+
+def _k6_rounding_witness(torch, g):
+    """Where K6 rounds p, exactly: query token 1 of a causal bf16 sequence
+    sees keys 0 and 1 with scores 0.25 and 0.125 (q one-hot, k[:, 0] 2 and
+    1, scale 1/8), so p = (1, e^-0.125) and bf16(e^-0.125) = 113/128, 0.0003
+    from the f32 value and far from a rounding tie.  With v1 = +-2^e and v0
+    = -113/128 v1, the reference's P.V (p rounded to v's type first) is 0
+    exactly, and so is the output row; a kernel that multiplies V by the
+    unrounded p, or rounds elsewhere, leaves (p - bf16(p)) v1 / l there.
+    The row is held to be exactly 0 and the other rows by K6_LIMITS.
+    Returns the failing cases."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_torch
+
+    b, t, hd = 1, 64, 64
+    q = torch.randn(b, t, 1, hd, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, t, 1, hd, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in "kv")
+    q[0, 1, 0] = 0
+    q[0, 1, 0, 0] = 1
+    k[0, 0, 0, 0], k[0, 1, 0, 0] = 2, 1
+    signs = torch.randint(0, 2, (hd,), generator=g, device="cuda") * 2 - 1
+    v1 = (signs * 2.0 ** torch.randint(-2, 3, (hd,), generator=g, device="cuda")).float()
+    v[0, 1, 0] = v1.to(torch.bfloat16)
+    v[0, 0, 0] = (-113 / 128 * v1).to(torch.bfloat16)
+    out = flash_attention_cuda(q, k, v, causal=True)
+    ref = flash_attention_torch(q, k, v, causal=True, block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    got = disagreement(torch, out, ref)
+    lim = K6_LIMITS["bfloat16"]
+    bad = [f"{name} {got[name]:.3e} > {x:.3e}" for name, x in lim.items() if not got[name] <= x]
+    row = out[0, 1, 0].float().abs().max().item()
+    if ref[0, 1, 0].abs().max().item() != 0 or row != 0:
+        bad.append(f"token 1 reads max |out| {row:.3e} (plain version"
+                   f" {ref[0, 1, 0].float().abs().max().item():.3e}), not 0")
+    log(f"[K6] p-rounding witness, token 1 exactly 0 bfloat16 T={t} hd={hd} causal on mma.sync:"
+        f" token 1 max |out| {row:.3e}; " + " ".join(f"{n}={x:.3e}" for n, x in got.items())
+        + ": " + ("FAIL " + "; ".join(bad) if bad else "ok"))
+    return [f"p-rounding witness: {'; '.join(bad)}"] if bad else []
 
 
 def phase_k6_backward(torch):
@@ -1376,6 +1511,7 @@ def phase_serve_moe(torch):
     reset_k1(mesh_matmul)
     paged_attention_cuda.launches = 0
     grouped_mesh_matmul.launches = 0
+    grouped_mesh_matmul.launches_by_config = {}
     server = ContinuousBatchingServer(model, params, scfg, device="cuda")
     server.warmup()
     reqs = [Request(rid=f"req{i}", prompt=p, max_new_tokens=NEW_TOKENS)
@@ -1389,6 +1525,11 @@ def phase_serve_moe(torch):
                 "paged_attention": paged_attention_cuda.launches,
                 "grouped_mesh_matmul": grouped_mesh_matmul.launches}
     check_main_path_tiles("serve_moe", tile_counts(mesh_matmul), canary=True)
+    k5_tiles = dict(grouped_mesh_matmul.launches_by_config)
+    K5_TILES["serve_moe"] = k5_tiles
+    log(f"[serve_moe] K5 launches per tile: {k5_tiles}")
+    check(all(c.startswith("tc") for c in k5_tiles),
+          f"a main-path K5 call took a SIMT tile: {k5_tiles}")
 
     for r in reqs:
         res = results[r.rid]
@@ -1830,6 +1971,7 @@ def main() -> int:
             f"one OLMoE decode step: 32 launches (wi, wo x 16 layers), 64 experts x 8 rows,"
             f" {SLOTS} tokens routed; library_ms is torch.bmm + segment mask",
             launches_by_path={"serve_moe": serve_moe["grouped_mesh_matmul"]},
+            launches_by_tile=K5_TILES,
             prefill={**k5_prefill, "shape": f"one {PROMPT}-token prefill: 32 launches,"
                      " 64 experts x 128 rows"}),
         row("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:97",
@@ -1839,6 +1981,8 @@ def main() -> int:
             " is scaled_dot_product_attention (is_causal, enable_gqa)",
             launches_by_path={"serve_qwen2": serve_qwen2["flash_attention"],
                               "train_flash": train_flash["flash_attention"]},
+            device_ms=k6["qwen2 T=2048"]["device_ms"],
+            library_device_ms=k6["qwen2 T=2048"]["library_device_ms"],
             t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"]),
     ]
     log(f"[done] total {time.monotonic() - t_start:.1f} s")

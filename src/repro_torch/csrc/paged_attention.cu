@@ -23,28 +23,32 @@
 // x 4 KV heads, 2-4k-token contexts) that is 23 MB, 7 us at 3.35 TB/s; a
 // grid of one CTA per (slot, KV head) would leave 116 of 132 SMs idle and
 // walk 500 pages in order.  So the design is split-context ("flash
-// decoding"), two launches on one stream:
+// decoding"), launches on one stream:
 //
-//   1. paged_split_kernel, grid (slot, kv_head, split).  Each split covers a
+//   1. paged_split_kernel, grid (slot, kv_head, split), once per chunk of at
+//      most kMaxRep of each KV head's rep query rows (rep 12 runs as 8 + 4;
+//      the chunk's first row is an offset into q and into the partials,
+//      which hold all rep rows, so nothing is copied).  Each split covers a
 //      fixed run of `split_pages` pages, chosen by the host from the table
 //      width and the SM count alone (never from `lengths`, so no host sync).
 //      A CTA whose split starts at or past its slot's length writes an empty
 //      partial (m = -1e30, l = 0) and exits.  Otherwise it loads the split's
-//      block-table slice and the rep query rows (f32) into shared memory
+//      block-table slice and the chunk's query rows (f32) into shared memory
 //      once; each of its 4 warps takes its own pages.  A K or V row is read
 //      with 16-byte loads by a group of hd / (16 / sizeof(T)) lanes (16 lanes
 //      for a 128-wide bf16 row, so a warp scores two keys at once), each
-//      group holds up to 4 keys of a page in flight, scores all rep query
-//      rows against each key (one kernel per rep, its loops unrolled) with a
-//      log2(lanes)-step shuffle, and keeps its own online softmax state (m,
-//      l, acc) for the rep rows in registers, in log2 units so that each
-//      exponential is one exp2f.  No barrier inside the loop: the groups of
-//      a warp merge by shuffles, the warps through shared memory once at the
-//      end, in a fixed order, into the split's partial (m, l: f32 (S, KV,
-//      splits, rep); acc: f32 (S, KV, splits, rep, hd)).
-//   2. paged_combine_kernel, grid (slot, kv_head, query row), merges the
-//      partials in split order: M = max m_s, out = sum acc_s e^(m_s - M) /
-//      sum l_s e^(m_s - M); empty splits (l_s == 0) contribute nothing.
+//      group holds up to 4 keys of a page in flight, scores the chunk's
+//      query rows against each key (one kernel per chunk size, its loops
+//      unrolled) with a log2(lanes)-step shuffle, and keeps its own online
+//      softmax state (m, l, acc) for those rows in registers, in log2 units
+//      so that each exponential is one exp2f.  No barrier inside the loop:
+//      the groups of a warp merge by shuffles, the warps through shared
+//      memory once at the end, in a fixed order, into the split's partial
+//      (m, l: f32 (S, KV, splits, rep); acc: f32 (S, KV, splits, rep, hd)).
+//   2. paged_combine_kernel, grid (slot, kv_head, query row), one launch
+//      over all rep rows after the chunks, merges the partials in split
+//      order: M = max m_s, out = sum acc_s e^(m_s - M) / sum l_s e^(m_s -
+//      M); empty splits (l_s == 0) contribute nothing.
 //
 // The order of every sum is fixed by the shapes, so the result is
 // deterministic.
@@ -114,11 +118,12 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                    const T* __restrict__ v_pool, const int* __restrict__ block_tables,
                    const int* __restrict__ lengths, float* __restrict__ part_m,
                    float* __restrict__ part_l, float* __restrict__ part_acc, int n_pages,
-                   int ps, int kvh, int hd, int lanes_per_key, int split_pages, int n_splits,
-                   float scale) {
+                   int ps, int kvh, int hd, int rep, int r0, int lanes_per_key,
+                   int split_pages, int n_splits, float scale) {
+  // Rows r0 .. r0 + REP - 1 of the rep query rows of KV head blockIdx.y.
   constexpr int VEC = Vec16<T>::n;
   __shared__ int pages_s[kMaxSplitPages];
-  __shared__ __align__(16) float q_s[REP][kMaxHeadDim];  // the rep query rows, f32
+  __shared__ __align__(16) float q_s[REP][kMaxHeadDim];  // the chunk's query rows, f32
   __shared__ float m_s[kWarps][REP];
   __shared__ float l_s[kWarps][REP];
   __shared__ float acc_s[kWarps][REP][kMaxHeadDim];
@@ -133,7 +138,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int p0 = split * split_pages;
   const int live = min(n_pages, (length + ps - 1) / ps);  // pages holding a valid key
   const int n_here = min(split_pages, live - p0);         // this split's live pages
-  const long long part = ((long long)(s * kvh + j) * n_splits + split) * REP;
+  const long long part = ((long long)(s * kvh + j) * n_splits + split) * rep + r0;
   if (n_here <= 0) {  // the split starts at or past the length: an empty partial
     if (tid < REP) {
       part_m[part + tid] = kNegInf;
@@ -143,7 +148,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
   for (int i = tid; i < n_here; i += kThreads)
     pages_s[i] = block_tables[(long long)s * n_pages + p0 + i];
-  const T* qrows = q + ((long long)s * kvh * REP + (long long)j * REP) * hd;
+  const T* qrows = q + ((long long)s * kvh * rep + (long long)j * rep + r0) * hd;
   for (int e = tid; e < REP * hd; e += kThreads) q_s[e / hd][e % hd] = to_f32(qrows[e]);
 
   const int group = lane / lanes_per_key;  // which key of the warp's step this lane scores
@@ -346,65 +351,82 @@ paged_combine_kernel(const float* __restrict__ part_m, const float* __restrict__
 }
 
 template <typename T, int REP>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const int* bt,
-                   const int* ln, void* out, float* part_m, float* part_l, float* part_acc,
-                   int slots, int n_pages, int ps, int kvh, int hd, int lanes_per_key,
-                   int split_pages, int n_splits, float scale, cudaStream_t st) {
+cudaError_t launch_split(const void* q, const void* k_pool, const void* v_pool, const int* bt,
+                         const int* ln, float* part_m, float* part_l, float* part_acc,
+                         int slots, int n_pages, int ps, int kvh, int hd, int rep, int r0,
+                         int lanes_per_key, int split_pages, int n_splits, float scale,
+                         cudaStream_t st) {
   paged_split_kernel<T, REP><<<dim3(slots, kvh, n_splits), kThreads, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      bt, ln, part_m, part_l, part_acc, n_pages, ps, kvh, hd, lanes_per_key, split_pages,
-      n_splits, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_combine_kernel<T><<<dim3(slots, kvh, REP), kThreads, 2 * n_splits * sizeof(float), st>>>(
-      part_m, part_l, part_acc, static_cast<T*>(out), kvh, hd, REP, n_splits);
+      bt, ln, part_m, part_l, part_acc, n_pages, ps, kvh, hd, rep, r0, lanes_per_key,
+      split_pages, n_splits, scale);
   return cudaGetLastError();
 }
 
+// The split kernel over each chunk (r0[c], n[c]) of the rep rows, then one
+// combine over all of them.
 template <typename T>
 cudaError_t launch_rep(const void* q, const void* k_pool, const void* v_pool, const int* bt,
                        const int* ln, void* out, float* part_m, float* part_l,
                        float* part_acc, int slots, int n_pages, int ps, int kvh, int hd,
-                       int rep, int split_pages, int n_splits, float scale,
-                       cudaStream_t st) {
+                       int rep, const int* chunk_r0, const int* chunk_n, int n_chunks,
+                       int split_pages, int n_splits, float scale, cudaStream_t st) {
   const int need = hd / Vec16<T>::n;  // lanes that cover one row
   int lanes = 1;
   while (lanes < need) lanes <<= 1;
-#define PAGED_LAUNCH(R)                                                                  \
-  case R:                                                                                \
-    return launch<T, R>(q, k_pool, v_pool, bt, ln, out, part_m, part_l, part_acc, slots, \
-                        n_pages, ps, kvh, hd, lanes, split_pages, n_splits, scale, st)
-  switch (rep) {  // one kernel per group size, its row loops unrolled
-    PAGED_LAUNCH(1);
-    PAGED_LAUNCH(2);
-    PAGED_LAUNCH(3);
-    PAGED_LAUNCH(4);
-    PAGED_LAUNCH(5);
-    PAGED_LAUNCH(6);
-    PAGED_LAUNCH(7);
-    PAGED_LAUNCH(8);
-    default: return cudaErrorInvalidValue;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int r0 = chunk_r0[c];
+    cudaError_t err;
+#define PAGED_SPLIT(R)                                                                      \
+  case R:                                                                                   \
+    err = launch_split<T, R>(q, k_pool, v_pool, bt, ln, part_m, part_l, part_acc, slots,    \
+                             n_pages, ps, kvh, hd, rep, r0, lanes, split_pages, n_splits,   \
+                             scale, st);                                                    \
+    break
+    switch (chunk_n[c]) {  // one kernel per chunk size, its row loops unrolled
+      PAGED_SPLIT(1);
+      PAGED_SPLIT(2);
+      PAGED_SPLIT(3);
+      PAGED_SPLIT(4);
+      PAGED_SPLIT(5);
+      PAGED_SPLIT(6);
+      PAGED_SPLIT(7);
+      PAGED_SPLIT(8);
+      default: return cudaErrorInvalidValue;
+    }
+#undef PAGED_SPLIT
+    if (err != cudaSuccess) return err;
   }
-#undef PAGED_LAUNCH
+  paged_combine_kernel<T><<<dim3(slots, kvh, rep), kThreads, 2 * n_splits * sizeof(float), st>>>(
+      part_m, part_l, part_acc, static_cast<T*>(out), kvh, hd, rep, n_splits);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launches (0 = launched).  The caller checks rep <= 8, hd <= 128 with hd a
-// multiple of 16 bytes, 16-byte aligned pools, split_pages <= 64,
-// n_splits * split_pages >= n_pages and 8 * n_splits + 8 <= 48 KiB (the
-// combine's shared memory), and allocates the partials: part_m and
-// part_l (S, KV, n_splits, rep), part_acc (S, KV, n_splits, rep, hd), f32.
+// dtype: 0 = float32, 1 = bfloat16.  The rep query rows of each KV head run
+// in n_chunks chunks, chunk c being rows chunk_r0[c] .. chunk_r0[c] +
+// chunk_n[c] - 1 (host arrays; kernels/paged_attention.py: rep_chunks), each
+// of at most kMaxRep rows, together covering every row once.  Returns
+// cudaGetLastError() after the launches (0 = launched).  The caller checks
+// hd <= 128 with hd a multiple of 16 bytes, 16-byte aligned pools,
+// split_pages <= 64, n_splits * split_pages >= n_pages and 8 * n_splits + 8
+// <= 48 KiB (the combine's shared memory), and allocates the partials:
+// part_m and part_l (S, KV, n_splits, rep), part_acc (S, KV, n_splits, rep,
+// hd), f32.
 extern "C" int paged_attention_launch(const void* q, const void* k_pool, const void* v_pool,
                                       const void* block_tables, const void* lengths,
                                       void* out, void* part_m, void* part_l, void* part_acc,
                                       int slots, int n_pages, int ps, int kvh, int hd,
-                                      int rep, int split_pages, int n_splits, float scale,
-                                      int dtype, void* stream) {
-  if (rep < 1 || rep > kMaxRep || hd > kMaxHeadDim || split_pages > kMaxSplitPages ||
-      split_pages < 1)
+                                      int rep, const int* chunk_r0, const int* chunk_n,
+                                      int n_chunks, int split_pages, int n_splits,
+                                      float scale, int dtype, void* stream) {
+  if (rep < 1 || hd > kMaxHeadDim || split_pages > kMaxSplitPages || split_pages < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int c = 0; c < n_chunks; ++c)
+    if (chunk_r0[c] < 0 || chunk_n[c] < 1 || chunk_n[c] > kMaxRep ||
+        chunk_r0[c] + chunk_n[c] > rep)
+      return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_tables);
   const int* ln = static_cast<const int*>(lengths);
@@ -414,10 +436,11 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool, const v
   if (dtype == 1)
     return static_cast<int>(launch_rep<__nv_bfloat16>(q, k_pool, v_pool, bt, ln, out, pm, pl,
                                                       pa, slots, n_pages, ps, kvh, hd, rep,
-                                                      split_pages, n_splits, scale, st));
+                                                      chunk_r0, chunk_n, n_chunks, split_pages,
+                                                      n_splits, scale, st));
   return static_cast<int>(launch_rep<float>(q, k_pool, v_pool, bt, ln, out, pm, pl, pa, slots,
-                                            n_pages, ps, kvh, hd, rep, split_pages, n_splits,
-                                            scale, st));
+                                            n_pages, ps, kvh, hd, rep, chunk_r0, chunk_n,
+                                            n_chunks, split_pages, n_splits, scale, st));
 }
 
 extern "C" const char* paged_attention_error_string(int err) {

@@ -11,20 +11,20 @@ contract are the reference's:
   k, v (B, Tk, KV, hd)
   out  (B, Tq, H, hd)     in q's type
 
-`Tq * rep % block_q` and `Tk % block_k` must be 0 (ValueError otherwise),
-and causal attention needs Tq == Tk: the causal mask compares token
-positions with no query offset, as the reference's does.
+`Tq * rep % block_q` and `Tk % block_k` must be 0 (ValueError otherwise).
+The causal mask is the reference's, top-left aligned: query token t sees
+keys 0..t, with no offset, so Tq and Tk may differ.
 
 On a CUDA tensor `flash_attention` launches the hand-written kernel
-(`csrc/flash_attention.cu`, see its header for the design) or raises; on a
-CPU tensor it runs `flash_attention_torch`, the plain version: `_sdpa_chunked`
-(defined here, the reference's `models.attention._sdpa_chunked` op for op)
-with chunk = block_k.  K6 computes the same function
-and rounds where it does (f32 scores times hd**-0.5, probabilities rounded
-to the input type before the V product, acc / l cast back); it walks the
-keys in its own 64-key tiles, so it agrees with the plain version to
-rounding, not bit for bit.  `flash_attention.launches` counts kernel
-launches.
+(`csrc/flash_attention.cu`, see its header for the design: bf16 on the
+tensor cores, f32 on the FMA units) or raises; on a CPU tensor it runs
+`flash_attention_torch`, the plain version: `_sdpa_chunked` (defined here,
+the reference's `models.attention._sdpa_chunked` op for op) with chunk =
+block_k.  K6 computes the same function and rounds where it does (f32
+scores times hd**-0.5, probabilities rounded to the input type before the V
+product, acc / l cast back); it walks the keys in its own 64-key tiles, so
+it agrees with the plain version to rounding, not bit for bit.
+`flash_attention.launches` counts kernel launches.
 
 The Pallas kernel has no VJP: the reference differentiates the chunked
 path by autodiff of `_sdpa_chunked`.  So on the card K6 runs inside
@@ -48,6 +48,9 @@ __all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_torch"]
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128  # csrc/flash_attention.cu: kMaxHeadDim
+# Head dims the kernels take: bf16 in whole 16-deep mma steps, f32 spread
+# over 8 lanes of 16-byte loads.
+_HEAD_DIM_STEP = {torch.bfloat16: 16, torch.float32: 8}
 
 
 def _check(q, k, v, causal, block_q, block_k):
@@ -65,8 +68,6 @@ def _check(q, k, v, causal, block_q, block_k):
         raise ValueError(
             f"(Tq*rep={rows}, Tk={tk}) not divisible by blocks ({block_q},{block_k})"
         )
-    if causal and tq != tk:
-        raise ValueError(f"causal flash attention needs Tq == Tk, got {tq} and {tk}")
 
 
 def _sdpa_chunked(
@@ -156,8 +157,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
 ) -> torch.Tensor:
-    """Launch K6 on CUDA tensors (no fallback: a refused launch raises).
-    Shapes as `flash_attention`; no gradient (see `_FlashAttention`)."""
+    """Launch K6 on CUDA tensors (no fallback: a refused launch raises):
+    bf16 runs the tensor-core kernel, f32 the SIMT kernel.  Shapes as
+    `flash_attention`; no gradient (see `_FlashAttention`)."""
     _check(q, k, v, causal, 1, 1)
     if any(t.device.type != "cuda" or t.device != q.device for t in (q, k, v)):
         raise ValueError("flash_attention_cuda needs q, k and v on one CUDA device")
@@ -168,9 +170,10 @@ def flash_attention_cuda(
         )
     b, tq, h, hd = q.shape
     tk, kvh = k.shape[1], k.shape[2]
-    if hd > _MAX_HEAD_DIM or hd % 8:
-        raise ValueError(f"flash attention kernel takes head_dim <= {_MAX_HEAD_DIM} and a"
-                         f" multiple of 8, got {hd}")
+    step = _HEAD_DIM_STEP[q.dtype]
+    if hd > _MAX_HEAD_DIM or hd % step:
+        raise ValueError(f"flash attention kernel takes {q.dtype} head_dim <= {_MAX_HEAD_DIM}"
+                         f" and a multiple of {step}, got {hd}")
     if b * kvh > 65535 or tq * h >= 2**31:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
     out = torch.empty_like(q)

@@ -15,10 +15,11 @@ exact zeros.  rpg must divide by block_m; K and N need not divide their
 blocks.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(`csrc/grouped_matmul.cu`, see its header for the design) or raises; on a
-CPU tensor it runs `grouped_mesh_matmul_torch`, the plain version, which
-repeats the kernel's arithmetic block by block.
-`grouped_mesh_matmul.launches` counts kernel launches.
+(`csrc/grouped_matmul.cu`, see its header for the design) on the tile
+`tile_config` picks, or raises; on a CPU tensor it runs
+`grouped_mesh_matmul_torch`, the plain version, which repeats the kernel's
+arithmetic block by block.  `grouped_mesh_matmul.launches` counts kernel
+launches, `grouped_mesh_matmul.launches_by_config` the launches per tile.
 """
 
 from __future__ import annotations
@@ -30,12 +31,41 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mesh_matmul import _ACT_CODES, _DTYPE_CODES, ACTIVATIONS, _pad_to
+from repro_torch.kernels.mesh_matmul import (
+    _ACT_CODES,
+    _DTYPE_CODES,
+    ACTIVATIONS,
+    _aligned,
+    _pad_to,
+)
 
-__all__ = ["grouped_mesh_matmul", "grouped_mesh_matmul_torch"]
+__all__ = ["TILE_CONFIGS", "grouped_mesh_matmul", "grouped_mesh_matmul_torch", "tile_config"]
 
-# The kernel's 8-row decode tiles serve logical blocks up to this many rows.
+# The kernel's decode tiles serve logical blocks up to this many rows.
 _DECODE_ROWS = 16
+# Tile configurations of csrc/grouped_matmul.cu (enum Config), by code.
+TILE_CONFIGS = ("simt64", "simt_decode", "tc_rows32", "tc_decode")
+
+
+def tile_config(n: int, k: int, block_m: int, block_n: int, block_k: int,
+                dtype: torch.dtype) -> str:
+    """The kernel's tile for (G * rpg, K) tokens of `dtype` against (G, K, N)
+    weights on (block_m, block_n, block_k) logical blocks.
+
+    The tensor-core tiles copy 16-byte row chunks and never let a 32-deep k
+    step cross a logical block, so they need N, K and block_n in whole
+    chunks and block_k a multiple of 32; the prefill row tile (128 columns)
+    also needs block_n at least 64, the decode tile (32 columns) 16.
+    Everything else, f32 operands included (the `_gmm` backward), takes the
+    SIMT tiles.
+    """
+    if dtype == torch.bfloat16 and n % 8 == 0 and k % 8 == 0 and block_n % 8 == 0 \
+            and block_k % 32 == 0:
+        if block_m <= _DECODE_ROWS and block_n >= 16:
+            return "tc_decode"
+        if block_m > _DECODE_ROWS and block_n >= 64:
+            return "tc_rows32"
+    return "simt_decode" if block_m <= _DECODE_ROWS else "simt64"
 
 
 def _check(tokens, sizes, weights, bias, residual, block_m, block_n, block_k, activation):
@@ -169,8 +199,9 @@ def grouped_mesh_matmul(
     """out[r] = epilogue(tokens[r] @ weights[r // rpg]); zero past each
     group's size.  tokens (G*rpg, K), sizes (G,) integer, weights (G, K, N),
     bias (G, N), residual (G*rpg, N).  CPU tensors run
-    `grouped_mesh_matmul_torch`; CUDA tensors launch the kernel, which reads
-    `sizes` on the device (no host sync)."""
+    `grouped_mesh_matmul_torch`; CUDA tensors launch the kernel on
+    `tile_config`'s tile, which reads `sizes` on the device (no host
+    sync)."""
     if tokens.device.type == "cpu":
         return grouped_mesh_matmul_torch(
             tokens, sizes, weights, bias=bias, residual=residual, block_m=block_m,
@@ -198,8 +229,9 @@ def grouped_mesh_matmul(
     if max(rows, n, k) >= 2**31 or groups > 65535 or rows // groups // block_m > 65535:
         raise ValueError(f"shape {tuple(tokens.shape)} @ {tuple(weights.shape)} exceeds the"
                          " kernel's grid")
-    tokens = tokens.contiguous()
-    weights = weights.contiguous()
+    config = tile_config(n, k, block_m, block_n, block_k, tokens.dtype)
+    tokens = _aligned(tokens.contiguous())
+    weights = _aligned(weights.contiguous())
     sizes = sizes.to(torch.int32).contiguous()
     # Epilogue operands travel as f32 (an exact upcast of bf16): the kernel
     # adds them to the f32 accumulator as the reference does.
@@ -213,13 +245,18 @@ def grouped_mesh_matmul(
         tokens.data_ptr(), weights.data_ptr(), sizes.data_ptr(), ptr(bias_f), ptr(res_f),
         out.data_ptr(), groups, rows // groups, n, k, block_m, block_n, block_k,
         int(stagger), _ACT_CODES[activation], _DTYPE_CODES[tokens.dtype],
-        _DTYPE_CODES[out_dtype], 1 if block_m <= _DECODE_ROWS else 0,
+        _DTYPE_CODES[out_dtype], TILE_CONFIGS.index(config),
         torch.cuda.current_stream(tokens.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"grouped_mesh_matmul kernel launch failed: {_error_string(err)}")
+        raise RuntimeError(
+            f"grouped_mesh_matmul kernel launch failed ({config}): {_error_string(err)}"
+        )
     grouped_mesh_matmul.launches += 1
+    by_config = grouped_mesh_matmul.launches_by_config
+    by_config[config] = by_config.get(config, 0) + 1
     return out
 
 
 grouped_mesh_matmul.launches = 0
+grouped_mesh_matmul.launches_by_config = {}

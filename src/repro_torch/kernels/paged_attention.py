@@ -53,12 +53,13 @@ __all__ = [
     "paged_attention_torch",
     "paged_impl_names",
     "register_paged_impl",
+    "rep_chunks",
     "resolve_paged_impl",
     "split_plan",
 ]
 
 _NEG_INF = -1e30
-_MAX_REP = 8  # csrc/paged_attention.cu: kMaxRep
+_MAX_REP = 8  # csrc/paged_attention.cu: kMaxRep, the most query rows of one split kernel
 _MAX_HEAD_DIM = 128  # csrc/paged_attention.cu: kMaxHeadDim (one row per <= 32 lanes)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The split: at least one page per warp of a CTA, at most the kernel's
@@ -82,6 +83,13 @@ def split_plan(n_pages: int, pairs: int, sm_count: int) -> tuple:
     split_pages = -(-n_pages // want)
     split_pages = min(_MAX_SPLIT_PAGES, max(_MIN_SPLIT_PAGES, split_pages))
     return split_pages, -(-n_pages // split_pages)
+
+
+def rep_chunks(rep: int) -> tuple:
+    """(first row, rows) of each split-kernel launch over a KV head's `rep`
+    query rows: chunks of `_MAX_REP` rows, then the rest (rep 12 runs as 8 +
+    4).  Together they cover every row once, in order."""
+    return tuple((r0, min(_MAX_REP, rep - r0)) for r0 in range(0, rep, _MAX_REP))
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,7 +154,7 @@ def paged_attention_torch(
 def _kernel():
     fn = _build.library("paged_attention").paged_attention_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 9 + [i32] * 8 + [ctypes.c_float, i32, ptr]
+    fn.argtypes = [ptr] * 9 + [i32] * 6 + [ptr, ptr] + [i32] * 3 + [ctypes.c_float, i32, ptr]
     fn.restype = i32
     return fn
 
@@ -166,11 +174,12 @@ def paged_attention_cuda(
     lengths: torch.Tensor,
 ) -> torch.Tensor:
     """Launch K4 on CUDA tensors (no fallback: a refused launch raises).
-    `paged_attention_cuda.launches` counts calls: the split kernel and its
-    combine are one call.  The split kernel's shared memory is fixed (the
-    split's table slice, at most `_MAX_SPLIT_PAGES` pages, and one (m, l,
-    acc) per warp); the combine's holds (m, l) per split and 8 bytes of its
-    own, which bounds the table width at 6143 splits of 64 pages."""
+    `paged_attention_cuda.launches` counts calls: the split kernel (once per
+    chunk of `rep_chunks`) and its combine are one call.  The split kernel's
+    shared memory is fixed (the split's table slice, at most
+    `_MAX_SPLIT_PAGES` pages, and one (m, l, acc) per warp); the combine's
+    holds (m, l) per split and 8 bytes of its own, which bounds the table
+    width at 6143 splits of 64 pages."""
     return _launch(q, k_pool, v_pool, block_tables, lengths)[0]
 
 
@@ -191,10 +200,10 @@ def _launch(q, k_pool, v_pool, block_tables, lengths):
     _, ps, kvh, _ = k_pool.shape
     rep = h // kvh
     vec = 16 // q.element_size()  # elements of one 16-byte load
-    if rep > _MAX_REP or hd > _MAX_HEAD_DIM or hd % vec:
+    if hd > _MAX_HEAD_DIM or hd % vec:
         raise ValueError(
-            f"cuda_paged supports rep <= {_MAX_REP} and head_dim <= {_MAX_HEAD_DIM}, a"
-            f" multiple of {vec} for {q.dtype}; got rep={rep}, hd={hd}"
+            f"cuda_paged supports head_dim <= {_MAX_HEAD_DIM}, a multiple of {vec} for"
+            f" {q.dtype}; got hd={hd}"
         )
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -217,11 +226,14 @@ def _launch(q, k_pool, v_pool, block_tables, lengths):
     part_m = torch.empty(s, kvh, n_splits, rep, dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty(s, kvh, n_splits, rep, hd, dtype=torch.float32, device=q.device)
+    chunks = rep_chunks(rep)
+    chunk_r0 = (ctypes.c_int * len(chunks))(*(r0 for r0, _ in chunks))
+    chunk_n = (ctypes.c_int * len(chunks))(*(n for _, n in chunks))
     err = _kernel()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
         ln.data_ptr(), out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), s, n_pages, ps, kvh, hd, rep, split_pages, n_splits,
-        hd**-0.5, _DTYPE_CODES[q.dtype],
+        part_acc.data_ptr(), s, n_pages, ps, kvh, hd, rep, chunk_r0, chunk_n, len(chunks),
+        split_pages, n_splits, hd**-0.5, _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

@@ -107,7 +107,6 @@ def test_flash_attention_bf16_matches_reference_impls(jx):
 @pytest.mark.parametrize("bq,bk,t,tk,causal", [
     (48, 16, 64, 64, True),  # Tq*rep % block_q (the reference's case)
     (16, 24, 64, 64, False),  # Tk % block_k
-    (16, 16, 32, 64, True),  # causal with Tq != Tk
 ])
 def test_flash_attention_rejects_bad_blocks(bq, bk, t, tk, causal):
     q, k, v = _torch(_qkv(1, t, 2, 2, 16, tk=tk))
@@ -122,6 +121,27 @@ def test_flash_attention_full_takes_other_key_length(jx):
     got = fa.flash_attention(*_torch(arrays), causal=False, block_q=16, block_k=16).numpy()
     want = jx.sdpa(*[jx.jnp.asarray(x) for x in arrays], causal=False)
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("tq,tk", [(32, 64), (64, 32)])
+@pytest.mark.parametrize("h,kv", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_other_key_length_matches_reference(jx, tq, tk, h, kv, dtype):
+    """Causal attention with Tq != Tk (rep 1 and 2): the reference's kernel
+    and chunked path compute it with a top-left mask (query token t sees
+    keys 0..t), and so does the port."""
+    arrays = _qkv(1, tq, h, kv, 16, seed=tq + h, tk=tk)
+    tdt, jdt = getattr(torch, dtype), getattr(jx.jnp, dtype)
+    got = fa.flash_attention(*_torch(arrays, tdt), causal=True, block_q=16, block_k=16)
+    assert got.dtype == tdt and got.shape == arrays[0].shape
+    jarr = [jx.jnp.asarray(x, jdt) for x in arrays]
+    want = {
+        "pallas": jx.pallas(*jarr, causal=True, block_q=16, block_k=16, interpret=True),
+        "sdpa_chunked": jx.chunked(*jarr, causal=True, chunk=16),
+    }
+    for name, ref in want.items():
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                                   **(TOL if dtype == "float32" else BF16_TOL), err_msg=name)
 
 
 @pytest.mark.parametrize("chunk", [16, 32, 64])
@@ -210,15 +230,31 @@ def test_kernel_matches_plain_on_card(cuda, b, t, h, kv, hd, bq, bk, causal):
 
 
 def test_kernel_bf16_matches_plain_on_card(cuda):
-    """bf16, rep 7 (Qwen2-7B's fold), 2^-6 of max|v|: p rounds to bf16
-    relative to other running maxima, the plain version rounds each chunk's
-    P.V to bf16, and the output is bf16."""
+    """bf16 on the tensor-core kernel, rep 7 (Qwen2-7B's fold), 2^-6 of
+    max|v|: p rounds to bf16 relative to other running maxima, the plain
+    version rounds each chunk's P.V to bf16, and the output is bf16."""
     q, k, v = _torch(_qkv(1, 256, 28, 4, 128, seed=7), torch.bfloat16, cuda)
     got = fa.flash_attention(q, k, v, causal=True, block_q=128, block_k=128)
     want = fa.flash_attention_torch(q, k, v, causal=True, block_q=128, block_k=128)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2.0**-6 * v.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("tq,tk", [(64, 192), (192, 64)])
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_causal_other_key_length_on_card(cuda, tq, tk, h, kv, dtype):
+    """Causal K6 with Tq != Tk on the card against the plain version (the
+    reference's top-left mask): f32 to 1e-5 of max|v|, bf16 to 2^-6."""
+    tdt = getattr(torch, dtype)
+    q, k, v = _torch(_qkv(1, tq, h, kv, 64, seed=tq + h, tk=tk), tdt, cuda)
+    got = fa.flash_attention(q, k, v, causal=True, block_q=32, block_k=32)
+    want = fa.flash_attention_torch(q, k, v, causal=True, block_q=32, block_k=32)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    limit = 1e-5 if dtype == "float32" else 2.0**-6
+    assert err <= limit * v.float().abs().max().item(), err
 
 
 def test_kernel_gradients_on_card(cuda):
@@ -236,5 +272,9 @@ def test_kernel_gradients_on_card(cuda):
 
 def test_kernel_rejects_head_dim_on_card(cuda):
     q, k, v = _torch(_qkv(1, 16, 2, 2, 12), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(q, k, v)
+    # bf16 runs whole 16-deep mma steps: hd 24 (a multiple of 8) is refused.
+    q, k, v = _torch(_qkv(1, 16, 2, 2, 24), torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_cuda(q, k, v)

@@ -365,3 +365,118 @@ def test_kernel_matches_plain_on_card(cuda, rpg, k, n, bm, dtype, epi):
     assert not out[torch.from_numpy(~valid).to(cuda)].any()
     scale = (1e-5 if dtype == torch.float32 else 2.0**-7) * ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= scale
+
+
+# -- the tile choice (no card needed) --------------------------------------------
+
+
+def _olmoe_grouped_shapes():
+    """(rows per group, K, N) of every grouped GEMM OLMoE-1B-7B's serving path
+    gives K5 at chip_smoke.py's shapes (a decode step of 4 tokens and a
+    128-token prefill), as `moe_block` sizes them: wi (d_model -> 2 x expert
+    d_ff) and wo (expert d_ff -> d_model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("olmoe-1b-7b")
+    e, top, d, f = cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model, cfg.moe_d_ff
+    out = []
+    for n, t in ((4, 1), (128, 128)):
+        cap = moe._capacity(n, t, e, top, 1.25)
+        rpg = -(-cap // moe._ROW_ALIGN) * moe._ROW_ALIGN
+        out += [(rpg, d, 2 * f), (rpg, f, d)]
+    return out
+
+
+def _plan_blocks(rpg):
+    bm, bn, bk = api.DEFAULT_BLOCKS
+    return api._grouped_block_m(rpg, bm), bn, bk
+
+
+def test_olmoe_serving_shapes_take_tensor_core_tiles():
+    shapes = _olmoe_grouped_shapes()
+    assert [s[0] for s in shapes] == [8, 8, 128, 128]  # decode 8/8, prefill 128/128
+    for rpg, k, n in shapes:
+        bm, bn, bk = _plan_blocks(rpg)
+        want = "tc_decode" if rpg == 8 else "tc_rows32"
+        assert bm == rpg, (rpg, bm)
+        assert tg.tile_config(n, k, bm, bn, bk, torch.bfloat16) == want, (rpg, k, n)
+
+
+@pytest.mark.parametrize("activation", [None, "silu"])
+def test_gmm_backward_f32_products_take_the_simt_tiles(activation):
+    """Every grouped GEMM `gmm_backward` runs (z remat, dtokens) at OLMoE's
+    serving shapes, recorded on meta tensors, is f32 and takes a SIMT tile:
+    the decode one for 8-row blocks, the 64x64 one for 128-row blocks."""
+    calls = []
+
+    def record(tokens, sizes, w, **kw):
+        calls.append((tokens.shape[0] // w.shape[0], w.shape[1], w.shape[2], kw,
+                      tokens.dtype, w.dtype))
+        return torch.empty(tokens.shape[0], w.shape[2], dtype=kw["out_dtype"],
+                           device=tokens.device)
+
+    for rpg, k, n in _olmoe_grouped_shapes():
+        g = 64
+        bm, bn, bk = _plan_blocks(rpg)
+        meta = dict(dtype=torch.bfloat16, device="meta")
+        tokens, w = torch.empty(g * rpg, k, **meta), torch.empty(g, k, n, **meta)
+        sizes = torch.empty(g, dtype=torch.int32, device="meta")
+        opts = api.MMOpts(bm, bn, bk, True, False, torch.bfloat16, activation)
+        api.gmm_backward(torch.empty(g * rpg, n, **meta), tokens, sizes, w, None, None, opts,
+                         matmul=record)
+    assert len(calls) == 4 * (2 if activation else 1)
+    for rpg, kk, nn, kw, dt, dw in calls:
+        assert dt == dw == torch.float32
+        tile = tg.tile_config(nn, kk, kw["block_m"], kw["block_n"], kw["block_k"], dt)
+        assert tile == ("simt_decode" if rpg == 8 else "simt64"), (rpg, kk, nn, kw)
+
+
+@pytest.mark.parametrize(
+    "n,k,blocks,dtype,want",
+    [
+        (2048, 2048, (8, 128, 128), torch.bfloat16, "tc_decode"),
+        (2048, 1024, (16, 128, 128), torch.bfloat16, "tc_decode"),
+        (2048, 2048, (128, 128, 128), torch.bfloat16, "tc_rows32"),
+        (360, 1000, (24, 128, 128), torch.bfloat16, "tc_rows32"),  # ragged N and K
+        (2044, 2048, (128, 128, 128), torch.bfloat16, "simt64"),  # N not in 16-byte rows
+        (2048, 2048, (128, 128, 16), torch.bfloat16, "simt64"),  # k block under the k step
+        (2048, 2048, (128, 32, 128), torch.bfloat16, "simt64"),  # blocks under 64 wide
+        (2048, 2048, (8, 8, 128), torch.bfloat16, "simt_decode"),
+        (2048, 2048, (128, 128, 128), torch.float32, "simt64"),
+        (2048, 2048, (8, 128, 128), torch.float32, "simt_decode"),
+    ],
+)
+def test_tile_config_table(n, k, blocks, dtype, want):
+    got = tg.tile_config(n, k, *blocks, dtype)
+    assert got == want and got in tg.TILE_CONFIGS
+
+
+# -- the tensor-core tiles on the card -------------------------------------------
+
+
+@pytest.mark.parametrize("tile", ["tc_rows32", "tc_decode"])
+@pytest.mark.parametrize("epi", [{}, dict(bias=True, residual=True, activation="gelu")])
+def test_tensor_core_tiles_match_plain_on_card(cuda, tile, epi):
+    """Each bf16 tensor-core tile against the plain version with ragged N
+    and K, sizes on both sides of a row tile's and a block's end, within
+    2^-7 of max|ref| (adjacent bf16 roundings); masked rows exact zeros."""
+    g, n, k = 6, 360, 1000
+    rpg, bm = (16, 16) if tile == "tc_decode" else (96, 48)
+    sizes = [rpg, 0, 1, bm - 1, bm + 1, rpg - 3]
+    tokens, sz, _, w = _case(g, rpg, k, n, seed=3, sizes=sizes)
+    b, r = _epilogue(g, rpg, n, 13, bias=epi.get("bias", False),
+                     residual=epi.get("residual", False))
+    t = [None if a is None else a.to(cuda, torch.bfloat16) for a in _t(tokens, sz, w, b, r)]
+    t[1] = torch.from_numpy(sz).to(cuda)
+    kw = dict(block_m=bm, block_n=128, block_k=128, activation=epi.get("activation"))
+    assert tg.tile_config(n, k, bm, 128, 128, torch.bfloat16) == tile
+    before = dict(tg.grouped_mesh_matmul.launches_by_config)
+    out = tg.grouped_mesh_matmul(t[0], t[1], t[2], bias=t[3], residual=t[4], **kw)
+    ref = tg.grouped_mesh_matmul_torch(t[0], t[1], t[2], bias=t[3], residual=t[4], **kw)
+    torch.cuda.synchronize()
+    assert tg.grouped_mesh_matmul.launches_by_config[tile] == before.get(tile, 0) + 1
+    valid = (np.arange(rpg)[None, :] < sz[:, None]).reshape(-1)
+    assert not out[torch.from_numpy(~valid).to(cuda)].any()
+    scale = 2.0**-7 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= scale

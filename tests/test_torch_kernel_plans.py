@@ -2,7 +2,8 @@
 mesh GEMM's tile families), which the host computes from shapes alone.
 
 K4 splits each slot's block table into runs of `split_pages` pages, one CTA
-per (slot, kv head, split), then combines the per-split partials (m, l,
+per (slot, kv head, split) for each chunk of at most 8 of a KV head's rep
+query rows (`rep_chunks`), then combines the per-split partials (m, l,
 acc).  The split is a pure function of the table width, the number of
 (slot, kv head) pairs and the SM count, never of `lengths`, so choosing it
 never waits for the device.  The partials and the combine rule are written
@@ -163,6 +164,19 @@ def test_combine_reads_an_empty_slot_as_zero():
     assert (got[1] - want[1]).abs().max().item() <= 1e-6 * want[1].abs().max().item()
 
 
+@pytest.mark.parametrize("rep", range(1, 17))
+def test_rep_chunks_cover_each_query_row_once(rep):
+    """The split kernel runs a KV head's rep query rows in chunks of at most
+    `_MAX_REP` (rep 12 = 8 + 4): every row in exactly one chunk, in order."""
+    chunks = pa.rep_chunks(rep)
+    rows = [r for r0, n in chunks for r in range(r0, r0 + n)]
+    assert rows == list(range(rep))
+    assert all(1 <= n <= pa._MAX_REP for _, n in chunks)
+    assert len(chunks) == -(-rep // pa._MAX_REP)
+    if rep == 12:
+        assert chunks == ((0, 8), (8, 4))
+
+
 @pytest.fixture
 def cuda():
     """The card, or a skip: decided when the test runs, never at import."""
@@ -198,6 +212,28 @@ def test_kernel_partials_and_combine_on_card(cuda):
     merged = _combine(m, l, torch.where(live[..., None], acc, 0.0))
     scale = merged.abs().max().item()
     torch.testing.assert_close(out, merged, atol=1e-5 * scale, rtol=0)
+
+
+def test_kernel_partials_in_rep_chunks_on_card(cuda):
+    """At rep 12 (two chunks, 8 + 4 rows), the partials of every row are
+    written and match `_split_partials`, and the output the plain version."""
+    rng = np.random.default_rng(12)
+    s, kvh, rep, hd, ps, n_pages = 2, 2, 12, 64, 8, 24
+    lengths = [150, 9]
+    arrays = _inputs(rng, s, kvh * rep, kvh, hd, ps, n_pages, lengths)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    split_pages, _ = pa.split_plan(n_pages, s * kvh, sms)
+    out, m, l, acc = pa._launch(*[t.to(cuda) for t in arrays])
+    torch.cuda.synchronize()
+    m_ref, l_ref, acc_ref = _split_partials(*arrays, split_pages)
+    m, l, acc, out = (t.cpu() for t in (m, l, acc, out))
+    live = l_ref > 0
+    assert torch.equal(l > 0, live)
+    torch.testing.assert_close(l[live], l_ref[live], atol=0, rtol=1e-5)
+    scale = acc_ref.abs().max().item()
+    torch.testing.assert_close(acc[live], acc_ref[live], atol=1e-5 * scale, rtol=0)
+    want = pa.paged_attention_torch(*arrays)
+    assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 # -- K1: the tile families -------------------------------------------------------

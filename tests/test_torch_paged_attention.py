@@ -188,3 +188,21 @@ def test_kernel_many_splits_match_plain_on_card(cuda, case):
     torch.cuda.synchronize()
     assert pa.paged_attention_cuda.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_rep_12_matches_plain_on_card(cuda, dtype):
+    """mistral-large-123b's decode fold, 96 query heads over 8 KV heads (rep
+    12, run as chunks of 8 and 4 rows): K4 against the plain version, f32 to
+    1e-5 of the output's scale, bf16 to 2^-6 (p rounded to bf16 at other
+    points, a bf16 output)."""
+    arrays = _torch(_setup(s=2, h=96, kvh=8, hd=128, n_pages=40, lengths=(300, 17)))
+    arrays = [t.to(cuda, dtype) if t.is_floating_point() else t.to(cuda) for t in arrays]
+    before = pa.paged_attention_cuda.launches
+    got = pa.paged_attention_cuda(*arrays)
+    want = pa.paged_attention_torch(*arrays)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_cuda.launches == before + 1
+    limit = 1e-5 if dtype == torch.float32 else 2.0**-6
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= limit * want.float().abs().max().item(), err
