@@ -63,7 +63,21 @@ Phases; any failure raises and the script exits non-zero:
               decode against dense, one window profiled;
   7. train_flash  one mesh-paper training step at 2 x 2048 tokens with
               attn_chunk=1024 (K6 forward, recomputed backward) against the
-              same step with full attention.
+              same step with full attention;
+  8. paper    the paper's tables by simulation on the card (`core/`): 2n-1
+              and 3n-2 steps for n up to 128 and at n = 1024, the outputs
+              equal to a @ b bitwise, the symmetric readout within
+              n+1+n/2 steps up to n = 256, the orders of S, and S^k with a
+              key on the card (no host sync);
+  9. planner  the GEMM planner at mesh-paper's width: the `ops.matmul`
+              shim, the scoped default, `execute_async`, the degradation
+              ladder under injected plan.execute/plan.build faults and the
+              non-finite guard's three policies under a NaN-poisoned
+              kernel.output.
+
+Every phase but `planner` arms no fault: each starts with an empty
+resilience ledger and fails if it records a planner event (`plan.*`,
+`guard.*`) or leaves a cached plan on another backend than its own.
 
 The last lines are the card's `nvidia-smi` name and power limit, the
 `{"kernels": [...]}` JSON, and `{"ok": true, "device": {...}}`.  It imports
@@ -1278,6 +1292,30 @@ def profile_window(torch, model, params, scfg, prompts, tag: str = "profile",
         f"({100 * busy_us / wall_us:.1f}% of wall; device time not seen = 'not measured')")
     for dev_us, count, key in rows[:10]:
         log(f"[{tag}]   {dev_us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+    classes = {}
+    for dev_us, count, key in rows:
+        ms, n = classes.get(kernel_class(key), (0.0, 0))
+        classes[kernel_class(key)] = (ms + dev_us / 1e3, n + count)
+    log(f"[{tag}] by class: " + "; ".join(
+        f"{name} {ms:.1f} ms ({n} launches)" for name, (ms, n) in
+        sorted(classes.items(), key=lambda kv: -kv[1][0])))
+
+
+# Profiler kernel names by class: the port's own kernels, library GEMMs
+# (cuBLAS/CUTLASS), dtype and layout copies, everything else.
+PORT_KERNELS = ("mesh_", "grouped_", "paged_", "flash_", "scramble_")
+LIBRARY_GEMMS = ("nvjet", "gemm", "gemv", "xmma", "cutlass")
+
+
+def kernel_class(key: str) -> str:
+    name = key.replace("(anonymous namespace)::", "").split("(")[0]
+    if any(k in name for k in PORT_KERNELS):
+        return "port kernels"
+    if any(k in name.lower() for k in LIBRARY_GEMMS):
+        return "library GEMMs"
+    if "copy" in name:
+        return "copies"
+    return "other"
 
 
 def grads_of(torch, model, params, batch):
@@ -1316,8 +1354,8 @@ def phase_train(torch):
     tokens = TRAIN_BATCH * TRAIN_SEQ
 
     # One step from the same state and batch on the kernel path and on the
-    # `torch` backend (f32 cuBLAS GEMMs, TF32 off, differentiated by
-    # autograd).  Every operand of mesh-paper's GEMMs, forward and backward,
+    # `torch` backend (bf16 cuBLAS GEMMs with f32 outputs forward, f32
+    # cuBLAS GEMMs backward, TF32 off).  Every operand of mesh-paper's GEMMs, forward and backward,
     # holds bf16 values (bf16 activations and weights, bf16 cotangents, no
     # fused activation and so no f32 dz), whose products f32 holds exactly,
     # and every dA/dB is cast to bf16: the two steps differ only in
@@ -1885,6 +1923,284 @@ def phase_train_flash(torch):
     return {"flash_attention": launches}
 
 
+# The paper's sizes (`benchmarks/bench_stepcounts.py`) and one at full scale.
+PAPER_SIZES = (2, 3, 4, 8, 16, 32, 64, 128, 1024)
+PAPER_SYMMETRIC_SIZES = (8, 16, 32, 64, 256)
+PAPER_KEY_SHAPE, PAPER_KEY = (8, 1024, 1024), 5
+
+
+def phase_paper(torch, smi: str):
+    """The paper's tables measured by simulation on the card, TF32 off.
+    Inputs are f32 holding integers in [-8, 8], so every partial sum is an
+    integer below 2^24 and every comparison is bitwise in any summation
+    order."""
+    import numpy as np
+
+    from repro_torch.core import mesh_array as ma
+    from repro_torch.core import scramble as scr
+    from repro_torch.core import symmetries as sym
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "[paper] needs TF32 off")
+    rng = np.random.default_rng(0)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-8, 9, size=shape).astype(np.float32)).cuda()
+
+    for n in PAPER_SIZES:
+        a, b = ints(n, n), ints(n, n)
+        c = a @ b
+        walls = []
+        for sim in (ma.simulate_mesh, ma.simulate_standard):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            res = sim(a, b)
+            torch.cuda.synchronize()
+            walls.append((res, time.monotonic() - t0))
+        (mesh, t_mesh), (std, t_std) = walls
+        ok = {
+            "steps 2n-1": mesh.steps == 2 * n - 1,
+            "steps 3n-2": std.steps == 3 * n - 2,
+            "unscramble(mesh) == a @ b": torch.equal(scr.unscramble(mesh.output), c),
+            "standard == a @ b": torch.equal(std.output, c),
+            "mesh_matmul_reference == mesh": torch.equal(ma.mesh_matmul_reference(a, b),
+                                                         mesh.output),
+        }
+        log(f"[paper] n={n}: mesh {mesh.steps} steps, standard {std.steps} steps;"
+            f" wall mesh {t_mesh:.3f} s, standard {t_std:.3f} s; bitwise: "
+            + ", ".join(f"{k} {v}" for k, v in ok.items()))
+        check(all(ok.values()), f"[paper] n={n}: {ok}")
+
+    for n in PAPER_SYMMETRIC_SIZES:
+        a, b = ints(n, n), ints(n, n)
+        sched = sym.symmetric_readout_schedule(n)
+        pq = torch.tensor(list(sched), device="cuda") - 1
+        cell = torch.tensor([v[0] for v in sched.values()], device="cuda") - 1
+        step = torch.tensor([v[1] for v in sched.values()], device="cuda")
+        reads = {}
+        for name, rhs in (("A.A^T", a.T.contiguous()), ("A.B", b)):
+            res = ma.simulate_mesh(a, rhs, record_history=True)
+            read = res.history[step - 1, cell[:, 0], cell[:, 1]]
+            want = (a @ rhs)[pq[:, 0], pq[:, 1]]
+            reads[name] = int((read != want).sum().item())
+            hist_mb = res.history.numel() * res.history.element_size() / 1e6
+            del res
+        horizon, bound = sym.symmetric_readout_steps(n), sym.paper_symmetric_bound(n)
+        log(f"[paper] symmetric readout n={n}: last read at step {horizon} (paper bound"
+            f" n+1+n/2 = {bound}, general 2n-1 = {2 * n - 1}); entries read wrong:"
+            f" A.A^T {reads['A.A^T']} of {n * n}, general A.B {reads['A.B']} of {n * n};"
+            f" history {hist_mb:.1f} MB")
+        check(reads["A.A^T"] == 0 and horizon <= bound and int(step.max()) == horizon,
+              f"[paper] symmetric readout n={n} failed: {reads}, {horizon} vs {bound}")
+        check(reads["A.B"] > 0, f"[paper] n={n}: the early readout held for a general product")
+
+    orders = {n: scr.scramble_order(n) for n in (3, 4, 5)}
+    log(f"[paper] order of S: {orders} (paper: 7, 7, 20)")
+    check(orders == {3: 7, 4: 7, 5: 20}, f"[paper] orders of S {orders}")
+
+    # A runtime key on the card: S^k by one gather whose indices come from
+    # the cycle tables, against k single scrambles, with no host sync.
+    n = PAPER_KEY_SHAPE[-1]
+    x = torch.randn(*PAPER_KEY_SHAPE, device="cuda")
+    key = torch.tensor(PAPER_KEY, device="cuda")
+    t0 = time.monotonic()
+    scr.apply_scramble_power(x, key, n)  # builds and uploads the tables once
+    torch.cuda.synchronize()
+    t_tables = time.monotonic() - t0
+    want = x
+    for _ in range(PAPER_KEY):
+        want = scr.apply_scramble(want, 1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = scr.apply_scramble_power(x, key, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(torch.equal(got, want), f"[paper] apply_scramble_power(k={PAPER_KEY}) != "
+          f"{PAPER_KEY} apply_scramble calls")
+    xs = [x] + [x.clone() for _ in range(3)]  # 4 x 32 MB: more than twice the L2
+    ms = time_ms(torch, [lambda x=x: scr.apply_scramble_power(x, key, n) for x in xs], 20)
+    dev = device_ms(torch, [lambda x=x: scr.apply_scramble_power(x, key, n) for x in xs], 20)
+    bms, _ = bound_ms(2 * x.numel() * x.element_size(), 0, "float32")
+    log(f"[paper] apply_scramble_power {PAPER_KEY_SHAPE} f32, device key k={PAPER_KEY}:"
+        f" bitwise equal to {PAPER_KEY} apply_scramble calls, no host sync under"
+        f" set_sync_debug_mode('error'); {ms:.4f} ms (CUDA events), {dev:.4f} ms device,"
+        f" bound of x read and written {bms:.4f} ms; tables built in {t_tables:.1f} s"
+        f" (order of S at n={n}: {scr.scramble_order(n):.3e}) | {smi}")
+
+
+def phase_planner(torch):
+    """The GEMM planner's shim, default scope, dispatch, degradation ladder
+    and guard on the card at mesh-paper's full width (d_model 2048, d_ff
+    8192, 2 x 2048 tokens, bf16).  The only phase that arms faults: it
+    clears the plan cache and the ledger when it ends."""
+    import warnings
+
+    from repro_torch.kernels import api, ops
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.resilience import faults, ledger
+    from repro_torch.resilience.policy import NonFiniteError
+
+    bf16 = torch.bfloat16
+    d, ff, tokens = 2048, 8192, TRAIN_BATCH * TRAIN_SEQ
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") / math.sqrt(shape[0])).to(bf16)
+
+    def spec(a, b, **kw):
+        return api.GemmSpec.from_operands(a, b, out_dtype=bf16, **kw)
+
+    def events():
+        return [(e.site, e.fallback) for e in ledger.events()]
+
+    api.clear_plan_cache()
+    ledger.clear()
+    reset_k1(mesh_matmul)
+    x, h = rnd(tokens, d), rnd(tokens, ff)
+    w = {"wq": rnd(d, d), "wk": rnd(d, d), "wv": rnd(d, d), "wo": rnd(d, d),
+         "wi": rnd(d, 2 * ff), "wo_ff": rnd(ff, d)}
+
+    # The legacy shim routes to the plans a caller builds directly.
+    s = rnd(d, d)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        via_ops = ops.matmul(x, w["wq"], backend="cuda_mesh", out_dtype=bf16)
+        via_alias = ops.matmul(s, w["wq"], backend="cuda_mesh_scrambled", out_dtype=bf16)
+    direct = api.plan(spec(x, w["wq"]), backend="cuda_mesh", device="cuda")(x, w["wq"])
+    direct_s = api.plan(spec(s, w["wq"], structure="scrambled"), backend="cuda_mesh",
+                        device="cuda")(s, w["wq"])
+    shim = {"ops.matmul cuda_mesh": torch.equal(via_ops, direct),
+            "cuda_mesh_scrambled 2048^3": torch.equal(via_alias, direct_s)}
+
+    # The scoped default routes an unpinned plan to K1.
+    before = mesh_matmul.launches
+    with api.default_backend("cuda_mesh"):
+        pinned = api.plan(spec(x, w["wk"]), device="cuda")
+        pinned(x, w["wk"])
+    shim["default_backend -> K1"] = (pinned.backend == "cuda_mesh"
+                                     and mesh_matmul.launches == before + 1)
+    shim["unpinned -> torch"] = api.plan(spec(x, w["wk"]), device="cuda").backend == "torch"
+    log(f"[planner] shim and default scope: {shim}")
+    check(all(shim.values()), f"[planner] shim/default scope: {shim}")
+
+    # execute_async over one layer's projections against sequential calls.
+    items = [(api.plan(spec(x, w[n]), backend="cuda_mesh", device="cuda"), (x, w[n]))
+             for n in ("wq", "wk", "wv", "wo", "wi")]
+    items.append((api.plan(spec(h, w["wo_ff"]), backend="cuda_mesh", device="cuda"),
+                  (h, w["wo_ff"])))
+    seq = [p(*args) for p, args in items]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    seq = [p(*args) for p, args in items]
+    torch.cuda.synchronize()
+    t_seq = time.monotonic() - t0
+    t0 = time.monotonic()
+    outs = api.execute_async(items)
+    t_async = time.monotonic() - t0
+    same = [torch.equal(o, r) for o, r in zip(outs, seq)]
+    log(f"[planner] execute_async over wq, wk, wv, wo, wi, wo_ff: bitwise equal to"
+        f" sequential calls {same}; wall {t_async * 1e3:.2f} ms vs {t_seq * 1e3:.2f} ms")
+    check(all(same), f"[planner] execute_async differs from sequential calls: {same}")
+    check(not ledger.events(), f"[planner] events before any fault: {events()}")
+
+    # The ladder: an execution fault degrades a fallback=True K1 plan to
+    # `torch` once and for all; without the ladder it raises; a build fault
+    # builds on `torch`.
+    sq = spec(x, w["wq"])
+    want = api.plan(sq, backend="torch", device="cuda")(x, w["wq"])
+    ladder = api.plan(sq, backend="cuda_mesh", device="cuda", fallback=True)
+    before = mesh_matmul.launches
+    with faults.inject({"plan.execute": faults.FaultSpec(times=1)}):
+        got = ladder(x, w["wq"])
+    first = events()
+    again = ladder(x, w["wq"])
+    ok = {
+        "degraded to torch": ladder.active_backend == "torch",
+        "one plan.execute event": first == [("plan.execute", "torch")],
+        "== torch plan bitwise": torch.equal(got, want),
+        "stays on torch, no new event": torch.equal(again, want) and events() == first,
+        "no K1 launch": mesh_matmul.launches == before,
+    }
+    raised = None
+    with faults.inject({"plan.execute": faults.FaultSpec(times=1)}):
+        try:
+            api.plan(sq, backend="cuda_mesh", device="cuda")(x, w["wq"])
+        except faults.FaultError as e:
+            raised = e
+    ok["fallback=False raises"] = raised is not None and events() == first
+    ledger.clear()
+    sv = spec(x, w["wv"], blocks=(128, 128, 64))  # not yet planned
+    with faults.inject({"plan.build": faults.FaultSpec(times=1)}):
+        built = api.plan(sv, backend="cuda_mesh", device="cuda", fallback=True)
+    ok["build fault -> torch, one event"] = (built.backend == "torch"
+                                             and events() == [("plan.build", "torch")])
+    ok["built plan == torch plan bitwise"] = torch.equal(
+        built(x, w["wv"]), api.plan(sv, backend="torch", device="cuda")(x, w["wv"]))
+    log(f"[planner] ladder: {ok}")
+    check(all(ok.values()), f"[planner] ladder: {ok}")
+
+    # The guard, with kernel.output poisoned with NaN.
+    ledger.clear()
+    so = spec(x, w["wo"])
+    clean = api.plan(so, backend="cuda_mesh", device="cuda")(x, w["wo"])
+    nan = {"kernel.output": faults.FaultSpec(poison="nan")}
+    guard = {}
+    with faults.inject(nan):
+        try:
+            api.plan(so, backend="cuda_mesh", device="cuda", guard_nonfinite="raise")(x, w["wo"])
+            guard["raise"] = False
+        except NonFiniteError:
+            guard["raise"] = True
+    check(not ledger.events(), f"[planner] the raise policy recorded {events()}")
+    with faults.inject(nan):
+        out = api.plan(so, backend="cuda_mesh", device="cuda",
+                       guard_nonfinite="zero_and_record")(x, w["wo"])
+    guard["zero_and_record"] = (bool(torch.isfinite(out).all()) and out.view(-1)[0] == 0
+                                and torch.equal(out.view(-1)[1:], clean.view(-1)[1:])
+                                and events() == [("guard.nonfinite", "zero")])
+    ledger.clear()
+    fb = api.plan(so, backend="cuda_mesh", device="cuda", guard_nonfinite="fallback",
+                  fallback=True)
+    with faults.inject({"kernel.output": faults.FaultSpec(poison="nan",
+                                                          match={"backend": "cuda_mesh"})}):
+        out = fb(x, w["wo"])
+    guard["fallback"] = (fb.active_backend == "torch" and bool(torch.isfinite(out).all())
+                         and torch.equal(out, api.plan(so, backend="torch", device="cuda")(
+                             x, w["wo"]))
+                         and events() == [("guard.nonfinite", "torch")])
+    log(f"[planner] guard under a NaN-poisoned kernel.output: {guard}")
+    check(all(guard.values()), f"[planner] guard: {guard}")
+    launches = {"mesh_matmul": mesh_matmul.launches}
+    check_main_path_tiles("planner", tile_counts(mesh_matmul), canary=False)
+    log(f"[planner] K1 launches {launches['mesh_matmul']}")
+    log(ledger.format_summary("[planner]"))
+    check(launches["mesh_matmul"] > 0, "[planner] K1 never launched")
+    api.clear_plan_cache()
+    ledger.clear()
+    return launches
+
+
+def healthy(name, fn):
+    """`fn` as a phase that arms no fault: the resilience ledger is cleared
+    before it, and after it no planner event (`plan.*`, `guard.*`) may have
+    been recorded and every cached plan must still run on its own backend,
+    so no main-path GEMM left its kernel unseen."""
+    def run(torch, *args):
+        from repro_torch.kernels import api
+        from repro_torch.resilience import ledger
+
+        ledger.clear()
+        out = fn(torch, *args)
+        bad = [(e.site, e.fallback) for e in ledger.events()
+               if e.site.startswith(("plan.", "guard."))]
+        moved = [(d["mkn"], d["backend"], d["health"]["active_backend"])
+                 for d in api.plan_cache_info()["plans"]
+                 if d["health"]["active_backend"] != d["backend"]]
+        check(not bad and not moved,
+              f"[{name}] planner degradations in a fault-free phase: {bad} {moved}")
+        return out
+    return run
+
+
 def main() -> int:
     only = None
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
@@ -1908,12 +2224,15 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.monotonic()
     phase_build(torch)
+    phases = {name: healthy(name, fn) for name, fn in (
+        ("k1", phase_k1), ("k4", phase_k4), ("k3", phase_k3), ("k1_bwd", phase_k1_backward),
+        ("k5", phase_k5), ("k5_bwd", phase_k5_backward), ("k6", phase_k6),
+        ("k6_bwd", phase_k6_backward), ("serve", phase_serve), ("train", phase_train),
+        ("serve_moe", phase_serve_moe), ("serve_qwen2", phase_serve_qwen2),
+        ("train_flash", phase_train_flash))}
+    phases["paper"] = healthy("paper", lambda torch: phase_paper(torch, smi))
+    phases["planner"] = phase_planner
     if only is not None:
-        phases = {"k1": phase_k1, "k4": phase_k4, "k3": phase_k3, "k1_bwd": phase_k1_backward,
-                  "serve": phase_serve, "train": phase_train, "k5": phase_k5,
-                  "k5_bwd": phase_k5_backward, "serve_moe": phase_serve_moe, "k6": phase_k6,
-                  "k6_bwd": phase_k6_backward, "serve_qwen2": phase_serve_qwen2,
-                  "train_flash": phase_train_flash}
         unknown = only - set(phases)
         check(not unknown, f"unknown phases {sorted(unknown)}; known: {sorted(phases)}")
         for name, fn in phases.items():
@@ -1922,20 +2241,22 @@ def main() -> int:
         log(f"[done] phases {sorted(only)} only, {time.monotonic() - t_start:.1f} s;"
             " no result line")
         return 0
-    k1_err, k1, k1b = phase_k1(torch)
-    k4_err, k4, k4_qwen = phase_k4(torch)
-    k3_err, k3 = phase_k3(torch)
-    k1_err = max(k1_err, phase_k1_backward(torch))
-    k5_err, k5_tick, k5_prefill = phase_k5(torch)
-    k5_err = max(k5_err, phase_k5_backward(torch))
-    k6_err, k6 = phase_k6(torch)
-    phase_k6_backward(torch)
+    k1_err, k1, k1b = phases["k1"](torch)
+    k4_err, k4, k4_qwen = phases["k4"](torch)
+    k3_err, k3 = phases["k3"](torch)
+    k1_err = max(k1_err, phases["k1_bwd"](torch))
+    k5_err, k5_tick, k5_prefill = phases["k5"](torch)
+    k5_err = max(k5_err, phases["k5_bwd"](torch))
+    k6_err, k6 = phases["k6"](torch)
+    phases["k6_bwd"](torch)
     torch.cuda.synchronize()
-    serve = phase_serve(torch)
-    train = phase_train(torch)
-    serve_moe = phase_serve_moe(torch)
-    serve_qwen2 = phase_serve_qwen2(torch)
-    train_flash = phase_train_flash(torch)
+    serve = phases["serve"](torch)
+    train = phases["train"](torch)
+    serve_moe = phases["serve_moe"](torch)
+    serve_qwen2 = phases["serve_qwen2"](torch)
+    train_flash = phases["train_flash"](torch)
+    phases["paper"](torch)
+    planner = phases["planner"](torch)
 
     def row(name, source, replaces, launches, err, t, shape, **extra):
         return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
@@ -1945,10 +2266,12 @@ def main() -> int:
 
     kernels = [
         row("mesh_matmul", "mesh_matmul.cu", "src/repro/kernels/mesh_matmul.py:341",
-            serve["mesh_matmul"] + train["mesh_matmul"] + serve_moe["mesh_matmul"], k1_err, k1,
+            serve["mesh_matmul"] + train["mesh_matmul"] + serve_moe["mesh_matmul"]
+            + planner["mesh_matmul"], k1_err, k1,
             "one decode tick: 25 launches at M=4",
             launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"],
-                              "serve_moe": serve_moe["mesh_matmul"]},
+                              "serve_moe": serve_moe["mesh_matmul"],
+                              "planner": planner["mesh_matmul"]},
             launches_by_tile=K1_TILES,
             batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
                      "shape": "B=4 M=128 K=1024 N=512 bf16"}),

@@ -12,8 +12,12 @@ a cached reusable callable that serving invokes per request:
 
 Backends:
   torch      plain f32-accumulating matmul + unfused epilogue (the
-             reference's `xla`)
-  ref        the same plus the sigma scramble done as a gather (the oracle)
+             reference's `xla`): on CUDA, bf16 x bf16 runs as one cuBLAS
+             GEMM with an f32 output (`out_dtype`), as `xla` multiplies
+             bf16 with preferred_element_type=f32; elsewhere, and for
+             other dtypes, an f32 matmul of the operands cast to f32
+  ref        f32 matmul of the upcast operands plus the sigma scramble
+             done as a gather (the oracle)
   cuda_mesh  the mesh kernel K1 (`kernels/mesh_matmul.py`) — the reference's
              `pallas_mesh`: launched on CUDA tensors, its plain version on
              CPU tensors the way `pallas_mesh` runs interpret mode off-TPU
@@ -27,9 +31,25 @@ when it declares the `grouped` capability with a dedicated impl: `torch`
 and `cuda_mesh` (kernel K5, `kernels/grouped.py`).
 
 Blocks come from `spec.blocks` when set, else (128, 128, 128); the
-autotuner arrives in a later slice.  A grouped plan clamps block_m to
-divide the rows-per-group bound.  There is no fallback chain yet: a
-`cuda_mesh` plan whose kernel fails to build or launch raises.
+autotuner arrives with the cost model.  A grouped plan clamps block_m to
+divide the rows-per-group bound.
+
+Backend choice: an explicit `backend=` is validated strictly; otherwise a
+capable pinned default (`set_default`, the scoped `default_backend(...)`)
+wins, then the legacy order torch -> cuda_mesh -> registration order.
+
+Resilience.  `plan(spec, fallback=True)` resolves a capability-ordered
+fallback chain (`FALLBACK_ORDER`: cuda_mesh -> torch -> ref) behind the
+chosen backend: a failed plan build or execution falls to the next capable
+backend, recording a `DegradationEvent` in the plan's `health`
+(`describe()["health"]`) and in `resilience.ledger`; an execution-time
+swap is permanent for that plan.  Spec-level `PlanValidationError`s never
+fall back.  The opt-in `guard_nonfinite` samples outputs for NaN/Inf
+after the epilogue with a `raise | fallback | zero_and_record` policy.
+One stated divergence from the reference: `fallback` defaults to False
+here (True there).  A CUDA tensor launches its kernel or raises unless the
+caller asks for the ladder; `fallback` is part of the plan-cache key, so a
+plan built without the ladder is never handed to a caller who asked for it.
 
 Gradients.  A `cuda_mesh` GEMM runs through `_MeshMM`, a
 `torch.autograd.Function` on both devices, whose backward is the
@@ -46,6 +66,7 @@ ops that autograd differentiates.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, FrozenSet, List, Mapping, Optional, Tuple, Union
@@ -63,10 +84,20 @@ from repro_torch.kernels.mesh_matmul import (
     sigma_block_table,
 )
 from repro_torch.kernels.scramble import scramble_blocks
+from repro_torch.resilience import faults as _faults
+from repro_torch.resilience import ledger as _rledger
+from repro_torch.resilience.policy import (
+    NonFiniteError,
+    nonfinite_count,
+    normalize_policy,
+    scrub_nonfinite,
+)
 
 __all__ = [
     "DEFAULT_BLOCKS",
+    "FALLBACK_ORDER",
     "STRUCTURES",
+    "AsyncResult",
     "BackendCapabilities",
     "CapabilityError",
     "Epilogue",
@@ -79,11 +110,16 @@ __all__ = [
     "apply_epilogue",
     "backend_names",
     "clear_plan_cache",
+    "default_backend",
+    "default_epoch",
+    "execute_async",
+    "get_default",
     "gmm_backward",
     "mm_backward",
     "plan",
     "plan_cache_info",
     "register_backend",
+    "set_default",
     "unregister_backend",
 ]
 
@@ -389,7 +425,7 @@ class _Backend:
 
 _REGISTRY: Dict[str, _Backend] = {}
 
-# Plan cache: one entry per (spec, backend, device type) ever planned
+# Plan cache: one entry per (spec, backend, device type, guard, fallback) ever planned
 # (defined here because registration evicts from it).
 _PLAN_CACHE: Dict[tuple, "Plan"] = {}
 _PLAN_STATS = {"hits": 0, "misses": 0}
@@ -473,11 +509,51 @@ def _check_capabilities(spec: GemmSpec, be: _Backend, device: str) -> Optional[s
     return None
 
 
+# -- default backend (process default + scoped override) ---------------------
+
+_DEFAULT_BACKEND: List[Optional[str]] = [None]  # None = capability-based choice
+_DEFAULT_EPOCH: List[int] = [0]  # bumped on every default change (see ops.py)
+
+
+def set_default(name: Optional[str]) -> None:
+    """Install a process-wide default backend (None restores auto-choice)."""
+    if name is not None:
+        _require_backend(name)
+    _DEFAULT_BACKEND[0] = name
+    _DEFAULT_EPOCH[0] += 1
+
+
+def get_default() -> Optional[str]:
+    return _DEFAULT_BACKEND[0]
+
+
+def default_epoch() -> int:
+    """Monotonic counter of default-backend changes — lets the legacy shim
+    detect that its recorded default has been superseded by a newer
+    set_default/default_backend scope."""
+    return _DEFAULT_EPOCH[0]
+
+
+@contextlib.contextmanager
+def default_backend(name: str):
+    """Scoped default: `with default_backend("cuda_mesh"): ...` — the
+    supported replacement for the mutable `set_default_backend` global."""
+    prev = _DEFAULT_BACKEND[0]
+    set_default(name)
+    try:
+        yield
+    finally:
+        set_default(prev)
+
+
 def _choose_backend(spec: GemmSpec, device: str) -> _Backend:
-    """First capable backend in the reference's legacy order: torch (the
-    `xla` stand-in), then cuda_mesh, then registration order."""
+    """A CAPABLE pinned default first (explicit user intent), then the first
+    capable backend in the reference's legacy order: torch (the `xla`
+    stand-in), then cuda_mesh, then registration order."""
     reasons = []
-    for name in dict.fromkeys(("torch", "cuda_mesh", *_REGISTRY)):
+    pinned = _DEFAULT_BACKEND[0]
+    for name in dict.fromkeys((*(() if pinned is None else (pinned,)), "torch", "cuda_mesh",
+                               *_REGISTRY)):
         be = _REGISTRY.get(name)
         if be is None:
             continue
@@ -486,6 +562,25 @@ def _choose_backend(spec: GemmSpec, device: str) -> _Backend:
             return be
         reasons.append(reason)
     raise CapabilityError("no registered backend can execute this spec: " + "; ".join(reasons))
+
+
+# Capability-ordered degradation ladder: when a backend's plan build or
+# execution fails, a plan built with fallback=True falls to the next CAPABLE
+# backend in this order (then any other registered backend, registration
+# order).  ref sits last: slowest, but the oracle that can always run.
+FALLBACK_ORDER = ("cuda_mesh", "torch", "ref")
+
+
+def _fallback_chain(spec: GemmSpec, primary: _Backend, device: str) -> List[_Backend]:
+    """`primary` plus every other backend capable of `spec`, fallback-ordered."""
+    chain = [primary]
+    for name in dict.fromkeys((*FALLBACK_ORDER, *_REGISTRY)):
+        be = _REGISTRY.get(name)
+        if be is None or be.name == primary.name:
+            continue
+        if _check_capabilities(spec, be, device) is None:
+            chain.append(be)
+    return chain
 
 
 # ---------------------------------------------------------------------------
@@ -530,6 +625,33 @@ def _check_declared(spec: GemmSpec, bias, residual) -> None:
             )
 
 
+class AsyncResult:
+    """Handle for a dispatched plan execution.
+
+    `out` is the output tensor, possibly still being computed on the card;
+    `block()` waits for it and returns it.  On CUDA the handle holds an
+    event recorded on the current stream right after the enqueue, and
+    `block()` waits on that event only; on the CPU the work is done when
+    `dispatch` returns.
+    """
+
+    __slots__ = ("plan", "out", "_event")
+
+    def __init__(self, plan: "Plan", out: torch.Tensor):
+        self.plan = plan
+        self.out = out
+        self._event = None
+        if out.is_cuda:
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(out.device))
+
+    def block(self) -> torch.Tensor:
+        """Wait for the dispatched execution and return its result."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self.out
+
+
 @dataclasses.dataclass
 class Plan:
     """A resolved, reusable GEMM executable with provenance.
@@ -548,12 +670,34 @@ class Plan:
     out_dtype: str
     flops: int
     sigma_table: Optional[np.ndarray] = None
+    # -- resilience state --
+    # guard: opt-in non-finite output policy; health: DegradationEvents this
+    # plan recorded (build-time fallbacks + execution-time degradations);
+    # _chain: backend names still available below the active one.
+    guard: Optional[str] = None
+    guard_sample: Optional[int] = None
+    health: List = dataclasses.field(default_factory=list)
+    _chain: List[str] = dataclasses.field(default_factory=list, repr=False)
+    _active: Optional[str] = dataclasses.field(default=None, repr=False)
     _fn: Optional[Callable] = dataclasses.field(default=None, repr=False)
     _sigma_dev: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def activation(self) -> Optional[str]:
         return self.spec.epilogue.activation
+
+    @property
+    def active_backend(self) -> str:
+        """The backend actually executing: `backend` until an execution-time
+        degradation swapped in a fallback."""
+        return self._active or self.backend
+
+    @property
+    def executor(self) -> Callable:
+        """The raw executor `(a, b, bias, residual) -> out` (grouped:
+        `(tokens, group_offsets, weights, bias, residual)`), with no per-call
+        validation, fault site or guard — for trusted hot loops."""
+        return self._fn
 
     def sigma_on(self, device: torch.device) -> Optional[torch.Tensor]:
         """The sigma table on `device` (uploaded once per device)."""
@@ -592,6 +736,13 @@ class Plan:
                 "rows_per_group": grp.rows_per_group,
                 "per_group_flops": 2 * grp.rows_per_group * self.spec.k * self.spec.n,
             },
+            "health": {
+                "active_backend": self.active_backend,
+                "degraded": bool(self.health),
+                "guard_nonfinite": self.guard,
+                "fallback_chain": list(self._chain),
+                "events": [e.as_dict() for e in self.health],
+            },
         }
 
     def _check_operands(self, a, b, bias, residual):
@@ -622,11 +773,158 @@ class Plan:
 
     def __call__(self, a, b, bias=None, residual=None) -> torch.Tensor:
         self._check_operands(a, b, bias, residual)
-        return self._fn(a, b, bias, residual)
+        return self._execute((a, b, bias, residual))
+
+    def dispatch(self, a, b, bias=None, residual=None) -> AsyncResult:
+        """Enqueue an execution and return without waiting on the device.
+
+        Validation and the enqueue happen now; the card computes in the
+        background and `AsyncResult.block()` (or `execute_async` over a batch
+        of independent plans) is the single sync point.  A plan with a
+        `guard_nonfinite` policy reads a count back to inspect its output,
+        so its dispatch is effectively synchronous (the guard wins).
+        """
+        self._check_operands(a, b, bias, residual)
+        return AsyncResult(self, self._execute((a, b, bias, residual)))
+
+    # -- resilience ----------------------------------------------------------
+
+    def _record(self, site: str, cause: str, fallback: str, **detail):
+        """One DegradationEvent, in the plan's health AND the global ledger."""
+        ev = _rledger.record(site, cause=cause, fallback=fallback, **detail)
+        self.health.append(ev)
+        return ev
+
+    def _degrade(self, args: tuple, *, site: str, cause: str, original=None):
+        """Fall to the next capable backend in the chain and run `args` there.
+
+        On success the plan PERMANENTLY swaps its executor — a backend that
+        failed (or produced NaN under the `fallback` guard policy) is not
+        trusted again for this plan.  Exhausting the chain raises."""
+        err = original
+        while self._chain:
+            name = self._chain.pop(0)
+            self._record(site, cause, fallback=name, backend=self.active_backend)
+            try:
+                fb = plan(self.spec, backend=name, device=self.device, fallback=False)
+                _faults.check(site, backend=name)
+                out = fb._fn(*args)
+            except PlanValidationError:
+                raise
+            except Exception as e:
+                cause = f"{type(e).__name__}: {e}"
+                err = e
+                continue
+            self._fn = fb._fn
+            self._active = name
+            return out
+        raise RuntimeError(
+            f"backend {self.active_backend!r} failed ({cause}) and the"
+            f" fallback chain is exhausted for this spec"
+        ) from err
+
+    def _execute(self, args: tuple) -> torch.Tensor:
+        try:
+            _faults.check("plan.execute", backend=self.active_backend)
+            out = self._fn(*args)
+        except (PlanValidationError, CapabilityError):
+            raise
+        except Exception as e:
+            if not self._chain:
+                raise  # no ladder below this backend: its own error surfaces
+            out = self._degrade(
+                args, site="plan.execute", cause=f"{type(e).__name__}: {e}", original=e
+            )
+        out = _faults.poison("kernel.output", out, backend=self.active_backend)
+        if self.guard is not None:
+            out = self._apply_guard(out, args)
+        return out
+
+    def _apply_guard(self, out: torch.Tensor, args: tuple) -> torch.Tensor:
+        """The post-epilogue non-finite guard (fused paths stay fused: the
+        check wraps the executor's OUTPUT, never reaches into the kernel)."""
+        if torch.compiler.is_compiling():
+            # Under a torch.compile trace values are unknown: zero_and_record
+            # becomes an unconditional scrub; raise/fallback cannot branch on
+            # them, so the gap is recorded, not hidden.
+            if self.guard == "zero_and_record":
+                return scrub_nonfinite(out)
+            self._record(
+                "guard.nonfinite",
+                cause="guard bypassed under trace (values unknown)",
+                fallback="unchecked",
+                backend=self.active_backend,
+            )
+            return out
+        bad = nonfinite_count(out, sample=self.guard_sample)
+        if not bad:
+            return out
+        cause = f"{bad} non-finite output value(s) sampled"
+        if self.guard == "zero_and_record":
+            self._record("guard.nonfinite", cause, fallback="zero", backend=self.active_backend)
+            return scrub_nonfinite(out)
+        if self.guard == "fallback":
+            out = self._degrade(args, site="guard.nonfinite", cause=cause)
+            if not nonfinite_count(out, sample=self.guard_sample):
+                return out
+            raise NonFiniteError(
+                f"non-finite outputs persist after fallback (backend {self.active_backend!r})"
+            )
+        raise NonFiniteError(
+            f"guarded plan produced {bad} non-finite value(s) on backend"
+            f" {self.active_backend!r} (structure={self.spec.structure!r},"
+            f" mkn={self.spec.eff_m}x{self.spec.k}x{self.spec.n})"
+        )
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """bf16 x bf16 -> f32 on CUDA: one cuBLAS GEMM with an f32 output
+    (`torch.mm`/`torch.bmm` with `out_dtype`), products exact and sums in
+    f32 as the reference's `xla` backend does them.  That op has no
+    derivative, so the backward is spelled out with the contract of
+    `mm_backward` (and of autograd through the upcast path): f32 GEMMs of
+    the cotangent against the upcast operands, each gradient cast to its
+    operand's dtype.  `b` is (K, N), folding `a`'s leading dims into M, or
+    batched (B, K, N) against `a` (B, M, K)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        f32 = torch.float32
+        if b.dim() == 2:
+            z = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=f32)
+        else:
+            z = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]), out_dtype=f32)
+        return z.reshape(*a.shape[:-1], b.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2:
+                k, n = b.shape
+                db = torch.matmul(a.float().reshape(-1, k).t(), g.reshape(-1, n))
+            else:
+                db = torch.matmul(a.float().transpose(-1, -2), g)
+            db = db.to(b.dtype)
+        return da, db
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with f32 accumulation and an f32 result (the `torch` backend's
+    GEMM): bf16 operands on CUDA go to the tensor cores through
+    `_MatmulF32Out`; everything else is an f32 matmul of the upcast operands
+    (this torch's `aten::mm.dtype` has no CPU kernel)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return _MatmulF32Out.apply(a, b)
+    return torch.matmul(a.float(), b.float())
 
 
 def _torch_impl(p: Plan, a, b, bias, residual):
-    z = torch.matmul(a.float(), b.float())
+    z = _matmul_f32(a, b)
     return apply_epilogue(z, bias, p.activation, residual).to(_NAME_DTYPES[p.out_dtype])
 
 
@@ -816,7 +1114,11 @@ class GroupedPlan(Plan):
 
     def __call__(self, tokens, group_offsets, weights, bias=None, residual=None):
         self._check_grouped_operands(tokens, group_offsets, weights, bias, residual)
-        return self._fn(tokens, group_offsets, weights, bias, residual)
+        return self._execute((tokens, group_offsets, weights, bias, residual))
+
+    def dispatch(self, tokens, group_offsets, weights, bias=None, residual=None) -> AsyncResult:
+        self._check_grouped_operands(tokens, group_offsets, weights, bias, residual)
+        return AsyncResult(self, self._execute((tokens, group_offsets, weights, bias, residual)))
 
 
 def _grouped_sizes(group_offsets: torch.Tensor) -> torch.Tensor:
@@ -837,7 +1139,7 @@ def _torch_grouped_impl(p: Plan, tokens, group_offsets, w, bias, residual):
     (G, K, N) product; the mask zeroes rows past each group's size."""
     grp = p.spec.group
     rpg = grp.rows_per_group
-    z = torch.bmm(tokens.reshape(grp.num_groups, rpg, p.spec.k).float(), w.float())
+    z = _matmul_f32(tokens.reshape(grp.num_groups, rpg, p.spec.k), w)
     z = apply_epilogue(
         z,
         None if bias is None else bias[:, None, :],
@@ -973,20 +1275,41 @@ register_backend(
 # ---------------------------------------------------------------------------
 
 
-def plan(spec: GemmSpec, *, backend: Optional[str] = None, device="cpu") -> Plan:
+def plan(
+    spec: GemmSpec,
+    *,
+    backend: Optional[str] = None,
+    device="cpu",
+    guard_nonfinite: Optional[str] = None,
+    guard_sample: Optional[int] = None,
+    fallback: bool = False,
+) -> Plan:
     """Validate `spec` against backend capabilities and return the cached,
     reusable executable for it on `device`'s type.
 
-    Resolution happens once per (spec, backend, device type): capability
-    checks, block shapes, and the sigma table are fixed here, and
-    repeated calls return the identical Plan.  An explicit `backend` is
-    validated strictly (CapabilityError on mismatch); otherwise the first
-    capable backend is chosen.  Spec-level problems raise
-    PlanValidationError.
+    Resolution happens once per (spec, backend, device type, guard,
+    fallback): capability checks, block shapes, and the sigma table are
+    fixed here, and repeated calls return the identical Plan.  An explicit
+    `backend` is validated strictly (CapabilityError on mismatch); otherwise
+    a capable pinned default, then the first capable backend, is chosen.
+    Spec-level problems raise PlanValidationError.
+
+    With `fallback=True` a failed plan BUILD falls down the
+    capability-ordered chain (`FALLBACK_ORDER`) to the next backend able to
+    run the spec, recording a DegradationEvent in the plan's `health` and
+    the global ledger; only when every capable backend fails does the last
+    error surface.  The rest of the chain stays behind the plan for
+    execution-time degradation.  With `fallback=False` (the port's default)
+    a failed build or execution raises.  `guard_nonfinite` opts the plan
+    into the post-epilogue NaN/Inf guard with policy `raise | fallback |
+    zero_and_record` (`guard_sample` spot-checks that many strided output
+    elements instead of reducing the whole output).
     """
     if not isinstance(spec, GemmSpec):
         raise TypeError(f"plan() takes a GemmSpec, got {type(spec).__name__}")
     dev = torch.device(device).type
+    if guard_nonfinite is not None:
+        guard_nonfinite = normalize_policy(guard_nonfinite)
     if backend is not None:
         be = _require_backend(backend)
         reason = _check_capabilities(spec, be, dev)
@@ -995,13 +1318,42 @@ def plan(spec: GemmSpec, *, backend: Optional[str] = None, device="cpu") -> Plan
     else:
         be = _choose_backend(spec, dev)
 
-    key = (spec, be.name, dev)
+    key = (spec, be.name, dev, guard_nonfinite, guard_sample, bool(fallback))
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         _PLAN_STATS["hits"] += 1
         return cached
     _PLAN_STATS["misses"] += 1
-    p = _build_plan(spec, be, dev)
+
+    chain = _fallback_chain(spec, be, dev) if fallback else [be]
+    build_events = []
+    p = None
+    built_at = 0
+    for i, cand in enumerate(chain):
+        try:
+            _faults.check("plan.build", backend=cand.name)
+            p = _build_plan(spec, cand, dev)
+            built_at = i
+            break
+        except (PlanValidationError, CapabilityError):
+            raise
+        except Exception as e:
+            if i + 1 >= len(chain):
+                raise
+            build_events.append(
+                _rledger.record(
+                    "plan.build",
+                    cause=f"{type(e).__name__}: {e}",
+                    fallback=chain[i + 1].name,
+                    backend=cand.name,
+                )
+            )
+    p.health.extend(build_events)
+    # Backends still available below the one that built: the execution-time
+    # degradation ladder (Plan._degrade).
+    p._chain = [c.name for c in chain[built_at + 1:]]
+    p.guard = guard_nonfinite
+    p.guard_sample = guard_sample
     _PLAN_CACHE[key] = p
     return p
 
@@ -1077,6 +1429,24 @@ def _build_plan(spec: GemmSpec, be: _Backend, device: str) -> Plan:
     return p
 
 
+def execute_async(items) -> List[torch.Tensor]:
+    """Dispatch independent plan executions back to back, sync ONCE at the end.
+
+    `items` is an iterable of `(plan, args)` pairs, `args` the positional
+    operand tuple for that plan (`(a, b)`, optionally with bias/residual).
+    Every execution is enqueued before anything waits; then the last
+    handle of each device is waited on (one stream, so it covers the rest),
+    and the outputs return in input order.
+    """
+    handles = [p.dispatch(*args) for p, args in items]
+    last = {}
+    for h in handles:
+        last[h.out.device] = h
+    for h in last.values():
+        h.block()
+    return [h.out for h in handles]
+
+
 def clear_plan_cache() -> None:
     """Test hook: drop all cached plans and reset the hit/miss counters."""
     _PLAN_CACHE.clear()
@@ -1084,7 +1454,8 @@ def clear_plan_cache() -> None:
 
 
 def plan_cache_info() -> Dict[str, Any]:
-    """Cache telemetry: one entry per (spec, backend, device type) planned."""
+    """Cache telemetry: one entry per (spec, backend, device type, guard,
+    fallback) planned."""
     return {
         "size": len(_PLAN_CACHE),
         "hits": _PLAN_STATS["hits"],

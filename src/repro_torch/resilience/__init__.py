@@ -1,1 +1,2 @@
-"""Resilience: deterministic fault injection and the degradation ledger."""
+"""Resilience: deterministic fault injection, the degradation ledger, and the
+numeric guard policies of the GEMM planner."""

@@ -17,8 +17,15 @@ When several plans are armed (nested `inject`, or the ambient env plan under
 a test-local one), the INNERMOST plan that names the site decides — it fires
 or passes, and outer plans are not consulted for that call.
 
-Sites instrumented in the port so far:
+Sites instrumented in the port:
 
+  plan.build          `kernels/api.plan` — backend plan construction
+                      (ctx: backend)
+  plan.execute        Plan.__call__ / dispatch — any execution of a built
+                      plan (ctx: backend)
+  kernel.output       Plan.__call__ / dispatch — VALUE site: poisons the
+                      kernel output with NaN/Inf instead of raising
+                      (ctx: backend)
   serve.request       `launch/serve.serve_requests` per-request boundary
                       (ctx: request)
   serve.admit         `launch/scheduler` admission — a fired fault sheds
@@ -29,10 +36,10 @@ Sites instrumented in the port so far:
                       fault defers/stalls the allocation one tick
                       (ctx: reason, rid)
 
-The GEMM-planner sites of the reference (plan.build, plan.execute,
-kernel.output) arrive with the planner's degradation ladder.  The canned
-plan registry backs `REPRO_FAULT_PLAN`; `install_env_plan()` arms it for
-the process.
+A planner fault degrades a plan down its backend chain only when the plan
+was built with `fallback=True`; the port's default (`fallback=False`)
+raises it.  The canned plan registry backs `REPRO_FAULT_PLAN`;
+`install_env_plan()` arms it for the process.
 """
 
 from __future__ import annotations
