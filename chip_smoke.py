@@ -41,10 +41,12 @@ Phases; any failure raises and the script exits non-zero:
               SIMT tile), and the output checked against the dense-cache
               path (`generate`, plain `_sdpa` attention);
   4. train    the same model through `build_trainer` and `train_loop`: 6 AdamW
-              steps at batch 2 x seq 2048 with the sigma scramble firing,
-              launch counts per step checked (K1 75, K3 4), losses finite and
-              falling, one step and each parameter's gradient held against
-              the `torch` backend's, and one step profiled;
+              steps at batch 2 x seq 2048 with the sigma scramble firing
+              and the `dots` remat default, launch counts per step checked
+              (K1 75, K3 4), losses finite and falling, one step and each
+              parameter's gradient held against the `torch` backend's, one
+              step profiled, and one step under `none` and `dots` (K1 75
+              both, `dots` below `none` in peak memory);
   5. serve_moe  full-width OLMoE-1B-7B (16 layers, d_model 2048, 16 heads, 64
               experts top-8, expert d_ff 1024, vocab 50304, bf16, random
               weights from a seed) with `use_mesh_kernel=True` through the
@@ -62,14 +64,36 @@ Phases; any failure raises and the script exits non-zero:
               `_sdpa`'s (bf16, and f32 weights for the tight check), paged
               decode against dense, one window profiled;
   7. train_flash  one mesh-paper training step at 2 x 2048 tokens with
-              attn_chunk=1024 (K6 forward, recomputed backward) against the
-              same step with full attention;
-  8. paper    the paper's tables by simulation on the card (`core/`): 2n-1
+              attn_chunk=1024 (K6 forward, again in the `dots` recompute;
+              recomputed backward) against the same step with full
+              attention;
+  8. serve_qwen2_moe  full-width Qwen1.5-MoE-A2.7B (24 layers, d_model 2048,
+              60 experts top-4, expert d_ff 1408, 4 shared experts fused to
+              5632 behind an f32 sigmoid gate, vocab 151936, QKV bias, bf16,
+              random weights from a seed; 14.316 B parameters) on the kernel
+              path through the server with serve_moe's requests: launches
+              against the server's counters, 0 host syncs under sync debug
+              mode "error", paged vs dense logits, K5 per decode step
+              against its byte bound, a 2-layer f32 witness of the kernel
+              path against the `torch` backend, one window profiled;
+  9. train_moe  OLMoE-1B-7B at full width and 4 of its 16 layers on the
+              kernel path, 2 x 2048 tokens (capacity 640 rows per expert,
+              pairs dropped): the kernel step against the `torch` step,
+              `dots` against `none` (loss bitwise), 6 steps through
+              `train_loop` with an `AsyncCheckpointer` every 2 steps (submit
+              without a host sync, the step-4 checkpoint bitwise equal to a
+              synchronous copy, a resume of steps 5-6), and one step per
+              remat policy with its peak memory and K1/K5 launches;
+  10. configs  Granite-3 8B, Phi-3-medium 14B and Mistral-Large 123B through
+              `tuned()` at full width and 2 layers: a 2048-token prompt
+              through K6, 8 decode steps through the server on K4 (GQA rep
+              4, 4, 12), the padded and tied head, paged vs dense logits;
+  11. paper    the paper's tables by simulation on the card (`core/`): 2n-1
               and 3n-2 steps for n up to 128 and at n = 1024, the outputs
               equal to a @ b bitwise, the symmetric readout within
               n+1+n/2 steps up to n = 256, the orders of S, and S^k with a
               key on the card (no host sync);
-  9. planner  the GEMM planner at mesh-paper's width: the `ops.matmul`
+  12. planner  the GEMM planner at mesh-paper's width: the `ops.matmul`
               shim, the scoped default, `execute_async`, the degradation
               ladder under injected plan.execute/plan.build faults and the
               non-finite guard's three policies under a NaN-poisoned
@@ -126,7 +150,7 @@ K5_GEMMS = {"wi": (2048, 2048), "wo": (1024, 2048)}
 K5_SHAPES = {"decode": (8, 8), "prefill": (PROMPT, PROMPT)}
 # Launches per prefill and per decode step: K5 for wi and wo of 16 layers;
 # K1 for 4 attention projections of 16 layers and lm_head; K4 16 per decode
-# step.  The server's warmup adds one K1 launch (its canary plan).
+# step.  The server's warmup adds two K1 launches (its canary plan).
 MOE_STEP_LAUNCHES = {"grouped_mesh_matmul": 32, "mesh_matmul": 65}
 # Teacher-forced paged (K4) vs dense (_sdpa) decode logits of OLMoE: the
 # reading is 0.0806 on logits up to 4.28, with 9 of 112 (step, layer)
@@ -159,6 +183,56 @@ QWEN_F32_TOL = 2.5e-4
 # K4 at mistral-large-123b's decode: (slots, query heads, KV heads, head
 # dim), GQA rep 12, which the split kernel runs as chunks of 8 and 4 rows.
 MISTRAL_DECODE = (SLOTS, 96, 8, 128)
+# Qwen1.5-MoE-A2.7B served with use_mesh_kernel=True, the requests of
+# serve_moe: 60 experts top-4 (expert d_ff 1408) and 4 shared experts fused
+# to 5632.  Launches per prefill and per decode step: K5 for wi and wo of 24
+# layers; K1 for 4 attention projections, the shared wi, wo and gate (f32,
+# N = 1) of 24 layers, and lm_head; K4 24 per decode step.
+QMOE_LAYERS, QMOE_EXPERTS, QMOE_TOPK = 24, 60, 4
+QMOE_DENSE_GEMMS = {"lm_head": (2048, 151936), "shared wi": (2048, 2 * 5632),
+                    "shared wo": (5632, 2048)}
+# Its expert GEMMs (K, N) on K5, over 60 experts, at K5_SHAPES.
+QMOE_K5_GEMMS = {"wi": (2048, 2 * 1408), "wo": (1408, 2048)}
+QMOE_STEP_LAUNCHES = {"grouped_mesh_matmul": 2 * QMOE_LAYERS, "mesh_matmul": 7 * QMOE_LAYERS + 1}
+# Teacher-forced paged (K4) vs dense (`_sdpa`) decode logits: the first
+# reading was 0.3525 on req0's logits up to 4.281 (24 layers, 1-6 routing
+# sets of 24 flipped a step by the two attentions' roundings; req1 and req2
+# later read 0.1953 and 0.3438); 1.0 is about 3x that.  The f32
+# prefill witness (2 layers, kernel path vs `torch` backend, summation
+# order only): the first reading was 1.693e-05 on logits up to 5.22.
+QMOE_LOGIT_TOL = 1.0
+QMOE_F32_TOL = 5e-5
+# The same teacher-forced decode with the paged step on the dense step's
+# routing, where only the attentions' roundings differ: the first readings
+# were 0.0781, 0.0774 and 0.0742 on req0-2 (logits up to 4.28-4.38), and
+# 0.25 is about 3x the largest.  With 2 f32 layers (summation order only):
+# the first reading was 1.192e-05, and 3.5e-5 is about 3x that.
+QMOE_CHECKED = 3
+QMOE_SAME_ROUTING_TOL = 0.25
+QMOE_F32_DECODE_TOL = 3.5e-5
+# OLMoE-1B-7B trained at full width and 4 of its 16 layers: AdamW's f32
+# moments for the 6.919 B parameters alone take 55 GB, a full-depth step
+# about 83 GB; 4 layers hold 1.88 B parameters, about 19 GB of state.
+MOE_TRAIN_LAYERS = 4
+# Its capacity: 1.25 x 4096 tokens x 8 choices / 64 experts, rows per expert.
+MOE_TRAIN_CAP = 640
+# (token, choice) pairs of one step that the `torch` backend routes to
+# another expert than the kernel path, over the 4 layers' 131,072: the
+# first reading was 917, and the limit is 3x that.
+MOE_TRAIN_FLIP_TOL = 2750
+# The dense configs through tuned(), at full width and 2 layers each
+# (Mistral-Large's 123 B parameters do not fit one card; 2 layers hold about
+# 3.6 B): (arch, GQA rep).  One prompt of CONFIGS_PROMPT tokens (K6 through
+# attn_chunk=1024), then 8 decode steps through the server (K4).
+CONFIGS_ARCHS = (("granite-3-8b", 4), ("phi3-medium-14b", 4), ("mistral-large-123b", 12))
+CONFIGS_LAYERS, CONFIGS_PROMPT, CONFIGS_NEW_TOKENS = 2, 2048, 9
+# Teacher-forced paged vs dense decode logits: the first readings were
+# 0.0625, 0.0898 and 0.125 (logits up to 6.0, 6.6 and 9.5); the limits are
+# 3x those.  The tied head against rmsnorm(x) @ embed.T in f32: the bf16
+# rounding of logits below 8, 2 ulps (the first reading 0.0156).
+CONFIGS_LOGIT_TOL = {"granite-3-8b": 0.1875, "phi3-medium-14b": 0.27,
+                     "mistral-large-123b": 0.375}
+CONFIGS_TIED_TOL = 0.0625
 
 
 def log(msg: str) -> None:
@@ -251,8 +325,9 @@ OLD_TILES = ("simt64", "simt_decode")
 K1_TILES = {}
 K5_TILES = {}
 # The server's warmup canary, an 8x8 f32 GEMM on 8-wide blocks, checks the
-# build: only the first SIMT decode tile takes it.  It is no main-path product.
-CANARY_TILES = {"simt_decode": 1}
+# build, run twice (through `dispatch` and directly): only the first SIMT
+# decode tile takes it.  It is no main-path product.
+CANARY_TILES = {"simt_decode": 2}
 
 
 def check_main_path_tiles(path, tiles, canary: bool) -> None:
@@ -278,7 +353,12 @@ def reset_k1(mesh_matmul):
 def phase_k1(torch):
     """K1 (mesh_matmul) against mesh_matmul_torch on every tile family, then
     timings."""
-    from repro_torch.kernels.mesh_matmul import mesh_matmul, mesh_matmul_torch, tile_config
+    from repro_torch.kernels.mesh_matmul import (
+        kernel_n,
+        mesh_matmul,
+        mesh_matmul_torch,
+        tile_config,
+    )
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
@@ -321,7 +401,20 @@ def phase_k1(torch):
         ("f32 M=4", (SLOTS, 2048, 2048), f32, {}),
         ("16-deep k blocks", (PROMPT, 512, 512), bf16, dict(block_k=16)),
         ("16-deep k blocks M=4", (SLOTS, 512, 512), bf16, dict(block_k=16)),
+        # Qwen1.5-MoE's shared-expert gate, an f32 product with N = 1, which
+        # the wrapper pads to one 16-byte chunk (kernel_n): the f32 tile.
+        ("shared gate N=1 M=4", (SLOTS, 2048, 1), f32, {}),
+        ("shared gate N=1 M=128", (PROMPT, 2048, 1), f32, {}),
+        ("N=1 bias+sigmoid+residual", (PROMPT, 2048, 1), f32,
+         dict(activation="sigmoid", bias=True, residual=True)),
+        ("bf16 N=3 M=4", (SLOTS, 2048, 3), bf16, {}),
     ]
+    # Qwen1.5-MoE's dense GEMMs on [serve_qwen2_moe]'s path, at its decode
+    # and prefill M: the 151,936-column unembed and the shared experts'
+    # fused wi and wo.
+    for label, (k, n) in QMOE_DENSE_GEMMS.items():
+        for m in (SLOTS, PROMPT):
+            cases.append((f"qwen2-moe {label} M={m}", (m, k, n), bf16, {}))
     max_err, failed = 0.0, []
     for label, (m, k, n), dtype, kw in cases:
         kw = dict(kw)
@@ -332,7 +425,8 @@ def phase_k1(torch):
         if kw.pop("residual", False):
             kw["residual"] = rnd(*lead, m, n, dtype=dtype)
         blocks = [kw.get(f"block_{x}", 128) for x in "mnk"]
-        tile = tile_config(m, n, k, *blocks, dtype)
+        tile = tile_config(m, kernel_n(n, blocks[1], dtype, kw.get("scramble_out", False)), k,
+                           *blocks, dtype)
         reset_k1(mesh_matmul)
         out = mesh_matmul(a, b, **kw)
         ran = tile_counts(mesh_matmul)
@@ -709,19 +803,29 @@ def phase_k1_backward(torch):
     return max_err
 
 
-def _routed_sizes(rng, tokens: int):
-    """Rows per expert when each of `tokens` tokens picks OLMOE_TOPK distinct
-    experts of OLMOE_EXPERTS, uniformly: the sizes a decode step or a
-    prefill gives K5 under a router with no preference."""
+def _routed_sizes(rng, tokens: int, experts: int = OLMOE_EXPERTS, topk: int = OLMOE_TOPK):
+    """Rows per expert when each of `tokens` tokens picks `topk` distinct
+    experts of `experts`, uniformly: the sizes a decode step or a prefill
+    gives K5 under a router with no preference."""
     import numpy as np
 
-    picks = [rng.choice(OLMOE_EXPERTS, OLMOE_TOPK, replace=False) for _ in range(tokens)]
-    return np.bincount(np.concatenate(picks), minlength=OLMOE_EXPERTS).astype(np.int32)
+    picks = [rng.choice(experts, topk, replace=False) for _ in range(tokens)]
+    return np.bincount(np.concatenate(picks), minlength=experts).astype(np.int32)
+
+
+def _train_moe_sizes(rng):
+    """Rows per OLMoE expert in one [train_moe] step: TRAIN_BATCH x TRAIN_SEQ
+    tokens routed top-8 with no preference, each expert capped at
+    MOE_TRAIN_CAP (the pairs past it dropped)."""
+    import numpy as np
+
+    return np.minimum(_routed_sizes(rng, TRAIN_BATCH * TRAIN_SEQ), MOE_TRAIN_CAP)
 
 
 def phase_k5(torch):
     """K5 (grouped_mesh_matmul) against grouped_mesh_matmul_torch at OLMoE's
-    decode and prefill shapes, then timings: the kernel, the plain version,
+    and Qwen1.5-MoE's decode and prefill shapes and at [train_moe]'s
+    forward, then timings at OLMoE's: the kernel, the plain version,
     `torch.bmm` + segment mask (the reference's `xla` grouped impl, timed
     here only) and the bound, all as profiler device time."""
     import numpy as np
@@ -748,6 +852,25 @@ def phase_k5(torch):
             for how, sizes in (("edge sizes", edge), ("routed", routed[phase])):
                 cases.append((f"{phase} {label} {how}", n_grp, rpg, bm, k, n, sizes,
                               torch.bfloat16, {}))
+    # Qwen1.5-MoE's expert GEMMs on [serve_qwen2_moe]'s path: 60 groups,
+    # each token routed top-4, at the same decode and prefill rows.
+    for phase, (rpg, bm) in K5_SHAPES.items():
+        tokens = SLOTS if phase == "decode" else PROMPT
+        edge = rng.integers(0, rpg + 1, QMOE_EXPERTS).astype(np.int32)
+        edge[:3] = (0, rpg, rpg // 2)
+        qrouted = _routed_sizes(rng, tokens, QMOE_EXPERTS, QMOE_TOPK)
+        for label, (k, n) in QMOE_K5_GEMMS.items():
+            for how, sizes in (("edge sizes", edge), ("routed", qrouted)):
+                cases.append((f"qwen2-moe {phase} {label} {how}", QMOE_EXPERTS, rpg, bm, k, n,
+                              sizes, torch.bfloat16, {}))
+    # [train_moe]'s forward: OLMoE's experts at capacity MOE_TRAIN_CAP rows
+    # (a step's tokens routed top-8, the excess dropped), block_m 128.
+    edge = rng.integers(0, MOE_TRAIN_CAP + 1, n_grp).astype(np.int32)
+    edge[:3] = (0, MOE_TRAIN_CAP, MOE_TRAIN_CAP // 2)
+    for label, (k, n) in K5_GEMMS.items():
+        for how, sizes in (("edge sizes", edge), ("routed", _train_moe_sizes(rng))):
+            cases.append((f"train_moe {label} {how}", n_grp, MOE_TRAIN_CAP, 128, k, n, sizes,
+                          torch.bfloat16, {}))
     epi_sizes = np.array([0, 128, 64, 1, 100, 128, 17, 0], np.int32)
     epi = dict(bias=True, residual=True, activation="silu")
     cases.append(("f32 bias+silu+residual", 8, PROMPT, PROMPT, 1024, 512, epi_sizes,
@@ -925,6 +1048,32 @@ def phase_k5_backward(torch):
         check(bool(torch.isfinite(x).all()), f"K5 bwd {name}: non-finite")
         check(err <= tol, f"K5 bwd {name}: err {err} > tol {tol}")
     check(torch.equal(got[3], want[3]), "K5 bwd: dresidual differs")
+
+    # [train_moe]'s backward of wi and wo (no activation): dtokens on K5's
+    # f32 tiles at 64 groups of MOE_TRAIN_CAP rows, routed sizes.
+    import numpy as np
+
+    sizes_np = _train_moe_sizes(np.random.default_rng(6))
+    tsizes = torch.as_tensor(sizes_np, device="cuda")
+    rpg, topts = MOE_TRAIN_CAP, api.MMOpts(128, 128, 128, True, False, torch.bfloat16, None)
+    for label, (k, n) in K5_GEMMS.items():
+        tokens, w = rnd(OLMOE_EXPERTS * rpg, k).float(), rnd(OLMOE_EXPERTS, k, n).float()
+        ct = rnd(OLMOE_EXPERTS * rpg, n)
+        got = api.gmm_backward(ct, tokens, tsizes, w, None, None, topts,
+                               matmul=grouped_mesh_matmul)
+        want = api.gmm_backward(ct, tokens, tsizes, w, None, None, topts,
+                                matmul=grouped_mesh_matmul_torch)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dtokens", "dW"), got[:2], want[:2]):
+            err = (x - y).abs().max().item()
+            tol = 1e-5 * y.abs().max().item()
+            max_err = max(max_err, err)
+            log(f"[K5 bwd] train_moe {label} G={OLMOE_EXPERTS} rpg={rpg} K={k} N={n} routed"
+                f" rows={int(sizes_np.sum())} {name:7s} err={err:.3e} tol={tol:.3e}"
+                f" (1e-5 max|ref|: f32 outputs, summation order only)")
+            check(bool(torch.isfinite(x).all()), f"K5 bwd train_moe {label} {name}: non-finite")
+            check(err <= tol, f"K5 bwd train_moe {label} {name}: err {err} > tol {tol}")
+        del tokens, w, ct, got, want
 
     # Through autograd on the card: a bf16 grouped GEMM's gradients come from K5.
     off = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
@@ -1236,11 +1385,14 @@ def phase_serve(torch):
     return launches
 
 
-def paged_vs_dense(torch, model, params, caches, served, t_prompt: int):
+def paged_vs_dense(torch, model, params, caches, served, t_prompt: int,
+                   same_routing: bool = False):
     """Teacher-forced decode of the server's tokens `served[:7]` after a
     `t_prompt`-token prefill's `caches`: paged (K4) against dense (`_sdpa`).
-    Returns the largest |dlogit|, the largest gap of a server token below
-    the dense argmax, and the last dense step's largest |logit|."""
+    With `same_routing`, each paged step replays the dense step's MoE
+    routing, so the two differ in the attentions' roundings only.  Returns
+    the largest |dlogit|, the largest gap of a server token below the dense
+    argmax, and the largest dense |logit|."""
     cfg = model.cfg
     kvh, hd = cfg.num_kv_heads, cfg.head_dim_
     with torch.inference_mode():
@@ -1253,17 +1405,22 @@ def paged_vs_dense(torch, model, params, caches, served, t_prompt: int):
                                         (0, 0, 0, 0, 0, n_pages * PAGE - t_prompt))
             pools[k][:, 1:] = c.reshape(cfg.num_layers, n_pages, PAGE, kvh, hd)
         bt = torch.arange(1, 1 + n_pages, dtype=torch.int32, device="cuda")[None]
-        worst_diff = worst_gap = 0.0
+        worst_diff = worst_gap = scale = 0.0
         for i in range(7):
             tok = torch.tensor([[served[i]]], dtype=torch.int32, device="cuda")
             pos = t_prompt + i
-            lg_d, dense = model.decode(params, tok, dense, pos)
-            lg_p, pools = model.paged_decode(
-                params, tok, pools, bt, torch.tensor([pos], dtype=torch.int32, device="cuda"))
-            lg_d, lg_p = lg_d[0, -1].float(), lg_p[0, -1].float()
+            with routing() as routes:
+                lg_d, dense = model.decode(params, tok, dense, pos)
+            with routing(routes if same_routing else None):
+                lg_p, pools = model.paged_decode(
+                    params, tok, pools, bt, torch.tensor([pos], dtype=torch.int32, device="cuda"))
+            # Padded vocab rows (-1e30 on both paths) are left out.
+            lg_d = lg_d[0, -1, :cfg.vocab_size].float()
+            lg_p = lg_p[0, -1, :cfg.vocab_size].float()
             worst_diff = max(worst_diff, (lg_d - lg_p).abs().max().item())
             worst_gap = max(worst_gap, (lg_d.max() - lg_d[served[i + 1]]).item())
-    return worst_diff, worst_gap, lg_d.abs().max().item()
+            scale = max(scale, lg_d.abs().max().item())
+    return worst_diff, worst_gap, scale
 
 
 def profile_window(torch, model, params, scfg, prompts, tag: str = "profile",
@@ -1476,10 +1633,60 @@ def phase_train(torch):
     check(all((k1, k3) == (75, 4) for _, k1, k3 in per_step), f"per-step launches {per_step}")
 
     profile_train_step(torch, step_fn, state, data)
+    # The remat default (`dots`) against none: the same K1 launches (no
+    # projection recomputed), less peak memory (the attention scores and
+    # the rest of each layer are recomputed, not kept).
+    del state, step_fn
+    steps = policy_steps(torch, cfg, "train", ("none", "dots"), batch)
+    check(steps["dots"]["k1"] == steps["none"]["k1"] == 75,
+          f"K1 launches per step under none / dots: {steps['none']['k1']} / {steps['dots']['k1']}")
+    check(steps["dots"]["peak_gib"] < steps["none"]["peak_gib"],
+          f"dots peak {steps['dots']['peak_gib']} GiB not below none's {steps['none']['peak_gib']}")
     return launches
 
 
-def profile_train_step(torch, step_fn, state, data) -> None:
+def policy_steps(torch, cfg, tag, policies, batch, seq=TRAIN_SEQ):
+    """One step of `cfg`'s trainer under each remat policy, each from the
+    same seed-0 state after one warm step on `batch`: wall ms, tokens/s,
+    peak device memory (the train state included), and the K1 and K5
+    launches of the step."""
+    import dataclasses
+    import gc
+
+    from repro_torch.kernels.grouped import grouped_mesh_matmul
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.launch.train import build_trainer
+
+    out = {}
+    for policy in policies:
+        gc.collect()
+        torch.cuda.empty_cache()
+        step_fn, state, _ = build_trainer(
+            dataclasses.replace(cfg, remat_policy=policy), batch=TRAIN_BATCH, seq=seq,
+            lr=TRAIN_LR, total_steps=TRAIN_STEPS, seed=0, device="cuda")
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1, k5 = mesh_matmul.launches, grouped_mesh_matmul.launches
+        t0 = time.monotonic()
+        state, met = step_fn(state, batch)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        out[policy] = dict(ms=dt * 1e3, tokens_s=TRAIN_BATCH * seq / dt,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           k1=mesh_matmul.launches - k1, k5=grouped_mesh_matmul.launches - k5,
+                           loss=float(met["loss"]))
+        log(f"[{tag}] remat_policy={policy}: one step {out[policy]['ms']:.1f} ms,"
+            f" {out[policy]['tokens_s']:.1f} tokens/s, peak device memory"
+            f" {out[policy]['peak_gib']:.2f} GiB, launches K1={out[policy]['k1']}"
+            f" K5={out[policy]['k5']}")
+        del step_fn, state, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(torch, step_fn, state, data, tag: str = "profile train") -> None:
     """Where a training step's time goes: one more step under torch.profiler,
     device time by kernel and the device-busy share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1493,10 +1700,10 @@ def profile_train_step(torch, step_fn, state, data) -> None:
         wall_us = (time.monotonic() - t0) * 1e6
     rows = kernel_rows(prof)
     busy_us = sum(r[0] for r in rows)
-    log(f"[profile train] one step: wall={wall_us / 1e3:.1f} ms device busy="
+    log(f"[{tag}] one step: wall={wall_us / 1e3:.1f} ms device busy="
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% of wall)")
     for dev_us, count, key in rows[:10]:
-        log(f"[profile train]   {dev_us / 1e3:9.3f} ms {count:6d}x"
+        log(f"[{tag}]   {dev_us / 1e3:9.3f} ms {count:6d}x"
             f" {100 * dev_us / busy_us:5.1f}% {key[:80]}")
 
 
@@ -1514,7 +1721,7 @@ def phase_serve_moe(torch):
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
     from repro_torch.launch.serve import generate, serving_steps
-    from repro_torch.models import get_model, transformer
+    from repro_torch.models import get_model
     from repro_torch.tree import tree_leaves
 
     cfg = dataclasses.replace(get_config("olmoe-1b-7b"), use_mesh_kernel=True)
@@ -1577,7 +1784,7 @@ def phase_serve_moe(torch):
     c = server.counters
     steps = c["prefills"] + c["decode_steps"]
     want = {"grouped_mesh_matmul": MOE_STEP_LAUNCHES["grouped_mesh_matmul"] * steps,
-            "mesh_matmul": MOE_STEP_LAUNCHES["mesh_matmul"] * steps + 1,
+            "mesh_matmul": MOE_STEP_LAUNCHES["mesh_matmul"] * steps + 2,
             "paged_attention": OLMOE_LAYERS * c["decode_steps"]}
     generated = sum(len(results[r.rid].tokens) for r in reqs)
     log(f"[serve_moe] {REQUESTS} requests x {NEW_TOKENS} tokens: wall={wall:.3f} s "
@@ -1624,48 +1831,13 @@ def phase_serve_moe(torch):
                              gen_len=8)
     ref_tokens = ref_tokens[0].tolist()
     check(served[0] == ref_tokens[0], f"first token {served[0]} != generate's {ref_tokens[0]}")
-    routes = []
-    original = transformer.moe_block
-
-    def recording(p, x, cfg_, **kw):
-        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"].float(), dim=-1)
-        top = torch.argsort(probs, dim=-1, descending=True, stable=True)
-        routes.append(top[:, : cfg_.num_experts_per_tok].sort(dim=-1).values)
-        return original(p, x, cfg_, **kw)
-
-    kvh, hd = cfg.num_kv_heads, cfg.head_dim_
-    transformer.moe_block = recording
-    try:
-        with torch.inference_mode():
-            _, caches = prefill(params, {"tokens": prompt})
-            dense = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 8)) for k, c in caches.items()}
-            n_pages = -(-(PROMPT + 8) // PAGE)
-            pools = {k: torch.zeros((cfg.num_layers, 1 + n_pages, PAGE, kvh, hd),
-                                    dtype=cfg.adtype, device="cuda") for k in ("k", "v")}
-            for k in ("k", "v"):
-                c = torch.nn.functional.pad(caches[k][:, 0],
-                                            (0, 0, 0, 0, 0, n_pages * PAGE - PROMPT))
-                pools[k][:, 1:] = c.reshape(cfg.num_layers, n_pages, PAGE, kvh, hd)
-            del caches
-            bt = torch.arange(1, 1 + n_pages, dtype=torch.int32, device="cuda")[None]
-            worst_diff = worst_gap = 0.0
-            flips = []
-            for i in range(7):
-                tok = torch.tensor([[served[i]]], dtype=torch.int32, device="cuda")
-                pos = PROMPT + i
-                routes.clear()
-                lg_d, dense = model.decode(params, tok, dense, pos)
-                routes_d = list(routes)
-                routes.clear()
-                lg_p, pools = model.paged_decode(
-                    params, tok, pools, bt, torch.tensor([pos], dtype=torch.int32, device="cuda"))
-                flips.append(sum(not torch.equal(a, b) for a, b in zip(routes_d, routes)))
-                lg_d, lg_p = lg_d[0, -1].float(), lg_p[0, -1].float()
-                worst_diff = max(worst_diff, (lg_d - lg_p).abs().max().item())
-                worst_gap = max(worst_gap, (lg_d.max() - lg_d[served[i + 1]]).item())
-            scale = lg_d.abs().max().item()
-    finally:
-        transformer.moe_block = original
+    with torch.inference_mode():
+        _, caches = prefill(params, {"tokens": prompt})
+    with routing() as routes:
+        worst_diff, worst_gap, scale = paged_vs_dense(torch, model, params, caches, served,
+                                                      PROMPT)
+    del caches
+    flips = routing_flips(torch, routes, cfg.num_layers)
     exact = sum(a == b for a, b in zip(served[:8], ref_tokens))
     log(f"[serve_moe] req0 first 8 tokens: server={served[:8]} generate={ref_tokens} "
         f"(equal: {exact}/8); teacher-forced paged-vs-dense max |dlogit|={worst_diff:.4f} "
@@ -1674,7 +1846,6 @@ def phase_serve_moe(torch):
         f"{cfg.num_layers} per step")
     check(worst_diff <= MOE_LOGIT_TOL, f"paged vs dense logits differ by {worst_diff}")
     check(worst_gap <= MOE_LOGIT_TOL, f"server token {worst_gap} below the dense argmax")
-    del dense, pools
     profile_window(torch, model, params, scfg, prompts[:SLOTS], tag="profile serve_moe")
     return launches
 
@@ -1864,8 +2035,9 @@ def logit_gaps(torch, k6, chunked, full):
 
 def phase_train_flash(torch):
     """One full-width mesh-paper training step at 2 x 2048 tokens with
-    attn_chunk=1024 (K6 forward, recomputed chunked backward) against the
-    same step with full attention (attn_chunk=0)."""
+    attn_chunk=1024 (K6 forward, run again by the `dots` recompute; the
+    chunked backward recomputed in plain ops) against the same step with
+    full attention (attn_chunk=0)."""
     import dataclasses
     import gc
 
@@ -1899,11 +2071,14 @@ def phase_train_flash(torch):
                          flash_attention.launches)
         del copy, met
     (lf, gf, tf, kf), (lk, gk, tk, launches) = compare["full"], compare["flash"]
+    # K6 runs once a layer forward, and again where the remat policy
+    # recomputes attention in the backward (`dots` and `full` do).
+    want = base.num_layers * (1 if cfg.remat_policy == "none" else 2)
     log(f"[train_flash] one step, attn_chunk={QWEN_CHUNK} vs 0: loss {lk:.5f} vs {lf:.5f}"
         f" (|d|={abs(lk - lf):.5f}, tol 0.001), grad_norm {gk:.5f} vs {gf:.5f}"
         f" ({100 * abs(gk - gf) / gf:.4f} %, tol 0.1 %), wall {tk:.3f} s vs {tf:.3f} s,"
-        f" K6 launches {launches} vs {kf} (want {base.num_layers} vs 0)")
-    check(launches == base.num_layers and kf == 0,
+        f" K6 launches {launches} vs {kf} (want {want} vs 0)")
+    check(launches == want and kf == 0,
           f"K6 launched {launches} times in the flash step and {kf} in the full one")
     check(abs(lk - lf) <= 1e-3, f"flash step loss {lk} vs full step {lf}")
     check(abs(gk - gf) <= 1e-3 * gf, f"flash step grad norm {gk} vs full step {gf}")
@@ -1921,6 +2096,623 @@ def phase_train_flash(torch):
           "flash gradients missing or non-finite")
     check(rel[-1][0] <= 0.05, f"flash gradient of {rel[-1][1]} differs by {rel[-1][0]}")
     return {"flash_attention": launches}
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def no_host_sync(torch, fn):
+    """Run `fn` with CUDA's sync debug mode set to raise: any op that waits
+    for the device fails it."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@contextlib.contextmanager
+def routing(replay=None):
+    """Within the block, every MoE routing decision (`moe._top_k`, the
+    (n, k) expert indices) is appended to the yielded list; with `replay`,
+    the i-th decision is replay[i] instead of the router's own."""
+    from repro_torch.models import moe
+
+    original = moe._top_k
+    seen = []
+
+    def hooked(probs, k):
+        top = original(probs, k) if replay is None else replay[len(seen)]
+        seen.append(top)
+        return top
+
+    moe._top_k = hooked
+    try:
+        yield seen
+    finally:
+        moe._top_k = original
+
+
+def routing_flips(torch, routes, layers):
+    """Per teacher-forced step of `paged_vs_dense` (the dense decode's
+    routing decisions of every layer, then the paged decode's): how many
+    layers routed the token to another expert set."""
+    per = [routes[i:i + 2 * layers] for i in range(0, len(routes), 2 * layers)]
+    return [sum(not torch.equal(a.sort(-1).values, b.sort(-1).values)
+                for a, b in zip(st[:layers], st[layers:])) for st in per]
+
+
+def phase_serve_qwen2_moe(torch):
+    """Full-width Qwen1.5-MoE-A2.7B (shared experts) on the kernel path
+    through the continuous-batching server."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grouped import grouped_mesh_matmul
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
+    from repro_torch.launch.serve import generate, serving_steps
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), use_mesh_kernel=True)
+    check(
+        (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+         cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_d_ff, cfg.num_shared_experts,
+         cfg.vocab_size, cfg.qkv_bias, cfg.rope_theta)
+        == (QMOE_LAYERS, 2048, 16, 16, 128, QMOE_EXPERTS, QMOE_TOPK, 1408, 4, 151936, True, 1e6)
+        and cfg.param_dtype == "bfloat16",
+        f"unexpected Qwen1.5-MoE config {cfg}",
+    )
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[serve_qwen2_moe] device memory before init: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    model = get_model(cfg)
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[serve_qwen2_moe] Qwen1.5-MoE-A2.7B init: {n_params / 1e9:.3f} B parameters (from"
+        f" the tree; n_params_dense_blocks() says {cfg.n_params_dense_blocks() / 1e9:.3f} B),"
+        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB, init peak"
+        f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {time.monotonic() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32) for _ in range(REQUESTS)]
+    pages = -(-(PROMPT + NEW_TOKENS) // PAGE)
+    scfg = ServeConfig(
+        max_slots=SLOTS, page_size=PAGE, num_pages=1 + SLOTS * pages,
+        max_pages_per_seq=pages, queue_capacity=REQUESTS, warmup_prompt_lens=(PROMPT,),
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_k1(mesh_matmul)
+    paged_attention_cuda.launches = 0
+    grouped_mesh_matmul.launches = 0
+    grouped_mesh_matmul.launches_by_config = {}
+    server = ContinuousBatchingServer(model, params, scfg, device="cuda")
+    server.warmup()
+    reqs = [Request(rid=f"req{i}", prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    results = server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"mesh_matmul": mesh_matmul.launches,
+                "paged_attention": paged_attention_cuda.launches,
+                "grouped_mesh_matmul": grouped_mesh_matmul.launches}
+    check_main_path_tiles("serve_qwen2_moe", tile_counts(mesh_matmul), canary=True)
+    k5_tiles = dict(grouped_mesh_matmul.launches_by_config)
+    K5_TILES["serve_qwen2_moe"] = k5_tiles
+    log(f"[serve_qwen2_moe] K5 launches per tile: {k5_tiles}")
+    check(all(c.startswith("tc") for c in k5_tiles),
+          f"a main-path K5 call took a SIMT tile: {k5_tiles}")
+    for r in reqs:
+        res = results[r.rid]
+        check(res.status == "ok" and len(res.tokens) == NEW_TOKENS,
+              f"{r.rid}: {res.status} with {len(res.tokens)} tokens ({res.reason})")
+    c = server.counters
+    steps = c["prefills"] + c["decode_steps"]
+    want = {"grouped_mesh_matmul": QMOE_STEP_LAUNCHES["grouped_mesh_matmul"] * steps,
+            "mesh_matmul": QMOE_STEP_LAUNCHES["mesh_matmul"] * steps + 2,
+            "paged_attention": QMOE_LAYERS * c["decode_steps"]}
+    generated = sum(len(results[r.rid].tokens) for r in reqs)
+    log(f"[serve_qwen2_moe] {REQUESTS} requests x {NEW_TOKENS} tokens: wall={wall:.3f} s "
+        f"tokens/s={generated / wall:.1f} ticks={c['ticks']} prefills={c['prefills']} "
+        f"decode steps={c['decode_steps']} (warmup included) launches={launches} "
+        f"expected={want} peak device memory while serving "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches == want, f"launches {launches} != {want} from the server's counters")
+
+    # No host sync on the model's path: one paged decode step (all-zero
+    # tables, the scratch page) and one prefill under the sync debug mode.
+    prefill, _ = serving_steps(model)
+    zeros = {name: torch.zeros(shape, dtype=torch.int32, device="cuda")
+             for name, shape in (("tokens", (SLOTS, 1)), ("tables", (SLOTS, pages)),
+                                 ("positions", (SLOTS,)))}
+    prompt = torch.as_tensor(prompts[0], device="cuda")[None]
+
+    def one_step_and_prefill():
+        with torch.inference_mode():
+            model.paged_decode(params, zeros["tokens"], server.pools, zeros["tables"],
+                               zeros["positions"])
+            prefill(params, {"tokens": prompt})
+
+    no_host_sync(torch, one_step_and_prefill)
+    log("[serve_qwen2_moe] one paged decode step and one prefill ran under"
+        " set_sync_debug_mode('error'): 0 host syncs")
+
+    # Output: first token against generate(), then teacher-forced paged (K4)
+    # against dense (`_sdpa`) decode logits, as in phase_serve_moe.
+    served = results["req0"].tokens
+    ref_tokens, _ = generate(model, params, prompt, gen_len=8)
+    ref_tokens = ref_tokens[0].tolist()
+    check(served[0] == ref_tokens[0], f"first token {served[0]} != generate's {ref_tokens[0]}")
+    exact = sum(a == b for a, b in zip(served[:8], ref_tokens))
+    log(f"[serve_qwen2_moe] req0 first 8 tokens: server={served[:8]} generate={ref_tokens} "
+        f"(equal: {exact}/8)")
+    # Teacher-forced paged vs dense decode logits of the first QMOE_CHECKED
+    # requests, free-running (each path routes for itself, so a routing set
+    # flipped by the attentions' roundings moves the logits) and on the
+    # dense step's routing (the attentions' roundings only).
+    worst = {"free": 0.0, "gap": 0.0, "same": 0.0}
+    for i in range(QMOE_CHECKED):
+        tokens_i = results[f"req{i}"].tokens
+        with torch.inference_mode():
+            prompt_i = torch.as_tensor(prompts[i], device="cuda")[None]
+            _, caches = prefill(params, {"tokens": prompt_i})
+        with routing() as routes:
+            free, gap, scale = paged_vs_dense(torch, model, params, caches, tokens_i, PROMPT)
+        flips = routing_flips(torch, routes, QMOE_LAYERS)
+        same, _, _ = paged_vs_dense(torch, model, params, caches, tokens_i, PROMPT,
+                                    same_routing=True)
+        del caches
+        worst = {"free": max(worst["free"], free), "gap": max(worst["gap"], gap),
+                 "same": max(worst["same"], same)}
+        log(f"[serve_qwen2_moe] req{i} teacher-forced paged-vs-dense max |dlogit|: free-running"
+            f" {free:.4f} (tol {QMOE_LOGIT_TOL}; (step, layer) routing sets that differ: {flips}"
+            f" of {QMOE_LAYERS} per step), on the dense routing {same:.4f} (tol"
+            f" {QMOE_SAME_ROUTING_TOL}); max |logit| {scale:.3f}, so {free / scale:.4f} and"
+            f" {same / scale:.4f} of it; worst server-token gap to the dense argmax {gap:.4f}"
+            f" (tol {QMOE_LOGIT_TOL})")
+    check(worst["free"] <= QMOE_LOGIT_TOL, f"paged vs dense logits differ by {worst['free']}")
+    check(worst["gap"] <= QMOE_LOGIT_TOL, f"server token {worst['gap']} below the dense argmax")
+    check(worst["same"] <= QMOE_SAME_ROUTING_TOL,
+          f"paged vs dense logits on the same routing differ by {worst['same']}")
+    del server
+    _free(torch)
+    profile_window(torch, model, params, scfg, prompts[:SLOTS], tag="profile serve_qwen2_moe")
+    k5_step = qmoe_k5_decode_step(torch, params)
+
+    # The tight witness: 2 of 24 layers at full width with f32 weights, the
+    # kernel path's prefill logits (K1 f32 tiles, K5 f32 SIMT tiles) against
+    # the `torch` backend's (f32 cuBLAS, TF32 off): summation order only.
+    cut = {k: v for k, v in params.items() if k != "blocks"}
+    cut["blocks"] = tree_map(lambda t: t[:2], params["blocks"])
+    params32 = tree_map(lambda t: t.float(), cut)
+    del params, cut
+    _free(torch)
+    cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32",
+                                activation_dtype="float32")
+    with torch.inference_mode():
+        lg_kernel = get_model(cfg32).prefill(params32, {"tokens": prompt})[0]
+        lg_torch = get_model(dataclasses.replace(cfg32, use_mesh_kernel=False)).prefill(
+            params32, {"tokens": prompt})[0]
+    diff = (lg_kernel - lg_torch).abs().max().item()
+    log(f"[serve_qwen2_moe] f32 weights, 2 layers: kernel-path prefill logits vs the torch"
+        f" backend's, T={PROMPT}: max |d|={diff:.3e} (max |logit|"
+        f" {lg_torch.abs().max().item():.3f}, argmax equal at"
+        f" {100 * (lg_kernel.argmax(-1) == lg_torch.argmax(-1)).float().mean().item():.2f} %;"
+        f" tol {QMOE_F32_TOL})")
+    check(diff <= QMOE_F32_TOL, f"f32 kernel-path prefill logits differ by {diff}")
+    # The same 2 f32 layers decoding req0's tokens: paged (K4, K1, K5) vs
+    # dense on the dense step's routing, summation order only.
+    with torch.inference_mode():
+        _, caches32 = get_model(cfg32).prefill(params32, {"tokens": prompt})
+    diff32, _, scale32 = paged_vs_dense(torch, get_model(cfg32), params32, caches32, served,
+                                        PROMPT, same_routing=True)
+    log(f"[serve_qwen2_moe] f32 weights, 2 layers: teacher-forced paged-vs-dense decode"
+        f" logits on the same routing: max |d|={diff32:.3e} (max |logit| {scale32:.3f};"
+        f" tol {QMOE_F32_DECODE_TOL})")
+    check(diff32 <= QMOE_F32_DECODE_TOL, f"f32 paged vs dense decode logits differ by {diff32}")
+    del params32, lg_kernel, lg_torch, caches32
+    _free(torch)
+    return {**launches, "k5_decode_step": k5_step}
+
+
+def qmoe_k5_decode_step(torch, params):
+    """K5's device time for one Qwen1.5-MoE decode step (48 launches: wi and
+    wo of 24 layers, SLOTS tokens routed top-4 of 60 with no preference,
+    `_routed_sizes`) against the bound: the weight bytes of the experts the
+    step hits, read once, and its rows read and written once."""
+    import numpy as np
+
+    from repro_torch.kernels.grouped import grouped_mesh_matmul
+
+    rng = np.random.default_rng(7)
+    rpg = 8  # SLOTS tokens: cap = n, rounded up to 8 rows
+    moe = params["blocks"]["moe"]
+    calls, nbytes = [], 0.0
+    for layer in range(QMOE_LAYERS):
+        sizes_np = _routed_sizes(rng, SLOTS, QMOE_EXPERTS, QMOE_TOPK)
+        sizes = torch.as_tensor(sizes_np, device="cuda")
+        hit = int((sizes_np > 0).sum())
+        for name in ("wi", "wo"):
+            w = moe[name][layer]
+            k, n = w.shape[-2:]
+            x = torch.randn(QMOE_EXPERTS * rpg, k, device="cuda").to(w.dtype)
+            calls.append(lambda x=x, s=sizes, w=w: grouped_mesh_matmul(x, s, w, block_m=rpg))
+            nbytes += 2 * (hit * k * n + int(sizes_np.sum()) * (k + n))
+    ms = device_ms(torch, [lambda: [c() for c in calls]], 5)
+    bms, by = bound_ms(nbytes, 0.0, "bfloat16")
+    log(f"[serve_qwen2_moe] K5, one decode step (48 launches, {SLOTS} tokens top-{QMOE_TOPK}"
+        f" of {QMOE_EXPERTS}): device {ms:.3f} ms, bound {bms:.3f} ms ({by}:"
+        f" {nbytes / 1e9:.3f} GB of hit experts' weights and rows)")
+    return dict(ms=ms, bound_ms=bms, bound_by=by)
+
+
+def phase_train_moe(torch):
+    """OLMoE-1B-7B at full width and 4 of its 16 layers on the kernel path:
+    the capacity path, the remat policies and the asynchronous checkpoint
+    writer, through `build_trainer` and `train_loop`."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import AsyncCheckpointer, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.grouped import grouped_mesh_matmul
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import get_model, moe
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.metrics import MetricsLogger
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+
+    _free(torch)
+    full = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS, use_mesh_kernel=True)
+    check(cfg.remat_policy == "dots" and (cfg.d_model, cfg.num_experts, cfg.moe_d_ff)
+          == (2048, OLMOE_EXPERTS, 1024), f"unexpected OLMoE config {cfg}")
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, total_steps=TRAIN_STEPS, seed=0,
+              device="cuda")
+    step_fn, state, data = build_trainer(cfg, **kw)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    state_gib = sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 2**30
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    cap = moe._capacity(tokens, TRAIN_SEQ, cfg.num_experts, cfg.num_experts_per_tok, 1.25)
+    log(f"[train_moe] OLMoE-1B-7B, {cfg.num_layers} of {full.num_layers} layers at full width:"
+        f" {n_params / 1e9:.3f} B parameters, train state {state_gib:.2f} GiB; {tokens} tokens"
+        f" a step, capacity {cap} rows per expert ({cfg.num_experts * cap} rows)")
+    check(cap == MOE_TRAIN_CAP and cap < tokens,
+          f"capacity {cap}: the capacity path must be live")
+
+    # One step from the same state and batch on the kernel path and on the
+    # `torch` backend, with [train]'s limits; the routing of both forwards
+    # recorded, and the pairs each drops.
+    plain_cfg = dataclasses.replace(cfg, use_mesh_kernel=False)
+    stream = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    batch = stream._host_batch(0)
+    names = [path for path, _ in tree_paths(state["params"])]
+    routes = {}
+    grads = {}
+    for name, c, replay in (("kernel", cfg, None), ("torch", plain_cfg, None),
+                            ("torch, kernel's routing", plain_cfg, "kernel")):
+        with routing(replay and routes[replay]) as seen:
+            grads[name] = loss_and_grads(torch, get_model(c), state["params"], batch)
+        routes[name] = seen  # the forward's L decisions, then the dots recompute's
+    (lk, gk), (lt, gt), (_, gr) = (grads[n] for n in grads)
+    routes = {n: r[:cfg.num_layers] for n, r in routes.items()}
+    dropped = []
+    for top in routes["kernel"]:
+        counts = torch.bincount(top.reshape(-1), minlength=cfg.num_experts)
+        dropped.append(int((counts - cap).clamp_min(0).sum()))
+    def onehot(top):
+        return torch.zeros(top.shape[0], cfg.num_experts, device=top.device).scatter_(1, top, 1)
+
+    flipped = sum(int((onehot(a) - onehot(b)).clamp_min(0).sum())
+                  for a, b in zip(routes["kernel"], routes["torch"]))
+    norm = lambda gs: math.sqrt(sum(g.float().square().sum().item() for g in gs))  # noqa: E731
+    nk, nt = norm(gk), norm(gt)
+
+    def rel_to(ref):
+        return sorted(((x - y).float().norm().item() / max(y.float().norm().item(), 1e-30), n)
+                      for n, x, y in zip(names, gk, ref))
+
+    rel, rel_same = rel_to(gt), rel_to(gr)
+    top = ", ".join(f"{n} {r:.3e}" for r, n in reversed(rel[-4:]))
+    top_same = ", ".join(f"{n} {r:.3e}" for r, n in reversed(rel_same[-4:]))
+    log(f"[train_moe] pairs dropped by capacity per layer: {dropped} of {tokens * 8};"
+        f" (token, choice) pairs routed to another expert by the torch backend: {flipped}"
+        f" (over {len(routes['kernel'])} layers)")
+    log(f"[train_moe] one step, kernel vs torch backend: loss {float(lk):.5f} vs {float(lt):.5f}"
+        f" (|d|={abs(float(lk) - float(lt)):.5f}, tol 0.001), grad norm {nk:.5f} vs {nt:.5f}"
+        f" ({100 * abs(nk - nt) / nt:.4f} %, tol 0.1 %); per-parameter ||d||/||g|| largest:"
+        f" {top}")
+    # A pair routed elsewhere moves every later pair's rank in two experts,
+    # so which pairs the capacity drops changes too: the per-parameter
+    # gradients are held with the torch step replaying the kernel step's
+    # routing, where only the GEMMs' roundings differ.
+    log(f"[train_moe] the same, the torch step on the kernel step's routing: per-parameter"
+        f" ||d||/||g|| largest: {top_same} (tol 0.05)")
+    check(sum(dropped) > 0, "no pair was dropped: the capacity path did not run")
+    check(abs(float(lk) - float(lt)) <= 1e-3, f"kernel loss {float(lk)} vs torch {float(lt)}")
+    check(abs(nk - nt) <= 1e-3 * nt, f"kernel grad norm {nk} vs torch {nt}")
+    check(rel_same[-1][0] <= 0.05,
+          f"kernel gradient of {rel_same[-1][1]} differs by {rel_same[-1][0]}")
+    # Free-running, a flipped pair reaches every leaf through the backward
+    # (the leaves before the first routing decision too: the embedding,
+    # layer 0's ln1 and attention read up to 0.0575, PERF.md), so the
+    # per-parameter limit holds on the replayed routing and the
+    # free-running routing is held by how many pairs it flips.
+    early = []
+    for name, x, y in zip(names, gk, gt):
+        if name.startswith(("blocks/ln1", "blocks/attn/")):
+            name, x, y = f"{name}[0]", x[0], y[0]
+        elif name != "embed":
+            continue
+        early.append(((x - y).float().norm().item() / max(y.float().norm().item(), 1e-30), name))
+    early.sort()
+    log(f"[train_moe] free-running, the leaves before the first routing: per-parameter"
+        f" ||d||/||g|| " + ", ".join(f"{n} {r:.3e}" for r, n in reversed(early))
+        + f" (not held: the flipped pairs reach them; flipped pairs {flipped}, tol"
+        f" {MOE_TRAIN_FLIP_TOL})")
+    check(flipped <= MOE_TRAIN_FLIP_TOL,
+          f"the torch step routes {flipped} pairs elsewhere (tol {MOE_TRAIN_FLIP_TOL})")
+    del grads, gt, gr, routes
+
+    # Remat: the `dots` step and the `none` step give the same loss bit for
+    # bit; their gradients agree within 1e-6 relative (the routing gathers'
+    # backward accumulates with atomics on CUDA, in no fixed order).
+    ln, gn = loss_and_grads(torch, get_model(dataclasses.replace(cfg, remat_policy="none")),
+                            state["params"], batch)
+    remat_rel = max((x - y).float().norm().item() / max(y.float().norm().item(), 1e-30)
+                    for x, y in zip(gk, gn))
+    log(f"[train_moe] remat dots vs none: loss {float(lk):.7f} vs {float(ln):.7f}"
+        f" (bitwise equal: {bool(torch.equal(lk, ln))}), largest per-parameter"
+        f" ||d||/||g|| {remat_rel:.3e} (tol 1e-6)")
+    check(torch.equal(lk, ln), f"dots loss {float(lk)} != none loss {float(ln)}")
+    check(remat_rel <= 1e-6, f"dots vs none gradients differ by {remat_rel}")
+    del gk, gn
+
+    # Six steps through train_loop with the asynchronous writer every 2
+    # steps.  Each submit runs under the sync debug mode and is timed, with
+    # the part it waited for the previous write (`waited_s`); just before
+    # the step-4 submit a synchronous .cpu() copy of the state is taken.
+    # Before step 6 (whose save lets the manager drop step 4: keep_n=1
+    # bounds the disk), the phase waits for the step-4 write and restores it.
+    per_step, sync_copy, restored, submits = [], {}, {}, []
+
+    def submit(step, tree, meta=None):
+        if step == 4:
+            sync_copy.update(tree_map(lambda t: t.detach().to("cpu", copy=True), tree))
+        t0 = time.monotonic()
+        no_host_sync(torch, lambda: shipped_submit(step, tree, meta))
+        submits.append((step, time.monotonic() - t0, writer.waited_s))
+
+    def timed(st, b):
+        if len(per_step) == 5:
+            writer.wait()
+            restored.update(ckpt.restore(4, sync_copy))
+            restored["data_step"] = ckpt.meta(4)["data_step"]
+        k1, k5 = mesh_matmul.launches, grouped_mesh_matmul.launches
+        t0 = time.monotonic()
+        st, met = step_fn(st, b)
+        torch.cuda.synchronize()
+        per_step.append((time.monotonic() - t0, mesh_matmul.launches - k1,
+                         grouped_mesh_matmul.launches - k5))
+        return st, met
+
+    logger = MetricsLogger()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp, keep_n=1)
+        writer = AsyncCheckpointer(ckpt)
+        shipped_submit, writer.submit = writer.submit, submit
+        reset_k1(mesh_matmul)
+        grouped_mesh_matmul.launches = 0
+        t0 = time.monotonic()
+        state = train_loop(timed, state, data, LoopConfig(total_steps=TRAIN_STEPS,
+                                                          ckpt_every=2, log_every=1),
+                           ckpt=ckpt, logger=logger, checkpointer=writer)
+        t_close = time.monotonic()
+        writer.close()
+        wall = time.monotonic() - t0
+        launches = {"mesh_matmul": mesh_matmul.launches,
+                    "grouped_mesh_matmul": grouped_mesh_matmul.launches}
+        check_main_path_tiles("train_moe", tile_counts(mesh_matmul), canary=False)
+        losses = [h["loss"] for h in logger.history]
+        for i, (h, (dt, k1, k5)) in enumerate(zip(logger.history, per_step)):
+            log(f"[train_moe] step {i + 1}: loss={h['loss']:.5f} grad_norm={h['grad_norm']:.5f}"
+                f" wall={dt * 1e3:.1f} ms tokens/s={tokens / dt:.1f} launches K1={k1} K5={k5}")
+        log(f"[train_moe] {TRAIN_STEPS} steps: wall={wall:.3f} s with the writes (the last"
+            f" write's wait {time.monotonic() - t_close:.1f} s); checkpoints kept"
+            f" {ckpt.all_steps()}")
+        for step, dt, waited in submits:
+            log(f"[train_moe] submit at step {step} under set_sync_debug_mode('error'), 0 host"
+                f" syncs: {1e3 * dt:.1f} ms, of which {1e3 * waited:.1f} ms waiting for the"
+                f" previous write, {1e3 * (dt - waited):.1f} ms the snapshot"
+                + (" (the first: pinned buffers allocated)" if step == 2 else ""))
+        check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+              f"non-finite or missing losses: {losses}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        want_k1 = 3 * (4 * cfg.num_layers + 1)
+        want_k5 = 3 * 2 * cfg.num_layers
+        check(all((k1, k5) == (want_k1, want_k5) for _, k1, k5 in per_step),
+              f"per-step launches {per_step}, want K1 {want_k1} K5 {want_k5} under dots")
+
+    # The step-4 checkpoint restores equal, bit for bit, to the copy taken
+    # at its submit; resuming from it gives steps 5-6's losses.
+    del state
+    _free(torch)
+    data_step = restored.pop("data_step")
+    unequal = [p for (p, a), (_, b) in zip(tree_paths(restored), tree_paths(sync_copy))
+               if not (a.dtype == b.dtype and torch.equal(a, b))]
+    check(not unequal, f"step-4 checkpoint differs from the state at its submit: {unequal}")
+    sync_copy.clear()
+    resumed = tree_map(lambda t: t.to("cuda"), restored)
+    restored.clear()
+    data.restore(data_step)
+    relog = MetricsLogger()
+    train_loop(step_fn, resumed, data, LoopConfig(total_steps=TRAIN_STEPS, log_every=1),
+               logger=relog)
+    again = [h["loss"] for h in relog.history]
+    gaps = [abs(a - b) for a, b in zip(again, losses[4:])]
+    log(f"[train_moe] step-4 checkpoint restores bit for bit; resumed steps 5-6 losses"
+        f" {[round(x, 6) for x in again]} vs {[round(x, 6) for x in losses[4:]]}"
+        f" (|d| {gaps}, tol 1e-3)")
+    check(len(again) == 2 and max(gaps) <= 1e-3, f"resumed losses {again} vs {losses[4:]}")
+    profile_train_step(torch, step_fn, resumed, data, tag="profile train_moe")
+    del resumed, step_fn
+    _free(torch)
+
+    # Each policy's step: time, peak memory and launches.
+    steps = policy_steps(torch, cfg, "train_moe", ("none", "dots", "full"), batch)
+    f_d, f_g = 4 * cfg.num_layers + 1, 2 * cfg.num_layers
+    want = {"none": (3 * f_d, 2 * f_g), "dots": (3 * f_d, 3 * f_g),
+            "full": (3 * f_d + f_d - 1, 3 * f_g)}
+    got = {p: (steps[p]["k1"], steps[p]["k5"]) for p in steps}
+    check(got == want, f"K1/K5 launches per step by policy {got}, want {want}")
+    check(steps["dots"]["peak_gib"] < steps["none"]["peak_gib"],
+          f"dots peak {steps['dots']['peak_gib']} GiB not below none's {steps['none']['peak_gib']}")
+    return {**launches, "policies": steps}
+
+
+def loss_and_grads(torch, model, params, batch):
+    """(loss, gradients in tree order) of model.loss at `params` on a host batch."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    dev = tree_leaves(ps)[0].device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    with torch.enable_grad():
+        loss, _ = model.loss(ps, batch)
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(ps))
+
+
+def phase_configs(torch):
+    """Granite-3 8B, Phi-3-medium 14B and Mistral-Large 123B through
+    `tuned()`, at full width and CONFIGS_LAYERS layers: one 2048-token prompt
+    prefilled through K6, then decode ticks through the server on K4 (GQA
+    rep 4, 4 and 12), GEMMs on the `torch` backend as published."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_model, transformer
+    from repro_torch.models.layers import padded_vocab, rmsnorm
+    from repro_torch.tree import tree_leaves
+
+    launches = {"flash_attention": 0, "paged_attention": 0}
+    for arch, rep in CONFIGS_ARCHS:
+        _free(torch)
+        published = get_config(arch)
+        cfg = dataclasses.replace(published.tuned(), num_layers=CONFIGS_LAYERS)
+        check(cfg.attn_chunk == 1024 and cfg.num_heads // cfg.num_kv_heads == rep
+              and not cfg.use_mesh_kernel, f"unexpected {arch} config {cfg}")
+        model = get_model(cfg)
+        t0 = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        log(f"[configs] {arch} tuned(), {cfg.num_layers} of {published.num_layers} layers:"
+            f" {n_params / 1e9:.3f} B parameters ({published.n_params_dense_blocks() / 1e9:.1f} B"
+            f" at full depth), vocab {cfg.vocab_size} padded to {padded_vocab(cfg)},"
+            f" init {time.monotonic() - t0:.1f} s, peak"
+            f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        prompt_np = np.random.default_rng(0).integers(0, cfg.vocab_size, CONFIGS_PROMPT)
+        prompt_np = prompt_np.astype(np.int32)
+        pages = -(-(CONFIGS_PROMPT + CONFIGS_NEW_TOKENS) // PAGE)
+        scfg = ServeConfig(max_slots=SLOTS, page_size=PAGE, num_pages=1 + pages,
+                           max_pages_per_seq=pages, queue_capacity=1,
+                           warmup_prompt_lens=(CONFIGS_PROMPT,))
+        flash_attention.launches = 0
+        paged_attention_cuda.launches = 0
+        server = ContinuousBatchingServer(model, params, scfg, device="cuda")
+        server.warmup()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        results = server.run([Request(rid="req0", prompt=prompt_np,
+                                      max_new_tokens=CONFIGS_NEW_TOKENS)])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        res = results["req0"]
+        check(res.status == "ok" and len(res.tokens) == CONFIGS_NEW_TOKENS,
+              f"{arch}: {res.status} with {len(res.tokens)} tokens ({res.reason})")
+        c = server.counters
+        got = {"flash_attention": flash_attention.launches,
+               "paged_attention": paged_attention_cuda.launches}
+        want = {"flash_attention": cfg.num_layers * c["prefills"],
+                "paged_attention": cfg.num_layers * c["decode_steps"]}
+        log(f"[configs] {arch}: {CONFIGS_PROMPT}-token prompt x {CONFIGS_NEW_TOKENS} tokens:"
+            f" wall={wall:.3f} s, prefills={c['prefills']} decode steps={c['decode_steps']}"
+            f" (warmup included), launches={got} expected={want}")
+        check(got == want, f"{arch}: launches {got} != {want}")
+        for k in launches:
+            launches[k] += got[k]
+
+        # The head: padded rows never win, and a tied head reads embed.T.
+        prompt = torch.as_tensor(prompt_np, device="cuda")[None]
+        seen = []
+        original = transformer.unembed
+
+        def capture(p, x, cfg_):
+            seen.append(x)
+            return original(p, x, cfg_)
+
+        transformer.unembed = capture
+        try:
+            with torch.inference_mode():
+                logits, caches = model.prefill(params, {"tokens": prompt})
+        finally:
+            transformer.unembed = original
+        vpad = padded_vocab(cfg)
+        check(bool((logits.argmax(-1) < cfg.vocab_size).all()), f"{arch}: a padded row won")
+        if vpad != cfg.vocab_size:
+            masked = torch.tensor(-1e30, dtype=logits.dtype)
+            check(bool((logits[..., cfg.vocab_size:].cpu() == masked).all()),
+                  f"{arch}: padded logit rows are not masked")
+        if cfg.tie_embeddings:
+            check("lm_head" not in params, f"{arch}: a tied config has an lm_head")
+            with torch.inference_mode():
+                h = rmsnorm(seen[0][0, -8:], params["final_norm"], cfg.norm_eps)
+                want_lg = torch.matmul(h.float(), params["embed"].float().T)[:, :cfg.vocab_size]
+            d = (logits[0, -8:, :cfg.vocab_size].float() - want_lg).abs().max().item()
+            log(f"[configs] {arch}: tied head vs rmsnorm(x) @ embed.T (f32), last 8 positions:"
+                f" max |d|={d:.4f} (tol {CONFIGS_TIED_TOL}: the bf16 output rounding)")
+            check(d <= CONFIGS_TIED_TOL, f"{arch}: tied head differs from embed.T by {d}")
+        del logits, seen
+
+        served = res.tokens
+        ref_tokens, _ = generate(model, params, prompt, gen_len=CONFIGS_NEW_TOKENS)
+        ref_tokens = ref_tokens[0].tolist()
+        check(served[0] == ref_tokens[0], f"{arch}: first token {served[0]} != {ref_tokens[0]}")
+        worst_diff, worst_gap, scale = paged_vs_dense(torch, model, params, caches, served,
+                                                      CONFIGS_PROMPT)
+        tol = CONFIGS_LOGIT_TOL[arch]
+        log(f"[configs] {arch}: first token {served[0]} (generate {ref_tokens[0]});"
+            f" teacher-forced paged-vs-dense max |dlogit|={worst_diff:.4f} (max |logit|"
+            f" {scale:.3f}), worst server-token gap {worst_gap:.4f} (tol {tol})")
+        check(worst_diff <= tol, f"{arch}: paged vs dense logits differ by {worst_diff}")
+        check(worst_gap <= tol, f"{arch}: server token {worst_gap} below the dense argmax")
+        del server, params, caches, model
+    _free(torch)
+    return launches
 
 
 # The paper's sizes (`benchmarks/bench_stepcounts.py`) and one at full scale.
@@ -2189,7 +2981,9 @@ def healthy(name, fn):
         from repro_torch.resilience import ledger
 
         ledger.clear()
+        t0 = time.monotonic()
         out = fn(torch, *args)
+        log(f"[{name}] phase wall {time.monotonic() - t0:.1f} s")
         bad = [(e.site, e.fallback) for e in ledger.events()
                if e.site.startswith(("plan.", "guard."))]
         moved = [(d["mkn"], d["backend"], d["health"]["active_backend"])
@@ -2229,7 +3023,8 @@ def main() -> int:
         ("k5", phase_k5), ("k5_bwd", phase_k5_backward), ("k6", phase_k6),
         ("k6_bwd", phase_k6_backward), ("serve", phase_serve), ("train", phase_train),
         ("serve_moe", phase_serve_moe), ("serve_qwen2", phase_serve_qwen2),
-        ("train_flash", phase_train_flash))}
+        ("train_flash", phase_train_flash), ("serve_qwen2_moe", phase_serve_qwen2_moe),
+        ("train_moe", phase_train_moe), ("configs", phase_configs))}
     phases["paper"] = healthy("paper", lambda torch: phase_paper(torch, smi))
     phases["planner"] = phase_planner
     if only is not None:
@@ -2255,6 +3050,9 @@ def main() -> int:
     serve_moe = phases["serve_moe"](torch)
     serve_qwen2 = phases["serve_qwen2"](torch)
     train_flash = phases["train_flash"](torch)
+    serve_qwen2_moe = phases["serve_qwen2_moe"](torch)
+    train_moe = phases["train_moe"](torch)
+    configs = phases["configs"](torch)
     phases["paper"](torch)
     planner = phases["planner"](torch)
 
@@ -2267,10 +3065,13 @@ def main() -> int:
     kernels = [
         row("mesh_matmul", "mesh_matmul.cu", "src/repro/kernels/mesh_matmul.py:341",
             serve["mesh_matmul"] + train["mesh_matmul"] + serve_moe["mesh_matmul"]
+            + serve_qwen2_moe["mesh_matmul"] + train_moe["mesh_matmul"]
             + planner["mesh_matmul"], k1_err, k1,
             "one decode tick: 25 launches at M=4",
             launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"],
                               "serve_moe": serve_moe["mesh_matmul"],
+                              "serve_qwen2_moe": serve_qwen2_moe["mesh_matmul"],
+                              "train_moe": train_moe["mesh_matmul"],
                               "planner": planner["mesh_matmul"]},
             launches_by_tile=K1_TILES,
             batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
@@ -2278,11 +3079,14 @@ def main() -> int:
         row("paged_attention", "paged_attention.cu",
             "src/repro/kernels/paged_attention.py:182",
             serve["paged_attention"] + serve_moe["paged_attention"]
-            + serve_qwen2["paged_attention"], k4_err, k4,
+            + serve_qwen2["paged_attention"] + serve_qwen2_moe["paged_attention"]
+            + configs["paged_attention"], k4_err, k4,
             "one launch: S=4 H=KV=16 hd=128 bf16, 128-160 token contexts",
             launches_by_path={"serve": serve["paged_attention"],
                               "serve_moe": serve_moe["paged_attention"],
-                              "serve_qwen2": serve_qwen2["paged_attention"]},
+                              "serve_qwen2": serve_qwen2["paged_attention"],
+                              "serve_qwen2_moe": serve_qwen2_moe["paged_attention"],
+                              "configs": configs["paged_attention"]},
             qwen2={**k4_qwen, "shape": f"one launch: S=4 H=28 KV=4 hd=128 bf16, contexts"
                    f" {QWEN_LIVE}"}),
         row("scramble_blocks", "scramble_blocks.cu",
@@ -2290,20 +3094,25 @@ def main() -> int:
             f"one launch: ({TRAIN_BATCH}, {TRAIN_SEQ}, 2048) bf16, 16x16 blocks of 128^2;"
             " library_ms is x.clone() (same bytes, no permutation)"),
         row("grouped_mesh_matmul", "grouped_matmul.cu", "src/repro/kernels/grouped.py:119",
-            serve_moe["grouped_mesh_matmul"], k5_err, k5_tick,
+            serve_moe["grouped_mesh_matmul"] + serve_qwen2_moe["grouped_mesh_matmul"]
+            + train_moe["grouped_mesh_matmul"], k5_err, k5_tick,
             f"one OLMoE decode step: 32 launches (wi, wo x 16 layers), 64 experts x 8 rows,"
             f" {SLOTS} tokens routed; library_ms is torch.bmm + segment mask",
-            launches_by_path={"serve_moe": serve_moe["grouped_mesh_matmul"]},
-            launches_by_tile=K5_TILES,
+            launches_by_path={"serve_moe": serve_moe["grouped_mesh_matmul"],
+                              "serve_qwen2_moe": serve_qwen2_moe["grouped_mesh_matmul"],
+                              "train_moe": train_moe["grouped_mesh_matmul"]},
+            launches_by_tile=K5_TILES, qwen2_moe_decode_step=serve_qwen2_moe["k5_decode_step"],
             prefill={**k5_prefill, "shape": f"one {PROMPT}-token prefill: 32 launches,"
                      " 64 experts x 128 rows"}),
         row("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:97",
-            serve_qwen2["flash_attention"] + train_flash["flash_attention"], k6_err,
+            serve_qwen2["flash_attention"] + train_flash["flash_attention"]
+            + configs["flash_attention"], k6_err,
             k6["qwen2 T=2048"],
             "one launch: Qwen2-7B prefill B=1 T=2048 H=28 KV=4 hd=128 bf16 causal; library_ms"
             " is scaled_dot_product_attention (is_causal, enable_gqa)",
             launches_by_path={"serve_qwen2": serve_qwen2["flash_attention"],
-                              "train_flash": train_flash["flash_attention"]},
+                              "train_flash": train_flash["flash_attention"],
+                              "configs": configs["flash_attention"]},
             device_ms=k6["qwen2 T=2048"]["device_ms"],
             library_device_ms=k6["qwen2 T=2048"]["library_device_ms"],
             t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"]),

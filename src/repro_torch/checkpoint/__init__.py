@@ -1,3 +1,4 @@
+from repro_torch.checkpoint.async_writer import AsyncCheckpointer
 from repro_torch.checkpoint.manager import CheckpointManager, CorruptCheckpointError
 
-__all__ = ["CheckpointManager", "CorruptCheckpointError"]
+__all__ = ["AsyncCheckpointer", "CheckpointManager", "CorruptCheckpointError"]

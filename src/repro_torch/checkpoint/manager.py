@@ -14,9 +14,7 @@ arrays.npz in meta.json and `restore` verifies it first: a checkpoint whose
 bytes rotted is quarantined to `<dir>.corrupt`, recorded in the resilience
 ledger and surfaced as `CorruptCheckpointError`, so `all_steps()` never
 offers it for resume again.  Pre-digest checkpoints restore unverified.
-
-The reference's `AsyncCheckpointer` is not ported yet; saves are
-synchronous.
+`checkpoint/async_writer.AsyncCheckpointer` runs `save` on a worker thread.
 """
 
 from __future__ import annotations

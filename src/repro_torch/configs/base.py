@@ -53,6 +53,7 @@ class ArchConfig:
     # numerics / kernel levers
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
+    remat_policy: str = "dots"  # none | dots | full (models/transformer._remat)
     use_mesh_kernel: bool = False  # route GEMMs through the mesh kernel
     mesh_block_m: int = 0  # logical block shape overrides; 0 = (128,128,128)
     mesh_block_n: int = 0
@@ -78,6 +79,48 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    def n_params_dense_blocks(self) -> int:
+        """Rough parameter count (the reference's formula: its shared-expert
+        term counts d_ff per shared expert, so it over-counts configs whose
+        d_ff is the shared experts' fused width)."""
+        d, L = self.d_model, self.num_layers
+        hd = self.head_dim_
+        attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+        if self.is_moe:
+            ff = 3 * d * self.moe_d_ff * self.num_experts
+            ff += 3 * d * self.d_ff * self.num_shared_experts
+        else:
+            ff = 3 * d * self.d_ff
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + ff) + emb
+
+    def n_active_params(self) -> int:
+        """Active-per-token params (MoE: only routed top-k + shared)."""
+        if not self.is_moe:
+            return self.n_params_dense_blocks()
+        d, L = self.d_model, self.num_layers
+        hd = self.head_dim_
+        attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+        ff = 3 * d * self.moe_d_ff * self.num_experts_per_tok
+        ff += 3 * d * self.d_ff * self.num_shared_experts
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + ff) + emb
+
+    def tuned(self, tp: int = 16) -> "ArchConfig":
+        """The reference's production tuning: chunked (flash) attention for
+        every attention-bearing family, and vocab padding when the vocab
+        does not divide `tp`.  The reference also turns on the chunked WKV
+        of the `ssm` family, which is not ported: `ssm` raises."""
+        if self.family == "ssm":
+            raise NotImplementedError(
+                f"{self.arch_id}: tuned() of the ssm family needs wkv_chunked, which is not"
+                " ported yet"
+            )
+        kw: dict = {"attn_chunk": 1024}
+        if self.vocab_size % tp:
+            kw["vocab_pad_multiple"] = 256
+        return dataclasses.replace(self, **kw)
+
     def reduced(self) -> "ArchConfig":
         """CPU-test variant: same family/code paths, tiny dims (identical to
         the reference's `reduced()` for the fields kept here)."""
@@ -98,6 +141,7 @@ class ArchConfig:
             moe_d_ff=64 if self.is_moe else 0,
             param_dtype="float32",
             activation_dtype="float32",
+            remat_policy="none",
         )
 
 

@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, pack_documents
 
-__all__ = ["DataConfig", "SyntheticLM"]
+__all__ = ["DataConfig", "SyntheticLM", "pack_documents"]

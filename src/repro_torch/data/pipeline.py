@@ -9,19 +9,18 @@ a pure function of (seed, step, host_shard) — so
     bit-exactly (resumable iterator state == a single integer),
   * straggler-failover can reassign shards deterministically.
 
-`SyntheticLM` yields {"tokens", "labels"} with labels = next-token targets.
-(The reference's `pack_documents` is not ported: nothing in the port packs
-documents yet.)
+`SyntheticLM` yields {"tokens", "labels"} with labels = next-token targets;
+`pack_documents` packs variable-length documents into rows with segment ids.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import numpy as np
 
-__all__ = ["DataConfig", "SyntheticLM"]
+__all__ = ["DataConfig", "SyntheticLM", "pack_documents"]
 
 
 @dataclasses.dataclass
@@ -79,3 +78,30 @@ class SyntheticLM:
         self.step += 1
         return batch
 
+
+def pack_documents(
+    docs: List[np.ndarray], seq_len: int, pad_id: int = 0
+) -> Dict[str, np.ndarray]:
+    """Greedy packing of variable-length docs into (n, seq_len) rows with
+    segment ids (for packed-example attention masking)."""
+    rows, segs = [], []
+    cur, cur_seg, seg_idx = [], [], 1
+    for doc in docs:
+        doc = doc[: seq_len]  # truncate over-long docs
+        if len(cur) + len(doc) > seq_len:
+            pad = seq_len - len(cur)
+            rows.append(np.concatenate([cur, np.full(pad, pad_id, np.int32)]))
+            segs.append(np.concatenate([cur_seg, np.zeros(pad, np.int32)]))
+            cur, cur_seg, seg_idx = [], [], 1
+        cur = np.concatenate([cur, doc]).astype(np.int32) if len(cur) else doc.astype(np.int32)
+        cur_seg = (
+            np.concatenate([cur_seg, np.full(len(doc), seg_idx, np.int32)])
+            if len(cur_seg)
+            else np.full(len(doc), seg_idx, np.int32)
+        )
+        seg_idx += 1
+    if len(cur):
+        pad = seq_len - len(cur)
+        rows.append(np.concatenate([cur, np.full(pad, pad_id, np.int32)]))
+        segs.append(np.concatenate([cur_seg, np.zeros(pad, np.int32)]))
+    return {"tokens": np.stack(rows), "segment_ids": np.stack(segs)}

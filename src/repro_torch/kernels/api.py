@@ -51,17 +51,23 @@ here (True there).  A CUDA tensor launches its kernel or raises unless the
 caller asks for the ladder; `fallback` is part of the plan-cache key, so a
 plan built without the ladder is never handed to a caller who asked for it.
 
-Gradients.  A `cuda_mesh` GEMM runs through `_MeshMM`, a
-`torch.autograd.Function` on both devices, whose backward is the
-reference's `_mm` VJP op for op (`mm_backward`): unscramble the cotangent,
-recompute the pre-activation z with one plain f32 kernel call where there is
-an activation, then dA = dz·Bᵀ and dB = Aᵀ·dz as two more f32 kernel GEMMs.
-A `cuda_mesh` grouped GEMM runs through `_GroupedMM`, whose backward
-is the reference's `_gmm` VJP (`gmm_backward`): segment-mask the
-cotangent, recompute z with one f32 grouped call where there is an
-activation, dtokens = the grouped kernel on Wᵀ, and dW = one batched
-product over the (G, rpg) view.  The `torch` and `ref` backends are plain
-ops that autograd differentiates.
+Gradients.  Where autograd records (grad enabled, an operand requiring
+grad), a dense plan of the `cuda_mesh`, `torch` or `ref` backend runs its
+product as one dispatcher op, `repro_torch::gemm`, given the backend's name
+and the plan's static options (`MMOpts`).  Its backward is the reference's
+`_mm` VJP op for op (`mm_backward`) on the backend's own GEMM (K1 for
+`cuda_mesh`, an f32 matmul for the plain backends): unscramble the
+cotangent, recompute the pre-activation z with one plain f32 call where
+there is an activation, then dA = dz·Bᵀ and dB = Aᵀ·dz as two more f32
+GEMMs.  As one op the product is visible to a selective-checkpoint policy
+whatever launches it (K1 through ctypes, cuBLAS, the CPU plain version), so
+the `dots` remat (`models/transformer._remat`) keeps its output.  A
+`cuda_mesh` grouped GEMM runs through `_GroupedMM`, whose backward is the
+reference's `_gmm` VJP (`gmm_backward`): segment-mask the cotangent,
+recompute z with one f32 grouped call where there is an activation,
+dtokens = the grouped kernel on Wᵀ, and dW = one batched product over the
+(G, rpg) view.  The other grouped backends are plain ops that autograd
+differentiates.
 """
 
 from __future__ import annotations
@@ -775,6 +781,12 @@ class Plan:
         self._check_operands(a, b, bias, residual)
         return self._execute((a, b, bias, residual))
 
+    def mm_opts(self) -> "MMOpts":
+        """The static options of this plan's product (its VJP's)."""
+        bm, bn, bk = self.blocks or DEFAULT_BLOCKS
+        return MMOpts(bm, bn, bk, self.spec.stagger, self.spec.structure == "scrambled",
+                      _NAME_DTYPES[self.out_dtype], self.activation)
+
     def dispatch(self, a, b, bias=None, residual=None) -> AsyncResult:
         """Enqueue an execution and return without waiting on the device.
 
@@ -923,19 +935,18 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def _torch_impl(p: Plan, a, b, bias, residual):
+def _torch_forward(a, b, bias, residual, opts: "MMOpts", sigma):
     z = _matmul_f32(a, b)
-    return apply_epilogue(z, bias, p.activation, residual).to(_NAME_DTYPES[p.out_dtype])
+    return apply_epilogue(z, bias, opts.activation, residual).to(opts.out_dtype)
 
 
-def _ref_impl(p: Plan, a, b, bias, residual):
+def _ref_forward(a, b, bias, residual, opts: "MMOpts", sigma):
     """Plain-torch oracle backend: same contract, no kernel — registered
     through the same capability door as the real kernel."""
-    y = apply_epilogue(torch.matmul(a.float(), b.float()), bias, p.activation, residual)
-    if p.spec.structure == "scrambled":
-        bm, bn, _ = p.blocks
-        y = ref.scramble_blocks_ref(y, block_m=bm, block_n=bn)
-    return y.to(_NAME_DTYPES[p.out_dtype])
+    y = apply_epilogue(torch.matmul(a.float(), b.float()), bias, opts.activation, residual)
+    if opts.scramble:
+        y = ref.scramble_blocks_ref(y, block_m=opts.block_m, block_n=opts.block_n)
+    return y.to(opts.out_dtype)
 
 
 # d/dz of each fused activation as a function of the pre-activation z (the
@@ -1009,49 +1020,99 @@ def mm_backward(
     return da.to(a2.dtype), db.to(b2.dtype), dbias, dresidual
 
 
-class _MeshMM(torch.autograd.Function):
-    """K1 forward with the reference's `_mm` VJP as its backward."""
-
-    @staticmethod
-    def forward(ctx, a2, b2, bias, residual, opts: MMOpts, sigma):
-        ctx.opts = opts
-        ctx.res_dtype = None if residual is None else residual.dtype
-        ctx.save_for_backward(a2, b2, bias)
-        return mesh_matmul(
-            a2, b2, bias=bias, residual=residual, block_m=opts.block_m,
-            block_n=opts.block_n, block_k=opts.block_k, stagger=opts.stagger,
-            scramble_out=opts.scramble, activation=opts.activation,
-            out_dtype=opts.out_dtype, sigma=sigma,
-        )
-
-    @staticmethod
-    def backward(ctx, g):
-        a2, b2, bias = ctx.saved_tensors
-        grads = mm_backward(g, a2, b2, bias, ctx.res_dtype, ctx.opts)
-        return (*grads, None, None)
+def _mesh_forward(a, b, bias, residual, opts: MMOpts, sigma):
+    """K1: 2D, batch-folded 2D (leading dims of `a` folded into M), or fully
+    batched (one launch, blockIdx.z)."""
+    shape = (*a.shape[:-1], b.shape[-1])
+    lead = 2 if b.dim() == 2 else 3
+    a2 = a.reshape(-1, *a.shape[1 - lead:])
+    b2 = b.reshape(-1, *b.shape[-2:]) if lead == 3 else b
+    res = None if residual is None else residual.reshape(-1, *residual.shape[1 - lead:])
+    out = mesh_matmul(
+        a2, b2, bias=bias, residual=res, block_m=opts.block_m, block_n=opts.block_n,
+        block_k=opts.block_k, stagger=opts.stagger, scramble_out=opts.scramble,
+        activation=opts.activation, out_dtype=opts.out_dtype, sigma=sigma,
+    )
+    return out.reshape(shape)
 
 
-def _cuda_mesh_impl(p: Plan, a, b, bias, residual):
-    """K1: 2D, batch-folded 2D, or fully batched (one launch, blockIdx.z),
-    differentiable through `_MeshMM`."""
-    spec = p.spec
-    bm, bn, bk = p.blocks
-    opts = MMOpts(bm, bn, bk, spec.stagger, spec.structure == "scrambled",
-                  _NAME_DTYPES[p.out_dtype], p.activation)
-    sigma = p.sigma_on(a.device)
-    if not spec.batch:
-        return _MeshMM.apply(a, b, bias, residual, opts, sigma)
-    if not spec.batched_b:
-        # Fold leading batch dims of `a` into M — still one 2D kernel.
-        a2 = a.reshape(-1, spec.k)
-        res2 = None if residual is None else residual.reshape(-1, spec.n)
-        out = _MeshMM.apply(a2, b, bias, res2, opts, sigma)
-        return out.reshape(*spec.batch, spec.m, spec.n)
-    af = a.reshape(-1, spec.m, spec.k)
-    bf = b.reshape(-1, spec.k, spec.n)
-    resf = None if residual is None else residual.reshape(-1, spec.m, spec.n)
-    out = _MeshMM.apply(af, bf, bias, resf, opts, sigma)
-    return out.reshape(*spec.batch, spec.m, spec.n)
+# ---------------------------------------------------------------------------
+# The dense product as one dispatcher op, `repro_torch::gemm`
+# ---------------------------------------------------------------------------
+
+_DENSE_FORWARD = {"cuda_mesh": _mesh_forward, "torch": _torch_forward, "ref": _ref_forward}
+
+
+def _dense_forward(backend: str, a, b, bias, residual, opts: MMOpts, sigma):
+    """The product of a built-in dense backend, with its epilogue."""
+    return _DENSE_FORWARD[backend](a, b, bias, residual, opts, sigma)
+
+
+@torch.library.custom_op(
+    "repro_torch::gemm", mutates_args=(),
+    schema="(Tensor a, Tensor b, Tensor? bias, Tensor? residual, Tensor? sigma, str backend,"
+           " int[] blocks, bool stagger, bool scramble, ScalarType out_dtype,"
+           " str? activation) -> Tensor",
+)
+def _gemm_op(a, b, bias, residual, sigma, backend, blocks, stagger, scramble, out_dtype,
+             activation):
+    opts = MMOpts(*blocks, stagger, scramble, out_dtype, activation)
+    return _dense_forward(backend, a, b, bias, residual, opts, sigma)
+
+
+@_gemm_op.register_fake
+def _gemm_op_fake(a, b, bias, residual, sigma, backend, blocks, stagger, scramble, out_dtype,
+                  activation):
+    return a.new_empty((*a.shape[:-1], b.shape[-1]), dtype=out_dtype)
+
+
+def _plain_f32_matmul(a, b, **_):
+    """`mm_backward`'s GEMM for the plain backends: its operands are f32."""
+    return torch.matmul(a, b)
+
+
+def _gemm_op_setup(ctx, inputs, output):
+    a, b, bias, residual, _, backend, blocks, stagger, scramble, out_dtype, activation = inputs
+    ctx.backend = backend
+    ctx.opts = MMOpts(*blocks, stagger, scramble, out_dtype, activation)
+    ctx.res_dtype = None if residual is None else residual.dtype
+    ctx.save_for_backward(a, b, bias)
+
+
+def _gemm_op_backward(ctx, g):
+    """`mm_backward` on K1 for `cuda_mesh` and on an f32 `torch.matmul` for
+    the plain backends; a 2-D B folds `a`'s leading dims into M, a batched
+    B runs it batched."""
+    a, b, bias = ctx.saved_tensors
+    matmul = mesh_matmul if ctx.backend == "cuda_mesh" else _plain_f32_matmul
+    if b.dim() == 2:
+        a2, b2, g2 = a.reshape(-1, a.shape[-1]), b, g.reshape(-1, g.shape[-1])
+    else:
+        a2, b2 = a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])
+        g2 = g.reshape(-1, *g.shape[-2:])
+    da, db, dbias, dres = mm_backward(g2, a2, b2, bias, ctx.res_dtype, ctx.opts, matmul=matmul)
+    dres = None if dres is None else dres.reshape(g.shape)
+    return (da.reshape(a.shape), db.reshape(b.shape), dbias, dres) + (None,) * 7
+
+
+_gemm_op.register_autograd(_gemm_op_backward, setup_context=_gemm_op_setup)
+
+
+def _dense_impl(backend: str) -> Callable:
+    """The executor of a built-in dense backend: its product, as the op
+    `repro_torch::gemm` where autograd records it."""
+
+    def impl(p: Plan, a, b, bias, residual):
+        opts = p.mm_opts()
+        sigma = p.sigma_on(a.device) if backend == "cuda_mesh" else None
+        operands = (a, b, bias, residual)
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
+            return _gemm_op(a, b, bias, residual, sigma, backend,
+                            [opts.block_m, opts.block_n, opts.block_k], opts.stagger,
+                            opts.scramble, opts.out_dtype, opts.activation)
+        return _dense_forward(backend, a, b, bias, residual, opts, sigma)
+
+    return impl
 
 
 # ---------------------------------------------------------------------------
@@ -1251,20 +1312,20 @@ def _cuda_mesh_grouped_impl(p: Plan, tokens, group_offsets, w, bias, residual):
 _ALL = frozenset(STRUCTURES)
 register_backend(
     "torch",
-    _torch_impl,
+    _dense_impl("torch"),
     BackendCapabilities(structures=frozenset({"general", "symmetric"}), batching=True,
                         grouped=True),
     grouped_impl=_torch_grouped_impl,
 )
 register_backend(
     "cuda_mesh",
-    _cuda_mesh_impl,
+    _dense_impl("cuda_mesh"),
     BackendCapabilities(structures=_ALL, batching=True, epilogue_fusion=True, grouped=True),
     grouped_impl=_cuda_mesh_grouped_impl,
 )
 register_backend(
     "ref",
-    _ref_impl,
+    _dense_impl("ref"),
     BackendCapabilities(structures=_ALL, batching=True, grouped=True),
     grouped_impl=_ref_grouped_impl,
 )

@@ -36,6 +36,7 @@ __all__ = [
     "GELU_A",
     "GELU_C",
     "TILE_CONFIGS",
+    "kernel_n",
     "mesh_matmul",
     "mesh_matmul_torch",
     "sigma_block_table",
@@ -86,6 +87,19 @@ def tile_config(m: int, n: int, k: int, block_m: int, block_n: int, block_k: int
             and block_k % 16 == 0 and min(block_m, block_n) >= 64:
         return "f32_128"
     return "simt_decode" if m <= _DECODE_ROWS else "simt64"
+
+
+def kernel_n(n: int, block_n: int, dtype: torch.dtype, scramble_out: bool = False) -> int:
+    """The N the kernel runs for a product of N columns.  The tensor-core and
+    f32 tiles copy 16-byte row chunks of B, so the wrapper runs a ragged N
+    (the shared-expert gate's N = 1) on zero weight columns, with zero bias
+    and residual, and slices them off the output.  The padding stays inside
+    the last logical block (block_n is whole chunks), so every cell keeps
+    its k order; a scrambled output is block-aligned already."""
+    chunk = 16 // dtype.itemsize
+    if n % chunk and block_n % chunk == 0 and not scramble_out:
+        return n + (-n) % chunk
+    return n
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,7 +268,8 @@ def mesh_matmul(
     the blocks, except that `scramble_out` needs a square, block-aligned
     output grid.  `sigma` is the plan's device copy of
     `sigma_block_table(g)`; without it the table is uploaded per call.
-    CPU tensors run `mesh_matmul_torch`; CUDA tensors launch the kernel.
+    CPU tensors run `mesh_matmul_torch`; CUDA tensors launch the kernel on
+    `tile_config`'s tile for `kernel_n`'s N.
     """
     if a.device.type == "cpu":
         return mesh_matmul_torch(
@@ -274,10 +289,20 @@ def mesh_matmul(
     operands = [b] + [t for t in (bias, residual, sigma) if t is not None]
     if any(t.device != a.device for t in operands):
         raise ValueError("mesh_matmul operands must be on one device")
+    n = b.shape[-1]
+    if kernel_n(n, block_n, a.dtype, scramble_out) != n:
+        def pad(t):
+            return None if t is None else _pad_to(t, 16 // a.element_size(), -1)
+
+        out = mesh_matmul(
+            a, pad(b), bias=pad(bias), residual=pad(residual), block_m=block_m,
+            block_n=block_n, block_k=block_k, stagger=stagger, activation=activation,
+            out_dtype=out_dtype,
+        )
+        return out[..., :n].contiguous()
     batched = a.dim() == 3
     nb = a.shape[0] if batched else 1
     m, k = a.shape[-2], a.shape[-1]
-    n = b.shape[-1]
     out = torch.empty(*a.shape[:-2], m, n, dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out

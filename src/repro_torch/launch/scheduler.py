@@ -26,9 +26,10 @@ Robustness contract:
                 `serve.step` (fires -> the tick is skipped, not the
                 server), `kv.page_alloc` (fires -> the allocation is
                 deferred/stalled one tick and retried)
-  warmup        server start builds a canary GEMM plan on the model's
-                backend (building the CUDA kernels before any request) and
-                runs the prefill and decode steps once
+  warmup        server start builds a guarded canary GEMM plan on the
+                model's backend (building the CUDA kernels before any
+                request), runs it through `dispatch` and directly, and runs
+                the prefill and decode steps once
   drain         `drain()` / context-manager exit runs the loop until every
                 admitted request has retired (graceful shutdown)
 
@@ -491,10 +492,14 @@ class ContinuousBatchingServer:
         return len(self._queue) + len(self._active)
 
     def warmup(self) -> None:
-        """Build a canary GEMM plan on the model's backend (on the card this
-        builds and loads the CUDA kernels before any request), then run the
-        prefill shapes of `warmup_prompt_lens` and one decode step whose
-        all-zero tables touch only the scratch page."""
+        """Build a guarded canary GEMM plan on the model's backend (on the
+        card this builds and loads the CUDA kernels before any request), run
+        it once through `dispatch(...).block()` and once directly, as the
+        reference does, then run the prefill shapes of `warmup_prompt_lens`
+        and one decode step whose all-zero tables touch only the scratch
+        page.  The canary's guard (`zero_and_record`) takes an armed
+        `kernel.output` fault, scrubbing the poison and recording a
+        `guard.nonfinite` event, before any request runs."""
         from repro_torch.kernels import api
 
         backend = "cuda_mesh" if self.model.cfg.use_mesh_kernel else "torch"
@@ -503,7 +508,9 @@ class ContinuousBatchingServer:
             api.GemmSpec.from_operands(a, a, blocks=(8, 8, 8)),
             backend=backend,
             device=self.device,
+            guard_nonfinite="zero_and_record",
         )
+        canary.dispatch(a, a).block()
         canary(a, a).cpu()
         for t in self.cfg.warmup_prompt_lens:
             self._run_prefill(

@@ -14,8 +14,9 @@ Examples
   PYTHONPATH=src python -m repro_torch.launch.train --arch mesh-paper \\
       --reduced --device cpu --steps 3 --ckpt-dir /tmp/ckpt --resume auto
 
-Distribution (`--mesh` other than `none`) and the asynchronous checkpoint
-writer are not ported yet.
+`--async-ckpt` writes the checkpoints on a worker thread
+(`AsyncCheckpointer`).  Distribution (`--mesh` other than `none`) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import argparse
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint import AsyncCheckpointer, CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models import get_model
@@ -74,6 +75,7 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--async-ckpt", action="store_true")
     ap.add_argument("--resume", default=None, choices=(None, "auto"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="none", choices=("none", "local-dp", "prod"),
@@ -97,6 +99,7 @@ def main(argv=None) -> None:
     )
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    writer = AsyncCheckpointer(ckpt) if (ckpt and args.async_ckpt) else None
     if ckpt and args.resume == "auto":
         latest = ckpt.latest_step()
         if latest is not None:
@@ -111,7 +114,10 @@ def main(argv=None) -> None:
         log_every=args.log_every,
     )
     logger = MetricsLogger()
-    state = train_loop(step_fn, state, data, loop_cfg, ckpt=ckpt, logger=logger)
+    state = train_loop(step_fn, state, data, loop_cfg, ckpt=ckpt, logger=logger,
+                       checkpointer=writer)
+    if writer is not None:
+        writer.close()
     final_loss = logger.history[-1]["loss"] if logger.history else float("nan")
     print(f"[done] {args.arch} steps={args.steps} final_loss={final_loss:.4f} device={device}")
 

@@ -101,7 +101,8 @@ def gemm(
     The epilogue (y = act(xW + bias) + residual) is fused into the kernel on
     the mesh path and applied as plain ops on the torch backend — one call
     site, identical semantics.  Block shapes come from cfg.mesh_block_m/n/k
-    when set (> 0).
+    when set (> 0).  Under autograd the plan runs its product as the op
+    `repro_torch::gemm`, which the `dots` remat policy saves.
     """
     backend = "cuda_mesh" if cfg.use_mesh_kernel else "torch"
     blocks = (cfg.mesh_block_m or None, cfg.mesh_block_n or None, cfg.mesh_block_k or None)

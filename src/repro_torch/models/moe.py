@@ -16,8 +16,11 @@ depends on the data is used (`bincount` and `repeat_interleave` read
 their input's size on the host, so counts are a `scatter_add_` and token
 ids an integer division).
 
+Shared experts (qwen2-moe): one fused SwiGLU of width moe_d_ff *
+num_shared_experts that every token runs, scaled by a per-token sigmoid
+gate, an f32 GEMM with N = 1 planned like every other projection.
+
 Aux: Switch load-balance loss + router z-loss, returned for the train loop.
-Configs with shared experts (qwen2-moe) are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,23 +55,22 @@ def swiglu(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg) -> torch.Tensor:
     return gemm(h, p["wo"], cfg)
 
 
-def _no_shared_experts(cfg) -> None:
-    if cfg.num_shared_experts:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: shared experts (num_shared_experts="
-            f"{cfg.num_shared_experts}) are not ported yet"
-        )
-
-
 def moe_specs(cfg) -> Dict[str, PSpec]:
-    _no_shared_experts(cfg)
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     out_scale = 0.02 / max(1.0, (2 * cfg.num_layers) ** 0.5)
-    return {
+    specs = {
         "router": PSpec((d, e), ("embed", None), 0.02, dtype=torch.float32),
         "wi": PSpec((e, d, 2 * f), ("experts", "embed", "mlp"), 0.02),
         "wo": PSpec((e, f, d), ("experts", "mlp", "embed"), out_scale),
     }
+    if cfg.num_shared_experts:
+        # The reference's key order: parameters are drawn and carried over
+        # from numpy in it.
+        fs = cfg.moe_d_ff * cfg.num_shared_experts
+        specs["shared_wi"] = PSpec((d, 2 * fs), ("embed", "mlp"), 0.02)
+        specs["shared_wo"] = PSpec((fs, d), ("mlp", "embed"), out_scale)
+        specs["shared_gate"] = PSpec((d, 1), ("embed", None), 0.02)
+    return specs
 
 
 def _capacity(n: int, t: int, e: int, k: int, capacity_factor: float) -> int:
@@ -83,6 +85,12 @@ def _capacity(n: int, t: int, e: int, k: int, capacity_factor: float) -> int:
     return (n // s) * max(1, int(capacity_factor * s * k / e))
 
 
+def _top_k(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """(n, k) expert indices, as jax.lax.top_k: on ties the lower expert
+    index comes first, which a stable descending sort keeps."""
+    return torch.argsort(probs, dim=-1, descending=True, stable=True)[:, :k]
+
+
 def moe_block(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (B, T, D)
@@ -91,7 +99,6 @@ def moe_block(
     capacity_factor: float = 1.25,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (output, aux) with aux = {'lb_loss', 'router_z'}."""
-    _no_shared_experts(cfg)
     b, t, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     n = b * t
@@ -100,9 +107,7 @@ def moe_block(
     xf = x.reshape(n, d)
     logits = torch.matmul(xf.float(), p["router"].float())  # (n, e)
     probs = torch.softmax(logits, dim=-1)
-    # top-k as jax.lax.top_k: on ties the lower expert index comes first,
-    # which a stable descending sort keeps.
-    topi = torch.argsort(probs, dim=-1, descending=True, stable=True)[:, :k]
+    topi = _top_k(probs, k)
     topv = torch.gather(probs, 1, topi)
     topv = topv / topv.sum(dim=-1, keepdim=True)
 
@@ -145,6 +150,13 @@ def moe_block(
     # (dropped pairs carry gate 0, so the clipped gather never contributes).
     contrib = ex_out[torch.clamp(dest, 0, rows - 1)] * gate.to(x.dtype)[:, None]
     y = contrib.float().reshape(n, k, d).sum(dim=1).to(x.dtype).reshape(b, t, d)
+
+    if cfg.num_shared_experts:
+        # The gate is an f32 GEMM (the router's numerics) through the planner.
+        sg = torch.sigmoid(gemm(xf.float(), p["shared_gate"].float(), cfg)).to(x.dtype)
+        g_, u_ = torch.chunk(gemm(xf, p["shared_wi"], cfg), 2, dim=-1)
+        shared = gemm(F.silu(g_) * u_, p["shared_wo"], cfg)
+        y = y + (shared * sg).reshape(b, t, d)
 
     # Switch load-balance + router z-loss (means over all tokens).
     load = counts.float() / n  # fraction routed per expert

@@ -12,17 +12,27 @@ with cfg.scramble_privacy, `lm_forward` scrambles the embedding output's
 (T, D) block grid with S (kernel K3) and unscrambles it before the head —
 square grids only.  The serving path never runs it.
 
-The reference's `remat_policy` is not ported yet: autograd stores every
-activation of `lm_forward` (about 6 GB for full-width mesh-paper at
-2 x 2048 tokens, most of it attention scores); recompute
-(`torch.utils.checkpoint`) is later work.
+`lm_forward` runs each layer under cfg.remat_policy (`_remat`): `none`
+keeps every activation for the backward, `full` recomputes the whole layer
+(`torch.utils.checkpoint`), and `dots`, the default, is the reference's
+`checkpoint_dots_with_no_batch_dims` as it reads on its `xla` path, which
+gives one answer whatever backend runs: the outputs of 2-D products with
+no batch dim are saved (the dense projections, `layers.gemm`, and the
+router's f32 product) and everything else is recomputed (norms, RoPE,
+attention with its batched score products or K6, routing, and the grouped
+expert products, which carry a group batch dim).  A selective-checkpoint
+policy decides by the op the dispatcher sees, and K1 launches through
+ctypes: so a dense plan runs its product as one op, `repro_torch::gemm`
+(`kernels/api.py`), which the policy names beside `aten.mm`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.kernels.ops import scramble_blocks
 from repro_torch.models.attention import attention, attention_paged_decode, attn_specs
@@ -133,6 +143,34 @@ def _ffn(p: Dict[str, Any], x: torch.Tensor, cfg):
     return swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), {}
 
 
+# The ops whose outputs `dots` saves: 2-D products with no batch dim (the
+# dense plan as one op, and plain 2-D products such as the router's).
+_DOTS_SAVED = (torch.ops.repro_torch.gemm.default, torch.ops.aten.mm.default,
+               torch.ops.aten.addmm.default)
+
+
+def _remat(fn, policy: str):
+    """`fn` under the remat policy: none | dots | full (module docstring).
+    Recompute runs only where autograd records; no layer draws random
+    numbers, so no RNG state is kept."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        kw = dict(context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                               list(_DOTS_SAVED)))
+    elif policy == "full":
+        kw = {}
+    else:
+        raise ValueError(f"unknown remat policy {policy!r}")
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return run
+
+
 def _maybe_scramble(x: torch.Tensor, cfg, inverse: bool = False) -> torch.Tensor:
     """Paper scrambling system on (T, D) activation block grids (square only)."""
     if not cfg.scramble_privacy:
@@ -149,12 +187,18 @@ def lm_forward(params, tokens: torch.Tensor, cfg):
     x = embed_tokens(params, tokens, cfg)
     x = _maybe_scramble(x, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux_stack = []
-    for i in range(cfg.num_layers):
-        x, _, aux = block_apply(_layer(params["blocks"], i), x, cfg)
+
+    def body(x, lp):
+        y, _, aux = block_apply(lp, x, cfg)
         # A dense block has no router: its entries are zeros, as in the
         # reference's per-layer aux stack.
-        aux_stack.append(torch.stack([aux.get("lb_loss", zero), aux.get("router_z", zero)]))
+        return y, torch.stack([aux.get("lb_loss", zero), aux.get("router_z", zero)])
+
+    body = _remat(body, cfg.remat_policy)
+    aux_stack = []
+    for i in range(cfg.num_layers):
+        x, aux_vec = body(x, _layer(params["blocks"], i))
+        aux_stack.append(aux_vec)
     x = _maybe_scramble(x, cfg, inverse=True)
     logits = unembed(params, x, cfg)
     aux_mean = torch.stack(aux_stack).mean(dim=0)

@@ -1,7 +1,8 @@
 """Fault-tolerant training loop (port of `repro.train.loop`).
 
 Mechanics:
-  * periodic checkpoints + auto-resume from latest,
+  * periodic checkpoints (sync, or async through `checkpointer`) +
+    auto-resume from latest,
   * crash recovery: a step that raises is retried from the last checkpoint
     (up to max_restarts); the deterministic step-indexed data pipeline makes
     recovery bit-exact,
@@ -11,7 +12,7 @@ Mechanics:
 
 A step's time is taken after `torch.cuda.synchronize()` on the card (the
 reference's `block_until_ready`), so it is the device's time, not the
-enqueue.  The reference's asynchronous checkpointer is not ported yet.
+enqueue.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ def train_loop(
     ckpt: Optional[CheckpointManager] = None,
     logger: Optional[MetricsLogger] = None,
     failure_hook: Optional[Callable[[int], None]] = None,
+    checkpointer=None,  # optional AsyncCheckpointer wrapping `ckpt`
 ) -> Dict[str, Any]:
     """Runs to cfg.total_steps; returns the final state.
 
@@ -63,8 +65,13 @@ def train_loop(
     stragglers = 0
 
     def save(step_i: int) -> None:
-        if ckpt is not None:
-            ckpt.save(step_i, state, {"data_step": data_iter.state()})
+        if ckpt is None:
+            return
+        meta = {"data_step": data_iter.state()}
+        if checkpointer is not None:
+            checkpointer.submit(step_i, state, meta)
+        else:
+            ckpt.save(step_i, state, meta)
 
     while step < cfg.total_steps:
         try:
@@ -92,6 +99,8 @@ def train_loop(
             restarts += 1
             if ckpt is None or restarts > cfg.max_restarts:
                 raise
+            if checkpointer is not None:
+                checkpointer.wait()
             latest = ckpt.latest_step()
             logger.warn(
                 f"step {step} failed ({type(e).__name__}: {e}); "
@@ -102,6 +111,8 @@ def train_loop(
             state = ckpt.restore(latest, state)
             data_iter.restore(ckpt.meta(latest)["data_step"])
             step = latest
+    if checkpointer is not None:
+        checkpointer.wait()
     logger.summary({"restarts": restarts, "stragglers": stragglers, "final_step": step})
     if owns_logger:
         logger.close()  # a caller-provided logger stays open for the caller

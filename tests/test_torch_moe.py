@@ -117,10 +117,22 @@ def test_params_from_numpy_carries_f32_router_bits(jx, models):
     np.testing.assert_array_equal(got.view(torch.int32).numpy(), router.view(np.int32))
 
 
-def test_shared_experts_not_ported_yet():
+def test_shared_expert_specs_and_branch():
+    """OLMoE with one shared expert gets the reference's three shared leaves
+    after the routed ones, in its key order, and `moe_block` runs them
+    (`tests/test_torch_qwen2_moe.py` holds their values)."""
     cfg = dataclasses.replace(get_config(ARCH).reduced(), num_shared_experts=1)
-    with pytest.raises(NotImplementedError, match="shared experts"):
-        tmoe.moe_specs(cfg)
+    specs = tmoe.moe_specs(cfg)
+    d, fs = cfg.d_model, cfg.moe_d_ff
+    assert list(specs) == ["router", "wi", "wo", "shared_wi", "shared_wo", "shared_gate"]
+    assert [specs[k].shape for k in ("shared_wi", "shared_wo", "shared_gate")] == [
+        (d, 2 * fs), (fs, d), (d, 1)]
+    layer = {k: v[0] for k, v in get_model(cfg).init(
+        torch.Generator().manual_seed(0), "cpu")["blocks"]["moe"].items()}
+    x = torch.randn(2, 4, d, generator=torch.Generator().manual_seed(3))
+    y, _ = tmoe.moe_block(layer, x, cfg)
+    y0, _ = tmoe.moe_block(layer, x, dataclasses.replace(cfg, num_shared_experts=0))
+    assert y.shape == x.shape and not torch.equal(y, y0)
 
 
 # -- moe_block ---------------------------------------------------------------
