@@ -97,7 +97,25 @@ Phases; any failure raises and the script exits non-zero:
               shim, the scoped default, `execute_async`, the degradation
               ladder under injected plan.execute/plan.build faults and the
               non-finite guard's three policies under a NaN-poisoned
-              kernel.output.
+              kernel.output;
+  13. obs      observability and the cost model at mesh-paper's full width:
+              (a) the blocks the autotuner picked on the card for every
+              main-path product, each timed candidate's device ms, every
+              one on a tensor-core tile; (b) the serve requests served
+              untraced and traced (bridge installed) in turns: the same
+              tokens, span counts by name, tokens/s both ways, no host sync
+              in a traced decode step and prefill, the bridge's calibration
+              records carrying the device time of CUDA events, the three
+              exports written and parsed back; (c) `calibrate()` on the
+              card, its fit beside the shipped coefficients, and each
+              main-path product's predicted ms against its device ms; (d)
+              the chooser's blocks against 128^3 (`mesh_block_*`): K1's
+              device ms per product, serve tokens/s and train ms per step,
+              in turns.
+
+Every plan resolves its blocks through the cost model's chooser, which
+times candidates on the card; the autotune and calibration caches live in
+a fresh temporary directory for the run.
 
 Every phase but `planner` arms no fault: each starts with an empty
 resilience ledger and fails if it records a planner event (`plan.*`,
@@ -113,8 +131,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2971,6 +2991,290 @@ def phase_planner(torch):
     return launches
 
 
+def main_path_products():
+    """mesh-paper's main-path K1 products (M, K, N), bf16: decode (M =
+    SLOTS), prefill (M = PROMPT) and the training forward (M = TRAIN_BATCH x
+    TRAIN_SEQ), for each of its GEMMs."""
+    return {f"{name} M={m}": (m, k, n) for m in (SLOTS, PROMPT, TRAIN_BATCH * TRAIN_SEQ)
+            for name, (k, n) in MESH_PAPER_GEMMS.items()}
+
+
+def phase_obs(torch, smi: str):
+    """Observability and the cost model at mesh-paper's full width, (a)-(d)
+    of the module docstring."""
+    import dataclasses
+    import importlib
+    import re
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.costmodel import default_coefficients, predict, terms_from_describe
+    from repro_torch.kernels import api, autotune
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
+    from repro_torch.launch.serve import serving_steps
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import get_model
+    from repro_torch.obs import bridge
+
+    cal = importlib.import_module("repro_torch.costmodel.calibrate")
+    bf16 = torch.bfloat16
+    tmp = tempfile.TemporaryDirectory()
+    scratch = Path(tmp.name)
+
+    # (a) The blocks the chooser picked for each main-path product (the
+    # run's cache, timed when a phase first planned it), and every timed
+    # candidate's device ms, timed again into a scratch cache.
+    products = main_path_products()
+    picked, dev_ms, same_as_cpu = {}, {}, 0
+    retime = autotune.AutotuneCache(scratch / "retime.json")
+    on_cpu = autotune.AutotuneCache(scratch / "cpu.json")
+    for label, (m, k, n) in products.items():
+        blocks = autotune.resolve_blocks(m, k, n, bf16, "cuda_mesh", platform="cuda")
+        obs.clear_spans()
+        with obs.tracing():
+            best = autotune.autotune(m, k, n, bf16, "cuda_mesh", platform="cuda", cache=retime)
+        cands = {tuple(sp.attrs["blocks"]): sp.attrs["ms"] for sp in obs.spans("autotune.measure")}
+        obs.clear_spans()
+        check(len(cands) >= 1 and all(autotune.legal_on_card(m, k, n, c, bf16) for c in cands)
+              and autotune.legal_on_card(m, k, n, blocks, bf16),
+              f"[obs] (a) {label}: a block candidate off the tensor-core tiles: {cands}")
+        picked[label] = blocks
+        dev_ms[label] = cands.get(blocks) or autotune._default_measure(
+            m, k, n, bf16, "cuda_mesh", blocks, platform="cuda")
+        cpu = autotune.autotune(m, k, n, bf16, "cuda_mesh", platform="cpu", cache=on_cpu)
+        same_as_cpu += blocks == cpu
+        log(f"[obs] (a) {label} K={k} N={n}: picked {blocks} ({dev_ms[label]:.4f} ms device;"
+            f" the CPU's, the reference's, {cpu}); timed again: {best}; candidates (ms) "
+            + ", ".join(f"{'x'.join(map(str, c))} {t:.4f}" for c, t in sorted(
+                cands.items(), key=lambda kv: kv[1])))
+
+    log(f"[obs] (a) {same_as_cpu} of {len(products)} main-path products on the reference's"
+        " blocks")
+
+    # (b) The serve requests, untraced and traced (bridge installed) in turns.
+    cfg = get_config("mesh-paper")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32) for _ in range(REQUESTS)]
+    pages = -(-(PROMPT + NEW_TOKENS) // PAGE)
+    scfg = ServeConfig(
+        max_slots=SLOTS, page_size=PAGE, num_pages=1 + SLOTS * pages,
+        max_pages_per_seq=pages, queue_capacity=REQUESTS, warmup_prompt_lens=(PROMPT,),
+    )
+
+    def serve(the_model, traced):
+        """One server over the requests: (tokens by rid, tokens/s, server);
+        traced, the bridge's pending records are returned too."""
+        server = ContinuousBatchingServer(the_model, params, scfg, device="cuda")
+        if traced:
+            obs.enable()
+            bridge.install()
+        server.warmup()
+        reqs = [Request(rid=f"req{i}", prompt=p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        results = server.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        pending = bridge.pending_calibration_records() if traced else []
+        server.drain()  # the I/O point: folds the bridge's records in
+        obs.disable()
+        check(all(r.status == "ok" for r in results.values()), f"[obs] serve: {results}")
+        tokens = {rid: r.tokens for rid, r in results.items()}
+        return tokens, sum(map(len, tokens.values())) / wall, server, pending
+
+    rates = {"untraced": [], "traced": []}
+    tokens, _, _, _ = serve(model, False)  # warm: plans, caches
+    counts = pending = None
+    for traced in (False, True, True, False):
+        obs.clear_spans()
+        reset_k1(mesh_matmul)
+        got, rate, server, pend = serve(model, traced)
+        rates["traced" if traced else "untraced"].append(rate)
+        check(got == tokens, f"[obs] (b) {'traced' if traced else 'untraced'} tokens differ")
+        if traced and counts is None:
+            check_main_path_tiles("obs", tile_counts(mesh_matmul), canary=True)
+            counts = {}
+            for sp in obs.spans():
+                counts[sp.name] = counts.get(sp.name, 0) + 1
+            pending = pend
+            check(counts.get("serve.tick") == server.counters["ticks"]
+                  and counts.get("serve.prefill") == REQUESTS
+                  and counts.get("plan.execute", 0) > 0,
+                  f"[obs] (b) span counts {counts} vs counters {server.counters}")
+            stats = obs.stats()
+    log(f"[obs] (b) {REQUESTS} requests x {NEW_TOKENS} tokens, the same tokens every run;"
+        f" tokens/s untraced {rates['untraced']} traced {rates['traced']}"
+        f" (order: untraced, traced, traced, untraced; card {smi})")
+    log(f"[obs] (b) spans by name in one traced run: {dict(sorted(counts.items()))};"
+        f" stats {stats}")
+    on_card = [r for r in pending if "events" in r]
+    obs_recs = [r for r in cal.default_cache().records("cuda") if r.get("source") == "obs"]
+    check(pending and len(on_card) == len(pending) and obs_recs
+          and all(r["ms"] > 0 for r in obs_recs),
+          f"[obs] (b) calibration records: {len(pending)} pending, {len(on_card)} with CUDA"
+          f" events, {len(obs_recs)} ingested")
+    by_key = {}
+    for r in obs_recs:
+        by_key.setdefault(r["key"], []).append(r["ms"])
+    log(f"[obs] (b) bridge: {len(on_card)} records per traced run, each with CUDA events"
+        f" read at drain; {len(obs_recs)} in the calibration file; event ms (min / median)"
+        " by plan: " + "; ".join(f"{k} {min(v):.4f} / {sorted(v)[len(v) // 2]:.4f}"
+                                 for k, v in sorted(by_key.items())))
+
+    # No host sync on the model's path with tracing on: one paged decode
+    # step and one prefill, each GEMM under a span with its CUDA events.
+    prefill, _ = serving_steps(model)
+    zeros = {name: torch.zeros(shape, dtype=torch.int32, device="cuda")
+             for name, shape in (("tokens", (SLOTS, 1)), ("tables", (SLOTS, pages)),
+                                 ("positions", (SLOTS,)))}
+    prompt = torch.as_tensor(prompts[0], device="cuda")[None]
+
+    def one_step_and_prefill():
+        with torch.inference_mode():
+            model.paged_decode(params, zeros["tokens"], server.pools, zeros["tables"],
+                               zeros["positions"])
+            prefill(params, {"tokens": prompt})
+
+    obs.clear_spans()
+    with obs.tracing():
+        no_host_sync(torch, one_step_and_prefill)
+    traced_gemms = obs.spans("plan.execute")
+    check(len(traced_gemms) == 2 * (sum(TICK_LAUNCHES.values()))
+          and all(sp.events is not None for sp in traced_gemms),
+          f"[obs] (b) traced step and prefill: {len(traced_gemms)} plan.execute spans")
+    log(f"[obs] (b) one paged decode step and one prefill traced under"
+        f" set_sync_debug_mode('error'): 0 host syncs, {len(traced_gemms)} plan.execute"
+        " spans, each with a CUDA event pair")
+
+    # The exports, written and parsed back.
+    obs.enable()
+    with obs.span("obs.export", run="chip_smoke"):
+        pass
+    obs.disable()
+    trace_path = scratch / "trace.json"
+    obs.write_chrome_trace(str(trace_path), metadata={"card": smi,
+                                                      "calibration": bridge.calibration_stamp()})
+    obs.write_prometheus(str(trace_path) + ".prom")
+    n_jsonl = obs.write_spans_jsonl(str(trace_path) + ".jsonl")
+    doc = json.loads(trace_path.read_text())
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    prom = (scratch / "trace.json.prom").read_text().strip().splitlines()
+    prom_ok = all(re.match(r"^(# (HELP|TYPE) .*|[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})?"
+                           r" ([0-9.e+-]+|\+Inf))$", line) for line in prom)
+    jsonl = [json.loads(x) for x in (scratch / "trace.json.jsonl").read_text().splitlines()]
+    check(len(xs) == len(jsonl) == n_jsonl == len(obs.spans()) == len(traced_gemms) + 1
+          and prom_ok
+          and any(line.startswith("serve_ticks_total") for line in prom),
+          f"[obs] (b) exports: {len(xs)} trace events, {len(jsonl)} jsonl lines,"
+          f" {len(obs.spans())} spans, prometheus parses: {prom_ok}")
+    log(f"[obs] (b) exports parsed back: {len(xs)} trace events, {len(prom)} prometheus"
+        f" lines, {len(jsonl)} span lines")
+    obs.clear_spans()
+    bridge.uninstall()
+
+    # Tracing's host cost per GEMM: one decode-shape plan called back to
+    # back, untraced and traced in turns (the card runs each call in about
+    # 0.011 ms, below the host's launch cost, so the wall is host time).
+    x = torch.randn(SLOTS, 2048, device="cuda").to(bf16)
+    w = torch.randn(2048, 2048, device="cuda").to(bf16)
+    gemm = api.plan(api.GemmSpec.from_operands(x, w, out_dtype=bf16), backend="cuda_mesh",
+                    device="cuda")
+    per_call = {False: [], True: []}
+    for traced in (False, True, True, False):
+        obs.clear_spans()
+        scope = obs.tracing() if traced else contextlib.nullcontext()
+        with scope, torch.inference_mode():
+            gemm(x, w)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(2000):
+                gemm(x, w)
+            torch.cuda.synchronize()
+        per_call[traced].append((time.monotonic() - t0) / 2000 * 1e6)
+    obs.clear_spans()
+    log(f"[obs] (b) host us per call of the M={SLOTS} K=2048 N=2048 plan, 2000 calls:"
+        f" untraced {per_call[False]}, traced {per_call[True]} (order: untraced, traced,"
+        " traced, untraced)")
+
+    # (c) Calibration on the card, into a scratch file; predicted ms of each
+    # main-path product against its device ms from (a).
+    shipped = default_coefficients("cuda")
+    from_obs = cal.default_cache().coefficients("cuda")
+    fitted = cal.calibrate(platform="cuda", cache=cal.CalibrationCache(scratch / "cal.json"),
+                           persist=False)
+    fields = ("flops_per_s", "hbm_bytes_per_s", "link_bytes_per_s", "phase_latency_s",
+              "launch_overhead_s")
+    for name, co in (("shipped", shipped), ("fit to (b)'s spans", from_obs),
+                     ("fit to the probes", fitted)):
+        log(f"[obs] (c) coefficients, {name}: "
+            + ", ".join(f"{f}={getattr(co, f):.4g}" for f in fields)
+            + f", source={co.source}")
+    for label, (m, k, n) in products.items():
+        p = api.plan(api.GemmSpec(m=m, k=k, n=n, dtype_a=bf16, dtype_b=bf16, out_dtype=bf16),
+                     backend="cuda_mesh", device="cuda")
+        terms = terms_from_describe(p.describe())
+        log(f"[obs] (c) {label} (K={k} N={n}, blocks {p.blocks}): predicted"
+            f" {predict(terms, shipped)['total_s'] * 1e3:.4f} ms shipped,"
+            f" {predict(terms, fitted)['total_s'] * 1e3:.4f} ms probe fit;"
+            f" device {dev_ms[label]:.4f} ms")
+    check(fitted.source == "calibrated" and all(getattr(fitted, f) > 0 for f in fields[:3]),
+          f"[obs] (c) calibrate() on the card: {fitted}")
+
+    # (d) The chooser's blocks against 128^3, in turns.
+    ref_blocks = (128, 128, 128)
+    k1 = {}
+    for label, (m, k, n) in products.items():
+        times = {}
+        for blocks in (picked[label], ref_blocks, ref_blocks, picked[label]):
+            t = autotune._default_measure(m, k, n, bf16, "cuda_mesh", blocks, platform="cuda")
+            times[blocks] = min(times.get(blocks, t), t)
+        k1[label] = (times[picked[label]], times[ref_blocks])
+        log(f"[obs] (d) K1 {label}: {picked[label]} {k1[label][0]:.4f} ms, 128^3"
+            f" {k1[label][1]:.4f} ms device")
+    tick = [sum(TICK_LAUNCHES[name] * k1[f"{name} M={SLOTS}"][i] for name in TICK_LAUNCHES)
+            for i in (0, 1)]
+    fwd = [sum(TICK_LAUNCHES[name] * k1[f"{name} M={TRAIN_BATCH * TRAIN_SEQ}"][i]
+               for name in TICK_LAUNCHES) for i in (0, 1)]
+    log(f"[obs] (d) K1 per decode tick (25 launches at M={SLOTS}): chooser {tick[0]:.4f} ms,"
+        f" 128^3 {tick[1]:.4f} ms; per training forward (25 launches at"
+        f" M={TRAIN_BATCH * TRAIN_SEQ}): chooser {fwd[0]:.4f} ms, 128^3 {fwd[1]:.4f} ms")
+    cfg128 = dataclasses.replace(cfg, mesh_block_m=128, mesh_block_n=128, mesh_block_k=128)
+    model128 = get_model(cfg128)
+    serve_rates = {"chooser": [], "128^3": []}
+    for name in ("chooser", "128^3", "128^3", "chooser"):
+        _, rate, _, _ = serve(model if name == "chooser" else model128, False)
+        serve_rates[name].append(rate)
+    log(f"[obs] (d) serve tokens/s, chooser {serve_rates['chooser']}, 128^3"
+        f" {serve_rates['128^3']} (order: chooser, 128^3, 128^3, chooser)")
+    del params, server
+    _free(torch)
+    steps = {}
+    for name, c in (("chooser", cfg), ("128^3", cfg128)):
+        step_fn, state, data = build_trainer(c, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                                             total_steps=TRAIN_STEPS, seed=0, device="cuda")
+        state, _ = step_fn(state, next(data))  # warm
+        steps[name] = [step_fn, state, next(data), []]
+    for name in ("chooser", "128^3", "128^3", "chooser"):
+        step_fn, state, batch, times = steps[name]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        steps[name][1], met = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+        check(math.isfinite(float(met["loss"])), f"[obs] (d) {name} step loss {met['loss']}")
+    log(f"[obs] (d) train ms per step, chooser {steps['chooser'][3]}, 128^3"
+        f" {steps['128^3'][3]} (order: chooser, 128^3, 128^3, chooser)")
+    del steps
+    _free(torch)
+    tmp.cleanup()
+
+
 def healthy(name, fn):
     """`fn` as a phase that arms no fault: the resilience ledger is cleared
     before it, and after it no planner event (`plan.*`, `guard.*`) may have
@@ -3016,6 +3320,11 @@ def main() -> int:
         return 2
     smi = smi_line()
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+    # Fresh autotune and calibration caches for the run: the blocks the
+    # card picks (timed) fix K1's k order from then on.
+    caches = tempfile.TemporaryDirectory()
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(caches.name, "autotune.json")
+    os.environ["REPRO_COSTMODEL_CACHE"] = os.path.join(caches.name, "costmodel.json")
     t_start = time.monotonic()
     phase_build(torch)
     phases = {name: healthy(name, fn) for name, fn in (
@@ -3027,6 +3336,7 @@ def main() -> int:
         ("train_moe", phase_train_moe), ("configs", phase_configs))}
     phases["paper"] = healthy("paper", lambda torch: phase_paper(torch, smi))
     phases["planner"] = phase_planner
+    phases["obs"] = healthy("obs", lambda torch: phase_obs(torch, smi))
     if only is not None:
         unknown = only - set(phases)
         check(not unknown, f"unknown phases {sorted(unknown)}; known: {sorted(phases)}")
@@ -3055,6 +3365,7 @@ def main() -> int:
     configs = phases["configs"](torch)
     phases["paper"](torch)
     planner = phases["planner"](torch)
+    phases["obs"](torch)
 
     def row(name, source, replaces, launches, err, t, shape, **extra):
         return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",

@@ -30,13 +30,33 @@ when it declares the `grouped` capability with a dedicated impl: `torch`
 (a segment-masked `bmm`, the reference's `xla`), `ref` (a per-group loop)
 and `cuda_mesh` (kernel K5, `kernels/grouped.py`).
 
-Blocks come from `spec.blocks` when set, else (128, 128, 128); the
-autotuner arrives with the cost model.  A grouped plan clamps block_m to
-divide the rows-per-group bound.
+Blocks: entries of `spec.blocks` left None are resolved for a backend
+with the `autotune` capability (`cuda_mesh`), and for every scrambled
+product, through the cost model's chooser
+(`costmodel.choose.choose_blocks` over `kernels/autotune.py`), as the
+reference does: on the CPU the reference's candidates and analytic score,
+so CPU plans carry the reference's blocks; on the card a timed search over
+candidates that K1 runs on a tensor-core or f32 tile.  The blocks fix K1's
+k order and the sigma placement, so they fix the bits of the result.  The
+scrambled regime and the symmetric one key their own cache partitions
+(`cuda_mesh_scrambled`, `sym1`).  A grouped plan resolves the blocks of
+its logical group shape (m = the rows-per-group bound) and clamps block_m
+to divide that bound.
 
 Backend choice: an explicit `backend=` is validated strictly; otherwise a
 capable pinned default (`set_default`, the scoped `default_backend(...)`)
-wins, then the legacy order torch -> cuda_mesh -> registration order.
+wins, then the capable set is ranked by the cost model
+(`costmodel.choose.decide_backend`, per-platform backend efficiencies),
+the legacy order torch -> cuda_mesh -> registration order breaking ties;
+with the shipped coefficients that order is the choice on both platforms.
+The ranking is recorded in `describe()["decision"]`.
+
+Observability: with tracing on (`repro_torch.obs`), `plan()` opens a
+`plan.build` span on a cache miss, every execution a `plan.execute` span
+(with the cost-model `terms` the obs bridge turns into calibration records,
+and on the card a pair of CUDA events around the execution), and
+`dispatch` a `plan.dispatch` span.  With tracing off the whole cost is one
+attribute check per execution.
 
 Resilience.  `plan(spec, fallback=True)` resolves a capability-ordered
 fallback chain (`FALLBACK_ORDER`: cuda_mesh -> torch -> ref) behind the
@@ -80,6 +100,7 @@ from typing import Any, Callable, Dict, FrozenSet, List, Mapping, Optional, Tupl
 import numpy as np
 import torch
 
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels import ref
 from repro_torch.kernels.grouped import grouped_mesh_matmul
 from repro_torch.kernels.mesh_matmul import (
@@ -90,6 +111,7 @@ from repro_torch.kernels.mesh_matmul import (
     sigma_block_table,
 )
 from repro_torch.kernels.scramble import scramble_blocks
+from repro_torch.obs import trace as _obs
 from repro_torch.resilience import faults as _faults
 from repro_torch.resilience import ledger as _rledger
 from repro_torch.resilience.policy import (
@@ -130,6 +152,8 @@ __all__ = [
 ]
 
 STRUCTURES = ("general", "symmetric", "scrambled")
+# The blocks a plan without blocks (a plain backend's general product)
+# hands to its op's static options: they set nothing there.
 DEFAULT_BLOCKS = (128, 128, 128)
 
 _DTYPE_NAMES = {
@@ -218,7 +242,8 @@ class GemmSpec:
     `structure` names the paper regime of the product: general (C = AB),
     symmetric (caller asserts C = Cᵀ; square), scrambled (the output lands in
     the paper's sigma block arrangement).  `blocks` is an optional
-    (bm, bn, bk) override; entries left None take DEFAULT_BLOCKS.  `repeats`
+    (bm, bn, bk) override; entries left None are resolved at plan time
+    (the cost model's chooser, see the module docstring).  `repeats`
     is a caller hint (products run back to back with the same B); numerics
     are unaffected.  `group` attaches a GroupSpec, turning the spec into a
     grouped (ragged-batch) GEMM: (num_groups * rows_per_group, K) tokens
@@ -393,6 +418,7 @@ class BackendCapabilities:
     batching          fully-batched (B, M, K) @ (B, K, N) operands
     epilogue          the epilogue contract (fused or not)
     epilogue_fusion   the epilogue runs inside the kernel (provenance only)
+    autotune          consumes resolved (bm, bn, bk) block shapes
     devices           device types the impl executes on
     grouped           executes ragged-batch specs carrying a GroupSpec
                       (requires a `grouped_impl` at registration)
@@ -402,6 +428,7 @@ class BackendCapabilities:
     batching: bool = False
     epilogue: bool = True
     epilogue_fusion: bool = False
+    autotune: bool = False
     devices: FrozenSet[str] = frozenset({"cpu", "cuda"})
     grouped: bool = False
 
@@ -552,22 +579,51 @@ def default_backend(name: str):
         set_default(prev)
 
 
-def _choose_backend(spec: GemmSpec, device: str) -> _Backend:
-    """A CAPABLE pinned default first (explicit user intent), then the first
-    capable backend in the reference's legacy order: torch (the `xla`
-    stand-in), then cuda_mesh, then registration order."""
+def _choose_backend(spec: GemmSpec, device: str) -> Tuple[_Backend, Optional[Dict[str, Any]]]:
+    """Capability + cost choice on `device`, returning (backend, decision
+    provenance).
+
+    A CAPABLE pinned default wins immediately (explicit user intent).
+    Otherwise the capable set is ranked by the cost model's per-backend
+    efficiency (`costmodel.choose.decide_backend`) on the device's
+    platform; the legacy order torch (the `xla` stand-in) -> cuda_mesh ->
+    registration order breaks exact ties, and with the shipped
+    coefficients the predicted order IS that order.  A cost-model failure
+    degrades to the first capable backend with a ledger record."""
     reasons = []
+    capable: List[Tuple[str, int]] = []
     pinned = _DEFAULT_BACKEND[0]
-    for name in dict.fromkeys((*(() if pinned is None else (pinned,)), "torch", "cuda_mesh",
-                               *_REGISTRY)):
+    order = dict.fromkeys((*(() if pinned is None else (pinned,)), "torch", "cuda_mesh",
+                           *_REGISTRY))
+    for idx, name in enumerate(order):
         be = _REGISTRY.get(name)
         if be is None:
             continue
         reason = _check_capabilities(spec, be, device)
-        if reason is None:
-            return be
-        reasons.append(reason)
-    raise CapabilityError("no registered backend can execute this spec: " + "; ".join(reasons))
+        if reason is not None:
+            reasons.append(reason)
+            continue
+        if name == pinned:
+            return be, None
+        capable.append((name, idx))
+    if not capable:
+        raise CapabilityError(
+            "no registered backend can execute this spec: " + "; ".join(reasons)
+        )
+    if len(capable) == 1:
+        return _REGISTRY[capable[0][0]], None
+    try:
+        from repro_torch.costmodel import choose as _cm_choose
+
+        chosen, dec = _cm_choose.decide_backend(spec, capable, platform=device)
+        return _REGISTRY[chosen], dec.as_dict()
+    except Exception as e:  # degraded: legacy first-capable
+        _rledger.record(
+            "costmodel.decide_backend",
+            cause=f"{type(e).__name__}: {e}",
+            fallback=capable[0][0],
+        )
+        return _REGISTRY[capable[0][0]], None
 
 
 # Capability-ordered degradation ladder: when a backend's plan build or
@@ -665,7 +721,9 @@ class Plan:
     Built once by `plan(spec)`; calling it runs the chosen backend with the
     blocks/tables fixed at plan time.  `device` is the device type the plan
     was built for; the sigma table is uploaded to a device once, on the
-    plan's first call there.
+    plan's first call there.  `vmem_bytes` is the reference model's
+    working set of the blocks on the CPU, and the shared memory of the
+    kernel tile that runs the product on the card.
     """
 
     spec: GemmSpec
@@ -675,6 +733,7 @@ class Plan:
     blocks: Optional[Tuple[int, int, int]]
     out_dtype: str
     flops: int
+    vmem_bytes: Optional[int] = None
     sigma_table: Optional[np.ndarray] = None
     # -- resilience state --
     # guard: opt-in non-finite output policy; health: DegradationEvents this
@@ -682,11 +741,16 @@ class Plan:
     # _chain: backend names still available below the active one.
     guard: Optional[str] = None
     guard_sample: Optional[int] = None
+    # Cost-model decision provenance: why this backend was picked, with
+    # per-candidate predicted seconds and the calibration's source.  None
+    # when the backend was pinned.
+    decision: Optional[Dict[str, Any]] = None
     health: List = dataclasses.field(default_factory=list)
     _chain: List[str] = dataclasses.field(default_factory=list, repr=False)
     _active: Optional[str] = dataclasses.field(default=None, repr=False)
     _fn: Optional[Callable] = dataclasses.field(default=None, repr=False)
     _sigma_dev: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict, repr=False)
+    _obs_attrs_cache: Optional[Dict[str, Any]] = dataclasses.field(default=None, repr=False)
 
     @property
     def activation(self) -> Optional[str]:
@@ -717,9 +781,10 @@ class Plan:
         return t
 
     def describe(self) -> Dict[str, Any]:
-        """JSON-able provenance record (serving telemetry)."""
+        """JSON-able provenance record (serving telemetry, the cost model's
+        terms)."""
         grp = self.spec.group
-        return {
+        d = {
             "backend": self.backend,
             "device": self.device,
             "structure": self.spec.structure,
@@ -737,10 +802,16 @@ class Plan:
             "fused_epilogue": self.capabilities.epilogue_fusion,
             "out_dtype": self.out_dtype,
             "flops": self.flops,
+            "vmem_bytes": self.vmem_bytes,
             "grouped": None if grp is None else {
                 "num_groups": grp.num_groups,
                 "rows_per_group": grp.rows_per_group,
                 "per_group_flops": 2 * grp.rows_per_group * self.spec.k * self.spec.n,
+                # routing traffic: every token row is scattered in (K) and
+                # its result gathered back out (N)
+                "dispatch_bytes": grp.rows * (
+                    self.spec.k * _NAME_DTYPES[self.spec.dtype_a].itemsize
+                    + self.spec.n * _NAME_DTYPES[self.out_dtype].itemsize),
             },
             "health": {
                 "active_backend": self.active_backend,
@@ -750,6 +821,9 @@ class Plan:
                 "events": [e.as_dict() for e in self.health],
             },
         }
+        if self.decision is not None:
+            d["decision"] = self.decision
+        return d
 
     def _check_operands(self, a, b, bias, residual):
         spec = self.spec
@@ -792,12 +866,20 @@ class Plan:
 
         Validation and the enqueue happen now; the card computes in the
         background and `AsyncResult.block()` (or `execute_async` over a batch
-        of independent plans) is the single sync point.  A plan with a
-        `guard_nonfinite` policy reads a count back to inspect its output,
-        so its dispatch is effectively synchronous (the guard wins).
+        of independent plans) is the single sync point.  The enqueue runs
+        under its own `plan.dispatch` span, not `plan.execute`, whose warm
+        spans feed calibration.  A plan with a `guard_nonfinite` policy
+        reads a count back to inspect its output, so its dispatch is
+        effectively synchronous (the guard wins).
         """
         self._check_operands(a, b, bias, residual)
-        return AsyncResult(self, self._execute((a, b, bias, residual)))
+        return AsyncResult(self, self._dispatch((a, b, bias, residual)))
+
+    def _dispatch(self, args: tuple) -> torch.Tensor:
+        if _obs._STATE.enabled:
+            with _obs.span("plan.dispatch", **self._obs_attrs()):
+                return self._execute_impl(args)
+        return self._execute_impl(args)
 
     # -- resilience ----------------------------------------------------------
 
@@ -835,7 +917,52 @@ class Plan:
             f" fallback chain is exhausted for this spec"
         ) from err
 
+    def _obs_attrs(self) -> Dict[str, Any]:
+        """Span attributes of plan.execute / plan.dispatch, computed once per
+        plan: backend and blocks provenance plus the cost-model `terms` the
+        obs bridge turns into calibration records."""
+        at = self._obs_attrs_cache
+        if at is None:
+            spec = self.spec
+            at = {
+                "backend": self.active_backend,
+                "structure": spec.structure,
+                "mkn": f"{spec.eff_m}x{spec.k}x{spec.n}",
+                "key": f"{spec.eff_m}x{spec.k}x{spec.n}|{self.backend}",
+                "blocks": list(self.blocks) if self.blocks else None,
+                "schedule": None,
+            }
+            try:
+                from repro_torch.costmodel.model import terms_from_describe
+
+                at["terms"] = terms_from_describe(self.describe())
+            except Exception:
+                pass  # spans still carry provenance without cost terms
+            self._obs_attrs_cache = at
+        return at
+
     def _execute(self, args: tuple) -> torch.Tensor:
+        # Disabled tracing costs ONE attribute check here.
+        if _obs._STATE.enabled:
+            return self._execute_traced(args)
+        return self._execute_impl(args)
+
+    def _execute_traced(self, args: tuple) -> torch.Tensor:
+        """The execution under a `plan.execute` span; on the card the span
+        also carries CUDA events recorded around the execution, which the
+        obs bridge reads at drain (recording them does not wait)."""
+        with _obs.span("plan.execute", **self._obs_attrs()) as sp:
+            if self.device != "cuda" or not isinstance(sp, _obs.Span):
+                return self._execute_impl(args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._execute_impl(args)
+            end.record()
+            sp.events = (start, end)
+            return out
+
+    def _execute_impl(self, args: tuple) -> torch.Tensor:
         try:
             _faults.check("plan.execute", backend=self.active_backend)
             out = self._fn(*args)
@@ -1179,7 +1306,7 @@ class GroupedPlan(Plan):
 
     def dispatch(self, tokens, group_offsets, weights, bias=None, residual=None) -> AsyncResult:
         self._check_grouped_operands(tokens, group_offsets, weights, bias, residual)
-        return AsyncResult(self, self._execute((tokens, group_offsets, weights, bias, residual)))
+        return AsyncResult(self, self._dispatch((tokens, group_offsets, weights, bias, residual)))
 
 
 def _grouped_sizes(group_offsets: torch.Tensor) -> torch.Tensor:
@@ -1320,7 +1447,8 @@ register_backend(
 register_backend(
     "cuda_mesh",
     _dense_impl("cuda_mesh"),
-    BackendCapabilities(structures=_ALL, batching=True, epilogue_fusion=True, grouped=True),
+    BackendCapabilities(structures=_ALL, batching=True, epilogue_fusion=True, autotune=True,
+                        grouped=True),
     grouped_impl=_cuda_mesh_grouped_impl,
 )
 register_backend(
@@ -1352,8 +1480,9 @@ def plan(
     fallback): capability checks, block shapes, and the sigma table are
     fixed here, and repeated calls return the identical Plan.  An explicit
     `backend` is validated strictly (CapabilityError on mismatch); otherwise
-    a capable pinned default, then the first capable backend, is chosen.
-    Spec-level problems raise PlanValidationError.
+    a capable pinned default wins, else the capable set ranked by the cost
+    model (decision provenance in `describe()["decision"]`).  Spec-level
+    problems raise PlanValidationError.
 
     With `fallback=True` a failed plan BUILD falls down the
     capability-ordered chain (`FALLBACK_ORDER`) to the next backend able to
@@ -1371,13 +1500,14 @@ def plan(
     dev = torch.device(device).type
     if guard_nonfinite is not None:
         guard_nonfinite = normalize_policy(guard_nonfinite)
+    decision = None
     if backend is not None:
         be = _require_backend(backend)
         reason = _check_capabilities(spec, be, dev)
         if reason is not None:
             raise CapabilityError(reason)
     else:
-        be = _choose_backend(spec, dev)
+        be, decision = _choose_backend(spec, dev)
 
     key = (spec, be.name, dev, guard_nonfinite, guard_sample, bool(fallback))
     cached = _PLAN_CACHE.get(key)
@@ -1390,26 +1520,37 @@ def plan(
     build_events = []
     p = None
     built_at = 0
-    for i, cand in enumerate(chain):
-        try:
-            _faults.check("plan.build", backend=cand.name)
-            p = _build_plan(spec, cand, dev)
-            built_at = i
-            break
-        except (PlanValidationError, CapabilityError):
-            raise
-        except Exception as e:
-            if i + 1 >= len(chain):
+    with _obs.span(
+        "plan.build",
+        backend=be.name,
+        structure=spec.structure,
+        mkn=f"{spec.eff_m}x{spec.k}x{spec.n}",
+        sharded=False,
+    ) as bsp:
+        for i, cand in enumerate(chain):
+            try:
+                _faults.check("plan.build", backend=cand.name)
+                p = _build_plan(spec, cand, dev)
+                built_at = i
+                break
+            except (PlanValidationError, CapabilityError):
                 raise
-            build_events.append(
-                _rledger.record(
-                    "plan.build",
-                    cause=f"{type(e).__name__}: {e}",
-                    fallback=chain[i + 1].name,
-                    backend=cand.name,
+            except Exception as e:
+                if i + 1 >= len(chain):
+                    raise
+                build_events.append(
+                    _rledger.record(
+                        "plan.build",
+                        cause=f"{type(e).__name__}: {e}",
+                        fallback=chain[i + 1].name,
+                        backend=cand.name,
+                    )
                 )
-            )
+        bsp.set("built_backend", chain[built_at].name)
+        bsp.set("blocks", list(p.blocks) if p.blocks else None)
     p.health.extend(build_events)
+    if decision is not None:
+        p.decision = {"backend": decision}
     # Backends still available below the one that built: the execution-time
     # degradation ladder (Plan._degrade).
     p._chain = [c.name for c in chain[built_at + 1:]]
@@ -1417,6 +1558,50 @@ def plan(
     p.guard_sample = guard_sample
     _PLAN_CACHE[key] = p
     return p
+
+
+def _resolve_blocks_via_costmodel(
+    m: int, k: int, n: int, dtype, backend: str, *, symmetry: int = 0,
+    platform: str = "cpu",
+) -> Tuple[int, int, int]:
+    """Block resolution through the cost model's chooser: IDENTICAL to
+    `autotune.resolve_blocks` (same cache, same ranking) until coefficients
+    are CALIBRATED, when the candidate ranking switches to
+    `costmodel.model.predict_blocks_ms`.  Any chooser failure degrades to
+    the autotuner directly."""
+    try:
+        from repro_torch.costmodel import choose as _cm_choose
+
+        blocks, _ = _cm_choose.choose_blocks(
+            m, k, n, dtype, backend, symmetry=symmetry, platform=platform
+        )
+        return blocks
+    except Exception:
+        return _autotune.resolve_blocks(m, k, n, dtype, backend, symmetry=symmetry,
+                                        platform=platform)
+
+
+def _resolved_blocks(spec: GemmSpec, m: int, backend: str, device: str) -> Tuple[int, int, int]:
+    """`spec.blocks` with its None entries resolved for an m-row product."""
+    partial = spec.blocks or (None, None, None)
+    if None not in partial:
+        return partial
+    symmetry = 1 if spec.structure == "symmetric" else 0
+    resolved = _resolve_blocks_via_costmodel(
+        m, spec.k, spec.n, spec.acc_dtype, backend, symmetry=symmetry, platform=device
+    )
+    return tuple(p or r for p, r in zip(partial, resolved))
+
+
+def _plan_vmem_bytes(spec: GemmSpec, m: int, blocks, device: str, *,
+                     grouped: bool = False) -> int:
+    """The working set of `blocks` in the reference's model on the CPU; on
+    the card the shared memory of the tile that runs the product."""
+    if device == "cuda":
+        return _autotune.tile_smem_bytes(m, spec.k, spec.n, blocks, spec.acc_dtype,
+                                         grouped=grouped)
+    return _autotune.vmem_bytes(*blocks, spec.acc_dtype, has_bias=spec.epilogue.bias,
+                                has_residual=spec.epilogue.residual)
 
 
 def _grouped_block_m(rpg: int, bm: int) -> int:
@@ -1429,13 +1614,14 @@ def _grouped_block_m(rpg: int, bm: int) -> int:
 
 
 def _build_grouped_plan(spec: GemmSpec, be: _Backend, device: str) -> GroupedPlan:
-    """Grouped planning: the blocks of the logical group shape (m = the
-    rows-per-group bound), with block_m clamped to divide it."""
-    blocks = None
-    if be.name == "cuda_mesh":
-        partial = spec.blocks or (None, None, None)
-        bm, bn, bk = tuple(p or d for p, d in zip(partial, DEFAULT_BLOCKS))
-        blocks = (_grouped_block_m(spec.group.rows_per_group, bm), bn, bk)
+    """Grouped planning: resolve the blocks ONCE per logical group shape
+    (m = the rows-per-group bound), then clamp block_m to divide it."""
+    rpg = spec.group.rows_per_group
+    blocks = vmem = None
+    if be.caps.autotune:
+        bm, bn, bk = _resolved_blocks(spec, rpg, be.name, device)
+        blocks = (_grouped_block_m(rpg, bm), bn, bk)
+        vmem = _plan_vmem_bytes(spec, rpg, blocks, device, grouped=True)
     p = GroupedPlan(
         spec=spec,
         backend=be.name,
@@ -1444,6 +1630,7 @@ def _build_grouped_plan(spec: GemmSpec, be: _Backend, device: str) -> GroupedPla
         blocks=blocks,
         out_dtype=spec.resolved_out_dtype(),
         flops=spec.flops(),
+        vmem_bytes=vmem,
     )
     impl = be.grouped_impl
     p._fn = lambda t, off, w, bias, residual: impl(p, t, off, w, bias, residual)
@@ -1453,10 +1640,12 @@ def _build_grouped_plan(spec: GemmSpec, be: _Backend, device: str) -> GroupedPla
 def _build_plan(spec: GemmSpec, be: _Backend, device: str) -> Plan:
     if spec.group is not None:
         return _build_grouped_plan(spec, be, device)
-    blocks = None
-    if be.name == "cuda_mesh" or spec.structure == "scrambled":
-        partial = spec.blocks or (None, None, None)
-        blocks = tuple(p or d for p, d in zip(partial, DEFAULT_BLOCKS))
+    blocks = vmem = None
+    if be.caps.autotune or spec.structure == "scrambled":
+        # The scrambled σ-table constraint keys its own cache partition.
+        tune_backend = "cuda_mesh_scrambled" if spec.structure == "scrambled" else be.name
+        blocks = _resolved_blocks(spec, spec.eff_m, tune_backend, device)
+        vmem = _plan_vmem_bytes(spec, spec.eff_m, blocks, device)
     if spec.structure == "symmetric" and spec.m != spec.n:
         raise PlanValidationError(
             f"structure='symmetric' requires a square product, got {spec.m}x{spec.n}"
@@ -1483,6 +1672,7 @@ def _build_plan(spec: GemmSpec, be: _Backend, device: str) -> Plan:
         blocks=blocks,
         out_dtype=spec.resolved_out_dtype(),
         flops=spec.flops(),
+        vmem_bytes=vmem,
         sigma_table=sigma,
     )
     impl = be.impl

@@ -39,12 +39,19 @@ from repro_torch.kernels.mesh_matmul import (
     _pad_to,
 )
 
-__all__ = ["TILE_CONFIGS", "grouped_mesh_matmul", "grouped_mesh_matmul_torch", "tile_config"]
+__all__ = ["TILE_CONFIGS", "TILE_SMEM_BYTES", "grouped_mesh_matmul", "grouped_mesh_matmul_torch",
+           "tile_config"]
 
 # The kernel's decode tiles serve logical blocks up to this many rows.
 _DECODE_ROWS = 16
 # Tile configurations of csrc/grouped_matmul.cu (enum Config), by code.
 TILE_CONFIGS = ("simt64", "simt_decode", "tc_rows32", "tc_decode")
+# Shared memory one CTA of each tile takes, in bytes (csrc/grouped_matmul.cu):
+# the SIMT tiles' static f32 tiles As[TK][TM + 1] and Bs[TK][TN]; tc_rows32 4
+# stages of a 32x40 A and a 32x136 B bf16 tile; tc_decode 8 warps' rings of
+# 4 stages of a 16x40 A and a 32x40 B bf16 tile.
+TILE_SMEM_BYTES = {"simt64": 8256, "simt_decode": 20992, "tc_rows32": 45056,
+                   "tc_decode": 122880}
 
 
 def tile_config(n: int, k: int, block_m: int, block_n: int, block_k: int,

@@ -26,17 +26,26 @@ Robustness contract:
                 `serve.step` (fires -> the tick is skipped, not the
                 server), `kv.page_alloc` (fires -> the allocation is
                 deferred/stalled one tick and retried)
-  warmup        server start builds a guarded canary GEMM plan on the
-                model's backend (building the CUDA kernels before any
-                request), runs it through `dispatch` and directly, and runs
-                the prefill and decode steps once
+  warmup        server start reads the cost model's coefficients once
+                (so no plan built in a tick reads the calibration file),
+                builds a guarded canary GEMM plan on the model's backend
+                (building the CUDA kernels before any request), runs it
+                through `dispatch` and directly, and runs the prefill and
+                decode steps once
   drain         `drain()` / context-manager exit runs the loop until every
-                admitted request has retired (graceful shutdown)
+                admitted request has retired (graceful shutdown), then
+                folds the obs bridge's buffered calibration records into
+                the cost-model cache: the loop's one I/O point, and the one
+                place where the device time of traced GEMMs is read
+
+Observability (`repro_torch.obs`): the reference's counters and histograms
+(requests by status, admissions, ticks by outcome, decode tokens, TTFT,
+TPOT) and spans (`serve.tick`, nesting `serve.prefill` and
+`serve.decode`).  With tracing off a span costs one attribute check.
 
 Families: dense and moe serve through the paged path (the families ported).
 The decode step runs at a fixed (max_slots,) shape; each tick writes its
 new K/V rows into the pools in place (see `attention_paged_decode`).
-The reference's obs spans and serving metrics arrive with the obs slice.
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _obs
 from repro_torch.resilience import faults, ledger
 
 __all__ = [
@@ -207,6 +218,25 @@ class ContinuousBatchingServer:
             # times these counts are the launches a run must show
             "prefills": 0, "decode_steps": 0,
         }
+        # Obs instruments: the typed, label-aware mirror of `self.counters`
+        # — process-global (labels aggregate across server instances) where
+        # the dict above stays per-instance.
+        self._m_requests = _metrics.counter(
+            "serve_requests_total", "request outcomes by status",
+            labels=("status",),
+        )
+        self._m_admitted = _metrics.counter(
+            "serve_admitted_total", "requests admitted into decode slots")
+        self._m_ticks = _metrics.counter(
+            "serve_ticks_total", "scheduler ticks by outcome",
+            labels=("outcome",),
+        )
+        self._m_tokens = _metrics.counter(
+            "serve_decode_tokens_total", "tokens produced by decode ticks")
+        self._m_ttft = _metrics.histogram(
+            "serve_ttft_seconds", "submission -> first token latency")
+        self._m_tpot = _metrics.histogram(
+            "serve_tpot_seconds", "per-tick decode wall time (time per token)")
         self.alloc = PageAllocator(cfg.num_pages)
         self.pools = {
             name: torch.zeros(shape, dtype=dtype, device=self.device)
@@ -285,6 +315,7 @@ class ContinuousBatchingServer:
         key = {"ok": "served", "shed": "shed", "timeout": "timeout",
                "preempted": "preempted"}[status]
         self.counters[key] += 1
+        self._m_requests.inc(status=key)
 
     def _shed(self, req: Request, reason: str, *, submitted_tick: int,
               submitted_at: float) -> None:
@@ -326,21 +357,28 @@ class ContinuousBatchingServer:
         """One scheduler tick: expire, admit, grow, decode, retire."""
         self._tick += 1
         self.counters["ticks"] += 1
-        try:
-            faults.check("serve.step", tick=self._tick)
-        except Exception as e:  # injected (any FaultSpec.error): skip the tick
-            ledger.record(
-                "serve.step",
-                cause=f"{type(e).__name__}: {e}",
-                fallback="skip_tick",
-                tick=self._tick,
-            )
-            self.counters["skipped_ticks"] += 1
-            return
-        self._expire_deadlines()
-        self._admit()
-        self._ensure_pages()
-        self._decode_tick()
+        # The per-tick span nests everything the tick does (admission
+        # prefills, the decode step) and costs one attribute check when
+        # tracing is off; exports flush at drain/exit, never here.
+        with _obs.span("serve.tick", tick=self._tick,
+                       active=len(self._active), queued=len(self._queue)):
+            try:
+                faults.check("serve.step", tick=self._tick)
+            except Exception as e:  # injected (any FaultSpec.error): skip the tick
+                ledger.record(
+                    "serve.step",
+                    cause=f"{type(e).__name__}: {e}",
+                    fallback="skip_tick",
+                    tick=self._tick,
+                )
+                self.counters["skipped_ticks"] += 1
+                self._m_ticks.inc(outcome="skipped")
+                return
+            self._m_ticks.inc(outcome="ok")
+            self._expire_deadlines()
+            self._admit()
+            self._ensure_pages()
+            self._decode_tick()
 
     def _expire_deadlines(self) -> None:
         for seq in list(self._active):
@@ -395,14 +433,20 @@ class ContinuousBatchingServer:
 
             self._queue.pop(0)
             slot = self._free_slots.pop()
-            first_tok, caches = self._run_prefill(req)
+            with _obs.span("serve.prefill", rid=req.rid, tokens=prefill_len):
+                first_tok, caches = self._run_prefill(req)
+            self._m_admitted.inc()
             self._scatter(caches, pages)
+            # TTFT: submission -> first token on the host (prefill emits it
+            # greedily; reading it waits for the prefill).
+            first = int(first_tok[0])
+            self._m_ttft.observe(time.monotonic() - submitted_at)
             seq = _Seq(
                 req=req,
                 slot=slot,
                 pages=pages,
                 pos=prefill_len,
-                tokens=[int(first_tok[0])],
+                tokens=[first],
                 deadline_tick=submitted_tick + self._deadline_ticks(req),
                 admit_tick=self._tick,
                 submitted_tick=submitted_tick,
@@ -477,11 +521,18 @@ class ContinuousBatchingServer:
             tokens[seq.slot, 0] = seq.tokens[-1]
             positions[seq.slot] = seq.pos
             tables[seq.slot, : len(seq.pages)] = seq.pages
-        nxt = self._decode(tokens, tables, positions).cpu().numpy()  # host sync
+        # The decode span covers the step AND the host read of its tokens,
+        # so its duration is the per-tick decode wall time the tpot
+        # histogram records.
+        t0 = time.monotonic()
+        with _obs.span("serve.decode", slots=len(ready), tick=self._tick):
+            nxt = self._decode(tokens, tables, positions).cpu().numpy()  # host sync
+        self._m_tpot.observe(time.monotonic() - t0)
         for seq in ready:
             seq.tokens.append(int(nxt[seq.slot]))
             seq.pos += 1
             self.counters["decode_tokens"] += 1
+            self._m_tokens.inc()
             if len(seq.tokens) >= seq.req.max_new_tokens:
                 self._evict(seq, "ok", "")
 
@@ -499,8 +550,18 @@ class ContinuousBatchingServer:
         and one decode step whose all-zero tables touch only the scratch
         page.  The canary's guard (`zero_and_record`) takes an armed
         `kernel.output` fault, scrubbing the poison and recording a
-        `guard.nonfinite` event, before any request runs."""
+        `guard.nonfinite` event, before any request runs.  First it reads
+        the cost model's coefficients for the server's device (one
+        calibration-file read, memoized), so no plan built inside a tick
+        touches the filesystem."""
         from repro_torch.kernels import api
+
+        try:
+            from repro_torch.costmodel import current_coefficients
+
+            current_coefficients(self.device.type)
+        except Exception:
+            pass  # the planner degrades to the shipped coefficients on its own
 
         backend = "cuda_mesh" if self.model.cfg.use_mesh_kernel else "torch"
         a = torch.ones((8, 8), dtype=torch.float32, device=self.device)
@@ -533,6 +594,14 @@ class ContinuousBatchingServer:
             ticks += 1
             if ticks > max_ticks:
                 raise RuntimeError(f"drain exceeded {max_ticks} ticks")
+        # Drain is the scheduler's I/O point: ticks never touch the
+        # filesystem or wait for traced GEMMs' events, so buffered
+        # span->calibration records are folded into the cost-model cache
+        # here, after the loop empties.
+        from repro_torch.obs import bridge as _bridge
+
+        if _bridge.installed():
+            _bridge.flush_calibration()
 
     def run(self, requests: Sequence[Request]) -> Dict[str, RequestResult]:
         """Submit `requests` at their arrival ticks, drive to completion."""

@@ -16,6 +16,17 @@ prompt batches through `serve_requests`, which isolates each request: one
 that raises is reported, recorded in the resilience ledger and skipped.
 `--scheduler` serves each request as one single-prompt request of the
 continuous-batching scheduler (`launch/scheduler.py`) instead.
+
+`--obs-export PATH` turns tracing on before any model work, installs the
+obs bridge (ledger events -> `repro_degradations_total`, `plan.execute`
+spans -> cost-model calibration records, on the card with the device time
+of CUDA events around each GEMM), and at exit writes a Chrome-trace
+timeline to PATH, Prometheus metrics to PATH.prom and the raw spans to
+PATH.jsonl.  `--plan-stats` prints, beside each plan, its predicted
+milliseconds under the current coefficients, the calibration file's
+measured milliseconds for the same shape and backend, the traced
+executions' p50/p99 (device time on the card, host time on the CPU) and
+the cost model's backend decision.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.kernels import api as kernel_api
 from repro_torch.models import get_model
+from repro_torch.obs import trace as _obs
 from repro_torch.resilience import faults as _faults
 from repro_torch.resilience import ledger as _rledger
 from repro_torch.train.train_step import make_prefill_step, make_serve_step
@@ -52,12 +64,31 @@ def serving_steps(model):
 def report_plan_cache(prefix: str = "[serve]") -> dict:
     """Print + return the GEMM plan-cache telemetry for this process: each
     (spec, backend, device type) is planned at most once, and hits count
-    executions that reused an existing plan."""
+    executions that reused an existing plan.
+
+    Cost-model provenance rides along: every entry prints its predicted
+    milliseconds under the current coefficients of its device — plus the
+    measured milliseconds when the calibration file holds a record for the
+    same shape/backend, and the p50/p99 of its traced executions — and
+    entries whose backend the cost model chose print the decision (chosen
+    candidate, how many were ranked, calibration source).
+    """
+    from repro_torch.costmodel import current_coefficients, predict, terms_from_describe
+    from repro_torch.costmodel.calibrate import default_cache
+
     info = kernel_api.plan_cache_info()
     print(
         f"{prefix} GEMM plan cache: {info['size']} plans, "
         f"{info['hits']} hits, {info['misses']} misses"
     )
+    # Traced execute latencies keyed as the calibration cache keys them
+    # ("MxKxN|backend"): device time where the span carries CUDA events.
+    obs_ms: dict = {}
+    for sp in _obs.spans("plan.execute"):
+        k = sp.attrs.get("key")
+        if k:
+            dev = sp.device_ms()
+            obs_ms.setdefault(k, []).append(sp.duration_s * 1e3 if dev is None else dev)
     for p in info["plans"]:
         blocks = "x".join(map(str, p["blocks"])) if p["blocks"] else "-"
         epi = p["epilogue"]
@@ -68,10 +99,28 @@ def report_plan_cache(prefix: str = "[serve]") -> dict:
         ) or "-"
         grp = p["grouped"]
         grp_s = f" grouped {grp['num_groups']}x{grp['rows_per_group']} rows" if grp else ""
+        coeffs = current_coefficients(p["device"])
+        try:
+            measured_ms = {rec.get("key"): rec["ms"]
+                           for rec in default_cache().records(coeffs.platform)}
+        except Exception:  # a broken calibration file must not break the report
+            measured_ms = {}
+        key = f"{p['mkn']}|{p['backend']}"
+        cost_s = f"pred={predict(terms_from_describe(p), coeffs)['total_s'] * 1e3:.3f}ms"
+        if key in measured_ms:
+            cost_s += f" meas={measured_ms[key]:.3f}ms"
+        durs = sorted(obs_ms.get(key, ()))
+        if durs:
+            p50 = durs[len(durs) // 2]
+            p99 = durs[min(len(durs) - 1, int(len(durs) * 0.99))]
+            cost_s += f" obs[n={len(durs)}]=p50:{p50:.3f}/p99:{p99:.3f}ms"
+        d = (p.get("decision") or {}).get("backend")
+        dec_s = (f"backend:{d['chosen']}/{len(d['candidates'])}cand"
+                 f" [{d['calibration']['source']}]" if d else "-")
         print(
             f"{prefix}   {p['backend']:9s} {p['device']:4s} {p['structure']:9s} "
             f"{p['mkn']:>18s} batch={p['batch'] or '-'} blocks={blocks} "
-            f"epi={epi_s:12s} flops={p['flops']:.2e}{grp_s}"
+            f"epi={epi_s:12s} flops={p['flops']:.2e}{grp_s} {cost_s} decision={dec_s}"
         )
     return info
 
@@ -112,8 +161,10 @@ def serve_requests(model, params, request_prompts, *, gen_len: int, prefix: str 
     results = []
     for i, prompts in enumerate(request_prompts):
         try:
-            _faults.check("serve.request", request=i)
-            results.append(generate(model, params, prompts, gen_len=gen_len))
+            with _obs.span("serve.request", request=i, batch=int(prompts.shape[0]),
+                           gen=gen_len):
+                _faults.check("serve.request", request=i)
+                results.append(generate(model, params, prompts, gen_len=gen_len))
         except Exception as e:  # a request boundary: report, record, go on
             _rledger.record(
                 "serve.request", cause=f"{type(e).__name__}: {e}", fallback="skip", request=i
@@ -158,7 +209,25 @@ def main(argv=None) -> None:
         action="store_true",
         help="print the GEMM plan cache after serving (one plan per spec)",
     )
+    ap.add_argument(
+        "--obs-export",
+        default=None,
+        metavar="PATH",
+        help="enable structured tracing for the run and write a Chrome-trace "
+        "timeline to PATH at exit (plus PATH.prom Prometheus metrics and "
+        "PATH.jsonl raw spans); also bridges ledger events into metrics and "
+        "feeds plan.execute spans to the cost-model calibration cache",
+    )
     args = ap.parse_args(argv)
+
+    if args.obs_export:
+        # Tracing + both bridge feeds go live BEFORE any model work so the
+        # timeline covers warmup, planning, and every request.  Exports are
+        # written once, at the end of main — the serving path stays I/O-free.
+        from repro_torch.obs import bridge as _bridge
+
+        _obs.enable()
+        _bridge.install()
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -226,8 +295,37 @@ def main(argv=None) -> None:
             )
     if args.plan_stats:
         report_plan_cache()
+        if _obs.is_enabled():
+            st = _obs.stats()
+            print(
+                f"[serve] obs: {st['finished']} spans "
+                f"({st['retained']} retained, {st['dropped']} dropped, "
+                f"{st['suppressed_in_trace']} suppressed-in-trace)"
+            )
     if _rledger.count():
         print(_rledger.format_summary("[serve]"))
+
+    if args.obs_export:
+        from repro_torch.obs import bridge as _bridge
+        from repro_torch.obs import export as _export
+
+        ingested = _bridge.flush_calibration()
+        _export.write_chrome_trace(
+            args.obs_export,
+            metadata={
+                "arch": args.arch,
+                "requests": max(args.requests, 1),
+                "scheduler": bool(args.scheduler),
+                "device": str(device),
+                "calibration": _bridge.calibration_stamp(),
+            },
+        )
+        _export.write_prometheus(args.obs_export + ".prom")
+        _export.write_spans_jsonl(args.obs_export + ".jsonl")
+        print(
+            f"[serve] obs export: {args.obs_export} (+.prom, +.jsonl), "
+            f"{ingested} calibration records ingested"
+        )
 
 
 if __name__ == "__main__":

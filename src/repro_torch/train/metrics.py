@@ -1,50 +1,32 @@
-"""Minimal structured metrics logging: stdout plus an optional JSONL file
-(port of `repro.train.metrics`, with its own small sink in place of
-`repro.obs.export.JsonlSink`)."""
+"""Minimal structured metrics logging (stdout + optional JSONL file).
+
+Port of `repro.train.metrics`.  The optional file lane writes through
+`repro_torch.obs.export.JsonlSink`, which owns the handle: `close()` (or
+using the logger as a context manager) releases it deterministically.
+"""
 
 from __future__ import annotations
 
 import json
 import sys
 import time
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Optional
+
+from repro_torch.obs.export import JsonlSink
 
 __all__ = ["JsonlSink", "MetricsLogger"]
 
 
-def _json_safe(v: Any) -> Any:
-    if isinstance(v, (str, int, float, bool)) or v is None:
-        return v
-    if isinstance(v, Mapping):
-        return {str(k): _json_safe(x) for k, x in v.items()}
-    if isinstance(v, (list, tuple)):
-        return [_json_safe(x) for x in v]
-    return repr(v)
-
-
-class JsonlSink:
-    """Append-only JSONL file with an owned, explicitly closed handle."""
-
-    def __init__(self, path: str):
-        self.path = path
-        self._fh = open(path, "a")
-
-    def write(self, record: Mapping[str, Any]) -> None:
-        if self._fh.closed:
-            raise ValueError(f"JsonlSink({self.path!r}) is closed")
-        self._fh.write(json.dumps(_json_safe(dict(record))) + "\n")
-        self._fh.flush()
-
-    def close(self) -> None:
-        if not self._fh.closed:
-            self._fh.close()
-
-
 class MetricsLogger:
     def __init__(self, path: Optional[str] = None, stream=None):
+        self.path = path
         self.stream = stream or sys.stdout
         self._sink = JsonlSink(path) if path else None
         self.history: list = []
+
+    @property
+    def closed(self) -> bool:
+        return self._sink.closed if self._sink else False
 
     def log(self, step: int, metrics: Dict[str, Any]) -> None:
         rec = {"step": step, "t": time.time(), **metrics}
@@ -68,3 +50,9 @@ class MetricsLogger:
     def close(self) -> None:
         if self._sink:
             self._sink.close()
+
+    def __enter__(self) -> "MetricsLogger":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()

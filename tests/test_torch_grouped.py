@@ -388,16 +388,20 @@ def _olmoe_grouped_shapes():
     return out
 
 
-def _plan_blocks(rpg):
-    bm, bn, bk = api.DEFAULT_BLOCKS
-    return api._grouped_block_m(rpg, bm), bn, bk
+def _plan_blocks(rpg, k, n):
+    """The blocks the planner gives K5 at (rpg, K, N) on the CPU (the
+    reference's; on the card the autotuner picks among candidates that take
+    a tensor-core tile)."""
+    spec = api.GemmSpec.for_groups(api.GroupSpec(64, rpg), k, n, dtype_a="bfloat16",
+                                   dtype_b="bfloat16")
+    return api.plan(spec, backend="cuda_mesh", device="cpu").blocks
 
 
 def test_olmoe_serving_shapes_take_tensor_core_tiles():
     shapes = _olmoe_grouped_shapes()
     assert [s[0] for s in shapes] == [8, 8, 128, 128]  # decode 8/8, prefill 128/128
     for rpg, k, n in shapes:
-        bm, bn, bk = _plan_blocks(rpg)
+        bm, bn, bk = _plan_blocks(rpg, k, n)
         want = "tc_decode" if rpg == 8 else "tc_rows32"
         assert bm == rpg, (rpg, bm)
         assert tg.tile_config(n, k, bm, bn, bk, torch.bfloat16) == want, (rpg, k, n)
@@ -418,7 +422,7 @@ def test_gmm_backward_f32_products_take_the_simt_tiles(activation):
 
     for rpg, k, n in _olmoe_grouped_shapes():
         g = 64
-        bm, bn, bk = _plan_blocks(rpg)
+        bm, bn, bk = _plan_blocks(rpg, k, n)
         meta = dict(dtype=torch.bfloat16, device="meta")
         tokens, w = torch.empty(g * rpg, k, **meta), torch.empty(g, k, n, **meta)
         sizes = torch.empty(g, dtype=torch.int32, device="meta")

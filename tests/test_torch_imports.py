@@ -47,7 +47,10 @@ print("WALKED", " ".join(names))
     for name in ("optim.adamw", "optim.schedules", "data.pipeline", "train.train_step",
                  "train.loop", "train.metrics", "checkpoint.manager", "launch.train",
                  "kernels.scramble", "kernels.ops", "kernels.grouped", "models.moe",
-                 "configs.olmoe_1b_7b", "kernels.flash_attention", "configs.qwen2_7b"):
+                 "configs.olmoe_1b_7b", "kernels.flash_attention", "configs.qwen2_7b",
+                 "obs.trace", "obs.metrics", "obs.export", "obs.bridge", "costmodel.model",
+                 "costmodel.calibrate", "costmodel.choose", "kernels.autotune",
+                 "launch.roofline", "launch.hillclimb"):
         assert "repro_torch." + name in walked, name
 
 
@@ -56,7 +59,7 @@ def test_entry_points_refuse_cpu_without_device():
 import torch
 torch.cuda.is_available = lambda: False  # a machine with no CUDA card
 from repro_torch.configs import get_config
-from repro_torch.launch import serve, train
+from repro_torch.launch import hillclimb, serve, train
 from repro_torch.launch.scheduler import ContinuousBatchingServer, ServeConfig
 from repro_torch.models import get_model
 model = get_model(get_config("mesh-paper").reduced())
@@ -71,6 +74,7 @@ calls = {
     "server": lambda: ContinuousBatchingServer(model, None, ServeConfig()),
     "main": lambda: serve.main(["--arch", "mesh-paper", "--reduced"]),
     "train": lambda: train.main(["--arch", "mesh-paper", "--reduced", "--steps", "1"]),
+    "hillclimb": lambda: hillclimb.main(["--gemm"]),
 }
 for name, call in calls.items():
     try:
@@ -86,9 +90,9 @@ train.main(["--arch", "mesh-paper", "--reduced", "--device", "cpu", "--steps", "
     res = _run(code)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.split("\n")
-    assert lines[:8] == ["refused init", "refused init moe", "refused init qwen",
+    assert lines[:9] == ["refused init", "refused init moe", "refused init qwen",
                          "refused server moe", "refused server qwen", "refused server",
-                         "refused main", "refused train"], res.stdout
+                         "refused main", "refused train", "refused hillclimb"], res.stdout
     assert "[done] mesh-paper steps=1" in res.stdout and "device=cpu" in res.stdout
 
 
