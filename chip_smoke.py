@@ -88,6 +88,32 @@ Phases; any failure raises and the script exits non-zero:
               `tuned()` at full width and 2 layers: a 2048-token prompt
               through K6, 8 decode steps through the server on K4 (GQA rep
               4, 4, 12), the padded and tied head, paged vs dense logits;
+  10a. serve_rwkv  full-width RWKV-6 1.6B (24 layers, d_model 2048, 32 heads
+              of 64, d_ff 7168, vocab 65536, bf16) through `tuned()` on the
+              kernel path and the server's stacked-state path with serve's
+              requests: K1 (193 a step: 8 a layer with the silu, relu and
+              sigmoid epilogues, and the head) against the server's
+              counters, 0 host syncs in a decode step, a 1-slot server's
+              tokens equal to `generate`'s, the chunked WKV's prefill
+              logits against the scan's in bf16 and with f32 weights;
+  10b. serve_pixtral  full-width Pixtral-12B (40 layers, d_model 5120, 32
+              heads over 8 of 128, d_ff 14336, vocab 131072, 256 stub
+              patches, bf16, `torch` backend) through the server's pages:
+              4 prompts of 1792-3840 tokens (+ 256 patches: 2048-4096
+              positions) x 16 tokens, K6 40 a prefill and K4 40 a decode
+              step against the counters, K6 prefill logits against the
+              plain chunked path, paged vs dense decode;
+  10c. serve_zamba  full-width Zamba2-1.2B (38 Mamba2 layers, 6
+              applications of the shared block, a 2-layer tail) on the
+              kernel path through `generate`: 2 x 2048-token prompts x 16
+              tokens, K6 6 a prefill, K1 113 a step, prefill and decode
+              logits against `forward`, `ssd_chunked` against `ssd_scan`
+              at one layer's width in f32;
+  10d. serve_whisper  full-width Whisper-medium (24 + 24 layers, d_model
+              1024, 16 heads of 64, vocab padded to 51968) on the kernel
+              path: 2 x 2048 frames (K6 non-causal 24 a prefill), a
+              256-token decoder prompt and 16 decode steps, K1 386 a prefill
+              and 241 a decode step, logits against `forward`;
   11. paper    the paper's tables by simulation on the card (`core/`): 2n-1
               and 3n-2 steps for n up to 128 and at n = 1024, the outputs
               equal to a @ b bitwise, the symmetric readout within
@@ -370,9 +396,42 @@ def reset_k1(mesh_matmul):
     mesh_matmul.launches_by_config = {}
 
 
+# The blocks [K1] checked each (M, K, N) of K1_PATH_GEMMS on.
+K1_PATH_BLOCKS = {}
+
+
+@contextlib.contextmanager
+def k1_products(family):
+    """Records (M, K, N, activation, blocks) of every product the planner
+    runs on K1 inside the block, then checks each is a case [K1] holds
+    against its plain version: in K1_PATH_GEMMS[family] at one of its M,
+    and on the blocks [K1] ran it on (when [K1] ran in this process)."""
+    from repro_torch.kernels import api
+
+    run, seen = api._DENSE_FORWARD["cuda_mesh"], set()
+
+    def record(a, b, bias, residual, opts, sigma):
+        seen.add((a.numel() // a.shape[-1], a.shape[-1], b.shape[-1], opts.activation,
+                  (opts.block_m, opts.block_n, opts.block_k)))
+        return run(a, b, bias, residual, opts, sigma)
+
+    api._DENSE_FORWARD["cuda_mesh"] = record
+    try:
+        yield seen
+    finally:
+        api._DENSE_FORWARD["cuda_mesh"] = run
+    table = {(k, n, kw.get("activation")): ms for k, n, kw, ms in K1_PATH_GEMMS[family].values()}
+    stray = sorted((x for x in seen if x[0] not in table.get(x[1:4], ())
+                    or K1_PATH_BLOCKS.get(x[:3], x[4]) != x[4]), key=str)
+    log(f"[{family}] K1 products (M, K, N, activation, blocks) on the path:"
+        f" {sorted(seen, key=str)}")
+    check(not stray, f"{family}: K1 products that [K1] does not hold: {stray}")
+
+
 def phase_k1(torch):
-    """K1 (mesh_matmul) against mesh_matmul_torch on every tile family, then
-    timings."""
+    """K1 (mesh_matmul) against mesh_matmul_torch on every tile family and
+    every GEMM of the kernel-path phases, then timings."""
+    from repro_torch.kernels import api
     from repro_torch.kernels.mesh_matmul import (
         kernel_n,
         mesh_matmul,
@@ -429,6 +488,20 @@ def phase_k1(torch):
          dict(activation="sigmoid", bias=True, residual=True)),
         ("bf16 N=3 M=4", (SLOTS, 2048, 3), bf16, {}),
     ]
+    # Every GEMM of [serve_rwkv], [serve_zamba] and [serve_whisper], with its
+    # fused epilogue, at each M its phase runs it, on the blocks the planner
+    # resolves for that product (the autotuner's, memoized for the run, so
+    # the phases' plans take the same ones).
+    for family, table in K1_PATH_GEMMS.items():
+        for label, (k, n, kw, ms) in table.items():
+            for m in ms:
+                spec = api.GemmSpec.from_operands(
+                    torch.empty(m, k, dtype=bf16, device=dev),
+                    torch.empty(k, n, dtype=bf16, device=dev), out_dtype=bf16)
+                blocks = api.plan(spec, backend="cuda_mesh", device=dev).blocks
+                K1_PATH_BLOCKS[(m, k, n)] = blocks
+                cases.append((f"{family} {label} M={m}", (m, k, n), bf16,
+                              dict(kw, **dict(zip(("block_m", "block_n", "block_k"), blocks)))))
     # Qwen1.5-MoE's dense GEMMs on [serve_qwen2_moe]'s path, at its decode
     # and prefill M: the 151,936-column unembed and the shared experts'
     # fused wi and wo.
@@ -579,6 +652,8 @@ def phase_k4(torch):
         ("16k-token context f32", (2, *QWEN_HEADS), [16384 + 5, 700], f32, None),
         ("mistral-large rep=12 (8 + 4)", MISTRAL_DECODE, QWEN_LIVE, bf16, None),
         ("mistral-large rep=12 (8 + 4) f32", MISTRAL_DECODE, QWEN_LIVE, f32, None),
+        ("pixtral rep=4, 2-4k tokens", PIXTRAL_DECODE, PIXTRAL_LIVE, bf16, None),
+        ("pixtral rep=4, 2-4k tokens f32", PIXTRAL_DECODE, PIXTRAL_LIVE, f32, None),
     ]
     max_err, failed = 0.0, []
     for label, (s, h, kvh, hd), lengths, dtype, width in cases:
@@ -1145,11 +1220,11 @@ def disagreement(torch, out, ref):
                 abs=(d.max() / r.abs().max()).item())
 
 
-def _causal_flash_work(b, t, h, kvh, hd, size):
-    """(bytes, FLOPs) causal K6 needs: Q, K, V read and O written once; two
+def _flash_work(b, t, h, kvh, hd, size, causal=True):
+    """(bytes, FLOPs) K6 needs: Q, K, V read and O written once; two
     hd-long products per (query, key) pair the mask keeps, t (t + 1) / 2 a
-    head."""
-    pairs = t * (t + 1) // 2
+    head when causal, t^2 when not."""
+    pairs = t * (t + 1) // 2 if causal else t * t
     return size * (2 * b * t * h * hd + 2 * b * t * kvh * hd), 4 * b * h * hd * pairs
 
 
@@ -1158,8 +1233,9 @@ def phase_k6(torch):
     the serving and training paths give it, in bf16 (as they run: the
     tensor-core kernel) and f32 (the SIMT kernel, where the two agree to
     summation order), and causal with Tq != Tk (the reference's top-left
-    mask), then timings: the kernel (CUDA events and profiler device time),
-    the plain version, SDPA (causal, GQA; timed here only) and the bound.
+    mask), and non-causal at Whisper's encoder shape, then timings: the
+    kernel (CUDA events and profiler device time), the plain version, SDPA
+    (causal or full, GQA; timed here only) and the bound.
     Every case is checked before a failure is raised, so one run shows which
     cases a fault breaks."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_torch
@@ -1169,6 +1245,7 @@ def phase_k6(torch):
     bf16, f32 = torch.bfloat16, torch.float32
     blocks = (QWEN_CHUNK, QWEN_CHUNK)
     qwen, mesh = (1, 2048, h, kvh, hd), (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
+    whisper, zamba = (2, WHISPER_FRAMES, 16, 16, 64), (2, ZAMBA_PROMPT, 32, 32, 64)
     # label, (B, Tq, H, KV, hd), Tk (None: Tq), causal, dtype, (block_q, block_k)
     cases = [
         ("qwen2-7b prefill T=2048", qwen, None, True, bf16, blocks),
@@ -1185,6 +1262,16 @@ def phase_k6(torch):
         ("causal Tq>Tk rep=2", (2, 576, 8, 4, 128), 192, True, bf16, (64, 64)),
         ("causal Tq>Tk rep=2", (2, 576, 8, 4, 128), 192, True, f32, (64, 64)),
         ("causal Tq<Tk rep=2 hd=64", (1, 96, 8, 4, 64), 1024, True, bf16, (64, 64)),
+        # The other families' shapes: Whisper's encoder (full attention, no
+        # causal mask) and Zamba2's shared block (causal, rep 1, hd 64).
+        ("whisper encoder T=2048", whisper, None, False, bf16, blocks),
+        ("whisper encoder T=2048", whisper, None, False, f32, blocks),
+        ("zamba shared block T=2048", zamba, None, True, bf16, blocks),
+        # Pixtral-12B's prefill (prompt + patches 2048-4096, rep 4, hd 128).
+        ("pixtral prefill T=2048", (1, 2048, *PIXTRAL_HEADS), None, True, bf16, blocks),
+        ("pixtral prefill T=2048", (1, 2048, *PIXTRAL_HEADS), None, True, f32, blocks),
+        ("pixtral prefill T=4096", (1, 4096, *PIXTRAL_HEADS), None, True, bf16, blocks),
+        ("pixtral prefill T=4096", (1, 4096, *PIXTRAL_HEADS), None, True, f32, blocks),
     ]
     max_err, failed = 0.0, []
     for label, (b, t, hq, kv, d), tk, causal, dtype, (bq, bk) in cases:
@@ -1215,27 +1302,29 @@ def phase_k6(torch):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     per = {}
-    timed = (("qwen2 T=2048", qwen), ("qwen2 T=4096", (1, 4096, h, kvh, hd)),
-             ("mesh-paper train", mesh))
-    for label, (b, t, hq, kv, d) in timed:
+    timed = (("qwen2 T=2048", qwen, True), ("qwen2 T=4096", (1, 4096, h, kvh, hd), True),
+             ("mesh-paper train", mesh, True), ("whisper encoder", whisper, False),
+             ("zamba shared block", zamba, True))
+    for label, (b, t, hq, kv, d), causal in timed:
         q = torch.randn(b, t, hq, d, generator=g, device="cuda").to(bf16)
         k, v = (torch.randn(b, t, kv, d, generator=g, device="cuda").to(bf16) for _ in "kv")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         gqa = dict(enable_gqa=True) if hq != kv else {}
-        call = [lambda: flash_attention_cuda(q, k, v, causal=True)]
+        call = [lambda: flash_attention_cuda(q, k, v, causal=causal)]
         ms = time_ms(torch, call, 10)
         dev = device_ms(torch, call, 10)
         plain = time_ms(torch, [lambda: flash_attention_torch(
-            q, k, v, causal=True, block_q=QWEN_CHUNK, block_k=QWEN_CHUNK)], 3, warmup=1)
-        lib_call = [lambda: sdpa(qt, kt, vt, is_causal=True, **gqa)]
+            q, k, v, causal=causal, block_q=QWEN_CHUNK, block_k=QWEN_CHUNK)], 3, warmup=1)
+        lib_call = [lambda: sdpa(qt, kt, vt, is_causal=causal, **gqa)]
         lib = time_ms(torch, lib_call, 20)
         lib_dev = device_ms(torch, lib_call, 20)
-        nbytes, flops = _causal_flash_work(b, t, hq, kv, d, 2)
+        nbytes, flops = _flash_work(b, t, hq, kv, d, 2, causal)
         bms, by = bound_ms(nbytes, flops, "bfloat16")
+        mask = "causal" if causal else "full"
         per[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
                           device_ms=dev, library_device_ms=lib_dev,
-                          shape=f"B={b} T={t} H={hq} KV={kv} hd={d} bf16 causal")
-        log(f"[K6] time {label:16s} B={b} T={t} H={hq} KV={kv} hd={d} bf16 causal:"
+                          shape=f"B={b} T={t} H={hq} KV={kv} hd={d} bf16 {mask}")
+        log(f"[K6] time {label:18s} B={b} T={t} H={hq} KV={kv} hd={d} bf16 {mask}:"
             f" kernel={ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s) device={dev:.4f} ms"
             f" ({flops / dev / 1e9:.2f} TFLOP/s) plain={plain:.4f} ms sdpa={lib:.4f} ms"
             f" (device {lib_dev:.4f} ms) bound={bms:.4f} ms ({by})")
@@ -1449,23 +1538,31 @@ def profile_window(torch, model, params, scfg, prompts, tag: str = "profile",
     prefills then decode ticks) under torch.profiler, reporting device time
     by kernel and the device-busy share of the window's wall time.  The
     profiler's own host cost makes the busy share a lower bound."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch.scheduler import ContinuousBatchingServer, Request
 
     server = ContinuousBatchingServer(model, params, scfg, device="cuda")
     reqs = [Request(rid=f"prof{i}", prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
+    profile_call(torch, lambda: server.run(reqs), tag,
+                 lambda: f"{len(reqs)} requests x {new_tokens} tokens,"
+                         f" {server.counters['ticks']} ticks")
+
+
+def profile_call(torch, fn, tag: str, what) -> None:
+    """`fn()` under torch.profiler: device time by kernel and by class, and
+    the device-busy share of the window's wall time (a lower bound: the
+    profiler adds host cost).  `what()` names the window in the log."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        server.run(reqs)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     rows = kernel_rows(prof)
     busy_us = sum(r[0] for r in rows)
-    log(f"[{tag}] {len(reqs)} requests x {new_tokens} tokens, {server.counters['ticks']} "
-        f"ticks: wall={wall_us / 1e3:.1f} ms device busy={busy_us / 1e3:.1f} ms "
+    log(f"[{tag}] {what()}: wall={wall_us / 1e3:.1f} ms device busy={busy_us / 1e3:.1f} ms "
         f"({100 * busy_us / wall_us:.1f}% of wall; device time not seen = 'not measured')")
     for dev_us, count, key in rows[:10]:
         log(f"[{tag}]   {dev_us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
@@ -2735,6 +2832,571 @@ def phase_configs(torch):
     return launches
 
 
+# -- the other four families (RWKV-6, Pixtral, Zamba2, Whisper) ---------------
+
+# RWKV-6 1.6B through tuned() on the kernel path: K1 runs every projection
+# (8 a layer: wr, wk, wv, wg with silu, wo; cm_wk with relu, cm_wv, cm_wr
+# with sigmoid) and the head, in a prefill and in a decode step alike.
+RWKV_LAYERS = 24
+RWKV_STEP_LAUNCHES = 8 * RWKV_LAYERS + 1
+# The GEMMs of the three kernel-path phases, label: (K, N, fused epilogue,
+# the M each runs at), for [K1]'s cases.  RWKV-6: M = 1 (the 1-slot server
+# and generate), SLOTS (the 4-slot decode) and PROMPT (a prefill).
+RWKV_GEMMS = {
+    "wr|wk|wv|wo": (2048, 2048, {}, (1, SLOTS, PROMPT)),
+    "wg silu": (2048, 2048, dict(activation="silu"), (1, SLOTS, PROMPT)),
+    "cm_wk relu": (2048, 7168, dict(activation="relu"), (1, SLOTS, PROMPT)),
+    "cm_wv": (7168, 2048, {}, (1, SLOTS, PROMPT)),
+    "cm_wr sigmoid": (2048, 2048, dict(activation="sigmoid"), (1, SLOTS, PROMPT)),
+    "head": (2048, 65536, {}, (1, SLOTS, PROMPT)),
+}
+# Pixtral-12B through tuned() (the `torch` backend, as published), served
+# on pages: prompt + 256 stub patches is 2048, 3072 or 4096, a multiple of
+# attn_chunk 1024, so every prefill takes K6; decode runs K4 at GQA rep 4.
+PIXTRAL_LAYERS, PIXTRAL_PATCHES, PIXTRAL_NEW_TOKENS = 40, 256, 16
+PIXTRAL_PROMPTS = (1792, 2816, 3840, 3840)
+PIXTRAL_HEADS = (32, 8, 128)  # query heads, KV heads, head dim
+# [K4]'s case at its decode: (slots, heads, KV heads, head dim), contexts
+# of prompt + patches + 8 tokens, as in the middle of the phase's decode.
+PIXTRAL_DECODE = (SLOTS, *PIXTRAL_HEADS)
+PIXTRAL_LIVE = [t + PIXTRAL_PATCHES + 8 for t in PIXTRAL_PROMPTS]
+# Zamba2-1.2B through tuned() on the kernel path, served through `generate`
+# (the family is not schedulable): 38 Mamba2 layers (in_proj, out_proj on
+# K1), 38 // 6 = 6 applications of the shared block (q, k, v, o, wi, wo on
+# K1; its attention on K6 in a 2048-token prefill) and a 2-layer tail.
+ZAMBA_LAYERS, ZAMBA_APPS, ZAMBA_PROMPT, ZAMBA_NEW_TOKENS = 38, 6, 2048, 16
+ZAMBA_STEP_LAUNCHES = 2 * ZAMBA_LAYERS + 6 * ZAMBA_APPS + 1
+# Zamba2's: M = 2 (a decode step of 2 prompts) and 2 x 2048 (the prefill);
+# in_proj's N = 2 d_in + 2 n + heads = 8384 is not a multiple of 128.
+ZAMBA_MS = (2, 2 * ZAMBA_PROMPT)
+ZAMBA_GEMMS = {
+    "in_proj": (2048, 8384, {}, ZAMBA_MS),
+    "out_proj": (4096, 2048, {}, ZAMBA_MS),
+    "shared wq|wk|wv|wo": (2048, 2048, {}, ZAMBA_MS),
+    "shared wi": (2048, 2 * 8192, {}, ZAMBA_MS),
+    "shared wo": (8192, 2048, {}, ZAMBA_MS),
+    "head": (2048, 32000, {}, ZAMBA_MS),
+}
+# Whisper-medium through tuned() on the kernel path: 2 x 2048 seeded frames
+# (the encoder's full attention on K6, non-causal, once a layer) and a
+# 256-token decoder prompt.  K1: the encoder's frame_proj and 6 a layer; the
+# decoder's 10 a layer (self q, k, v, o; cross q, o; cross k, v from enc_out,
+# recomputed every step as in the reference; wi, wo) and the head.
+WHISPER_LAYERS, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_NEW_TOKENS = 24, 2048, 256, 16
+WHISPER_ENC_LAUNCHES = 1 + 6 * WHISPER_LAYERS
+WHISPER_DEC_LAUNCHES = 10 * WHISPER_LAYERS + 1
+# Whisper's: the encoder's at M = 2 x 2048 frames (frame_proj, attention,
+# MLP, and every decode step's cross K/V), the decoder's at M = 2 x 256 (the
+# prefill) and 2 (a decode step).
+WHISPER_MS = (2, 2 * WHISPER_PROMPT, 2 * WHISPER_FRAMES)
+WHISPER_GEMMS = {
+    "frame_proj|wq|wk|wv|wo": (1024, 1024, {}, WHISPER_MS),
+    "wi": (1024, 2 * 4096, {}, WHISPER_MS),
+    "wo": (4096, 1024, {}, WHISPER_MS),
+    "head": (1024, 51968, {}, WHISPER_MS[:2]),
+}
+K1_PATH_GEMMS = {"serve_rwkv": RWKV_GEMMS, "serve_zamba": ZAMBA_GEMMS,
+                 "serve_whisper": WHISPER_GEMMS}
+# New tokens in the four phases' profiled windows.
+PROFILE_TOKENS = 8
+# Limits of the four phases' logit checks, each about 3x its first reading
+# (bf16 unless named f32).  RWKV's chunked WKV against the scan at T = 128:
+# 0.2622 on logits up to 4.59 in bf16 (the two forms round the state
+# differently, over 24 layers); 2.663e-04 with f32 weights.  Pixtral's K6
+# prefill against the plain chunked path:
+# 0.5703 on logits up to 8.19 (40 layers; Qwen2-7B's 28 read 0.35); its
+# paged decode against dense 0.3838.  Zamba2's prefill and decode against
+# forward: 0.0977 and 0.1016.  Whisper's: 0.0635 and 0.0664.  Zamba2's
+# ssd_chunked against ssd_scan in f32 keeps tests/test_ssd.py's limit.
+RWKV_CHUNKED_TOL, RWKV_CHUNKED_F32_TOL = 0.8, 8e-4
+# Tokens of each 4-slot request held against its own teacher-forced decode.
+RWKV_CHECKED_TOKENS = 8
+PIXTRAL_K6_CHUNKED_TOL, PIXTRAL_LOGIT_TOL = 1.7, 1.15
+ZAMBA_LOGIT_TOL, ZAMBA_SSD_F32_TOL = 0.3, 2e-4
+WHISPER_LOGIT_TOL = 0.2
+
+
+def _init_full_width(torch, tag, cfg):
+    """The model of `cfg` with random weights from seed 0 on the card, its
+    parameter count and memory logged."""
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_leaves
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg)
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[{tag}] {cfg.arch_id} init: {n_params / 1e9:.3f} B parameters,"
+        f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB, {time.monotonic() - t0:.1f} s")
+    return model, params
+
+
+def _max_diff(torch, a, b, vocab: int) -> float:
+    """max |a - b| over the real vocab rows (padded rows read -1e30 on both)."""
+    return (a[..., :vocab].float() - b[..., :vocab].float()).abs().max().item()
+
+
+def phase_serve_rwkv(torch):
+    """Full-width RWKV-6 1.6B on the kernel path through the server's
+    stacked-state path: the serve phase's requests, K1's launches against
+    the server's counters, 0 host syncs in a decode step, the tokens of a
+    1-slot server against `generate`, and the chunked WKV's prefill logits
+    against the scan's, in bf16 and with f32 weights."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_map
+
+    published = get_config("rwkv6-1.6b")
+    cfg = dataclasses.replace(published.tuned(), use_mesh_kernel=True)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.head_dim_, cfg.d_ff, cfg.vocab_size,
+           cfg.wkv_chunked, cfg.wkv_chunk, cfg.attn_chunk, cfg.param_dtype)
+          == (RWKV_LAYERS, 2048, 32, 64, 7168, 65536, True, 16, 0, "bfloat16"),
+          f"unexpected RWKV-6 config {cfg}")
+    model, params = _init_full_width(torch, "serve_rwkv", cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32) for _ in range(REQUESTS)]
+    scfg = ServeConfig(max_slots=SLOTS, queue_capacity=REQUESTS, warmup_prompt_lens=(PROMPT,))
+
+    reset_k1(mesh_matmul)
+    flash_attention.launches = paged_attention_cuda.launches = 0
+    server = ContinuousBatchingServer(model, params, scfg, device="cuda")
+    check(server.pools is None and server.state["wkv"].shape == (RWKV_LAYERS, SLOTS, 32, 64, 64),
+          "the RWKV server is not on its stacked-state path")
+    server.warmup()
+    reqs = [Request(rid=f"req{i}", prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with k1_products("serve_rwkv"):
+        results = server.run(reqs)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check_main_path_tiles("serve_rwkv", tile_counts(mesh_matmul), canary=True)
+    for r in reqs:
+        res = results[r.rid]
+        check(res.status == "ok" and len(res.tokens) == NEW_TOKENS,
+              f"{r.rid}: {res.status} with {len(res.tokens)} tokens ({res.reason})")
+    c = server.counters
+    launches = {"mesh_matmul": mesh_matmul.launches,
+                "flash_attention": flash_attention.launches,
+                "paged_attention": paged_attention_cuda.launches}
+    want = {"mesh_matmul": RWKV_STEP_LAUNCHES * (c["prefills"] + c["decode_steps"]) + 2,
+            "flash_attention": 0, "paged_attention": 0}
+    generated = sum(len(results[r.rid].tokens) for r in reqs)
+    log(f"[serve_rwkv] {REQUESTS} requests x {NEW_TOKENS} tokens on {SLOTS} slots: wall="
+        f"{wall:.3f} s tokens/s={generated / wall:.1f} ticks={c['ticks']} prefills="
+        f"{c['prefills']} decode steps={c['decode_steps']} (warmup included) launches="
+        f"{launches} expected={want} ({RWKV_STEP_LAUNCHES} a step, +2 the canary); peak"
+        f" device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches == want, f"launches {launches} != {want} from the server's counters")
+
+    # No host sync in one decode step of the stacked state.
+    zeros = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        no_host_sync(torch, lambda: model.decode(params, zeros, server.state, 0))
+    log("[serve_rwkv] host syncs in one decode step: 0 (sync debug mode 'error')")
+
+    # The tokens of a 1-slot server (the shapes `generate` runs: a B = 1
+    # prefill, M = 1 decode steps) equal generate's exactly.  The 4-slot
+    # run's M = 4 products may take other blocks than M = 1's, so its
+    # tokens are held against a teacher-forced decode on the same shapes.
+    one = ContinuousBatchingServer(model, params, dataclasses.replace(scfg, max_slots=1),
+                                   device="cuda")
+    prompt = torch.as_tensor(prompts[0], device="cuda")[None]
+    with k1_products("serve_rwkv"):
+        single = one.run([Request(rid="one", prompt=prompts[0], max_new_tokens=NEW_TOKENS)])
+        ref_tokens, steps_s = generate(model, params, prompt, gen_len=NEW_TOKENS)
+    ref_tokens = ref_tokens[0].tolist()
+    check(single["one"].tokens == ref_tokens,
+          f"1-slot server {single['one'].tokens} != generate's {ref_tokens}")
+    served = results["req0"].tokens
+    check(served[0] == ref_tokens[0], f"first token {served[0]} != generate's {ref_tokens[0]}")
+    # Every request of the 4-slot window (req4-7 reuse freed slots): its
+    # B = 1 prefill's state copied into all SLOTS rows, then its served
+    # tokens teacher-forced through M = 4 decode steps, the server's
+    # products row for row.  Each served token must be that decode's argmax
+    # exactly: a fault in the slot insert or in slot reuse breaks it.  The
+    # gap below a B = 1 (M = 1) decode's argmax, and the two decodes' max
+    # |dlogit|, are logged beside it.
+    wrong, gaps, diffs, scale = {}, {}, {}, 0.0
+    with torch.inference_mode():
+        for r in reqs:
+            toks = results[r.rid].tokens
+            lg1, st1 = model.prefill(
+                params, {"tokens": torch.as_tensor(r.prompt, device="cuda")[None]})
+            st4 = {k: v.expand(v.shape[0], SLOTS, *v.shape[2:]).contiguous()
+                   for k, v in st1.items()}
+            row4 = lg1[0, -1]
+            wrong[r.rid], gaps[r.rid], diffs[r.rid] = [], 0.0, 0.0
+            for i in range(RWKV_CHECKED_TOKENS):
+                row1 = lg1[0, -1].float()
+                if int(row4.argmax()) != toks[i]:
+                    wrong[r.rid].append(i)
+                gaps[r.rid] = max(gaps[r.rid], (row1.max() - row1[toks[i]]).item())
+                diffs[r.rid] = max(diffs[r.rid], (row4.float() - row1).abs().max().item())
+                scale = max(scale, row1.abs().max().item())
+                tok = torch.full((SLOTS, 1), toks[i], dtype=torch.int32, device="cuda")
+                lg1, st1 = model.decode(params, tok[:1], st1, 0)
+                lg4, st4 = model.decode(params, tok, st4, 0)
+                row4 = lg4[0, -1]
+    exact = sum(a == b for a, b in zip(served, ref_tokens))
+    log(f"[serve_rwkv] 1-slot server == generate: {NEW_TOKENS}/{NEW_TOKENS} tokens"
+        f" (generate {steps_s:.2f} steps/s at B=1); 4-slot req0 equals generate at"
+        f" {exact}/{NEW_TOKENS}.  First {RWKV_CHECKED_TOKENS} tokens of each 4-slot request"
+        f" against its teacher-forced M={SLOTS} decode: positions off its argmax {wrong};"
+        f" gap below the M=1 decode's argmax {gaps}; M={SLOTS} vs M=1 max |dlogit| {diffs}"
+        f" (max |logit| {scale:.3f})")
+    check(not any(wrong.values()),
+          f"4-slot tokens off their teacher-forced M={SLOTS} argmax: {wrong}")
+    # Profiled windows are short: the profiler's processing of an eager
+    # model's host events takes seconds per thousand ops.
+    profile_window(torch, model, params, scfg, prompts[:SLOTS], tag="profile serve_rwkv",
+                   new_tokens=PROFILE_TOKENS)
+
+    # Chunked WKV (tuned) against the scan (untuned) prefill on the same
+    # weights, in bf16 and with f32 weights and activations.
+    del server, one
+    scan_model = get_model(dataclasses.replace(cfg, wkv_chunked=False))
+    out = {}
+    with torch.inference_mode():
+        for dtype in ("bfloat16", "float32"):
+            if dtype == "float32":
+                params = tree_map(lambda t: t.float(), params)
+                _free(torch)
+            kw = dict(param_dtype=dtype, activation_dtype=dtype)
+            m_c = get_model(dataclasses.replace(cfg, **kw))
+            m_s = get_model(dataclasses.replace(scan_model.cfg, **kw))
+            lc, sc = m_c.prefill(params, {"tokens": prompt})
+            ls, ss = m_s.prefill(params, {"tokens": prompt})
+            out[dtype] = (_max_diff(torch, lc, ls, cfg.vocab_size),
+                          (ss["wkv"] - sc["wkv"]).abs().max().item()
+                          / ss["wkv"].abs().max().item(),
+                          ls.float().abs().max().item(),
+                          (lc.argmax(-1) == ls.argmax(-1)).float().mean().item())
+            check(bool(torch.isfinite(lc.float()).all()), f"{dtype} chunked logits not finite")
+    for dtype, tol in (("bfloat16", RWKV_CHUNKED_TOL), ("float32", RWKV_CHUNKED_F32_TOL)):
+        d, ds, sc, same = out[dtype]
+        log(f"[serve_rwkv] {dtype} prefill T={PROMPT}, chunked WKV vs scan: max |dlogit|="
+            f"{d:.4e} (max |logit| {sc:.3f}, tol {tol}), argmax equal at {100 * same:.2f} %,"
+            f" final wkv state max |d| / max |state| {ds:.3e}")
+        check(d <= tol, f"{dtype} chunked vs scan prefill logits differ by {d}")
+    return launches
+
+
+def phase_serve_pixtral(torch):
+    """Full-width Pixtral-12B through the server's paged path: every prefill
+    (prompt + 256 stub patches) through K6, every decode step through K4 at
+    rep 4, both against the server's counters; K6 prefill logits against the
+    plain chunked path, paged decode against dense."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
+    from repro_torch.launch.serve import generate
+
+    cfg = get_config("pixtral-12b").tuned()
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+           cfg.d_ff, cfg.vocab_size, cfg.num_stub_patches, cfg.attn_chunk, cfg.use_mesh_kernel,
+           cfg.param_dtype)
+          == (PIXTRAL_LAYERS, 5120, *PIXTRAL_HEADS, 14336, 131072, PIXTRAL_PATCHES, 1024,
+              False, "bfloat16"), f"unexpected Pixtral config {cfg}")
+    check(cfg.num_heads * cfg.head_dim_ != cfg.d_model, "heads x hd == d_model")
+    model, params = _init_full_width(torch, "serve_pixtral", cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, t).astype(np.int32) for t in PIXTRAL_PROMPTS]
+    pages = [-(-(t + PIXTRAL_PATCHES + PIXTRAL_NEW_TOKENS) // PAGE) for t in PIXTRAL_PROMPTS]
+    scfg = ServeConfig(
+        max_slots=SLOTS, page_size=PAGE, num_pages=1 + sum(pages), max_pages_per_seq=max(pages),
+        queue_capacity=len(prompts), warmup_prompt_lens=(PIXTRAL_PROMPTS[0],))
+
+    flash_attention.launches = paged_attention_cuda.launches = 0
+    server = ContinuousBatchingServer(model, params, scfg, device="cuda")
+    server.warmup()
+    reqs = [Request(rid=f"req{i}", prompt=p, max_new_tokens=PIXTRAL_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    results = server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for r in reqs:
+        res = results[r.rid]
+        check(res.status == "ok" and len(res.tokens) == PIXTRAL_NEW_TOKENS,
+              f"{r.rid}: {res.status} with {len(res.tokens)} tokens ({res.reason})")
+    c = server.counters
+    lengths = [t + PIXTRAL_PATCHES for t in (*scfg.warmup_prompt_lens, *PIXTRAL_PROMPTS)]
+    check(all(t > 1024 and t % 1024 == 0 for t in lengths) and len(lengths) == c["prefills"],
+          f"prefill lengths {lengths}, {c['prefills']} prefills")
+    launches = {"flash_attention": flash_attention.launches,
+                "paged_attention": paged_attention_cuda.launches}
+    want = {"flash_attention": PIXTRAL_LAYERS * c["prefills"],
+            "paged_attention": PIXTRAL_LAYERS * c["decode_steps"]}
+    generated = sum(len(results[r.rid].tokens) for r in reqs)
+    log(f"[serve_pixtral] {len(reqs)} requests (prompts {list(PIXTRAL_PROMPTS)} + "
+        f"{PIXTRAL_PATCHES} patches) x {PIXTRAL_NEW_TOKENS} tokens: wall={wall:.3f} s"
+        f" tokens/s={generated / wall:.1f} ticks={c['ticks']} prefills={c['prefills']}"
+        f" decode steps={c['decode_steps']} (warmup included) launches={launches}"
+        f" expected={want}; peak device memory"
+        f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches == want, f"launches {launches} != {want} from the server's counters")
+
+    # K6 prefill logits against the plain chunked path on the first request
+    # (1792 + 256 = 2048 positions), then paged decode (K4) against dense.
+    prompt = torch.as_tensor(prompts[0], device="cuda")[None]
+    batch = {"tokens": prompt, "patches": torch.zeros((1, PIXTRAL_PATCHES, cfg.d_model),
+                                                      dtype=cfg.adtype, device="cuda")}
+    with torch.inference_mode():
+        before = flash_attention.launches
+        lg_k6, caches = model.prefill(params, batch)
+        check(flash_attention.launches - before == PIXTRAL_LAYERS, "the prefill skipped K6")
+        with plain_flash():
+            lg_plain = model.prefill(params, batch)[0]
+        d = _max_diff(torch, lg_k6, lg_plain, cfg.vocab_size)
+        same = (lg_k6.argmax(-1) == lg_plain.argmax(-1)).float().mean().item()
+        scale = lg_plain.float().abs().max().item()
+        del lg_k6, lg_plain
+    log(f"[serve_pixtral] bf16 prefill logits over {PIXTRAL_PROMPTS[0]} text positions"
+        f" ({PIXTRAL_PROMPTS[0] + PIXTRAL_PATCHES} with patches), K6 vs plain chunked: max"
+        f" |d|={d:.4f} (max |logit| {scale:.3f}, tol {PIXTRAL_K6_CHUNKED_TOL}), argmax equal"
+        f" at {100 * same:.2f} %")
+    check(d <= PIXTRAL_K6_CHUNKED_TOL, f"K6 vs plain chunked prefill logits differ by {d}")
+    served = results["req0"].tokens
+    ref_tokens, _ = generate(model, params, prompt, gen_len=8)
+    ref_tokens = ref_tokens[0].tolist()
+    check(served[0] == ref_tokens[0], f"first token {served[0]} != generate's {ref_tokens[0]}")
+    worst_diff, worst_gap, scale = paged_vs_dense(
+        torch, model, params, caches, served, PIXTRAL_PROMPTS[0] + PIXTRAL_PATCHES)
+    exact = sum(a == b for a, b in zip(served[:8], ref_tokens))
+    log(f"[serve_pixtral] req0 first 8 tokens: server={served[:8]} generate={ref_tokens}"
+        f" (equal: {exact}/8); teacher-forced paged-vs-dense max |dlogit|={worst_diff:.4f}"
+        f" (max |logit| {scale:.3f}), worst server-token gap to dense argmax={worst_gap:.4f}"
+        f" (tol {PIXTRAL_LOGIT_TOL})")
+    check(worst_diff <= PIXTRAL_LOGIT_TOL, f"paged vs dense logits differ by {worst_diff}")
+    check(worst_gap <= PIXTRAL_LOGIT_TOL, f"server token {worst_gap} below the dense argmax")
+    del caches, server
+    profile_window(torch, model, params, scfg, prompts, tag="profile serve_pixtral",
+                   new_tokens=PROFILE_TOKENS)
+    del params
+    _free(torch)
+    return launches
+
+
+def _teacher_forced(torch, model, params, batch, t_prompt, new_tokens):
+    """Greedy prefill then `new_tokens - 1` decode steps with the caches
+    `generate` grows for the family padded by new_tokens: (tokens (B,
+    new_tokens), prefill logits, [decode logits (B, V)], prefill s, decode
+    steps/s)."""
+    from repro_torch.launch.serve import _GROWN_CACHES
+
+    grown = _GROWN_CACHES[model.cfg.family]
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        lg_pre, state = model.prefill(params, batch)
+        state = {k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, new_tokens))
+                     if grown is None or k in grown else v) for k, v in state.items()}
+        tok = lg_pre[:, -1].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        toks, decoded = [tok], []
+        for i in range(new_tokens - 1):
+            lg, state = model.decode(params, tok[:, None], state, t_prompt + i)
+            decoded.append(lg[:, 0])
+            tok = lg[:, 0].argmax(-1).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+    return torch.stack(toks, dim=1), lg_pre, decoded, t1 - t0, (new_tokens - 1) / (t2 - t1)
+
+
+def _against_forward(torch, tag, lg_fwd, lg_pre, decoded, t_prompt, vocab, tol):
+    """Prefill logits against forward's first t_prompt positions, decode
+    step i against forward's position t_prompt + i."""
+    d_pre = _max_diff(torch, lg_pre, lg_fwd[:, :t_prompt], vocab)
+    d_dec = max(_max_diff(torch, lg, lg_fwd[:, t_prompt + i], vocab)
+                for i, lg in enumerate(decoded))
+    scale = lg_fwd[..., :vocab].float().abs().max().item()
+    log(f"[{tag}] teacher-forced against forward: prefill max |dlogit|={d_pre:.4f}, decode"
+        f" max |dlogit|={d_dec:.4f} (max |logit| {scale:.3f}, tol {tol})")
+    check(d_pre <= tol and d_dec <= tol,
+          f"{tag}: prefill / decode logits differ from forward by {d_pre} / {d_dec}")
+
+
+def phase_serve_zamba(torch):
+    """Full-width Zamba2-1.2B on the kernel path through `generate`: K6 once
+    per shared-block application in the prefill, K1 per step against the
+    count from the code; prefill and decode logits against `forward`; one
+    layer's `ssd_chunked` against `ssd_scan` at full width in f32."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.ssm import ssd_chunked, ssd_scan
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b").tuned(), use_mesh_kernel=True)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+           cfg.d_ff, cfg.vocab_size, cfg.ssm_num_heads, cfg.ssm_state_size,
+           cfg.shared_attn_period, cfg.attn_chunk, cfg.param_dtype)
+          == (ZAMBA_LAYERS, 2048, 32, 32, 64, 8192, 32000, 64, 64, 6, 1024, "bfloat16"),
+          f"unexpected Zamba2 config {cfg}")
+    model, params = _init_full_width(torch, "serve_zamba", cfg)
+    check("mamba_tail" in params and params["mamba_tail"]["in_proj"].shape == (2, 2048, 8384),
+          "Zamba2's 2-layer tail or its 8384-wide in_proj is missing")
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, ZAMBA_PROMPT)).astype(np.int32), device="cuda")
+
+    reset_k1(mesh_matmul)
+    flash_attention.launches = paged_attention_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with k1_products("serve_zamba"):
+        tokens, steps_s = generate(model, params, prompts, gen_len=ZAMBA_NEW_TOKENS)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check_main_path_tiles("serve_zamba", tile_counts(mesh_matmul), canary=False)
+    launches = {"mesh_matmul": mesh_matmul.launches,
+                "flash_attention": flash_attention.launches,
+                "paged_attention": paged_attention_cuda.launches}
+    want = {"mesh_matmul": ZAMBA_STEP_LAUNCHES * ZAMBA_NEW_TOKENS,
+            "flash_attention": ZAMBA_APPS, "paged_attention": 0}
+    log(f"[serve_zamba] generate 2 x {ZAMBA_PROMPT}-token prompts x {ZAMBA_NEW_TOKENS} tokens:"
+        f" wall={wall:.3f} s ({2 * ZAMBA_NEW_TOKENS / wall:.1f} tokens/s with the prefill;"
+        f" decode {steps_s:.2f} steps/s, {2 * steps_s:.1f} tokens/s) launches={launches}"
+        f" expected={want} ({ZAMBA_STEP_LAUNCHES} K1 a step); peak device memory"
+        f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(launches == want, f"launches {launches} != {want} from the code's counts")
+
+    # The same greedy run with logits, then forward over prompt + tokens.
+    got, lg_pre, decoded, _, _ = _teacher_forced(
+        torch, model, params, {"tokens": prompts}, ZAMBA_PROMPT, ZAMBA_NEW_TOKENS)
+    check(torch.equal(got, tokens), "generate's tokens differ from the same greedy run")
+    profile_call(torch, lambda: generate(model, params, prompts, gen_len=PROFILE_TOKENS),
+                 "profile serve_zamba", lambda: f"generate 2 x {ZAMBA_PROMPT} x {PROFILE_TOKENS}")
+    full = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    with torch.inference_mode():
+        lg_fwd, _ = model.forward(params, {"tokens": full})
+    _against_forward(torch, "serve_zamba", lg_fwd, lg_pre, decoded, ZAMBA_PROMPT,
+                     cfg.vocab_size, ZAMBA_LOGIT_TOL)
+    del lg_fwd, lg_pre, decoded, params
+    _free(torch)
+
+    # ssd_chunked against ssd_scan at one layer's full width, in f32.
+    g = torch.Generator(device="cuda").manual_seed(3)
+    h, p, n = cfg.ssm_num_heads, cfg.ssm_expand * cfg.d_model // cfg.ssm_num_heads, 64
+    x = torch.randn(2, ZAMBA_PROMPT, h, p, generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(torch.randn(2, ZAMBA_PROMPT, h, generator=g,
+                                                  device="cuda") - 1)
+    a_log = torch.randn(h, generator=g, device="cuda") * 0.5
+    b, c = (torch.randn(2, ZAMBA_PROMPT, n, generator=g, device="cuda") for _ in "bc")
+    d_skip = torch.randn(h, generator=g, device="cuda")
+    h0 = torch.zeros(2, h, p, n, device="cuda")
+    with torch.inference_mode():
+        y_c, h_c = ssd_chunked(x, dt, a_log, b, c, d_skip, h0)
+        y_s, h_s = ssd_scan(x, dt, a_log, b, c, d_skip, h0)
+    bad = [f"{name} max |d|={(u - v).abs().max().item():.3e}"
+           for name, u, v in (("y", y_c, y_s), ("h", h_c, h_s))
+           if not torch.allclose(u, v, rtol=ZAMBA_SSD_F32_TOL, atol=ZAMBA_SSD_F32_TOL)]
+    log(f"[serve_zamba] ssd_chunked vs ssd_scan, f32, B=2 T={ZAMBA_PROMPT} H={h} P={p} N={n}:"
+        f" y max |d|={(y_c - y_s).abs().max().item():.3e} (max |y| {y_s.abs().max().item():.3f}),"
+        f" h max |d|={(h_c - h_s).abs().max().item():.3e} (rtol = atol = {ZAMBA_SSD_F32_TOL},"
+        f" tests/test_ssd.py's limit)")
+    check(not bad, f"ssd_chunked vs ssd_scan: {bad}")
+    return launches
+
+
+def phase_serve_whisper(torch):
+    """Full-width Whisper-medium on the kernel path: 2 x 2048 frames through
+    the encoder (K6 non-causal once a layer), a 256-token decoder prompt and
+    16 decode steps through `model.prefill` / `model.decode`, K1 per step
+    against the count from the code, logits against `forward`."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.models.layers import padded_vocab
+
+    cfg = dataclasses.replace(get_config("whisper-medium").tuned(), use_mesh_kernel=True)
+    check((cfg.enc_layers, cfg.dec_layers, cfg.d_model, cfg.num_heads, cfg.head_dim_, cfg.d_ff,
+           padded_vocab(cfg), cfg.attn_chunk, cfg.param_dtype)
+          == (WHISPER_LAYERS, WHISPER_LAYERS, 1024, 16, 64, 4096, 51968, 1024, "bfloat16"),
+          f"unexpected Whisper config {cfg}")
+    model, params = _init_full_width(torch, "serve_whisper", cfg)
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.normal(size=(2, WHISPER_FRAMES, cfg.d_model)).astype(np.float32),
+                             device="cuda")
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, WHISPER_PROMPT)).astype(np.int32),
+                             device="cuda")
+    batch = {"frames": frames, "tokens": prompt}
+
+    reset_k1(mesh_matmul)
+    flash_attention.launches = 0
+    counts = []
+
+    def counted(fn):
+        def run(*args):
+            k1, k6 = mesh_matmul.launches, flash_attention.launches
+            out = fn(*args)
+            counts.append((mesh_matmul.launches - k1, flash_attention.launches - k6))
+            return out
+        return run
+
+    step_model = dataclasses.replace(model, _prefill=counted(model._prefill),
+                                     _decode=counted(model._decode))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with k1_products("serve_whisper"):
+        tokens, lg_pre, decoded, prefill_s, steps_s = _teacher_forced(
+            torch, step_model, params, batch, WHISPER_PROMPT, WHISPER_NEW_TOKENS)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check_main_path_tiles("serve_whisper", tile_counts(mesh_matmul), canary=False)
+    want = ([(WHISPER_ENC_LAUNCHES + WHISPER_DEC_LAUNCHES, WHISPER_LAYERS)]
+            + [(WHISPER_DEC_LAUNCHES, 0)] * (WHISPER_NEW_TOKENS - 1))
+    launches = {"mesh_matmul": mesh_matmul.launches, "flash_attention": flash_attention.launches}
+    log(f"[serve_whisper] 2 x {WHISPER_FRAMES} frames, {WHISPER_PROMPT}-token prompt x"
+        f" {WHISPER_NEW_TOKENS} tokens: wall={wall:.3f} s"
+        f" ({2 * WHISPER_NEW_TOKENS / wall:.1f} tokens/s with the prefill; prefill"
+        f" {prefill_s:.3f} s, decode {steps_s:.2f} steps/s, {2 * steps_s:.1f} tokens/s)"
+        f" launches={launches};"
+        f" (K1, K6) per step {counts[:2]}..., expected {want[:2]}...; peak device memory"
+        f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(counts == want, f"(K1, K6) launches per step {counts} != {want}")
+    profile_call(torch, lambda: _teacher_forced(torch, model, params, batch, WHISPER_PROMPT,
+                                                PROFILE_TOKENS),
+                 "profile serve_whisper",
+                 lambda: f"prefill 2 x {WHISPER_FRAMES} frames + {PROFILE_TOKENS - 1} steps")
+    with torch.inference_mode():
+        lg_fwd, _ = model.forward(params, {"frames": frames,
+                                           "tokens": torch.cat([prompt, tokens[:, :-1]], 1)})
+    _against_forward(torch, "serve_whisper", lg_fwd, lg_pre, decoded, WHISPER_PROMPT,
+                     cfg.vocab_size, WHISPER_LOGIT_TOL)
+    check(bool((lg_pre.argmax(-1) < cfg.vocab_size).all()), "a padded vocab row won")
+    del params, lg_fwd
+    _free(torch)
+    return launches
+
+
 # The paper's sizes (`benchmarks/bench_stepcounts.py`) and one at full scale.
 PAPER_SIZES = (2, 3, 4, 8, 16, 32, 64, 128, 1024)
 PAPER_SYMMETRIC_SIZES = (8, 16, 32, 64, 256)
@@ -3333,7 +3995,9 @@ def main() -> int:
         ("k6_bwd", phase_k6_backward), ("serve", phase_serve), ("train", phase_train),
         ("serve_moe", phase_serve_moe), ("serve_qwen2", phase_serve_qwen2),
         ("train_flash", phase_train_flash), ("serve_qwen2_moe", phase_serve_qwen2_moe),
-        ("train_moe", phase_train_moe), ("configs", phase_configs))}
+        ("train_moe", phase_train_moe), ("configs", phase_configs),
+        ("serve_rwkv", phase_serve_rwkv), ("serve_pixtral", phase_serve_pixtral),
+        ("serve_zamba", phase_serve_zamba), ("serve_whisper", phase_serve_whisper))}
     phases["paper"] = healthy("paper", lambda torch: phase_paper(torch, smi))
     phases["planner"] = phase_planner
     phases["obs"] = healthy("obs", lambda torch: phase_obs(torch, smi))
@@ -3363,6 +4027,10 @@ def main() -> int:
     serve_qwen2_moe = phases["serve_qwen2_moe"](torch)
     train_moe = phases["train_moe"](torch)
     configs = phases["configs"](torch)
+    serve_rwkv = phases["serve_rwkv"](torch)
+    serve_pixtral = phases["serve_pixtral"](torch)
+    serve_zamba = phases["serve_zamba"](torch)
+    serve_whisper = phases["serve_whisper"](torch)
     phases["paper"](torch)
     planner = phases["planner"](torch)
     phases["obs"](torch)
@@ -3377,13 +4045,17 @@ def main() -> int:
         row("mesh_matmul", "mesh_matmul.cu", "src/repro/kernels/mesh_matmul.py:341",
             serve["mesh_matmul"] + train["mesh_matmul"] + serve_moe["mesh_matmul"]
             + serve_qwen2_moe["mesh_matmul"] + train_moe["mesh_matmul"]
-            + planner["mesh_matmul"], k1_err, k1,
+            + planner["mesh_matmul"] + serve_rwkv["mesh_matmul"] + serve_zamba["mesh_matmul"]
+            + serve_whisper["mesh_matmul"], k1_err, k1,
             "one decode tick: 25 launches at M=4",
             launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"],
                               "serve_moe": serve_moe["mesh_matmul"],
                               "serve_qwen2_moe": serve_qwen2_moe["mesh_matmul"],
                               "train_moe": train_moe["mesh_matmul"],
-                              "planner": planner["mesh_matmul"]},
+                              "planner": planner["mesh_matmul"],
+                              "serve_rwkv": serve_rwkv["mesh_matmul"],
+                              "serve_zamba": serve_zamba["mesh_matmul"],
+                              "serve_whisper": serve_whisper["mesh_matmul"]},
             launches_by_tile=K1_TILES,
             batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
                      "shape": "B=4 M=128 K=1024 N=512 bf16"}),
@@ -3391,13 +4063,14 @@ def main() -> int:
             "src/repro/kernels/paged_attention.py:182",
             serve["paged_attention"] + serve_moe["paged_attention"]
             + serve_qwen2["paged_attention"] + serve_qwen2_moe["paged_attention"]
-            + configs["paged_attention"], k4_err, k4,
+            + configs["paged_attention"] + serve_pixtral["paged_attention"], k4_err, k4,
             "one launch: S=4 H=KV=16 hd=128 bf16, 128-160 token contexts",
             launches_by_path={"serve": serve["paged_attention"],
                               "serve_moe": serve_moe["paged_attention"],
                               "serve_qwen2": serve_qwen2["paged_attention"],
                               "serve_qwen2_moe": serve_qwen2_moe["paged_attention"],
-                              "configs": configs["paged_attention"]},
+                              "configs": configs["paged_attention"],
+                              "serve_pixtral": serve_pixtral["paged_attention"]},
             qwen2={**k4_qwen, "shape": f"one launch: S=4 H=28 KV=4 hd=128 bf16, contexts"
                    f" {QWEN_LIVE}"}),
         row("scramble_blocks", "scramble_blocks.cu",
@@ -3417,16 +4090,21 @@ def main() -> int:
                      " 64 experts x 128 rows"}),
         row("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:97",
             serve_qwen2["flash_attention"] + train_flash["flash_attention"]
-            + configs["flash_attention"], k6_err,
+            + configs["flash_attention"] + serve_pixtral["flash_attention"]
+            + serve_zamba["flash_attention"] + serve_whisper["flash_attention"], k6_err,
             k6["qwen2 T=2048"],
             "one launch: Qwen2-7B prefill B=1 T=2048 H=28 KV=4 hd=128 bf16 causal; library_ms"
             " is scaled_dot_product_attention (is_causal, enable_gqa)",
             launches_by_path={"serve_qwen2": serve_qwen2["flash_attention"],
                               "train_flash": train_flash["flash_attention"],
-                              "configs": configs["flash_attention"]},
+                              "configs": configs["flash_attention"],
+                              "serve_pixtral": serve_pixtral["flash_attention"],
+                              "serve_zamba": serve_zamba["flash_attention"],
+                              "serve_whisper": serve_whisper["flash_attention"]},
             device_ms=k6["qwen2 T=2048"]["device_ms"],
             library_device_ms=k6["qwen2 T=2048"]["library_device_ms"],
-            t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"]),
+            t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"],
+            whisper_encoder=k6["whisper encoder"], zamba_shared=k6["zamba shared block"]),
     ]
     log(f"[done] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """Published architecture configs (import side-effect: registration).
 
-Ported so far: the dense family (mesh-paper, Qwen2-7B, Granite-3 8B,
-Phi-3-medium 14B, Mistral-Large 123B) and the moe family (OLMoE-1B-7B,
-Qwen1.5-MoE-A2.7B); the other families arrive with their model code."""
+All eleven of the reference: the dense family (mesh-paper, Qwen2-7B,
+Granite-3 8B, Phi-3-medium 14B, Mistral-Large 123B), the moe family
+(OLMoE-1B-7B, Qwen1.5-MoE-A2.7B), and RWKV-6 1.6B (ssm), Zamba2-1.2B
+(hybrid), Pixtral-12B (vlm) and Whisper-medium (audio)."""
 
 from repro_torch.configs.base import CONFIGS, ArchConfig, get_config
 from repro_torch.configs import (  # noqa: F401
@@ -11,8 +12,12 @@ from repro_torch.configs import (  # noqa: F401
     mistral_large_123b,
     olmoe_1b_7b,
     phi3_medium_14b,
+    pixtral_12b,
     qwen2_7b,
     qwen2_moe_a27b,
+    rwkv6_1b6,
+    whisper_medium,
+    zamba2_1b2,
 )
 
 __all__ = ["ArchConfig", "CONFIGS", "get_config"]

@@ -3,8 +3,12 @@
 One frozen dataclass describes an architecture; each config module
 instantiates `ArchConfig` with its published numbers and registers it, and
 `reduced()` derives the CPU-test variant (same family and code paths, tiny
-dims).  Only the fields the ported families read are kept; the dtype
-properties return `torch.dtype`s.
+dims).  The fields that no ported code reads are left out: those only the
+reference's XLA lowering reads (`fused_dense_epilogue`, `scan_unroll`),
+those only its dry runs read (`supports_long_context`) or nothing reads
+(`is_encoder_decoder`, `has_decode`, `ssm_conv_dim`: the conv width is
+`models.ssm._CONV_K`), and `grad_accum` (an argument of the port's
+trainer).  The dtype properties return `torch.dtype`s.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ _DTYPES = {
 class ArchConfig:
     # identity
     arch_id: str
-    family: str  # dense | moe (the families ported so far)
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
     source: str  # citation tag
 
     # transformer backbone
@@ -50,6 +54,20 @@ class ArchConfig:
     moe_d_ff: int = 0  # expert hidden dim (d_ff above = dense fallback/shared)
     router_aux_coef: float = 0.01
 
+    # SSM / RWKV / hybrid
+    ssm_state_size: int = 0
+    ssm_num_heads: int = 0  # mamba2 heads (d_inner / head_p)
+    ssm_expand: int = 2
+    shared_attn_period: int = 0  # zamba2: shared attn block after every k SSM layers
+
+    # encoder-decoder (whisper)
+    enc_layers: int = 0
+    dec_layers: int = 0
+    dec_ratio: int = 8  # decoder len = enc len // dec_ratio for assigned shapes
+
+    # VLM (pixtral)
+    num_stub_patches: int = 0  # stub ViT frontend: precomputed patch embeddings
+
     # numerics / kernel levers
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
@@ -62,6 +80,9 @@ class ArchConfig:
     attn_chunk: int = 0  # >0: flash-style chunked attention (KV-chunk online
     # softmax) for train/prefill — kills the O(S^2) score materialization
     vocab_pad_multiple: int = 0  # pad embedding/lm_head rows (0 = exact)
+    wkv_chunked: bool = False  # rwkv6: chunk-parallel GEMM-form WKV (exact)
+    # instead of the per-token scan — see models/rwkv._wkv_chunked
+    wkv_chunk: int = 16
 
     @property
     def head_dim_(self) -> int:
@@ -108,15 +129,10 @@ class ArchConfig:
 
     def tuned(self, tp: int = 16) -> "ArchConfig":
         """The reference's production tuning: chunked (flash) attention for
-        every attention-bearing family, and vocab padding when the vocab
-        does not divide `tp`.  The reference also turns on the chunked WKV
-        of the `ssm` family, which is not ported: `ssm` raises."""
-        if self.family == "ssm":
-            raise NotImplementedError(
-                f"{self.arch_id}: tuned() of the ssm family needs wkv_chunked, which is not"
-                " ported yet"
-            )
-        kw: dict = {"attn_chunk": 1024}
+        every attention-bearing family, vocab padding when the vocab does
+        not divide `tp`, and the chunk-parallel WKV for the `ssm` family
+        (RWKV), which has no attention."""
+        kw: dict = {"wkv_chunked": True} if self.family == "ssm" else {"attn_chunk": 1024}
         if self.vocab_size % tp:
             kw["vocab_pad_multiple"] = 256
         return dataclasses.replace(self, **kw)
@@ -139,6 +155,12 @@ class ArchConfig:
             num_experts_per_tok=min(self.num_experts_per_tok, 2) if self.is_moe else 0,
             num_shared_experts=min(self.num_shared_experts, 1),
             moe_d_ff=64 if self.is_moe else 0,
+            ssm_state_size=min(self.ssm_state_size, 16) if self.ssm_state_size else 0,
+            ssm_num_heads=min(self.ssm_num_heads, 4) if self.ssm_num_heads else 0,
+            shared_attn_period=2 if self.shared_attn_period else 0,
+            enc_layers=min(self.enc_layers, 2),
+            dec_layers=min(self.dec_layers, 2),
+            num_stub_patches=min(self.num_stub_patches, 8),
             param_dtype="float32",
             activation_dtype="float32",
             remat_policy="none",

@@ -43,9 +43,14 @@ Observability (`repro_torch.obs`): the reference's counters and histograms
 TPOT) and spans (`serve.tick`, nesting `serve.prefill` and
 `serve.decode`).  With tracing off a span costs one attribute check.
 
-Families: dense and moe serve through the paged path (the families ported).
-The decode step runs at a fixed (max_slots,) shape; each tick writes its
-new K/V rows into the pools in place (see `attention_paged_decode`).
+Families: dense, moe and vlm serve through the paged path; vlm prefills
+carry zero stub patches, and its positions (and pages) count them.  ssm
+(RWKV) has no pages: its recurrent state is stacked per slot, (L, S, ...),
+a prefill's state is written into its slot's rows, and decode is
+position-free.  hybrid and audio are not schedulable, as in the reference.
+The decode step runs at a fixed (max_slots,) shape; on the paged path each
+tick writes its new K/V rows into the pools in place (see
+`attention_paged_decode`).
 """
 
 from __future__ import annotations
@@ -71,7 +76,7 @@ __all__ = [
     "ServeConfig",
 ]
 
-_SCHEDULABLE = ("dense", "moe")
+_SCHEDULABLE = ("dense", "moe", "vlm", "ssm")
 
 
 class PagesExhausted(RuntimeError):
@@ -170,7 +175,7 @@ class _Seq:
     req: Request
     slot: int
     pages: List[int]
-    pos: int  # next write position == current length
+    pos: int  # next write position == current length (incl. vlm patches)
     tokens: List[int]
     deadline_tick: int
     admit_tick: int
@@ -196,7 +201,9 @@ class ContinuousBatchingServer:
         fam = model.cfg.family
         if fam not in _SCHEDULABLE:
             raise NotImplementedError(
-                f"family {fam!r} is not schedulable (supported: {_SCHEDULABLE})"
+                f"family {fam!r} is not schedulable (supported: {_SCHEDULABLE});"
+                " audio is enc-dec (frames batch), hybrid carries mixed"
+                " KV+conv state"
             )
         self.device = resolve_device(device)
         if params is not None and params["embed"].device.type != self.device.type:
@@ -206,6 +213,8 @@ class ContinuousBatchingServer:
         self.model = model
         self.params = params
         self.cfg = cfg
+        self._paged = model.supports_paged  # dense/moe/vlm; ssm stacks state
+        self._patch_offset = model.cfg.num_stub_patches if fam == "vlm" else 0
         self._tick = 0
         self._queue: List[Tuple[Request, int, float]] = []  # (req, tick, t_submit)
         self._active: List[_Seq] = []
@@ -237,13 +246,17 @@ class ContinuousBatchingServer:
             "serve_ttft_seconds", "submission -> first token latency")
         self._m_tpot = _metrics.histogram(
             "serve_tpot_seconds", "per-tick decode wall time (time per token)")
-        self.alloc = PageAllocator(cfg.num_pages)
-        self.pools = {
-            name: torch.zeros(shape, dtype=dtype, device=self.device)
-            for name, (shape, dtype) in model.paged_pool_specs(
-                cfg.num_pages, cfg.page_size
-            ).items()
-        }
+        def zeros(specs):
+            return {name: torch.zeros(shape, dtype=dtype, device=self.device)
+                    for name, (shape, dtype) in specs.items()}
+
+        if self._paged:
+            self.alloc = PageAllocator(cfg.num_pages)
+            self.pools = zeros(model.paged_pool_specs(cfg.num_pages, cfg.page_size))
+            self.state = None
+        else:
+            self.alloc = self.pools = None
+            self.state = zeros(model.decode_state_specs(cfg.max_slots, 0))
         from repro_torch.launch.serve import serving_steps
 
         self._prefill, _ = serving_steps(model)
@@ -252,17 +265,31 @@ class ContinuousBatchingServer:
 
     @torch.inference_mode()
     def _decode(self, tokens: np.ndarray, tables: np.ndarray, positions: np.ndarray):
+        """One decode step: (next tokens, the stacked state after it).  The
+        paged step writes the pools in place; the stacked-state step returns
+        new tensors, which the tick keeps and the warmup drops."""
         dev = self.device
         self.counters["decode_steps"] += 1
-        logits, self.pools = self.model.paged_decode(
-            self.params,
-            torch.as_tensor(tokens, device=dev),
-            self.pools,
-            torch.as_tensor(tables, device=dev),
-            torch.as_tensor(positions, device=dev),
-            impl=self.cfg.impl,
-        )
-        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        if self._paged:
+            logits, state = self.model.paged_decode(
+                self.params,
+                torch.as_tensor(tokens, device=dev),
+                self.pools,
+                torch.as_tensor(tables, device=dev),
+                torch.as_tensor(positions, device=dev),
+                impl=self.cfg.impl,
+            )
+        else:  # ssm: position-free, one state row per slot
+            logits, state = self.model.decode(
+                self.params, torch.as_tensor(tokens, device=dev), self.state, 0)
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32), state
+
+    @torch.inference_mode()
+    def _insert_state(self, new, slot: int) -> None:
+        """Write a prefill's (L, 1, ...) state into rows `slot` of the
+        stacked (L, S, ...) state."""
+        for name, st in self.state.items():
+            st[:, slot] = new[name][:, 0].to(st.dtype)
 
     @torch.inference_mode()
     def _scatter(self, caches, pages: List[int]) -> None:
@@ -280,7 +307,7 @@ class ContinuousBatchingServer:
     # -- capacity arithmetic -------------------------------------------------
 
     def _prefill_len(self, req: Request) -> int:
-        return int(req.prompt.shape[0])
+        return int(req.prompt.shape[0]) + self._patch_offset
 
     def _pages_for(self, length: int) -> int:
         return -(-length // self.cfg.page_size)  # ceil
@@ -292,6 +319,8 @@ class ContinuousBatchingServer:
 
     def _fits(self, req: Request) -> Optional[str]:
         """None if the request can ever be served, else the shed reason."""
+        if not self._paged:
+            return None
         total = self._prefill_len(req) + req.max_new_tokens
         if self._pages_for(total) > self.cfg.max_pages_per_seq:
             return "too_long:block_table"
@@ -324,7 +353,7 @@ class ContinuousBatchingServer:
                      submitted_tick=submitted_tick, submitted_at=submitted_at)
 
     def _evict(self, seq: _Seq, status: str, reason: str) -> None:
-        if seq.pages:
+        if self._paged and seq.pages:
             self.alloc.free(seq.pages)
             seq.pages = []  # retired sequences must never grow or double-free
         self._free_slots.append(seq.slot)
@@ -413,30 +442,35 @@ class ContinuousBatchingServer:
                 continue
 
             prefill_len = self._prefill_len(req)
-            # Optimistic admission: pages for the prompt plus the first decode
-            # token; growth pages are claimed tick by tick (and contended
-            # through preemption).
-            try:
-                pages = self.alloc.alloc(
-                    self._pages_for(prefill_len + 1), reason="admit", rid=req.rid
-                )
-            except PagesExhausted:
-                break  # wait for retirements; the deadline bounds the wait
-            except Exception as e:  # injected: defer one tick
-                ledger.record(
-                    "kv.page_alloc",
-                    cause=f"{type(e).__name__}: {e}",
-                    fallback="defer_admission",
-                    rid=req.rid,
-                )
-                break
+            pages: List[int] = []
+            if self._paged:
+                # Optimistic admission: pages for the prompt plus the first
+                # decode token; growth pages are claimed tick by tick (and
+                # contended through preemption).
+                try:
+                    pages = self.alloc.alloc(
+                        self._pages_for(prefill_len + 1), reason="admit", rid=req.rid
+                    )
+                except PagesExhausted:
+                    break  # wait for retirements; the deadline bounds the wait
+                except Exception as e:  # injected: defer one tick
+                    ledger.record(
+                        "kv.page_alloc",
+                        cause=f"{type(e).__name__}: {e}",
+                        fallback="defer_admission",
+                        rid=req.rid,
+                    )
+                    break
 
             self._queue.pop(0)
             slot = self._free_slots.pop()
             with _obs.span("serve.prefill", rid=req.rid, tokens=prefill_len):
-                first_tok, caches = self._run_prefill(req)
+                first_tok, state = self._run_prefill(req)
             self._m_admitted.inc()
-            self._scatter(caches, pages)
+            if self._paged:
+                self._scatter(state, pages)
+            else:
+                self._insert_state(state, slot)
             # TTFT: submission -> first token on the host (prefill emits it
             # greedily; reading it waits for the prefill).
             first = int(first_tok[0])
@@ -458,11 +492,18 @@ class ContinuousBatchingServer:
 
     def _run_prefill(self, req: Request):
         self.counters["prefills"] += 1
+        cfg = self.model.cfg
         prompts = torch.as_tensor(np.asarray(req.prompt, np.int32), device=self.device)[None, :]
-        return self._prefill(self.params, {"tokens": prompts, "labels": prompts})
+        batch = {"tokens": prompts, "labels": prompts}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.zeros((1, cfg.num_stub_patches, cfg.d_model),
+                                           dtype=cfg.adtype, device=self.device)
+        return self._prefill(self.params, batch)
 
     def _ensure_pages(self) -> None:
         """Every active sequence needs page pos//page_size before decoding."""
+        if not self._paged:
+            return
         for seq in list(self._active):
             # An earlier sequence's _preempt_for may have evicted this one
             # (identity check: _Seq is eq=False); a retired sequence must not
@@ -526,7 +567,10 @@ class ContinuousBatchingServer:
         # histogram records.
         t0 = time.monotonic()
         with _obs.span("serve.decode", slots=len(ready), tick=self._tick):
-            nxt = self._decode(tokens, tables, positions).cpu().numpy()  # host sync
+            nxt, state = self._decode(tokens, tables, positions)
+            if not self._paged:
+                self.state = state
+            nxt = nxt.cpu().numpy()  # host sync
         self._m_tpot.observe(time.monotonic() - t0)
         for seq in ready:
             seq.tokens.append(int(nxt[seq.slot]))
@@ -548,7 +592,8 @@ class ContinuousBatchingServer:
         it once through `dispatch(...).block()` and once directly, as the
         reference does, then run the prefill shapes of `warmup_prompt_lens`
         and one decode step whose all-zero tables touch only the scratch
-        page.  The canary's guard (`zero_and_record`) takes an armed
+        page (on the stacked-state path, whose new state is dropped).  The
+        canary's guard (`zero_and_record`) takes an armed
         `kernel.output` fault, scrubbing the poison and recording a
         `guard.nonfinite` event, before any request runs.  First it reads
         the cost model's coefficients for the server's device (one
@@ -582,7 +627,7 @@ class ContinuousBatchingServer:
             np.zeros((s_max, 1), np.int32),
             np.zeros((s_max, self.cfg.max_pages_per_seq), np.int32),
             np.zeros((s_max,), np.int32),
-        ).cpu()
+        )[0].cpu()
 
     def drain(self, *, max_ticks: int = 1_000_000) -> None:
         """Run until every admitted request has retired (graceful shutdown).

@@ -125,24 +125,41 @@ def report_plan_cache(prefix: str = "[serve]") -> dict:
     return info
 
 
+# The decode state's per-position KV caches, by family: decode writes at
+# position pos, so `generate` grows them to prompt+gen capacity on their
+# length axis (2).  Recurrent state (RWKV's wkv and shifts, Zamba's h and
+# conv) and Whisper's enc_out are left as they are.
+_GROWN_CACHES = {"dense": None, "moe": None, "vlm": None,  # None: every entry
+                 "hybrid": ("kv_k", "kv_v"), "audio": ("k", "v"), "ssm": ()}
+
+
 def generate(model, params, prompts: torch.Tensor, *, gen_len: int):
     """Prefill the prompts then decode `gen_len` tokens greedily against a
-    dense KV cache (attention is the plain `_sdpa`).
+    dense KV cache (attention is the plain `_sdpa`).  vlm prompts get zero
+    stub patches and decode from t_prompt + num_stub_patches.
 
     prompts: (B, T_prompt) int32 on the parameters' device.  Returns
     (tokens (B, gen_len) int32, decode steps per second).
     """
+    cfg = model.cfg
     b, t_prompt = prompts.shape
     prefill, serve = serving_steps(model)
-    next_tok, state = prefill(params, {"tokens": prompts, "labels": prompts})
-    # Grow the caches to prompt+gen capacity: decode writes at position pos.
+    batch = {"tokens": prompts, "labels": prompts}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.zeros((b, cfg.num_stub_patches, cfg.d_model),
+                                       dtype=cfg.adtype, device=prompts.device)
+    next_tok, state = prefill(params, batch)
+    grown = _GROWN_CACHES[cfg.family]
     state = {
-        name: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, gen_len)) for name, c in state.items()
+        name: (torch.nn.functional.pad(c, (0, 0, 0, 0, 0, gen_len))
+               if grown is None or name in grown else c)
+        for name, c in state.items()
     }
+    pos = t_prompt + (cfg.num_stub_patches if cfg.family == "vlm" else 0)
     toks = [next_tok]
     t0 = time.monotonic()
     for i in range(gen_len - 1):
-        next_tok, state = serve(params, toks[-1][:, None], state, t_prompt + i)
+        next_tok, state = serve(params, toks[-1][:, None], state, pos + i)
         toks.append(next_tok)
     out = torch.stack(toks, dim=1)
     out.cpu()  # waits for the device
@@ -233,6 +250,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "audio":
+        raise SystemExit("audio (whisper) serving is exercised in tests with a frames batch")
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device)
@@ -248,7 +267,10 @@ def main(argv=None) -> None:
     if args.scheduler:
         from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
 
-        pages_per_seq = -(-(args.prompt_len + args.gen) // 8)  # ceil
+        total_len = args.prompt_len + args.gen
+        if cfg.family == "vlm":
+            total_len += cfg.num_stub_patches
+        pages_per_seq = -(-total_len // 8)  # ceil
         scfg = ServeConfig(
             max_slots=args.batch,
             page_size=8,

@@ -6,9 +6,11 @@ dense cache, and single-token decode against a paged KV pool
 (`attention_paged_decode`, the continuous-batching path).  With
 cfg.attn_chunk > 0, a cache-free call whose length is a multiple of the
 chunk (and longer than one) takes the flash path: `kernels.flash_attention`,
-kernel K6 on the card and `_sdpa_chunked` on the CPU.  Sharding constraints
-(the reference's 'seq_attn' rule among them) and cross-attention arrive
-with their slices.
+kernel K6 on the card and `_sdpa_chunked` on the CPU, causal or not (the
+Whisper encoder's full attention).  Cross-attention (`cross_kv`) projects
+only the queries and attends, unrotated and unmasked, over keys and values
+the caller computed.  Sharding constraints (the reference's 'seq_attn' rule
+among them) arrive with their slice.
 """
 
 from __future__ import annotations
@@ -155,17 +157,22 @@ def attention(
     *,
     positions: Optional[torch.Tensor] = None,
     causal: bool = True,
+    use_rope: bool = True,
     cache: Optional[Cache] = None,
     cache_pos: Optional[int] = None,
     write_cache: bool = False,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Returns (output (B, T, D), updated cache or None).
 
     Modes:
-      cache=None, write_cache=False     full causal attention
+      cache=None, write_cache=False     full attention (causal unless told)
       cache=None, write_cache=True      prefill: returns fresh cache = (k, v)
       cache=..., cache_pos=p            decode: T new tokens at position p;
                                         the returned cache is a new tensor
+      cross_kv=(k, v)                   cross-attention: only wq projects,
+                                        nothing is rotated, no mask, plain
+                                        `_sdpa`; the cache args are ignored
     """
     b, t, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -175,10 +182,15 @@ def attention(
         positions = positions.expand(b, t)
 
     q = dense(x, p["wq"], cfg, p.get("bq")).reshape(b, t, h, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = _sdpa(q, k, v, causal=False)
+        return dense(out.reshape(b, t, h * hd), p["wo"], cfg), None
     k = dense(x, p["wk"], cfg, p.get("bk")).reshape(b, t, kvh, hd)
     v = dense(x, p["wv"], cfg, p.get("bv")).reshape(b, t, kvh, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache: Optional[Cache] = None
     if cache is not None:

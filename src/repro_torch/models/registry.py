@@ -1,12 +1,13 @@
 """Uniform model API the launch/serve layer talks to (port of
-`repro.models.registry`, dense and moe families).
+`repro.models.registry`, all six families).
 
 `get_model(cfg)` returns a `Model` with a family-independent interface:
   init(generator, device)                 parameter tree (1 source: PSpec)
   forward(params, batch)                  train/eval logits
   loss(params, batch)                     scalar loss + metrics
   prefill / decode + decode_state_specs   dense-cache serving path
-  paged_decode + paged_pool_specs         continuous-batching path
+  paged_decode + paged_pool_specs         continuous-batching path (dense,
+                                          moe, vlm)
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv, ssm, transformer, vlm, whisper
 from repro_torch.models.layers import init_params, softmax_xent
 
 __all__ = ["Model", "get_model"]
@@ -93,8 +94,25 @@ def _lm_prefill(params, batch, cfg):
     return transformer.lm_prefill(params, batch["tokens"], cfg)
 
 
+def _rwkv_forward(params, batch, cfg):
+    return rwkv.rwkv_forward(params, batch["tokens"], cfg)
+
+
+def _rwkv_prefill(params, batch, cfg):
+    return rwkv.rwkv_prefill(params, batch["tokens"], cfg)
+
+
+def _zamba_forward(params, batch, cfg):
+    return ssm.zamba_forward(params, batch["tokens"], cfg)
+
+
+def _zamba_prefill(params, batch, cfg):
+    return ssm.zamba_prefill(params, batch["tokens"], cfg)
+
+
 def get_model(cfg: ArchConfig) -> Model:
-    if cfg.family in ("dense", "moe"):
+    fam = cfg.family
+    if fam in ("dense", "moe"):
         return Model(
             cfg,
             transformer.lm_specs,
@@ -104,4 +122,43 @@ def get_model(cfg: ArchConfig) -> Model:
             transformer.decode_cache_specs,
             _paged_decode=transformer.lm_decode_paged,
         )
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet (dense and moe only)")
+    if fam == "ssm":
+        return Model(
+            cfg,
+            rwkv.rwkv_specs,
+            _rwkv_forward,
+            _rwkv_prefill,
+            rwkv.rwkv_decode,
+            lambda c, b, m: rwkv.rwkv_state_specs(c, b),
+        )
+    if fam == "hybrid":
+        return Model(
+            cfg,
+            ssm.zamba_specs,
+            _zamba_forward,
+            _zamba_prefill,
+            ssm.zamba_decode,
+            ssm.zamba_state_specs,
+        )
+    if fam == "audio":
+        return Model(
+            cfg,
+            whisper.whisper_specs,
+            whisper.whisper_forward,
+            whisper.whisper_prefill,
+            whisper.whisper_decode,
+            lambda c, b, m: whisper.whisper_cache_specs(c, b, m, m // c.dec_ratio),
+        )
+    if fam == "vlm":
+        return Model(
+            cfg,
+            vlm.vlm_specs,
+            vlm.vlm_forward,
+            vlm.vlm_prefill,
+            transformer.lm_decode,
+            lambda c, b, m: transformer.decode_cache_specs(c, b, m + c.num_stub_patches),
+            # vlm decode is structurally lm_decode (patches only affect
+            # prefill); the scheduler offsets positions by num_stub_patches.
+            _paged_decode=transformer.lm_decode_paged,
+        )
+    raise ValueError(f"unknown family {fam!r}")

@@ -1,0 +1,319 @@
+"""Mamba2 (SSD) layers and the Zamba2 hybrid (arXiv:2411.15242) (port of
+`repro.models.ssm`).
+
+Mamba2's scalar-per-head decay keeps the chunked SSD form numerically safe
+(every exponent is a difference of a monotone cumulative log-decay, hence
+<= 0), so prefill runs the matmul-rich chunked form (`ssd_chunked`) and
+decode carries the (H, P, N) state with an O(1) step (`ssd_step`); the
+sequential `ssd_scan` is the oracle.  All three are plain torch ops: the
+reference writes them in XLA, not Pallas.  The projections go through
+`layers.gemm` (kernel K1 under cfg.use_mesh_kernel).
+
+`dt` goes through `torch.nn.functional.softplus`, which returns x itself
+above 20 where the reference's `logaddexp(x, 0)` adds log1p(exp(-x)), under
+1e-8 relative there.
+
+Zamba2: `num_layers` Mamba2 blocks with one *shared-weight* transformer
+block (attention + SwiGLU) applied after every `shared_attn_period` Mamba
+layers — n_seg applications, each with its own KV cache.  Parameters
+{"mamba_seg": (n_seg, period, ...), "mamba_tail": (tail, ...), "shared":
+one block}; caches stacked (n_seg, B, T, KV, hd).  The shared block's
+attention takes the chunked path (kernel K6 on the card) for prompts that
+are a multiple of cfg.attn_chunk.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.attention import attention, attn_specs
+from repro_torch.models.layers import PSpec, gemm, padded_vocab, rmsnorm
+from repro_torch.models.moe import swiglu, swiglu_specs
+from repro_torch.models.transformer import _layer, embed_tokens, stack_specs, unembed
+
+__all__ = [
+    "ssd_chunked",
+    "ssd_scan",
+    "ssd_step",
+    "zamba_decode",
+    "zamba_forward",
+    "zamba_prefill",
+    "zamba_specs",
+    "zamba_state_specs",
+]
+
+_CHUNK = 128
+_CONV_K = 4
+
+
+# ---------------------------------------------------------------------------
+# SSD core
+# ---------------------------------------------------------------------------
+
+
+def ssd_step(h, x, dt, a_log, b, c, d_skip):
+    """One decode step.  x: (B, H, P); dt: (B, H); b, c: (B, N);
+    h: (B, H, P, N).  Returns (y, h)."""
+    a = torch.exp(-torch.exp(a_log) * dt)  # (B, H)
+    h = h * a[..., None, None] + (dt[..., None] * x)[..., None] * b[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", h, c) + d_skip[None, :, None] * x
+    return y, h
+
+
+def ssd_scan(x, dt, a_log, b, c, d_skip, h0):
+    """Sequential oracle.  x: (B, T, H, P); dt: (B, T, H); a_log: (H,);
+    b, c: (B, T, N); d_skip: (H,); h0: (B, H, P, N).  Returns (y, h_final)."""
+    h, ys = h0, []
+    for i in range(x.shape[1]):
+        y, h = ssd_step(h, x[:, i], dt[:, i], a_log, b[:, i], c[:, i], d_skip)
+        ys.append(y)
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_chunked(x, dt, a_log, b, c, d_skip, h0, chunk: int = _CHUNK):
+    """Chunk-parallel SSD (matmul form).  Same signature as `ssd_scan`; T is
+    padded up to a multiple of `chunk` and the output cut back."""
+    B, T, H, P = x.shape
+    N = b.shape[-1]
+    nc = -(-T // chunk)
+    pad = nc * chunk - T
+    if pad:
+        def padt(t):
+            return F.pad(t, [0, 0] * (t.dim() - 2) + [0, pad])
+
+        x, dt, b, c = padt(x), padt(dt), padt(b), padt(c)
+    C = chunk
+    xc = x.reshape(B, nc, C, H, P)
+    dtc = dt.reshape(B, nc, C, H)
+    bc = b.reshape(B, nc, C, N)
+    cc = c.reshape(B, nc, C, N)
+
+    la = torch.cumsum(-torch.exp(a_log)[None, None, None] * dtc, dim=2)  # <= 0, decreasing
+    # Intra-chunk: y[t] += sum_{j<=t} exp(la_t - la_j) dt_j (C_t.B_j) x_j
+    diff = la[:, :, :, None, :] - la[:, :, None, :, :]  # (B, nc, C, C, H): t, j
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device))
+    L = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    G = torch.einsum("bktn,bkjn->bktj", cc, bc)  # (B, nc, C, C)
+    M = G[..., None] * L * dtc[:, :, None, :, :]  # weight for (t, j, h)
+    y = torch.einsum("bktjh,bkjhp->bkthp", M, xc)
+    # Inter-chunk: y[t] += exp(la_t) C_t . h_in; carry h across chunks.
+    decay_in = torch.exp(la)  # (B, nc, C, H)
+    a_prod = torch.exp(la[:, :, -1, :])  # (B, nc, H)
+    # per-chunk state contribution: sum_j exp(la_C - la_j) dt_j (x_j (x) B_j)
+    wj = torch.exp(la[:, :, -1:, :] - la) * dtc  # (B, nc, C, H)
+    h_chunk = torch.einsum("bkjhp,bkjn->bkhpn", wj[..., None] * xc, bc)
+
+    h, h_ins = h0, []
+    for k in range(nc):
+        h_ins.append(h)  # h_in of chunk k
+        h = h * a_prod[:, k, :, None, None] + h_chunk[:, k]
+    h_in = torch.stack(h_ins, dim=1)  # (B, nc, H, P, N)
+    y = y + torch.einsum("bkthn,bkhpn->bkthp", decay_in[..., None] * cc[:, :, :, None, :], h_in)
+    y = y.reshape(B, nc * C, H, P)[:, :T]
+    y = y + d_skip[None, None, :, None] * x[:, :T].reshape(B, T, H, P)
+    return y, h
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block
+# ---------------------------------------------------------------------------
+
+
+def _mamba_specs(cfg) -> Dict[str, Any]:
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    n = cfg.ssm_state_size
+    h = cfg.ssm_num_heads
+    conv_dim = d_in + 2 * n
+    out_scale = 0.02 / max(1.0, (2 * cfg.num_layers) ** 0.5)
+    return {
+        "ln": PSpec((d,), ("embed",), init="ones"),
+        "in_proj": PSpec((d, 2 * d_in + 2 * n + h), ("embed", "mlp"), 0.02),
+        "conv_w": PSpec((_CONV_K, conv_dim), (None, "mlp"), 0.2),
+        "conv_b": PSpec((conv_dim,), ("mlp",), init="zeros"),
+        "a_log": PSpec((h,), (None,), 0.5),
+        "dt_bias": PSpec((h,), (None,), 0.5),
+        "d_skip": PSpec((h,), (None,), init="ones"),
+        "out_norm": PSpec((d_in,), ("mlp",), init="ones"),
+        "out_proj": PSpec((d_in, d), ("mlp", "embed"), out_scale),
+    }
+
+
+def _split_proj(cfg, z_xbc_dt):
+    """(z, x, B, C, dt) at the reference's split *indices* (tensor_split)."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    n = cfg.ssm_state_size
+    return torch.tensor_split(
+        z_xbc_dt, [d_in, 2 * d_in, 2 * d_in + n, 2 * d_in + 2 * n], dim=-1)
+
+
+def _causal_conv(xbc, w, bias, conv_state=None):
+    """Depthwise causal conv (K=4) by shifted adds.  xbc: (B, T, Cd).
+
+    conv_state: (B, K-1, Cd) previous inputs, before the activation (decode);
+    returns (y, new_state)."""
+    b, t, cd = xbc.shape
+    if conv_state is None:
+        conv_state = torch.zeros((b, _CONV_K - 1, cd), dtype=xbc.dtype, device=xbc.device)
+    full = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)  # (B, T+3, Cd)
+    y = sum(full[:, i : i + t, :] * w[i][None, None, :].to(xbc.dtype) for i in range(_CONV_K))
+    y = F.silu(y + bias[None, None].to(xbc.dtype))
+    return y, full[:, -(_CONV_K - 1):, :]
+
+
+def _mamba_block(p, x, cfg, state, *, chunked: bool):
+    """state = {"h": (B, H, P, N), "conv": (B, 3, Cd)}; returns (y, new_state)."""
+    b, t, d = x.shape
+    d_in = cfg.ssm_expand * d
+    n, h = cfg.ssm_state_size, cfg.ssm_num_heads
+    p_dim = d_in // h
+    f32 = torch.float32
+
+    zxbcdt = gemm(x, p["in_proj"].to(x.dtype), cfg)
+    z, xin, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
+    xbc = torch.cat([xin, bmat, cmat], dim=-1)
+    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], state["conv"])
+    xin, bmat, cmat = torch.tensor_split(xbc, [d_in, d_in + n], dim=-1)
+
+    xh = xin.reshape(b, t, h, p_dim).to(f32)
+    dtv = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))
+    bf, cf = bmat.to(f32), cmat.to(f32)
+    a_log, d_skip = p["a_log"].to(f32), p["d_skip"].to(f32)
+
+    if t == 1:
+        y, h_new = ssd_step(state["h"], xh[:, 0], dtv[:, 0], a_log, bf[:, 0], cf[:, 0], d_skip)
+        y = y[:, None]
+    elif chunked:
+        y, h_new = ssd_chunked(xh, dtv, a_log, bf, cf, d_skip, state["h"])
+    else:
+        y, h_new = ssd_scan(xh, dtv, a_log, bf, cf, d_skip, state["h"])
+
+    y = y.reshape(b, t, d_in).to(x.dtype)
+    y = rmsnorm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)
+    out = gemm(y, p["out_proj"].to(x.dtype), cfg)
+    return out, {"h": h_new, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid model
+# ---------------------------------------------------------------------------
+
+
+def _segments(cfg) -> Tuple[int, int, int]:
+    period = cfg.shared_attn_period
+    n_seg = cfg.num_layers // period
+    tail = cfg.num_layers - n_seg * period
+    return n_seg, period, tail
+
+
+def zamba_specs(cfg) -> Dict[str, Any]:
+    n_seg, period, tail = _segments(cfg)
+    one = _mamba_specs(cfg)
+    specs: Dict[str, Any] = {
+        "embed": PSpec((padded_vocab(cfg), cfg.d_model), ("vocab", "embed"), 0.02),
+        "mamba_seg": stack_specs(stack_specs(one, period), n_seg),
+        "shared": {
+            "ln1": PSpec((cfg.d_model,), ("embed",), init="ones"),
+            "ln2": PSpec((cfg.d_model,), ("embed",), init="ones"),
+            "attn": attn_specs(cfg),
+            "mlp": swiglu_specs(cfg, cfg.d_ff),
+        },
+        "final_norm": PSpec((cfg.d_model,), ("embed",), init="ones"),
+        "lm_head": PSpec((cfg.d_model, padded_vocab(cfg)), ("embed", "vocab"), 0.02),
+    }
+    if tail:
+        specs["mamba_tail"] = stack_specs(one, tail)
+    return specs
+
+
+def zamba_state_specs(cfg, batch: int, max_len: int):
+    """Decode state as {name: (shape, dtype)}: per-layer SSM and conv
+    states, per-application KV caches."""
+    n_seg, _, _ = _segments(cfg)
+    d_in = cfg.ssm_expand * cfg.d_model
+    n, h = cfg.ssm_state_size, cfg.ssm_num_heads
+    cd = d_in + 2 * n
+    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+    L = cfg.num_layers
+    return {
+        "h": ((L, batch, h, d_in // h, n), torch.float32),
+        "conv": ((L, batch, _CONV_K - 1, cd), cfg.adtype),
+        "kv_k": ((n_seg, batch, max_len, kv, hd), cfg.adtype),
+        "kv_v": ((n_seg, batch, max_len, kv, hd), cfg.adtype),
+    }
+
+
+def _zero_state(cfg, batch: int, max_len: int, device):
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in zamba_state_specs(cfg, batch, max_len).items()}
+
+
+def _shared_block(p, x, cfg, kv=None, cache_pos=None, write_cache=False):
+    h, new_cache = attention(
+        p["attn"],
+        rmsnorm(x, p["ln1"], cfg.norm_eps),
+        cfg,
+        cache=kv,
+        cache_pos=cache_pos,
+        write_cache=write_cache,
+    )
+    x = x + h
+    x = x + swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x, new_cache
+
+
+def _run(params, tokens, cfg, state, *, mode: str, pos=None, chunked=True):
+    """mode: 'forward' (no cache IO) | 'prefill' | 'decode'."""
+    n_seg, period, tail = _segments(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    L = cfg.num_layers
+    new_h, new_conv, new_k, new_v = [], [], [], []
+
+    def mamba_stack(x, stacked, n, lo):
+        for i in range(n):
+            st = {"h": state["h"][lo + i], "conv": state["conv"][lo + i]}
+            y, st_new = _mamba_block(_layer(stacked, i), x, cfg, st, chunked=chunked)
+            x = x + y
+            new_h.append(st_new["h"])
+            new_conv.append(st_new["conv"])
+        return x
+
+    for seg in range(n_seg):
+        x = mamba_stack(x, _layer(params["mamba_seg"], seg), period, seg * period)
+        if mode == "forward":
+            x, _ = _shared_block(params["shared"], x, cfg)
+            continue
+        if mode == "prefill":
+            x, kvc = _shared_block(params["shared"], x, cfg, write_cache=True)
+        else:  # decode
+            kv = {"k": state["kv_k"][seg], "v": state["kv_v"][seg]}
+            x, kvc = _shared_block(params["shared"], x, cfg, kv=kv, cache_pos=pos)
+        new_k.append(kvc["k"])
+        new_v.append(kvc["v"])
+    if tail:
+        x = mamba_stack(x, params["mamba_tail"], tail, L - tail)
+
+    logits = unembed(params, x, cfg)
+    new_state = {"h": torch.stack(new_h), "conv": torch.stack(new_conv)}
+    if mode != "forward":
+        new_state["kv_k"] = torch.stack(new_k)
+        new_state["kv_v"] = torch.stack(new_v)
+    return logits, new_state
+
+
+def zamba_forward(params, tokens, cfg, *, chunked=True):
+    state = _zero_state(cfg, tokens.shape[0], 1, params["embed"].device)
+    logits, _ = _run(params, tokens, cfg, state, mode="forward", chunked=chunked)
+    return logits, {}
+
+
+def zamba_prefill(params, tokens, cfg, *, chunked=True):
+    state = _zero_state(cfg, tokens.shape[0], 1, params["embed"].device)
+    return _run(params, tokens, cfg, state, mode="prefill", chunked=chunked)
+
+
+def zamba_decode(params, tokens, state, pos, cfg):
+    return _run(params, tokens, cfg, state, mode="decode", pos=int(pos))

@@ -1,0 +1,58 @@
+"""Pixtral-12B backbone: a mistral-nemo-style decoder behind a stub ViT
+frontend (port of `repro.models.vlm`).
+
+The frontend is a stub: the batch carries precomputed patch embeddings
+(B, P, D), which are projected (`patch_proj`) and prepended to the text
+embeddings.  Logits cover the text positions only; the KV caches span
+patches + text, so decode positions count from the start of that stream.
+Decode is the transformer's (`lm_decode`, and `lm_decode_paged` on the
+continuous-batching path, and `decode_cache_specs` over patches + text):
+patches only change prefill, so the registry uses the transformer's.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.models.layers import PSpec, gemm
+from repro_torch.models.transformer import _layer, block_apply, embed_tokens, lm_specs, unembed
+
+__all__ = ["vlm_specs", "vlm_forward", "vlm_prefill"]
+
+
+def vlm_specs(cfg) -> Dict[str, Any]:
+    specs = lm_specs(cfg)
+    specs["patch_proj"] = PSpec((cfg.d_model, cfg.d_model), ("embed", "embed"), 0.02)
+    return specs
+
+
+def _embed_multimodal(params, batch, cfg) -> torch.Tensor:
+    """concat(project(patch_embeds), embed(tokens)) -> (B, P+T, D)."""
+    patches = gemm(batch["patches"].to(cfg.adtype), params["patch_proj"].to(cfg.adtype), cfg)
+    text = embed_tokens(params, batch["tokens"], cfg)
+    return torch.cat([patches, text], dim=1)
+
+
+def vlm_forward(params, batch: Dict[str, torch.Tensor], cfg):
+    """batch: {"patches": (B, P, D), "tokens": (B, T)} -> (text logits, aux).
+    Causal over the concatenated stream."""
+    x = _embed_multimodal(params, batch, cfg)
+    for i in range(cfg.num_layers):
+        x, _, _ = block_apply(_layer(params["blocks"], i), x, cfg)
+    n_patches = batch["patches"].shape[1]
+    return unembed(params, x[:, n_patches:], cfg), {}
+
+
+def vlm_prefill(params, batch, cfg):
+    """Returns (text logits, stacked caches (L, B, P+T, KV, hd))."""
+    x = _embed_multimodal(params, batch, cfg)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, cache, _ = block_apply(_layer(params["blocks"], i), x, cfg, write_cache=True)
+        ks.append(cache["k"])
+        vs.append(cache["v"])
+    n_patches = batch["patches"].shape[1]
+    logits = unembed(params, x[:, n_patches:], cfg)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}

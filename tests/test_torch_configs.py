@@ -1,9 +1,11 @@
 """The port's configs against the reference's, and the dense configs that
 need no new model code.
 
-  * every config the port registers equals the reference's, field for field
-    (every field the port's `ArchConfig` has), and so do `tuned()`,
-    `reduced()`, `n_params_dense_blocks()` and `n_active_params()`;
+  * the port registers the reference's eleven configs, and every one
+    equals the reference's, field for field (every field the port's
+    `ArchConfig` has), and so do `tuned()`, `reduced()`,
+    `n_params_dense_blocks()` and `n_active_params()`;
+  * `get_model` builds every config, with the reference's parameter specs;
   * Granite-3 8B reduced (tied embeddings, a vocab that `tuned()` pads):
     prefill and teacher-forced decode logits within 1e-5 of the reference's
     on both backend pairs, the padded rows never winning the argmax;
@@ -26,8 +28,9 @@ from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
-ARCHS = ["granite-3-8b", "mesh-paper", "mistral-large-123b", "olmoe-1b-7b",
-         "phi3-medium-14b", "qwen2-7b", "qwen2-moe-a2.7b"]
+DENSE_MOE = ["granite-3-8b", "mesh-paper", "mistral-large-123b", "olmoe-1b-7b",
+             "phi3-medium-14b", "qwen2-7b", "qwen2-moe-a2.7b"]
+ARCHS = sorted(DENSE_MOE + ["pixtral-12b", "rwkv6-1.6b", "whisper-medium", "zamba2-1.2b"])
 FIELDS = [f.name for f in dataclasses.fields(ArchConfig)]
 
 
@@ -47,7 +50,38 @@ def jx():
 
 
 def test_the_port_registers_seven_configs():
-    assert sorted(CONFIGS) == ARCHS
+    """The seven dense and moe configs."""
+    assert set(DENSE_MOE) <= set(CONFIGS)
+    assert {get_config(a).family for a in DENSE_MOE} == {"dense", "moe"}
+
+
+def test_the_port_registers_eleven_configs(jx):
+    """Every config of the reference, the other four families included."""
+    from repro.configs import CONFIGS as REF
+
+    assert sorted(CONFIGS) == ARCHS == sorted(REF)
+    assert {get_config(a).family for a in ARCHS} == {"dense", "moe", "ssm", "hybrid",
+                                                       "audio", "vlm"}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_get_model_builds_every_config(jx, arch):
+    """`get_model` builds every published config, through `tuned()` too,
+    and its parameter specs are the reference's: the same tree, shapes and
+    init scales, at full width (specs only, nothing is allocated)."""
+    for variant in (lambda c: c, lambda c: c.tuned()):
+        tm = get_model(variant(get_config(arch)))
+        jm = jx.get_model(variant(jx.get_config(arch)))
+        got, want = tm.specs(), jm.specs()
+        flat = lambda t, pre="": (  # noqa: E731
+            {pre: t} if not isinstance(t, dict)
+            else {k: v for n, sub in t.items() for k, v in flat(sub, f"{pre}/{n}").items()})
+        got, want = flat(got), flat(want)
+        assert got.keys() == want.keys()
+        for name in want:
+            assert (got[name].shape, got[name].scale, got[name].init) == (
+                want[name].shape, want[name].scale, want[name].init), name
+        assert tm.supports_paged == jm.supports_paged
 
 
 def _same(tc, jc):
@@ -78,8 +112,11 @@ def test_tuned_values():
     assert (g.attn_chunk, g.vocab_pad_multiple) == (1024, 256)  # 49155 % 16 != 0
     m = get_config("mistral-large-123b").tuned()
     assert (m.attn_chunk, m.vocab_pad_multiple) == (1024, 0)
-    with pytest.raises(NotImplementedError, match="wkv_chunked"):
-        dataclasses.replace(get_config("mesh-paper"), family="ssm").tuned()
+    # The ssm family (RWKV) has no attention: the chunked WKV instead.
+    r = get_config("rwkv6-1.6b").tuned()
+    assert (r.wkv_chunked, r.attn_chunk, r.wkv_chunk) == (True, 0, 16)
+    w = get_config("whisper-medium").tuned()
+    assert (w.attn_chunk, w.vocab_pad_multiple, w.wkv_chunked) == (1024, 256, False)
 
 
 def test_published_dense_configs_build_specs():

@@ -50,7 +50,9 @@ print("WALKED", " ".join(names))
                  "configs.olmoe_1b_7b", "kernels.flash_attention", "configs.qwen2_7b",
                  "obs.trace", "obs.metrics", "obs.export", "obs.bridge", "costmodel.model",
                  "costmodel.calibrate", "costmodel.choose", "kernels.autotune",
-                 "launch.roofline", "launch.hillclimb"):
+                 "launch.roofline", "launch.hillclimb", "models.rwkv", "models.ssm",
+                 "models.vlm", "models.whisper", "configs.rwkv6_1b6", "configs.zamba2_1b2",
+                 "configs.pixtral_12b", "configs.whisper_medium"):
         assert "repro_torch." + name in walked, name
 
 
@@ -65,6 +67,8 @@ from repro_torch.models import get_model
 model = get_model(get_config("mesh-paper").reduced())
 moe = get_model(get_config("olmoe-1b-7b").reduced())
 qwen = get_model(get_config("qwen2-7b").reduced())
+rwkv = get_model(get_config("rwkv6-1.6b").reduced())
+pixtral = get_model(get_config("pixtral-12b").reduced())
 calls = {
     "init": lambda: model.init(torch.Generator()),
     "init moe": lambda: moe.init(torch.Generator()),
@@ -75,6 +79,10 @@ calls = {
     "main": lambda: serve.main(["--arch", "mesh-paper", "--reduced"]),
     "train": lambda: train.main(["--arch", "mesh-paper", "--reduced", "--steps", "1"]),
     "hillclimb": lambda: hillclimb.main(["--gemm"]),
+    "init rwkv": lambda: rwkv.init(torch.Generator()),
+    "server rwkv": lambda: ContinuousBatchingServer(rwkv, None, ServeConfig()),
+    "server pixtral": lambda: ContinuousBatchingServer(pixtral, None, ServeConfig()),
+    "main zamba": lambda: serve.main(["--arch", "zamba2-1.2b", "--reduced"]),
 }
 for name, call in calls.items():
     try:
@@ -90,9 +98,11 @@ train.main(["--arch", "mesh-paper", "--reduced", "--device", "cpu", "--steps", "
     res = _run(code)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.split("\n")
-    assert lines[:9] == ["refused init", "refused init moe", "refused init qwen",
-                         "refused server moe", "refused server qwen", "refused server",
-                         "refused main", "refused train", "refused hillclimb"], res.stdout
+    assert lines[:13] == ["refused init", "refused init moe", "refused init qwen",
+                          "refused server moe", "refused server qwen", "refused server",
+                          "refused main", "refused train", "refused hillclimb",
+                          "refused init rwkv", "refused server rwkv",
+                          "refused server pixtral", "refused main zamba"], res.stdout
     assert "[done] mesh-paper steps=1" in res.stdout and "device=cpu" in res.stdout
 
 

@@ -15,8 +15,10 @@ held against them.
 K1's tile is a pure function of (M, N, K, blocks, dtype): every mesh-paper
 prefill and training product in bf16 takes the tensor-core tile, every f32
 product of the `_mm` backward the f32 tile, decode (M <= 16) the decode
-tile, and the 8/16-wide blocks of the on-card tests the first SIMT tiles.
-None of this needs a card.
+tile, every K1 product of RWKV-6's, Zamba2's and Whisper's full-width
+prefill and decode step (recorded on meta tensors) a tensor-core tile, and
+the 8/16-wide blocks of the on-card tests the first SIMT tiles.  None of
+this needs a card.
 """
 
 import inspect
@@ -291,6 +293,68 @@ def test_olmoe_kernel_path_gemms_take_new_tiles():
                  (d, cfg.vocab_size)]:
         assert tile_config(128, n, k, 128, 128, 128, torch.bfloat16) == "tc128"
         assert tile_config(4, n, k, 128, 128, 128, torch.bfloat16) == "tc_decode"
+
+
+# chip_smoke's kernel-path phases of the other families: (prefill batch, the
+# decode step's rows).  RWKV-6 serves 128-token prompts on 4 slots, Zamba2
+# 2 x 2048-token prompts, Whisper 2 x 2048 frames and 2 x 256 tokens.
+OTHER_FAMILIES = {
+    "rwkv6-1.6b": (lambda cfg: {"tokens": torch.zeros(1, 128, dtype=torch.int32)}, 4),
+    "zamba2-1.2b": (lambda cfg: {"tokens": torch.zeros(2, 2048, dtype=torch.int32)}, 2),
+    "whisper-medium": (lambda cfg: {"frames": torch.zeros(2, 2048, cfg.d_model),
+                                    "tokens": torch.zeros(2, 256, dtype=torch.int32)}, 2),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(OTHER_FAMILIES))
+def test_other_families_kernel_path_gemms_take_new_tiles(arch, monkeypatch):
+    """Every GEMM the full-width prefill and decode step run on K1, recorded
+    on meta tensors (no product is computed), takes the tensor-core tile:
+    the prefill's the 128-wide one, the decode step's the decode tile, the
+    ragged N of Zamba2's in_proj (8384) and of Whisper's padded head (51968)
+    included."""
+    import dataclasses
+
+    from repro_torch.kernels.mesh_matmul import kernel_n
+    from repro_torch.models import attention, get_model
+
+    rows, products = [], []
+
+    def plan(spec, *, backend=None, device=None, **_):
+        def run(a, b, bias=None, residual=None):
+            products.append((rows[-1], a.numel() // a.shape[-1], spec.k, spec.n,
+                             spec.epilogue.activation, backend))
+            return torch.empty(*a.shape[:-1], spec.n, dtype=a.dtype, device=a.device)
+        return run
+
+    monkeypatch.setattr(api, "plan", plan)
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda q, k, v, **_: torch.empty_like(q))
+    cfg = dataclasses.replace(get_config(arch).tuned(), use_mesh_kernel=True)
+    batch_of, slots = OTHER_FAMILIES[arch]
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "meta")
+    with torch.inference_mode():
+        rows.append("prefill")
+        batch = {k: v.to("meta") for k, v in batch_of(cfg).items()}
+        _, state = model.prefill(params, batch)
+        if arch == "rwkv6-1.6b":  # the server's stacked state of 4 slots
+            state = {k: v.expand(v.shape[0], slots, *v.shape[2:]) for k, v in state.items()}
+        rows.append("decode")
+        tokens = torch.zeros(slots, 1, dtype=torch.int32, device="meta")
+        model.decode(params, tokens, state, 0)
+    acts = {p[4] for p in products}
+    assert {p[5] for p in products} == {"cuda_mesh"}
+    assert (acts == {None, "silu", "relu", "sigmoid"}) == (arch == "rwkv6-1.6b"), acts
+    assert {p[0] for p in products} == {"prefill", "decode"}
+    # A decode step's rows are the slots, but for Whisper's cross K/V,
+    # recomputed from the 2 x 2048 encoder frames every step.
+    cross = {2 * 2048} if arch == "whisper-medium" else set()
+    for phase, m, k, n, _, _ in products:
+        assert m in ({slots} | cross if phase == "decode" else {128, 512, 4096}), (phase, m)
+        want = "tc_decode" if m <= 16 else "tc128"
+        got = tile_config(m, kernel_n(n, 128, torch.bfloat16), k, 128, 128, 128, torch.bfloat16)
+        assert got == want, (phase, m, k, n)
 
 
 @pytest.mark.parametrize(
