@@ -114,6 +114,14 @@ Phases; any failure raises and the script exits non-zero:
               path: 2 x 2048 frames (K6 non-causal 24 a prefill), a
               256-token decoder prompt and 16 decode steps, K1 386 a prefill
               and 241 a decode step, logits against `forward`;
+  10e. train_rwkv  full-width RWKV-6 1.6B through `tuned()` (the chunked
+              WKV, its chunk checkpoint on) on the kernel path, 2 x 2048
+              tokens: the kernel step's loss and gradients against the
+              `torch` backend's ([train]'s limits), 3 AdamW steps through
+              `train_loop` (K1 651 a step), and one step's peak memory with
+              the chunk checkpoint and without it;
+  10f. train_zamba  full-width Zamba2-1.2B the same way (K1 339 a step, K6
+              6: the shared block's attention forward);
   11. paper    the paper's tables by simulation on the card (`core/`): 2n-1
               and 3n-2 steps for n up to 128 and at n = 1024, the outputs
               equal to a @ b bitwise, the symmetric readout within
@@ -124,6 +132,17 @@ Phases; any failure raises and the script exits non-zero:
               ladder under injected plan.execute/plan.build faults and the
               non-finite guard's three policies under a NaN-poisoned
               kernel.output;
+  12a. sharded  the planner's collective schedules across 4 ranks, processes
+              that share the card (gloo, the hops staged through host
+              memory; a 2-rank NCCL probe first shows whether NCCL takes two
+              ranks on one card), at mesh-paper's width M K N = 4096 2048
+              8192: every schedule on K1 and `expert` on K5 at OLMoE's
+              decode shape, integer-valued f32 bitwise and bf16 within
+              2^-7·max|ref| of the unsharded plan, K1/K5 launches per rank
+              against the plan's kernel_invocations, Cannon on a 2 x 2
+              mesh, and a planted collective.step fault raising by default
+              and degrading to replicated with the same bits; walls are
+              printed, never as a speed;
   13. obs      observability and the cost model at mesh-paper's full width:
               (a) the blocks the autotuner picked on the card for every
               main-path product, each timed candidate's device ms, every
@@ -143,9 +162,10 @@ Every plan resolves its blocks through the cost model's chooser, which
 times candidates on the card; the autotune and calibration caches live in
 a fresh temporary directory for the run.
 
-Every phase but `planner` arms no fault: each starts with an empty
-resilience ledger and fails if it records a planner event (`plan.*`,
-`guard.*`) or leaves a cached plan on another backend than its own.
+Every phase but `planner` arms no fault in this process (the `sharded`
+ranks arm one in their own): each starts with an empty resilience ledger
+and fails if it records a planner event (`plan.*`, `guard.*`) or leaves a
+cached plan on another backend than its own.
 
 The last lines are the card's `nvidia-smi` name and power limit, the
 `{"kernels": [...]}` JSON, and `{"ok": true, "device": {...}}`.  It imports
@@ -492,9 +512,13 @@ def phase_k1(torch):
     # fused epilogue, at each M its phase runs it, on the blocks the planner
     # resolves for that product (the autotuner's, memoized for the run, so
     # the phases' plans take the same ones).
+    held = set()
     for family, table in K1_PATH_GEMMS.items():
         for label, (k, n, kw, ms) in table.items():
             for m in ms:
+                if (m, k, n, kw.get("activation")) in held:
+                    continue
+                held.add((m, k, n, kw.get("activation")))
                 spec = api.GemmSpec.from_operands(
                     torch.empty(m, k, dtype=bf16, device=dev),
                     torch.empty(k, n, dtype=bf16, device=dev), out_dtype=bf16)
@@ -891,11 +915,16 @@ def phase_k1_backward(torch):
             for kind in ("fwd bf16", "dA f32", "dB f32")}
     bound = {kind: sum(rows[(lbl, kind)][3] * c for lbl, c in per_layer.items())
              for kind in ("fwd bf16", "dA f32", "dB f32")}
+    library = sum(rows[(lbl, kind)][2] * c for lbl, c in per_layer.items()
+                  for kind in ("fwd bf16", "dA f32", "dB f32"))
     log(f"[K1 train] one step's 75 K1 launches at these times: "
         f"{sum(step.values()):.1f} ms (fwd {step['fwd bf16']:.1f}, dA {step['dA f32']:.1f},"
-        f" dB {step['dB f32']:.1f}); bound {sum(bound.values()):.1f} ms")
+        f" dB {step['dB f32']:.1f}); torch.matmul (TF32 off) on the same 75 products"
+        f" {library:.1f} ms; bound {sum(bound.values()):.1f} ms")
     check(not failed, f"K1 at the training shapes differs from its plain version: {failed}")
-    return max_err
+    return max_err, dict(ms=sum(step.values()), library_ms=library,
+                         bound_ms=sum(bound.values()), shape="one mesh-paper train step's"
+                         " 75 products at M = 4096 (25 bf16 forward, 50 f32 backward)")
 
 
 def _routed_sizes(rng, tokens: int, experts: int = OLMOE_EXPERTS, topk: int = OLMOE_TOPK):
@@ -2713,7 +2742,8 @@ def loss_and_grads(torch, model, params, batch):
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     with torch.enable_grad():
         loss, _ = model.loss(ps, batch)
-        return loss.detach(), torch.autograd.grad(loss, tree_leaves(ps))
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(ps), allow_unused=True,
+                                                  materialize_grads=True)
 
 
 def phase_configs(torch):
@@ -2895,7 +2925,12 @@ WHISPER_GEMMS = {
     "wo": (4096, 1024, {}, WHISPER_MS),
     "head": (1024, 51968, {}, WHISPER_MS[:2]),
 }
+# [train_rwkv]'s forward: RWKV-6's GEMMs at M = 2 x 2048 ([train_zamba]'s
+# are ZAMBA_GEMMS' prefill M).
+RWKV_TRAIN_GEMMS = {label: (k, n, kw, (TRAIN_BATCH * TRAIN_SEQ,))
+                    for label, (k, n, kw, _) in RWKV_GEMMS.items()}
 K1_PATH_GEMMS = {"serve_rwkv": RWKV_GEMMS, "serve_zamba": ZAMBA_GEMMS,
+                 "train_rwkv": RWKV_TRAIN_GEMMS, "train_zamba": ZAMBA_GEMMS,
                  "serve_whisper": WHISPER_GEMMS}
 # New tokens in the four phases' profiled windows.
 PROFILE_TOKENS = 8
@@ -3398,6 +3433,190 @@ def phase_serve_whisper(torch):
 
 
 # The paper's sizes (`benchmarks/bench_stepcounts.py`) and one at full scale.
+# [train_rwkv] and [train_zamba]: 3 AdamW steps at 2 x 2048 tokens, full
+# width, not cut.  K1 per step: each forward product once, its dA and dB
+# (`mm_backward`), and once more for each fused activation's recomputed
+# pre-activation: RWKV's silu, relu and sigmoid (3 a layer); Zamba2 fuses
+# none.  K6: Zamba2's 6 shared-block attentions forward (the backward
+# recomputes the plain chunked path).
+FAMILY_TRAIN_STEPS = 3
+# RWKV-6's gradient at random init is chaotic in depth: two plain paths
+# that only round differently (the `torch` backend, and the same step with
+# the `ref` forward's f32 products) read per-parameter ||d||/||g|| of 0.026
+# at 2 layers, 0.28 at 4, 4.3 at 12 and 1.6 at 24, and the kernel path 0.025,
+# 0.22, 1.45 and 4.6 (tools/grad_depth.py on an H100 80GB HBM3), so
+# [train]'s per-parameter limit is held at 2 layers of the full-width model;
+# at 24 the loss (within 1e-3) and finite gradients are.
+RWKV_HELD_LAYERS = 2
+# Without the chunk checkpoint a full-depth RWKV-6 step does not fit the
+# card's 80 GB (12 layers peak at 47.17 GiB without it, 26.81 with it, on an
+# H100 80GB HBM3), so that reading is taken at half the depth, both ways.
+RWKV_MEMORY_LAYERS = RWKV_LAYERS // 2
+RWKV_TRAIN_LAUNCHES = {"mesh_matmul": 3 * RWKV_STEP_LAUNCHES + 3 * RWKV_LAYERS,
+                       "flash_attention": 0}
+ZAMBA_TRAIN_LAUNCHES = {"mesh_matmul": 3 * ZAMBA_STEP_LAUNCHES, "flash_attention": ZAMBA_APPS}
+
+
+def phase_train_rwkv(torch):
+    """Full-width RWKV-6 1.6B through `tuned()` (the chunked WKV, its chunk
+    checkpoint on) on the kernel path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b").tuned(), use_mesh_kernel=True)
+    check((cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.wkv_chunked, cfg.wkv_chunk)
+          == (RWKV_LAYERS, 2048, 7168, True, 16), f"unexpected RWKV-6 config {cfg}")
+    return _train_family(torch, "train_rwkv", cfg, RWKV_TRAIN_LAUNCHES,
+                         held_layers=RWKV_HELD_LAYERS)
+
+
+def phase_train_zamba(torch):
+    """Full-width Zamba2-1.2B through `tuned()` on the kernel path: the
+    chunked SSD, and the shared block's attention through K6."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b").tuned(), use_mesh_kernel=True)
+    check((cfg.num_layers, cfg.d_model, cfg.attn_chunk) == (ZAMBA_LAYERS, 2048, 1024)
+          and TRAIN_SEQ % cfg.attn_chunk == 0, f"unexpected Zamba2 config {cfg}")
+    return _train_family(torch, "train_zamba", cfg, ZAMBA_TRAIN_LAUNCHES)
+
+
+def _train_family(torch, tag, cfg, per_step, held_layers=None):
+    """One family's training through `build_trainer` and `train_loop`:
+
+    (a) the kernel path's loss and gradients against the `torch` backend's
+        on the same state and batch (`_against_torch`), with [train]'s limits
+        (loss within 1e-3, grad norm within 0.1 %, each parameter's gradient
+        within 0.05 relative; the next batch's torch gradient must fail the
+        last) at `held_layers` of the model's layers (all unless given), and
+        at the full depth the loss and finite gradients;
+    (b) FAMILY_TRAIN_STEPS steps: losses finite, launches per step equal to
+        `per_step`, wall ms and tokens/s, peak device memory;
+    (c) RWKV: one step's peak device memory with the WKV chunk checkpoint
+        and one without it, from the same state, at RWKV_MEMORY_LAYERS.
+    """
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import rwkv
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.metrics import MetricsLogger
+    from repro_torch.tree import tree_leaves, tree_map
+
+    _free(torch)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, total_steps=FAMILY_TRAIN_STEPS,
+              seed=0, device="cuda")
+    step_fn, state, data = build_trainer(cfg, **kw)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    state_gib = sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 2**30
+    log(f"[{tag}] {cfg.arch_id} through tuned(), full width: {n_params / 1e9:.3f} B parameters"
+        f" ({cfg.param_dtype}), train state {state_gib:.2f} GiB; {tokens} tokens a step")
+
+    # (a) the kernel path against the torch backend, same state and batch,
+    # beside two readings of the size of rounding: the torch step with the
+    # `ref` forward (f32 products of the upcast operands: the same function
+    # rounded otherwise, no K1) and the next batch's torch step (a wrong
+    # gradient of the right size).  Held at `held_layers` (the full depth
+    # unless stated); at full depth also the loss and finite gradients.
+    stream = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    batch, next_batch = stream._host_batch(0), stream._host_batch(1)
+    for depth in sorted({held_layers or cfg.num_layers, cfg.num_layers}):
+        c = dataclasses.replace(cfg, num_layers=depth)
+        params = state["params"]
+        if depth != cfg.num_layers:  # the full model's first `depth` layers
+            params = {k: (tree_map(lambda t: t[:depth], v) if k == "blocks" else v)
+                      for k, v in params.items()}
+        held = depth == (held_layers or cfg.num_layers)
+        readings = _against_torch(torch, tag, c, params, batch, next_batch if held else None)
+        lk, lt = readings["loss"]
+        if held:
+            nk, nt = readings["grad_norm"]
+            (hi, at), (lo, lo_at) = readings["kernel"][-1], readings["next batch"][0]
+            check(abs(lk - lt) <= 1e-3, f"kernel loss {lk} vs torch {lt} at {depth} layers")
+            check(abs(nk - nt) <= 1e-3 * nt, f"kernel grad norm {nk} vs torch {nt}")
+            check(hi <= 0.05, f"kernel gradient of {at} differs by {hi} at {depth} layers")
+            check(lo > 0.05, f"a wrong gradient of {lo_at} passes ({lo})")
+        check(math.isfinite(lk) and abs(lk - lt) <= 1e-3 and readings["finite"],
+              f"kernel loss {lk} vs torch {lt}, finite gradients {readings['finite']}")
+        del params, readings
+
+    # (b) the steps through train_loop.
+    per, logger = [], MetricsLogger()
+
+    def timed(st, b):
+        k1, k6 = mesh_matmul.launches, flash_attention.launches
+        t0 = time.monotonic()
+        st, met = step_fn(st, b)
+        torch.cuda.synchronize()
+        per.append((time.monotonic() - t0, {"mesh_matmul": mesh_matmul.launches - k1,
+                                            "flash_attention": flash_attention.launches - k6}))
+        return st, met
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_k1(mesh_matmul)
+    flash_attention.launches = 0
+    state = train_loop(timed, state, data, LoopConfig(total_steps=FAMILY_TRAIN_STEPS,
+                                                      log_every=1), logger=logger)
+    torch.cuda.synchronize()
+    launches = {"mesh_matmul": mesh_matmul.launches, "flash_attention": flash_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_main_path_tiles(tag, tile_counts(mesh_matmul), canary=False)
+    losses = [h["loss"] for h in logger.history]
+    for i, (h, (dt, got)) in enumerate(zip(logger.history, per)):
+        log(f"[{tag}] step {i + 1}: loss={h['loss']:.5f} grad_norm={h['grad_norm']:.5f}"
+            f" lr={h['lr']:.3e} wall={dt * 1e3:.1f} ms tokens/s={tokens / dt:.1f}"
+            f" launches K1={got['mesh_matmul']} K6={got['flash_attention']}")
+    steady = min(dt for dt, _ in per[1:])
+    log(f"[{tag}] {FAMILY_TRAIN_STEPS} steps: {tokens / steady:.1f} tokens/s at the fastest"
+        f" later step ({steady * 1e3:.1f} ms), peak device memory {peak:.2f} GiB (the train"
+        f" state {state_gib:.2f} GiB included), launches {launches}, per step want {per_step}")
+    check(len(losses) == FAMILY_TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"non-finite or missing losses: {losses}")
+    check(all(got == per_step for _, got in per), f"launches per step {per}, want {per_step}")
+    out = {**launches, "ms_per_step": steady * 1e3, "tokens_s": tokens / steady,
+           "peak_gib": peak}
+
+    # (c) the WKV chunk checkpoint's memory: one step each way from the same
+    # state, at RWKV_MEMORY_LAYERS (the full depth does not fit without it).
+    if cfg.family == "ssm":
+        del state, step_fn
+        _free(torch)
+        depth = RWKV_MEMORY_LAYERS
+        step_fn, state, _ = build_trainer(dataclasses.replace(cfg, num_layers=depth), **kw)
+        got = {}
+        for on in (True, False):
+            _free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            with rwkv.chunk_checkpoint(on):
+                _, met = step_fn(state, batch)
+            torch.cuda.synchronize()
+            got["on" if on else "off"] = dict(
+                ms=(time.monotonic() - t0) * 1e3, loss=float(met["loss"]),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            del met
+        out["checkpoint"] = dict(layers=depth, **got)
+        for way, r in got.items():
+            log(f"[{tag}] one step with the WKV chunk checkpoint {way}: {depth} of"
+                f" {cfg.num_layers} layers (cut: the full depth runs out of memory without"
+                f" it), {r['ms']:.1f} ms, peak device memory {r['peak_gib']:.2f} GiB (train"
+                f" state included), loss {r['loss']:.5f}")
+        check(got["on"]["peak_gib"] < got["off"]["peak_gib"],
+              f"the checkpoint did not lower the peak: {got}")
+    del state, step_fn
+    _free(torch)
+    return out
+
+
 PAPER_SIZES = (2, 3, 4, 8, 16, 32, 64, 128, 1024)
 PAPER_SYMMETRIC_SIZES = (8, 16, 32, 64, 256)
 PAPER_KEY_SHAPE, PAPER_KEY = (8, 1024, 1024), 5
@@ -3651,6 +3870,303 @@ def phase_planner(torch):
     api.clear_plan_cache()
     ledger.clear()
     return launches
+
+
+def _against_torch(torch, tag, cfg, params, batch, next_batch):
+    """The kernel path's loss and gradients (`cfg`) against the `torch`
+    backend's at `params` on `batch`, beside the `ref` forward's (plain f32
+    products: a difference of rounding only) and, given `next_batch`, the
+    next batch's (a wrong gradient).  Logs them; returns {"loss": (kernel,
+    torch), "grad_norm": (kernel, torch), "kernel", "ref forward" (and
+    "next batch"): sorted [(||g - g_torch|| / ||g_torch||, leaf)],
+    "finite"}."""
+    import dataclasses
+
+    from repro_torch.kernels import api
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_paths
+
+    names = [path for path, _ in tree_paths(params)]
+    plain = get_model(dataclasses.replace(cfg, use_mesh_kernel=False))
+    with k1_products(tag):
+        lk, gk = loss_and_grads(torch, get_model(cfg), params, batch)
+    lt, gt = loss_and_grads(torch, plain, params, batch)
+    norm = lambda gs: math.sqrt(sum(g.float().square().sum().item() for g in gs))  # noqa: E731
+
+    def rel_to(grads):
+        """[(||g - g_torch|| / ||g_torch||, leaf)] over the leaves the loss reaches, sorted."""
+        return sorted(((x - y).float().norm().item() / y.float().norm().item(), n)
+                      for n, x, y in zip(names, grads, gt) if y.float().norm().item() > 0)
+
+    out = {"loss": (float(lk), float(lt)), "grad_norm": (norm(gk), norm(gt)),
+           "kernel": rel_to(gk), "finite": all(bool(torch.isfinite(g).all()) for g in gk)}
+    unreached = [n for n, x, y in zip(names, gk, gt) if not (x.any() or y.any())]
+    del gk
+    top = lambda rows: ", ".join(f"{n} {r:.3e}" for r, n in reversed(rows[-3:]))  # noqa: E731
+    keep = api._DENSE_FORWARD["torch"]
+    api._DENSE_FORWARD["torch"] = api._DENSE_FORWARD["ref"]
+    try:
+        _, g = loss_and_grads(torch, plain, params, batch)
+    finally:
+        api._DENSE_FORWARD["torch"] = keep
+    out["ref forward"] = rel_to(g)
+    del g
+    more = f"; the ref forward {top(out['ref forward'])}"
+    if next_batch is not None:
+        _, g = loss_and_grads(torch, plain, params, next_batch)
+        out["next batch"] = rel_to(g)
+        del g
+        more += (f" (tol 0.05); the next batch's smallest {out['next batch'][0][0]:.3e}"
+                 f" ({out['next batch'][0][1]})")
+    del gt
+    (nk, nt), (lk, lt) = out["grad_norm"], out["loss"]
+    log(f"[{tag}] {cfg.num_layers} layers, kernel vs torch backend: loss {lk:.5f} vs {lt:.5f}"
+        f" (|d|={abs(lk - lt):.5f}, tol 0.001), grad norm {nk:.5f} vs {nt:.5f}"
+        f" ({100 * abs(nk - nt) / nt:.4f} %), finite {out['finite']}; per-parameter"
+        f" ||d||/||g|| largest: kernel {top(out['kernel'])}{more}; leaves the loss does not"
+        f" reach: {unreached}")
+    return out
+
+
+# [sharded]: the planner's schedules across 4 ranks, processes that share
+# the one card (and Cannon's 2 x 2 mesh), at mesh-paper's width: M = 2 x
+# 2048 tokens, K = 2048, N = 8192; `expert` at OLMoE's decode shape (64
+# experts x 8 rows, wi's K = N = 2048, SLOTS tokens routed top-8).
+SHARD_WORLD, SHARD_MKN = 4, (TRAIN_BATCH * TRAIN_SEQ, 2048, 8192)
+SHARD_BLOCKS, SHARD_EXPERT_BLOCKS = (128, 128, 128), (8, 128, 128)
+SHARD_CASES = {  # name -> (mesh shape, axis names, ShardSpec axes and schedule)
+    "replicated[m=x,n=y]": ((2, 2), ("x", "y"), dict(m="x", n="y", schedule="replicated")),
+    "allgather_a": ((4,), ("x",), dict(m="x", schedule="allgather_a")),
+    "allgather_a_overlap": ((4,), ("x",), dict(m="x", schedule="allgather_a_overlap")),
+    "reduce_scatter_k": ((4,), ("x",), dict(k="x", schedule="reduce_scatter_k")),
+    "reduce_scatter_k_overlap": ((4,), ("x",), dict(k="x", schedule="reduce_scatter_k_overlap")),
+    "ring_k": ((4,), ("x",), dict(k="x", schedule="ring_k")),
+    "ring_k_overlap": ((4,), ("x",), dict(k="x", schedule="ring_k_overlap")),
+    "pipeline": ((4,), ("x",), dict(k="x", schedule="pipeline")),
+}
+SHARD_FAULTS = ("reduce_scatter_k_overlap", "ring_k_overlap")
+SHARD_TIMEOUT_S = 300
+
+
+def _spawn(code_of, world, timeout):
+    """`world` processes of `python3 -c code_of(rank)` from the repository
+    root, each killed at `timeout`; [(returncode, stdout, stderr)]."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    procs = [subprocess.Popen([sys.executable, "-c", code_of(r)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    out = []
+    try:
+        for proc in procs:
+            try:
+                o, e = proc.communicate(timeout=timeout)
+                out.append((proc.returncode, o, e))
+            except subprocess.TimeoutExpired:
+                out.append((None, "", f"timed out after {timeout} s"))
+                timeout = 1
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+def nccl_probe(rank, world, init):
+    """Two NCCL ranks on the one card: one all-reduce."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=rank, world_size=world)
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    print("ALLREDUCE", x.tolist(), flush=True)
+    dist.destroy_process_group()
+
+
+def sharded_rank(rank, world, init, out_path):
+    """One rank of [sharded] (run by the phase in its own process): every
+    schedule of SHARD_CASES on K1 with integer-valued f32 and random bf16
+    operands, the `expert` schedule on K5, Cannon on a 2 x 2 mesh and a
+    planted collective fault, each against the unsharded plan on this rank.
+    Its findings go to `out_path` as JSON."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import api
+    from repro_torch.kernels.grouped import grouped_mesh_matmul
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel.systolic import systolic_matmul
+    from repro_torch.resilience import faults
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world)
+    m, k, n = SHARD_MKN
+    g = torch.Generator(device="cuda").manual_seed(11)  # the same operands on every rank
+    operands = {
+        "f32 integer": (torch.randint(-4, 5, (m, k), generator=g, device="cuda").float(),
+                        torch.randint(-4, 5, (k, n), generator=g, device="cuda").float()),
+        "bf16": (torch.randn(m, k, generator=g, device="cuda").bfloat16(),
+                 torch.randn(k, n, generator=g, device="cuda").bfloat16()),
+    }
+    meshes = {(s, a): make_local_mesh(s, a) for s, a, _ in SHARD_CASES.values()}
+    found = {"cases": {}, "faults": {}}
+
+    def measure(name, p, a, b, want, counter, *args):
+        torch.cuda.synchronize()
+        before = counter.launches
+        t0 = time.monotonic()
+        got = p(a, b, *args)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        err = (got.float() - want.float()).abs().max().item()
+        found["cases"][name] = dict(
+            launches=counter.launches - before, wall_s=wall, bitwise=bool(torch.equal(got, want)),
+            err=err, scale=want.float().abs().max().item(), finite=bool(torch.isfinite(got).all()),
+            describe={x: p.describe()["sharding"][x] for x in (
+                "schedule", "kernel_invocations", "collective_phases", "bytes_moved",
+                "per_shard_mkn")})
+
+    for dt, (a, b) in operands.items():
+        want = api.plan(api.GemmSpec.from_operands(a, b, blocks=SHARD_BLOCKS), backend="cuda_mesh",
+                        device="cuda")(a, b)
+        for case, (shape, axes, kw) in SHARD_CASES.items():
+            mesh = meshes[(shape, axes)]
+            spec = api.GemmSpec.from_operands(a, b, blocks=SHARD_BLOCKS,
+                                              shard=api.ShardSpec.from_mesh(mesh, **kw))
+            p = api.plan(spec, backend="cuda_mesh", device="cuda", mesh=mesh)
+            measure(f"{case} {dt}", p, a, b, want, mesh_matmul)
+        grid = make_local_mesh((2, 2), ("data", "model"))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        c = systolic_matmul(a, b, mesh=grid)
+        torch.cuda.synchronize()
+        found["cases"][f"cannon 2x2 {dt}"] = dict(
+            wall_s=time.monotonic() - t0, bitwise=bool(torch.equal(c, want)),
+            err=(c.float() - want.float()).abs().max().item(),
+            scale=want.float().abs().max().item(), finite=bool(torch.isfinite(c).all()))
+        if dt == "f32 integer":
+            mesh = meshes[((4,), ("x",))]
+            for sched in SHARD_FAULTS:
+                spec = api.GemmSpec.from_operands(
+                    a, b, blocks=SHARD_BLOCKS,
+                    shard=api.ShardSpec.from_mesh(mesh, k="x", schedule=sched))
+                res = {}
+                for fallback in (False, True):
+                    p = api.plan(spec, backend="cuda_mesh", device="cuda", mesh=mesh,
+                                 fallback=fallback)
+                    try:
+                        with faults.inject({"collective.step": faults.FaultSpec(
+                                times=1, match={"schedule": sched, "step": 1})}):
+                            got = p(a, b)
+                        res[str(fallback)] = dict(bitwise=bool(torch.equal(got, want)),
+                                                  active=p._active)
+                    except faults.FaultError as e:
+                        res[str(fallback)] = f"raised {type(e).__name__}"
+                found["faults"][sched] = res
+        del want
+
+    # expert: K5 over each rank's 16 of OLMoE's 64 experts.
+    rng = np.random.default_rng(5)
+    sizes = torch.as_tensor(_routed_sizes(rng, SLOTS), device="cuda")
+    offsets = torch.cat([sizes.new_zeros(1), torch.cumsum(sizes, 0)]).int()
+    (kk, nn), grp = K5_GEMMS["wi"], api.GroupSpec(OLMOE_EXPERTS, K5_SHAPES["decode"][0])
+    mesh = meshes[((4,), ("x",))]
+    for dt in ("f32 integer", "bf16"):
+        if dt == "bf16":
+            tok = torch.randn(grp.rows, kk, generator=g, device="cuda").bfloat16()
+            w = torch.randn(OLMOE_EXPERTS, kk, nn, generator=g, device="cuda").bfloat16()
+        else:
+            tok = torch.randint(-4, 5, (grp.rows, kk), generator=g, device="cuda").float()
+            w = torch.randint(-4, 5, (OLMOE_EXPERTS, kk, nn), generator=g, device="cuda").float()
+        spec = api.GemmSpec.for_groups(grp, kk, nn, dtype_a=tok.dtype, dtype_b=w.dtype,
+                                       blocks=SHARD_EXPERT_BLOCKS)
+        want = api.plan(spec, backend="cuda_mesh", device="cuda")(tok, offsets, w)
+        p = api.plan(dataclasses.replace(spec, shard=api.ShardSpec.from_mesh(mesh, g="x")),
+                     backend="cuda_mesh", device="cuda", mesh=mesh)
+        measure(f"expert {dt}", p, tok, offsets, want, grouped_mesh_matmul, w)
+    with open(out_path, "w") as f:
+        json.dump(found, f)
+    dist.destroy_process_group()
+
+
+def phase_sharded(torch):
+    """The planner's collective schedules on the card: 4 ranks in processes
+    that share it (NCCL refuses two ranks on one card, so the group is gloo,
+    its hops staged through host memory), each schedule's output against
+    the unsharded plan on every rank (integer-valued f32 bitwise, bf16
+    within 2^-7·max|ref|), K1/K5 launches per rank against the code's
+    count, a planted collective fault raising by default and degrading to
+    replicated with the same bits under fallback=True.  Walls are printed,
+    not speeds: the ranks share one card and the hops go through the host."""
+    from repro_torch.parallel.systolic import phase_counts
+
+    _free(torch)  # the ranks' memory comes from the same card
+    for p in range(2, 9):
+        log(f"[sharded] phase_counts({p}): {phase_counts(p)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        probe = _spawn(lambda r: (
+            "import chip_smoke; chip_smoke.nccl_probe("
+            f"{r}, 2, {os.path.join(tmp, 'nccl')!r})"), 2, 90)
+        said = [(rc, next((ln.strip()[:300] for ln in e.splitlines()
+                           if "Error" in ln or "Duplicate" in ln), e.strip()[-300:]))
+                for rc, _, e in probe]
+        refused = all(rc not in (0, None) for rc, _ in said)
+        log(f"[sharded] NCCL, two ranks on the one card: "
+            f"{'refused' if refused else 'did not refuse'}: {said}")
+        t0 = time.monotonic()
+        runs = _spawn(lambda r: (
+            "import chip_smoke; chip_smoke.sharded_rank("
+            f"{r}, {SHARD_WORLD}, {os.path.join(tmp, 'gloo')!r},"
+            f" {os.path.join(tmp, f'rank{r}.json')!r})"), SHARD_WORLD, SHARD_TIMEOUT_S)
+        wall = time.monotonic() - t0
+        bad = [f"rank {r}: rc={rc} {e[-2000:]}" for r, (rc, _, e) in enumerate(runs) if rc != 0]
+        check(not bad, "[sharded] rank failures:\n" + "\n".join(bad))
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(SHARD_WORLD)]
+    log(f"[sharded] {SHARD_WORLD} gloo ranks on one card, M K N = {SHARD_MKN}: {wall:.1f} s"
+        " wall in all, process start and CUDA init included")
+    failed, totals = [], {"mesh_matmul": 0, "grouped_mesh_matmul": 0}
+    for name in ranks[0]["cases"]:
+        for r, found in enumerate(ranks):
+            c = found["cases"][name]
+            integer = "integer" in name
+            tol = 0.0 if integer else 2.0**-7 * c["scale"]
+            ok = c["finite"] and (c["bitwise"] if integer else c["err"] <= tol)
+            want_launches = (c["describe"]["kernel_invocations"] if "describe" in c else None)
+            if want_launches is not None:
+                ok = ok and c["launches"] == want_launches
+                totals["grouped_mesh_matmul" if name.startswith("expert")
+                       else "mesh_matmul"] += c["launches"]
+            if not ok:
+                failed.append(f"rank {r} {name}: {c}")
+        c = ranks[0]["cases"][name]
+        log(f"[sharded] {name:34s} " + (
+            f"{c['describe']['schedule']}: launches per rank {c['launches']} (code:"
+            f" kernel_invocations {c['describe']['kernel_invocations']}), phases"
+            f" {c['describe']['collective_phases']}, bytes moved {c['describe']['bytes_moved']},"
+            f" per-shard MKN {c['describe']['per_shard_mkn']}; " if "describe" in c else
+            "Cannon, local product torch.matmul f32 (TF32 off); ")
+            + f"bitwise {c['bitwise']}, max |d| {c['err']:.3e} (max|ref| {c['scale']:.3e},"
+            f" tol {'0 (integer-valued)' if 'integer' in name else '2^-7 max|ref|'});"
+            f" rank 0 wall {c['wall_s'] * 1e3:.1f} ms (not a speed)")
+    for sched in SHARD_FAULTS:
+        for r, found in enumerate(ranks):
+            res = found["faults"][sched]
+            ok = (res["False"] == "raised FaultError" and res["True"]["bitwise"]
+                  and res["True"]["active"] == "replicated")
+            if not ok:
+                failed.append(f"rank {r} fault {sched}: {res}")
+        log(f"[sharded] collective.step fault in {sched} at step 1: fallback=False"
+            f" {ranks[0]['faults'][sched]['False']}; fallback=True {ranks[0]['faults'][sched]['True']}")
+    check(not failed, "[sharded] failed:\n" + "\n".join(failed))
+    return totals
 
 
 def main_path_products():
@@ -3997,7 +4513,9 @@ def main() -> int:
         ("train_flash", phase_train_flash), ("serve_qwen2_moe", phase_serve_qwen2_moe),
         ("train_moe", phase_train_moe), ("configs", phase_configs),
         ("serve_rwkv", phase_serve_rwkv), ("serve_pixtral", phase_serve_pixtral),
-        ("serve_zamba", phase_serve_zamba), ("serve_whisper", phase_serve_whisper))}
+        ("serve_zamba", phase_serve_zamba), ("serve_whisper", phase_serve_whisper),
+        ("train_rwkv", phase_train_rwkv), ("train_zamba", phase_train_zamba),
+        ("sharded", phase_sharded))}
     phases["paper"] = healthy("paper", lambda torch: phase_paper(torch, smi))
     phases["planner"] = phase_planner
     phases["obs"] = healthy("obs", lambda torch: phase_obs(torch, smi))
@@ -4013,7 +4531,8 @@ def main() -> int:
     k1_err, k1, k1b = phases["k1"](torch)
     k4_err, k4, k4_qwen = phases["k4"](torch)
     k3_err, k3 = phases["k3"](torch)
-    k1_err = max(k1_err, phases["k1_bwd"](torch))
+    k1_bwd_err, k1_train = phases["k1_bwd"](torch)
+    k1_err = max(k1_err, k1_bwd_err)
     k5_err, k5_tick, k5_prefill = phases["k5"](torch)
     k5_err = max(k5_err, phases["k5_bwd"](torch))
     k6_err, k6 = phases["k6"](torch)
@@ -4031,6 +4550,9 @@ def main() -> int:
     serve_pixtral = phases["serve_pixtral"](torch)
     serve_zamba = phases["serve_zamba"](torch)
     serve_whisper = phases["serve_whisper"](torch)
+    train_rwkv = phases["train_rwkv"](torch)
+    train_zamba = phases["train_zamba"](torch)
+    sharded = phases["sharded"](torch)
     phases["paper"](torch)
     planner = phases["planner"](torch)
     phases["obs"](torch)
@@ -4046,7 +4568,8 @@ def main() -> int:
             serve["mesh_matmul"] + train["mesh_matmul"] + serve_moe["mesh_matmul"]
             + serve_qwen2_moe["mesh_matmul"] + train_moe["mesh_matmul"]
             + planner["mesh_matmul"] + serve_rwkv["mesh_matmul"] + serve_zamba["mesh_matmul"]
-            + serve_whisper["mesh_matmul"], k1_err, k1,
+            + serve_whisper["mesh_matmul"] + train_rwkv["mesh_matmul"]
+            + train_zamba["mesh_matmul"] + sharded["mesh_matmul"], k1_err, k1,
             "one decode tick: 25 launches at M=4",
             launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"],
                               "serve_moe": serve_moe["mesh_matmul"],
@@ -4055,8 +4578,11 @@ def main() -> int:
                               "planner": planner["mesh_matmul"],
                               "serve_rwkv": serve_rwkv["mesh_matmul"],
                               "serve_zamba": serve_zamba["mesh_matmul"],
-                              "serve_whisper": serve_whisper["mesh_matmul"]},
-            launches_by_tile=K1_TILES,
+                              "serve_whisper": serve_whisper["mesh_matmul"],
+                              "train_rwkv": train_rwkv["mesh_matmul"],
+                              "train_zamba": train_zamba["mesh_matmul"],
+                              "sharded (4 ranks)": sharded["mesh_matmul"]},
+            launches_by_tile=K1_TILES, train_step=k1_train,
             batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
                      "shape": "B=4 M=128 K=1024 N=512 bf16"}),
         row("paged_attention", "paged_attention.cu",
@@ -4079,19 +4605,21 @@ def main() -> int:
             " library_ms is x.clone() (same bytes, no permutation)"),
         row("grouped_mesh_matmul", "grouped_matmul.cu", "src/repro/kernels/grouped.py:119",
             serve_moe["grouped_mesh_matmul"] + serve_qwen2_moe["grouped_mesh_matmul"]
-            + train_moe["grouped_mesh_matmul"], k5_err, k5_tick,
+            + train_moe["grouped_mesh_matmul"] + sharded["grouped_mesh_matmul"], k5_err, k5_tick,
             f"one OLMoE decode step: 32 launches (wi, wo x 16 layers), 64 experts x 8 rows,"
             f" {SLOTS} tokens routed; library_ms is torch.bmm + segment mask",
             launches_by_path={"serve_moe": serve_moe["grouped_mesh_matmul"],
                               "serve_qwen2_moe": serve_qwen2_moe["grouped_mesh_matmul"],
-                              "train_moe": train_moe["grouped_mesh_matmul"]},
+                              "train_moe": train_moe["grouped_mesh_matmul"],
+                              "sharded (4 ranks)": sharded["grouped_mesh_matmul"]},
             launches_by_tile=K5_TILES, qwen2_moe_decode_step=serve_qwen2_moe["k5_decode_step"],
             prefill={**k5_prefill, "shape": f"one {PROMPT}-token prefill: 32 launches,"
                      " 64 experts x 128 rows"}),
         row("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:97",
             serve_qwen2["flash_attention"] + train_flash["flash_attention"]
             + configs["flash_attention"] + serve_pixtral["flash_attention"]
-            + serve_zamba["flash_attention"] + serve_whisper["flash_attention"], k6_err,
+            + serve_zamba["flash_attention"] + serve_whisper["flash_attention"]
+            + train_zamba["flash_attention"], k6_err,
             k6["qwen2 T=2048"],
             "one launch: Qwen2-7B prefill B=1 T=2048 H=28 KV=4 hd=128 bf16 causal; library_ms"
             " is scaled_dot_product_attention (is_causal, enable_gqa)",
@@ -4100,7 +4628,8 @@ def main() -> int:
                               "configs": configs["flash_attention"],
                               "serve_pixtral": serve_pixtral["flash_attention"],
                               "serve_zamba": serve_zamba["flash_attention"],
-                              "serve_whisper": serve_whisper["flash_attention"]},
+                              "serve_whisper": serve_whisper["flash_attention"],
+                              "train_zamba": train_zamba["flash_attention"]},
             device_ms=k6["qwen2 T=2048"]["device_ms"],
             library_device_ms=k6["qwen2 T=2048"]["library_device_ms"],
             t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"],

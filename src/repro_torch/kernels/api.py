@@ -30,6 +30,22 @@ when it declares the `grouped` capability with a dedicated impl: `torch`
 (a segment-masked `bmm`, the reference's `xla`), `ref` (a per-group loop)
 and `cuda_mesh` (kernel K5, `kernels/grouped.py`).
 
+The planner is sharding-aware: attach a frozen `ShardSpec` (device-mesh
+axes + the mesh axes that partition M/K/N/batch/groups) and `plan(spec,
+mesh=mesh)` returns a `ShardedPlan`: the same per-shard Plan, run SPMD (one
+process per rank, each slicing its shard of the global operands by its
+mesh coordinate) inside a collective schedule of `SCHEDULES` from
+`parallel/collectives.py` and `parallel/systolic.py`, with the epilogue
+applied after the collective.  `mesh=` without a ShardSpec lets the cost
+model choose one (`costmodel.choose.decide_sharding`).  A ShardedPlan
+takes and returns global tensors: each process gets the whole result,
+assembled from the ranks' blocks.  An unsharded ShardSpec (every axis of
+size 1) goes through the same path and equals the plain Plan bit for bit.
+The mesh is a `DeviceMesh` over live ranks, or for resolution, `describe()`
+and the cost model a plain (name, size) layout (`parallel/sharding.py`).
+Under `fallback=True` a failed collective degrades the plan to replicated
+(unsharded) execution of the same spec; the default raises.
+
 Blocks: entries of `spec.blocks` left None are resolved for a backend
 with the `autotune` capability (`cuda_mesh`), and for every scrambled
 product, through the cost model's chooser
@@ -112,6 +128,7 @@ from repro_torch.kernels.mesh_matmul import (
 )
 from repro_torch.kernels.scramble import scramble_blocks
 from repro_torch.obs import trace as _obs
+from repro_torch.parallel.sharding import mesh_shape
 from repro_torch.resilience import faults as _faults
 from repro_torch.resilience import ledger as _rledger
 from repro_torch.resilience.policy import (
@@ -135,6 +152,10 @@ __all__ = [
     "MMOpts",
     "Plan",
     "PlanValidationError",
+    "SCHEDULES",
+    "ShardSpec",
+    "ShardedGroupedPlan",
+    "ShardedPlan",
     "apply_epilogue",
     "backend_names",
     "clear_plan_cache",
@@ -142,6 +163,7 @@ __all__ = [
     "default_epoch",
     "execute_async",
     "get_default",
+    "get_capabilities",
     "gmm_backward",
     "mm_backward",
     "plan",
@@ -152,6 +174,58 @@ __all__ = [
 ]
 
 STRUCTURES = ("general", "symmetric", "scrambled")
+
+# Collective schedules a ShardedPlan can run (the reference's):
+#   replicated        no collective: M/N/batch partitions are purely local
+#                     (each rank owns its C tile; all-None axes are the
+#                     unsharded case)
+#   allgather_a       A row-sharded on M; each rank computes its result chunk
+#                     once and the f32 chunks circulate the ring
+#                     (collectives.ring_allgather_matmul); output replicated
+#   reduce_scatter_k  A/B sharded on K; partial products ring-reduced so each
+#                     rank ends with its M/p row slice
+#                     (collectives.matmul_ring_reducescatter)
+#   ring_k            A/B sharded on K; the paper's 2n-1 staggered feed as p
+#                     accumulator wavefronts around the ring
+#                     (systolic.ring_systolic_kpass); output replicated
+#   *_overlap         double-buffered twin of the base schedule: every hop is
+#                     in flight while a product runs; bitwise-equal to the
+#                     serial twin where the local product is the same.  The
+#                     column-half variants (allgather_a/ring_k) build the
+#                     per-shard plan at n/2: even N, axis size >= 2
+#   pipeline          like reduce_scatter_k, with each rank's row block
+#                     1F1B-microbatched (collectives.ring_pipeline_matmul);
+#                     bitwise-equal to reduce_scatter_k
+#   expert            grouped specs only: the group (expert) dim sharded over
+#                     axis_g, each rank running the grouped kernel over its
+#                     local groups; output rows group-sharded
+SCHEDULES = (
+    "replicated",
+    "allgather_a",
+    "allgather_a_overlap",
+    "reduce_scatter_k",
+    "reduce_scatter_k_overlap",
+    "ring_k",
+    "ring_k_overlap",
+    "pipeline",
+    "expert",
+)
+
+
+def _is_overlap_schedule(sched: str) -> bool:
+    """True for schedules whose ring hops are double-buffered against
+    products: the cost model prices their collective under max(compute,
+    comm) instead of adding it."""
+    return sched.endswith("_overlap") or sched == "pipeline"
+
+
+def _pipeline_microbatches(eff_m: int, pk: int) -> int:
+    """Microbatch count of the `pipeline` schedule: two chains per stage
+    when the per-stage row block splits evenly (so the steady state always
+    has one hop in flight behind one product), else one."""
+    mb = eff_m // pk
+    f = 2 if mb >= 2 and mb % 2 == 0 else 1
+    return f * pk
 # The blocks a plan without blocks (a plain backend's general product)
 # hands to its op's static options: they set nothing there.
 DEFAULT_BLOCKS = (128, 128, 128)
@@ -234,6 +308,131 @@ class GroupSpec:
         return self.num_groups * self.rows_per_group
 
 
+Axes = Union[str, Tuple[str, ...]]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """Device-mesh partition of one GEMM.
+
+    `mesh_axes` pins the (name, size) layout of the device mesh the spec was
+    built for: the spec stays hashable (it is part of the plan-cache key)
+    and `plan(spec, mesh=...)` checks that the live mesh matches.  The axis
+    fields name which mesh axis partitions each LOGICAL dim of (batch...,
+    M, K) @ (K, N); None leaves that dim whole.  `schedule` pins a
+    collective schedule from SCHEDULES, or "auto" lets the planner choose
+    (the cost model, `costmodel.choose.decide_schedule`).
+
+    `axis_k` must be a single axis name: the K collectives are 1D rings.
+    `axis_m`/`axis_n`/`axis_batch` may be axis tuples under the replicated
+    schedule, where they only slice the local tile.  `axis_g` (one axis)
+    partitions the group dim of a GROUPED spec: the `expert` schedule.  A
+    ShardSpec whose axes are all None or of size 1 (`ShardSpec.unsharded`)
+    goes through the identical ShardedPlan path and reproduces the
+    unsharded Plan bit for bit.
+    """
+
+    mesh_axes: Tuple[Tuple[str, int], ...]
+    axis_m: Optional[Axes] = None
+    axis_k: Optional[str] = None
+    axis_n: Optional[Axes] = None
+    axis_batch: Optional[Axes] = None
+    axis_g: Optional[str] = None
+    schedule: str = "auto"
+
+    def __post_init__(self):
+        object.__setattr__(self, "mesh_axes", tuple((str(n), int(s)) for n, s in self.mesh_axes))
+        names = [n for n, _ in self.mesh_axes]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate mesh axis names in {self.mesh_axes}")
+        if self.schedule not in ("auto",) + SCHEDULES:
+            raise ValueError(
+                f"schedule must be 'auto' or one of {SCHEDULES}, got {self.schedule!r}"
+            )
+        seen: List[str] = []
+        for field in ("axis_m", "axis_k", "axis_n", "axis_batch", "axis_g"):
+            v = getattr(self, field)
+            if isinstance(v, list):
+                v = tuple(v)
+            if isinstance(v, tuple) and len(v) == 1:
+                v = v[0]
+            if field == "axis_k" and v is not None and not isinstance(v, str):
+                raise ValueError(
+                    f"axis_k must be a single mesh axis name (the K collectives are 1D"
+                    f" rings), got {self.axis_k!r}"
+                )
+            if field == "axis_g" and v is not None and not isinstance(v, str):
+                raise ValueError(
+                    f"axis_g must be a single mesh axis name (the group dim shards over"
+                    f" one EP axis), got {self.axis_g!r}"
+                )
+            object.__setattr__(self, field, v)
+            for nm in (v,) if isinstance(v, str) else (v or ()):
+                if nm not in names:
+                    raise ValueError(f"{field}={nm!r} is not a mesh axis; mesh has {names}")
+                if nm in seen:
+                    raise ValueError(f"mesh axis {nm!r} partitions more than one GEMM dim")
+                seen.append(nm)
+
+    @classmethod
+    def from_mesh(
+        cls,
+        mesh,
+        *,
+        m: Optional[Axes] = None,
+        k: Optional[str] = None,
+        n: Optional[Axes] = None,
+        batch: Optional[Axes] = None,
+        g: Optional[str] = None,
+        schedule: str = "auto",
+    ) -> "ShardSpec":
+        """Partition over a mesh (a DeviceMesh or a (name, size) layout) by
+        PHYSICAL axis names."""
+        return cls(mesh_axes=tuple(mesh_shape(mesh).items()), axis_m=m, axis_k=k, axis_n=n,
+                   axis_batch=batch, axis_g=g, schedule=schedule)
+
+    @classmethod
+    def from_rules(
+        cls,
+        mesh,
+        rules,
+        *,
+        m: Optional[str] = None,
+        k: Optional[str] = None,
+        n: Optional[str] = None,
+        batch: Optional[str] = None,
+        g: Optional[str] = None,
+        schedule: str = "auto",
+    ) -> "ShardSpec":
+        """Partition by LOGICAL axis names (e.g. m='batch', n='mlp',
+        g='experts') mapped through a `parallel.sharding.ShardingRules`
+        table; rule axes the mesh doesn't carry are dropped."""
+        from repro_torch.parallel.sharding import _axes_on_mesh
+
+        def phys(logical):
+            return None if logical is None else _axes_on_mesh(mesh, rules.get(logical))
+
+        return cls.from_mesh(mesh, m=phys(m), k=phys(k), n=phys(n), batch=phys(batch),
+                             g=phys(g), schedule=schedule)
+
+    @classmethod
+    def unsharded(cls, mesh) -> "ShardSpec":
+        """All dims whole: the degenerate ShardSpec that routes an unsharded
+        product through the same ShardedPlan path."""
+        return cls.from_mesh(mesh)
+
+    def axis_size(self, axes: Optional[Axes]) -> int:
+        """Product of mesh-axis sizes a partition maps to (1 for None)."""
+        sizes = dict(self.mesh_axes)
+        return math.prod(sizes[nm] for nm in ((axes,) if isinstance(axes, str) else (axes or ())))
+
+    @property
+    def is_trivial(self) -> bool:
+        """True when every partition has size 1 (numerically unsharded)."""
+        return all(self.axis_size(a) == 1 for a in (
+            self.axis_m, self.axis_k, self.axis_n, self.axis_batch, self.axis_g))
+
+
 @dataclasses.dataclass(frozen=True)
 class GemmSpec:
     """Logical description of one GEMM: (batch..., M, K) @ (K, N) — or, when
@@ -245,10 +444,12 @@ class GemmSpec:
     (bm, bn, bk) override; entries left None are resolved at plan time
     (the cost model's chooser, see the module docstring).  `repeats`
     is a caller hint (products run back to back with the same B); numerics
-    are unaffected.  `group` attaches a GroupSpec, turning the spec into a
-    grouped (ragged-batch) GEMM: (num_groups * rows_per_group, K) tokens
-    against (num_groups, K, N) stacked weights, `m` the total row bound.
-    Hashable and frozen — specs are the plan-cache key.
+    are unaffected.  `shard` attaches a device-mesh partition (ShardSpec):
+    `plan(spec, mesh=mesh)` then returns a ShardedPlan.  `group` attaches a
+    GroupSpec, turning the spec into a grouped (ragged-batch) GEMM: (num_groups
+    * rows_per_group, K) tokens against (num_groups, K, N) stacked weights,
+    `m` the total row bound.  Hashable and frozen — specs are the plan-cache
+    key.
     """
 
     m: int
@@ -263,6 +464,7 @@ class GemmSpec:
     epilogue: Epilogue = Epilogue()
     blocks: Optional[Tuple[Optional[int], Optional[int], Optional[int]]] = None
     stagger: bool = True
+    shard: Optional[ShardSpec] = None
     repeats: int = 1
     group: Optional[GroupSpec] = None
 
@@ -275,6 +477,8 @@ class GemmSpec:
             raise ValueError(f"dims must be positive, got {(self.m, self.k, self.n)}")
         if self.batched_b and not self.batch:
             raise ValueError("batched_b requires leading batch dims")
+        if self.shard is not None and not isinstance(self.shard, ShardSpec):
+            raise TypeError(f"shard must be a ShardSpec, got {type(self.shard).__name__}")
         if self.group is not None:
             if not isinstance(self.group, GroupSpec):
                 raise TypeError(f"group must be a GroupSpec, got {type(self.group).__name__}")
@@ -318,6 +522,7 @@ class GemmSpec:
         out_dtype=None,
         blocks=None,
         stagger: bool = True,
+        shard: Optional[ShardSpec] = None,
         repeats: int = 1,
     ) -> "GemmSpec":
         """Spec for concrete operands; leading dims of `a` become the batch,
@@ -342,6 +547,7 @@ class GemmSpec:
             epilogue=epilogue or Epilogue(),
             blocks=blocks,
             stagger=stagger,
+            shard=shard,
             repeats=repeats,
         )
 
@@ -358,6 +564,7 @@ class GemmSpec:
         epilogue: Optional[Epilogue] = None,
         blocks=None,
         stagger: bool = True,
+        shard: Optional[ShardSpec] = None,
         repeats: int = 1,
     ) -> "GemmSpec":
         """Spec for a grouped GEMM: (group.rows, k) tokens in the capacity
@@ -372,6 +579,7 @@ class GemmSpec:
             epilogue=epilogue or Epilogue(),
             blocks=blocks,
             stagger=stagger,
+            shard=shard,
             group=group,
             repeats=repeats,
         )
@@ -420,6 +628,9 @@ class BackendCapabilities:
     epilogue_fusion   the epilogue runs inside the kernel (provenance only)
     autotune          consumes resolved (bm, bn, bk) block shapes
     devices           device types the impl executes on
+    sharding          its per-shard product composes under a collective
+                      schedule, so specs with a ShardSpec can run through a
+                      ShardedPlan
     grouped           executes ragged-batch specs carrying a GroupSpec
                       (requires a `grouped_impl` at registration)
     """
@@ -430,6 +641,7 @@ class BackendCapabilities:
     epilogue_fusion: bool = False
     autotune: bool = False
     devices: FrozenSet[str] = frozenset({"cpu", "cuda"})
+    sharding: bool = False
     grouped: bool = False
 
     def __post_init__(self):
@@ -513,6 +725,10 @@ def backend_names() -> List[str]:
     return list(_REGISTRY)
 
 
+def get_capabilities(name: str) -> BackendCapabilities:
+    return _require_backend(name).caps
+
+
 def _require_backend(name: str) -> _Backend:
     be = _REGISTRY.get(name)
     if be is None:
@@ -538,6 +754,11 @@ def _check_capabilities(spec: GemmSpec, be: _Backend, device: str) -> Optional[s
         return (
             f"backend {be.name!r} does not support grouped (ragged-batch) specs"
             " (no 'grouped' capability)"
+        )
+    if spec.shard is not None and not caps.sharding:
+        return (
+            f"backend {be.name!r} does not support device-mesh sharded specs"
+            " (no 'sharding' capability)"
         )
     return None
 
@@ -889,6 +1110,9 @@ class Plan:
         self.health.append(ev)
         return ev
 
+    def _can_degrade(self) -> bool:
+        return bool(self._chain)
+
     def _degrade(self, args: tuple, *, site: str, cause: str, original=None):
         """Fall to the next capable backend in the chain and run `args` there.
 
@@ -930,7 +1154,7 @@ class Plan:
                 "mkn": f"{spec.eff_m}x{spec.k}x{spec.n}",
                 "key": f"{spec.eff_m}x{spec.k}x{spec.n}|{self.backend}",
                 "blocks": list(self.blocks) if self.blocks else None,
-                "schedule": None,
+                "schedule": getattr(self, "schedule", None),
             }
             try:
                 from repro_torch.costmodel.model import terms_from_describe
@@ -969,7 +1193,7 @@ class Plan:
         except (PlanValidationError, CapabilityError):
             raise
         except Exception as e:
-            if not self._chain:
+            if not self._can_degrade():
                 raise  # no ladder below this backend: its own error surfaces
             out = self._degrade(
                 args, site="plan.execute", cause=f"{type(e).__name__}: {e}", original=e
@@ -1436,25 +1660,133 @@ def _cuda_mesh_grouped_impl(p: Plan, tokens, group_offsets, w, bias, residual):
     return _GroupedMM.apply(tokens, _grouped_sizes(group_offsets), w, bias, residual, opts)
 
 
+# ---------------------------------------------------------------------------
+# Sharded plans
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardedPlan(Plan):
+    """A Plan run over a device mesh.
+
+    Built by `plan(spec, mesh=...)` for a spec carrying a ShardSpec: the
+    per-shard product is the ordinary single-device Plan (`local`, built by
+    the same planner), run SPMD inside the chosen collective schedule.
+    Operands and result are GLOBAL tensors with the spec's logical shapes,
+    validated as for an unsharded Plan; each rank slices its shard by its
+    mesh coordinate and every rank returns the whole result.  The epilogue
+    is applied after the collective (act(sum) != sum(act) under a K split),
+    so it is never kernel-fused here.
+
+    Provenance: the collective `schedule`, per-shard FLOPs and memory via
+    `local`, `bytes_moved` (collective link bytes per rank per call),
+    `collective_phases` and `kernel_invocations` (per rank per call).
+    `fallback` (plan(..., fallback=True)) lets a failed collective degrade
+    to replicated execution of the same spec; otherwise it raises.
+    """
+
+    mesh: Any = None
+    schedule: str = "replicated"
+    local: Optional[Plan] = dataclasses.field(default=None, repr=False)
+    bytes_moved: int = 0
+    collective_phases: int = 0
+    # Per-rank local product calls of one execution: reduce-scatter p,
+    # column-half overlap twins 2, pipeline its microbatch count, else 1.
+    kernel_invocations: int = 1
+    # Measured serial_ms / overlap_ms of this schedule against its serial
+    # twin, recorded by `note_overlap_efficiency`; provenance only.
+    overlap_efficiency: Optional[float] = None
+    fallback: bool = False
+
+    def note_overlap_efficiency(self, ratio: float) -> None:
+        """Record a measured serial/overlap time ratio (>1: the
+        double-buffered schedule won); shows in describe()["sharding"]."""
+        self.overlap_efficiency = float(ratio)
+
+    def describe(self) -> Dict[str, Any]:
+        d = super().describe()
+        shard = self.spec.shard
+        d["fused_epilogue"] = False  # applied post-collective, never in-kernel
+        d["sharding"] = {
+            "mesh": [[n, s] for n, s in shard.mesh_axes],
+            "axes": {"m": shard.axis_m, "k": shard.axis_k, "n": shard.axis_n,
+                     "batch": shard.axis_batch, "g": shard.axis_g},
+            "schedule": self.schedule,
+            "overlap": _is_overlap_schedule(self.schedule),
+            "overlap_efficiency": self.overlap_efficiency,
+            "collective_phases": self.collective_phases,
+            "bytes_moved": self.bytes_moved,
+            "kernel_invocations": self.kernel_invocations,
+            "per_shard_mkn": [self.local.spec.eff_m, self.local.spec.k, self.local.spec.n],
+            "per_shard_batch": list(self.local.spec.batch),
+            "per_shard_flops": self.local.flops * self.kernel_invocations,
+            "per_shard_vmem_bytes": self.local.vmem_bytes,
+        }
+        return d
+
+    def _can_degrade(self) -> bool:
+        return self.fallback
+
+    def _degrade(self, args: tuple, *, site: str, cause: str, original=None):
+        """The sharded ladder: a failed collective schedule falls back to
+        REPLICATED execution of the identical spec on this rank's global
+        operands (the unsharded planner, same backend), so the numerics are
+        kept at the cost of the collective's speedup."""
+        if self._active == "replicated":  # already degraded once
+            raise RuntimeError(
+                f"sharded plan failed again after degrading to replicated ({cause})"
+            ) from original
+        self._record(site, cause, fallback="replicated", schedule=self.schedule,
+                     backend=self.active_backend)
+        fb = plan(dataclasses.replace(self.spec, shard=None), backend=self.backend,
+                  device=self.device, fallback=True)
+        out = fb._execute(args)
+        self._fn = fb._fn
+        self._active = "replicated"
+        return out
+
+
+@dataclasses.dataclass
+class ShardedGroupedPlan(ShardedPlan):
+    """A GroupedPlan over a device mesh: the `expert` schedule.
+
+    The group (expert) dim shards over `ShardSpec.axis_g`: each rank takes
+    its groups' token rows, sizes and weight slabs and runs the ordinary
+    per-shard GroupedPlan over them (K5 on the card); the output rows stay
+    group-sharded until they are assembled.  The epilogue shards with its
+    operands (per-group bias, group-major residual), so it stays inside the
+    local kernel, unlike the K-collective schedules.
+    """
+
+    _check_grouped_operands = GroupedPlan._check_grouped_operands
+    __call__ = GroupedPlan.__call__
+    dispatch = GroupedPlan.dispatch
+
+    def describe(self) -> Dict[str, Any]:
+        d = super().describe()
+        d["fused_epilogue"] = self.capabilities.epilogue_fusion
+        return d
+
+
 _ALL = frozenset(STRUCTURES)
 register_backend(
     "torch",
     _dense_impl("torch"),
     BackendCapabilities(structures=frozenset({"general", "symmetric"}), batching=True,
-                        grouped=True),
+                        sharding=True, grouped=True),
     grouped_impl=_torch_grouped_impl,
 )
 register_backend(
     "cuda_mesh",
     _dense_impl("cuda_mesh"),
     BackendCapabilities(structures=_ALL, batching=True, epilogue_fusion=True, autotune=True,
-                        grouped=True),
+                        sharding=True, grouped=True),
     grouped_impl=_cuda_mesh_grouped_impl,
 )
 register_backend(
     "ref",
     _dense_impl("ref"),
-    BackendCapabilities(structures=_ALL, batching=True, grouped=True),
+    BackendCapabilities(structures=_ALL, batching=True, sharding=True, grouped=True),
     grouped_impl=_ref_grouped_impl,
 )
 
@@ -1469,6 +1801,7 @@ def plan(
     *,
     backend: Optional[str] = None,
     device="cpu",
+    mesh=None,
     guard_nonfinite: Optional[str] = None,
     guard_sample: Optional[int] = None,
     fallback: bool = False,
@@ -1484,6 +1817,13 @@ def plan(
     model (decision provenance in `describe()["decision"]`).  Spec-level
     problems raise PlanValidationError.
 
+    A spec carrying a ShardSpec needs the device `mesh` and returns a
+    ShardedPlan (a ShardedGroupedPlan for a grouped spec); `mesh=` without a
+    ShardSpec auto-shards: the cost model picks the axes and the schedule
+    over the mesh (`describe()["decision"]["sharding"]`).  Equal meshes key
+    the same cache entry.  With `fallback=True` a sharded plan's failed
+    collective degrades to replicated execution.
+
     With `fallback=True` a failed plan BUILD falls down the
     capability-ordered chain (`FALLBACK_ORDER`) to the next backend able to
     run the spec, recording a DegradationEvent in the plan's `health` and
@@ -1497,7 +1837,12 @@ def plan(
     """
     if not isinstance(spec, GemmSpec):
         raise TypeError(f"plan() takes a GemmSpec, got {type(spec).__name__}")
+    if spec.shard is not None and mesh is None:
+        raise ValueError("spec carries a ShardSpec; pass the device mesh: plan(spec, mesh=mesh)")
     dev = torch.device(device).type
+    shard_decision = None
+    if spec.shard is None and mesh is not None:
+        spec, shard_decision = _auto_shard(spec, mesh, dev)
     if guard_nonfinite is not None:
         guard_nonfinite = normalize_policy(guard_nonfinite)
     decision = None
@@ -1509,7 +1854,7 @@ def plan(
     else:
         be, decision = _choose_backend(spec, dev)
 
-    key = (spec, be.name, dev, guard_nonfinite, guard_sample, bool(fallback))
+    key = (spec, be.name, dev, guard_nonfinite, guard_sample, bool(fallback), _mesh_key(mesh))
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         _PLAN_STATS["hits"] += 1
@@ -1525,12 +1870,13 @@ def plan(
         backend=be.name,
         structure=spec.structure,
         mkn=f"{spec.eff_m}x{spec.k}x{spec.n}",
-        sharded=False,
+        sharded=mesh is not None,
     ) as bsp:
         for i, cand in enumerate(chain):
             try:
                 _faults.check("plan.build", backend=cand.name)
-                p = _build_plan(spec, cand, dev)
+                p = (_build_plan(spec, cand, dev) if mesh is None
+                     else _build_sharded_plan(spec, cand, mesh, dev))
                 built_at = i
                 break
             except (PlanValidationError, CapabilityError):
@@ -1548,9 +1894,18 @@ def plan(
                 )
         bsp.set("built_backend", chain[built_at].name)
         bsp.set("blocks", list(p.blocks) if p.blocks else None)
+        if isinstance(p, ShardedPlan):
+            bsp.set("schedule", p.schedule)
+            p.fallback = bool(fallback)
     p.health.extend(build_events)
-    if decision is not None:
-        p.decision = {"backend": decision}
+    if decision is not None or shard_decision is not None:
+        # merged with the schedule decision _build_sharded_plan attached
+        dec = dict(p.decision or {})
+        if decision is not None:
+            dec["backend"] = decision
+        if shard_decision is not None:
+            dec["sharding"] = shard_decision
+        p.decision = dec
     # Backends still available below the one that built: the execution-time
     # degradation ladder (Plan._degrade).
     p._chain = [c.name for c in chain[built_at + 1:]]
@@ -1680,6 +2035,419 @@ def _build_plan(spec: GemmSpec, be: _Backend, device: str) -> Plan:
     return p
 
 
+# ---------------------------------------------------------------------------
+# Sharded planning
+# ---------------------------------------------------------------------------
+
+
+def _mesh_key(mesh):
+    """The plan-cache key of a mesh: its layout, and the ranks of a
+    DeviceMesh (equal meshes share plans, meshes over other ranks don't)."""
+    if mesh is None:
+        return None
+    ranks = getattr(mesh, "mesh", None)
+    return (tuple(mesh_shape(mesh).items()),
+            None if ranks is None else tuple(int(r) for r in ranks.flatten().tolist()))
+
+
+def _legacy_auto_schedule(spec: GemmSpec) -> str:
+    """The divisibility heuristic: the degraded fallback AND the shape of
+    the cost model's tie-breaks: a K partition rings (scatter when M
+    divides it), anything else replicates."""
+    shard = spec.shard
+    pk = shard.axis_size(shard.axis_k)
+    if pk > 1:
+        return "reduce_scatter_k" if spec.eff_m % pk == 0 else "ring_k"
+    return "replicated"
+
+
+def _auto_schedule(spec: GemmSpec, platform: str) -> Tuple[str, Optional[Dict[str, Any]]]:
+    """Resolve schedule='auto' through the cost model on `platform`.  The
+    model legality-trials every schedule with this module's own validation,
+    so it never picks an illegal one; with no legal candidate the legacy
+    heuristic names the schedule whose validation raises the precise error,
+    and any other cost-model failure degrades to the legacy choice with a
+    ledger record."""
+    from repro_torch.costmodel import choose as _cm_choose
+
+    try:
+        sched, dec = _cm_choose.decide_schedule(spec, platform=platform)
+        return sched, dec.as_dict()
+    except _cm_choose.NoLegalCandidate:
+        return _legacy_auto_schedule(spec), None
+    except Exception as e:
+        _rledger.record("costmodel.decide_schedule", cause=f"{type(e).__name__}: {e}",
+                        fallback="legacy-heuristic")
+        return _legacy_auto_schedule(spec), None
+
+
+def _auto_shard(spec: GemmSpec, mesh, platform: str) -> Tuple[GemmSpec, Optional[Dict[str, Any]]]:
+    """plan(spec, mesh=...) with NO ShardSpec: the cost model picks the axes
+    AND the schedule over the mesh.  The degraded fallback is the unsharded
+    ShardSpec (correct on any mesh), with a ledger record."""
+    try:
+        from repro_torch.costmodel import choose as _cm_choose
+
+        shard, dec = _cm_choose.decide_sharding(spec, mesh, platform=platform)
+        return dataclasses.replace(spec, shard=shard), dec.as_dict()
+    except Exception as e:
+        _rledger.record("costmodel.decide_sharding", cause=f"{type(e).__name__}: {e}",
+                        fallback="unsharded")
+        return dataclasses.replace(spec, shard=ShardSpec.unsharded(mesh)), None
+
+
+def _resolve_sharding(
+    spec: GemmSpec, platform: str = "cpu",
+) -> Tuple[str, GemmSpec, int, int, Optional[Dict[str, Any]]]:
+    """Choose/validate the collective schedule of `spec.shard` and derive
+    (schedule, per-shard local spec, bytes moved per rank per call,
+    collective phase count, cost-model decision provenance: None unless
+    schedule='auto' resolved through the model on `platform`).
+
+    The local spec is the same GemmSpec type the unsharded planner takes:
+    epilogue stripped (applied after the collective), output f32, structure
+    'general' (per-shard tiles are rectangular).
+    """
+    shard = spec.shard
+    if spec.group is not None:
+        return _resolve_grouped_sharding(spec)
+    if shard.axis_g is not None:
+        raise PlanValidationError(
+            "axis_g partitions the group dim of a GROUPED spec; this spec carries no GroupSpec"
+        )
+    if spec.structure == "scrambled":
+        raise PlanValidationError(
+            "structure='scrambled' does not compose with a ShardSpec: the σ arrangement is"
+            " defined on the global block grid"
+        )
+    if spec.structure == "symmetric" and spec.m != spec.n:
+        raise PlanValidationError(
+            f"structure='symmetric' requires a square product, got {spec.m}x{spec.n}"
+        )
+    pm = shard.axis_size(shard.axis_m)
+    pk = shard.axis_size(shard.axis_k)
+    pn = shard.axis_size(shard.axis_n)
+    pb = shard.axis_size(shard.axis_batch)
+    eff_m = spec.eff_m
+
+    sched = shard.schedule
+    decision = None
+    if sched == "auto":
+        sched, decision = _auto_schedule(spec, platform)
+    if sched == "expert":
+        raise PlanValidationError(
+            "schedule 'expert' shards the group dim of a GROUPED spec; this spec carries no"
+            " GroupSpec"
+        )
+
+    def div(what: str, dim: int, axes, p: int) -> int:
+        if dim % p:
+            raise PlanValidationError(
+                f"{what}={dim} is not divisible by mesh axes {axes!r} (size {p}) required by"
+                f" schedule {sched!r} on mesh {shard.mesh_axes}"
+            )
+        return dim // p
+
+    if spec.batched_b and sched != "replicated":
+        raise PlanValidationError(
+            f"schedule {sched!r} does not support fully-batched operands; use the replicated"
+            " schedule (batch/M/N partitions are local)"
+        )
+    if shard.axis_batch is not None and not spec.batch:
+        raise PlanValidationError("axis_batch given but the spec has no batch dims")
+    if not spec.batched_b and pb > 1:
+        raise PlanValidationError(
+            "axis_batch partitions the leading dim of a fully-batched product; with 2D b the"
+            " batch folds into M — shard axis_m instead"
+        )
+
+    lb: Tuple[int, ...] = spec.batch
+    if sched == "replicated":
+        if pk > 1:
+            raise PlanValidationError(
+                "schedule 'replicated' cannot shard K (a K partition needs a collective; use"
+                " 'reduce_scatter_k' or 'ring_k')"
+            )
+        if spec.batched_b:
+            lb = (div("batch", math.prod(spec.batch), shard.axis_batch, pb),)
+            lm = div("M", spec.m, shard.axis_m, pm)
+        else:
+            lm = div("M", eff_m, shard.axis_m, pm)
+        lk, ln = spec.k, div("N", spec.n, shard.axis_n, pn)
+        bytes_moved, phases = 0, 0
+    elif sched in ("allgather_a", "allgather_a_overlap"):
+        if not isinstance(shard.axis_m, str):
+            raise PlanValidationError(
+                f"schedule {sched!r} needs a single mesh axis on M (axis_m={shard.axis_m!r})"
+                " — the gather is a 1D ring"
+            )
+        if pk > 1 or pn > 1:
+            raise PlanValidationError(f"schedule {sched!r} shards only M; drop axis_k/axis_n")
+        lm = div("M", eff_m, shard.axis_m, pm)
+        lk, ln = spec.k, spec.n
+        if sched == "allgather_a_overlap":
+            if pm < 2:
+                raise PlanValidationError(
+                    "schedule 'allgather_a_overlap' double-buffers a ring of size >= 2;"
+                    f" axis_m={shard.axis_m!r} has size {pm}"
+                )
+            if spec.n < 2 or spec.n % 2:
+                raise PlanValidationError(
+                    "schedule 'allgather_a_overlap' splits the local product into two column"
+                    f" halves; N={spec.n} must be even"
+                )
+            ln = spec.n // 2  # per-shard plan built at the half width
+        # Each rank computes its (lm, n) result chunk ONCE; the f32 chunks
+        # hop the ring pm-1 times.
+        bytes_moved = (pm - 1) * lm * spec.n * 4
+        phases = pm - 1
+    elif sched in ("reduce_scatter_k", "reduce_scatter_k_overlap", "ring_k", "ring_k_overlap",
+                   "pipeline"):
+        if shard.axis_k is None:
+            raise PlanValidationError(f"schedule {sched!r} requires axis_k")
+        if pm > 1 or pn > 1:
+            if shard.schedule == "auto":
+                raise PlanValidationError(
+                    "no collective schedule combines a K partition with an M/N partition;"
+                    " shard K alone (reduce_scatter_k / ring_k) or drop axis_k"
+                )
+            raise PlanValidationError(f"schedule {sched!r} shards only K; drop axis_m/axis_n")
+        lk = div("K", spec.k, shard.axis_k, pk)
+        ln = spec.n
+        if sched in ("reduce_scatter_k", "reduce_scatter_k_overlap"):
+            lm = div("M", eff_m, shard.axis_k, pk)
+            # f32 accumulator row-chunks hop the ring p-1 times
+            bytes_moved = (pk - 1) * lm * spec.n * 4
+            phases = pk - 1
+        elif sched == "pipeline":
+            mb = div("M", eff_m, shard.axis_k, pk)
+            micro = _pipeline_microbatches(eff_m, pk)
+            lm = eff_m // micro  # one microbatch chain per product
+            # reduce_scatter_k's accumulator bytes, split over micro/pk
+            # chains of (pk-1) hops each
+            bytes_moved = (pk - 1) * mb * spec.n * 4
+            phases = micro - micro // pk
+        else:  # ring_k / ring_k_overlap
+            lm = eff_m
+            if sched == "ring_k_overlap":
+                if pk < 2:
+                    raise PlanValidationError(
+                        "schedule 'ring_k_overlap' double-buffers a ring of size >= 2;"
+                        f" axis_k={shard.axis_k!r} has size {pk}"
+                    )
+                if spec.n < 2 or spec.n % 2:
+                    raise PlanValidationError(
+                        "schedule 'ring_k_overlap' splits the partial into two column halves;"
+                        f" N={spec.n} must be even"
+                    )
+                ln = spec.n // 2  # per-shard plan built at the half width
+            # full f32 accumulator wavefronts hop the ring p-1 times
+            bytes_moved = (pk - 1) * eff_m * spec.n * 4
+            phases = pk - 1
+    else:  # pragma: no cover — ShardSpec.__post_init__ rejects unknown names
+        raise PlanValidationError(f"unknown schedule {sched!r}")
+
+    local = dataclasses.replace(
+        spec, m=lm, k=lk, n=ln, batch=lb if spec.batched_b else (), batched_b=spec.batched_b,
+        structure="general", epilogue=Epilogue(), out_dtype="float32", shard=None,
+    )
+    return sched, local, bytes_moved, phases, decision
+
+
+def _resolve_grouped_sharding(
+    spec: GemmSpec,
+) -> Tuple[str, GemmSpec, int, int, Optional[Dict[str, Any]]]:
+    """The grouped analogue of `_resolve_sharding`: the one partition is the
+    group (expert) dim over `axis_g`, the `expert` schedule.  bytes_moved
+    reports the boundary resharding of the token rows (the EP all-to-all a
+    data-sharded caller pays)."""
+    shard = spec.shard
+    grp = spec.group
+    for field in ("axis_m", "axis_k", "axis_n", "axis_batch"):
+        if getattr(shard, field) is not None and shard.axis_size(getattr(shard, field)) > 1:
+            raise PlanValidationError(
+                f"grouped specs shard only the group dim (axis_g); drop {field}"
+            )
+    pg = shard.axis_size(shard.axis_g)
+    sched = shard.schedule
+    if sched == "auto":
+        sched = "expert" if pg > 1 else "replicated"
+    if sched not in ("expert", "replicated"):
+        raise PlanValidationError(
+            f"schedule {sched!r} does not apply to grouped specs; use 'expert' (group dim"
+            " over axis_g) or 'replicated'"
+        )
+    if sched == "replicated" and pg > 1:
+        raise PlanValidationError("schedule 'replicated' cannot shard the group dim; use 'expert'")
+    if grp.num_groups % pg:
+        raise PlanValidationError(
+            f"num_groups={grp.num_groups} is not divisible by mesh axis {shard.axis_g!r}"
+            f" (size {pg}) required by schedule 'expert' on mesh {shard.mesh_axes}"
+        )
+    local_grp = GroupSpec(grp.num_groups // pg, grp.rows_per_group)
+    local = dataclasses.replace(spec, m=local_grp.rows, group=local_grp, shard=None)
+    if pg > 1:
+        ia = _NAME_DTYPES[spec.dtype_a].itemsize
+        io = _NAME_DTYPES[spec.resolved_out_dtype()].itemsize
+        # (p-1)/p of the token rows change rank on the way in, and again out
+        bytes_moved = (pg - 1) * grp.rows * (spec.k * ia + spec.n * io) // pg
+        phases = pg - 1
+    else:
+        bytes_moved, phases = 0, 0
+    return ("expert" if pg > 1 else "replicated"), local, bytes_moved, phases, None
+
+
+def _grouped_sharded_executor(spec: GemmSpec, sched: str, mesh, local_plan: Plan) -> Callable:
+    """SPMD executor of grouped specs: each rank runs the local GroupedPlan
+    over its groups' rows, sizes and weights; the group-sharded output rows
+    are assembled on every rank."""
+    from repro_torch.parallel.collectives import assemble, local_shard
+    from repro_torch.parallel.sharding import PartitionSpec as P
+    from repro_torch.parallel.sharding import mesh_layout
+
+    ag = spec.shard.axis_g if sched == "expert" else None
+
+    def run(tokens, group_offsets, weights, bias, residual):
+        lay = mesh_layout(mesh)
+        sizes = local_shard(_grouped_sizes(group_offsets), P(ag), lay)
+        off = torch.cat([sizes.new_zeros(1), torch.cumsum(sizes, 0).to(torch.int32)])
+        out = local_plan._fn(
+            local_shard(tokens, P(ag, None), lay), off,
+            local_shard(weights, P(ag, None, None), lay),
+            None if bias is None else local_shard(bias, P(ag, None), lay),
+            None if residual is None else local_shard(residual, P(ag, None), lay))
+        return assemble(out, P(ag, None), lay)
+
+    return run
+
+
+def _sharded_executor(spec: GemmSpec, sched: str, mesh, local_plan: Plan) -> Callable:
+    """The global-operand executor: each rank slices its shards (the
+    reference's shard_map in_specs), runs the collective around the
+    per-shard product and the epilogue, and the result is assembled from the
+    ranks' blocks (its out_spec), with batch folding around it."""
+    from repro_torch.parallel.collectives import (
+        assemble,
+        local_shard,
+        matmul_ring_reducescatter,
+        ring_allgather_matmul,
+        ring_pipeline_matmul,
+    )
+    from repro_torch.parallel.sharding import PartitionSpec as P
+    from repro_torch.parallel.sharding import mesh_layout
+    from repro_torch.parallel.systolic import ring_systolic_kpass
+
+    shard = spec.shard
+    epi = spec.epilogue
+    act = epi.activation
+    out_dt = _NAME_DTYPES[spec.resolved_out_dtype()]
+    am, ak, an, ab = shard.axis_m, shard.axis_k, shard.axis_n, shard.axis_batch
+    overlap = sched.endswith("_overlap")
+    base = sched[: -len("_overlap")] if overlap else sched
+
+    def local_mm(x, y):
+        return local_plan._fn(x, y, None, None)
+
+    if spec.batched_b:  # replicated schedule only (validated upstream)
+        in_a, in_b, in_bias, in_res = P(ab, am, None), P(ab, None, an), P(an), P(ab, am, an)
+        out_spec = P(ab, am, an)
+    elif sched == "replicated":
+        in_a, in_b, in_bias, in_res = P(am, None), P(None, an), P(an), P(am, an)
+        out_spec = P(am, an)
+    elif base == "allgather_a":
+        in_a, in_b, in_bias, in_res = P(am, None), P(), P(), P()
+        out_spec = P()
+    elif base in ("reduce_scatter_k", "pipeline"):
+        in_a, in_b, in_bias = P(None, ak), P(ak, None), P()
+        in_res = out_spec = P(ak, None)
+    else:  # ring_k / ring_k_overlap
+        in_a, in_b, in_bias, in_res = P(None, ak), P(ak, None), P(), P()
+        out_spec = P()
+    micro = _pipeline_microbatches(spec.eff_m, shard.axis_size(ak)) if sched == "pipeline" else 0
+
+    def body(a_blk, b_blk, bias_blk, res_blk):
+        if sched == "replicated":
+            z = local_plan._fn(a_blk, b_blk, None, None)
+        elif base == "allgather_a":
+            z = ring_allgather_matmul(a_blk, b_blk, am, mesh=mesh, matmul=local_mm,
+                                      overlap=overlap)
+        elif base == "reduce_scatter_k":
+            z = matmul_ring_reducescatter(a_blk, b_blk, ak, mesh=mesh, matmul=local_mm,
+                                          overlap=overlap)
+        elif sched == "pipeline":
+            z = ring_pipeline_matmul(a_blk, b_blk, ak, mesh=mesh, microbatches=micro,
+                                     matmul=local_mm)
+        else:
+            z = ring_systolic_kpass(a_blk, b_blk, axis=ak, mesh=mesh, matmul=local_mm,
+                                    overlap=overlap)
+        return apply_epilogue(z, bias_blk, act, res_blk).to(out_dt)
+
+    eff_m = spec.eff_m
+
+    def run(a, b, bias, residual):
+        lay = mesh_layout(mesh)
+        if spec.batched_b:
+            nb = math.prod(spec.batch)
+            af, bf = a.reshape(nb, spec.m, spec.k), b.reshape(nb, spec.k, spec.n)
+            resf = None if residual is None else residual.reshape(nb, spec.m, spec.n)
+        else:
+            # Leading batch dims of `a` fold into M: the M partition shards eff_m.
+            af, bf = a.reshape(eff_m, spec.k), b
+            resf = None if residual is None else residual.reshape(eff_m, spec.n)
+        z = body(local_shard(af, in_a, lay), local_shard(bf, in_b, lay),
+                 None if bias is None else local_shard(bias, in_bias, lay),
+                 None if resf is None else local_shard(resf, in_res, lay))
+        out = assemble(z, out_spec, lay)
+        return out.reshape(*spec.batch, spec.m, spec.n) if spec.batch else out
+
+    return run
+
+
+def _build_sharded_plan(spec: GemmSpec, be: _Backend, mesh, device: str) -> ShardedPlan:
+    """ONE planner: resolve the collective schedule, build the per-shard
+    Plan through the ordinary `plan()` path (cached, blocks resolved at the
+    LOCAL shape) and wrap it in the SPMD executor."""
+    shard = spec.shard
+    live = tuple(mesh_shape(mesh).items())
+    if live != shard.mesh_axes:
+        raise PlanValidationError(
+            f"ShardSpec was built for mesh axes {shard.mesh_axes} but plan() got a mesh with"
+            f" {live}; rebuild it with ShardSpec.from_mesh(mesh, ...)"
+        )
+    sched, local_spec, bytes_moved, phases, sched_decision = _resolve_sharding(spec, device)
+    local_plan = plan(local_spec, backend=be.name, device=device)
+    if sched in ("reduce_scatter_k", "reduce_scatter_k_overlap"):
+        invocations = phases + 1
+    elif sched == "pipeline":
+        invocations = _pipeline_microbatches(spec.eff_m, shard.axis_size(shard.axis_k))
+    elif sched in ("allgather_a_overlap", "ring_k_overlap"):
+        invocations = 2
+    else:
+        invocations = 1
+    cls = ShardedGroupedPlan if spec.group is not None else ShardedPlan
+    p = cls(
+        spec=spec,
+        backend=be.name,
+        capabilities=be.caps,
+        device=device,
+        blocks=local_plan.blocks,
+        out_dtype=spec.resolved_out_dtype(),
+        flops=spec.flops(),
+        vmem_bytes=local_plan.vmem_bytes,
+        mesh=mesh,
+        schedule=sched,
+        local=local_plan,
+        bytes_moved=bytes_moved,
+        collective_phases=phases,
+        kernel_invocations=invocations,
+    )
+    if sched_decision is not None:
+        p.decision = {"schedule": sched_decision}
+    executor = _grouped_sharded_executor if spec.group is not None else _sharded_executor
+    p._fn = executor(spec, sched, mesh, local_plan)
+    return p
+
+
 def execute_async(items) -> List[torch.Tensor]:
     """Dispatch independent plan executions back to back, sync ONCE at the end.
 
@@ -1706,7 +2474,7 @@ def clear_plan_cache() -> None:
 
 def plan_cache_info() -> Dict[str, Any]:
     """Cache telemetry: one entry per (spec, backend, device type, guard,
-    fallback) planned."""
+    fallback, mesh) planned."""
     return {
         "size": len(_PLAN_CACHE),
         "hits": _PLAN_STATS["hits"],

@@ -14,10 +14,13 @@ Examples
   PYTHONPATH=src python -m repro_torch.launch.train --arch mesh-paper \\
       --reduced --device cpu --steps 3 --ckpt-dir /tmp/ckpt --resume auto
 
+  # the host: reduced RWKV-6 (the ssm family) or Zamba2 (hybrid)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+      --reduced --device cpu --steps 2
+
 `--async-ckpt` writes the checkpoints on a worker thread
-(`AsyncCheckpointer`).  Distribution (`--mesh` other than `none`) and the
-training of the ssm and hybrid families are not ported yet; audio and vlm
-are refused, as in the reference.
+(`AsyncCheckpointer`).  Distribution (`--mesh` other than `none`) is not
+ported yet; audio and vlm are refused, as in the reference.
 """
 
 from __future__ import annotations
@@ -96,11 +99,6 @@ def main(argv=None) -> None:
     if cfg.family in ("audio", "vlm"):
         raise SystemExit(f"{args.arch}: synthetic LM trainer covers token-LM families; "
                          "see tests/test_models_smoke.py for audio/vlm train steps")
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{args.arch}: training the {cfg.family} family is not ported yet (ROADMAP.md"
-            " queue A, training of the four families: per-chunk checkpointing of the"
-            " WKV and SSD recurrences)")
 
     step_fn, state, data = build_trainer(
         cfg, batch=args.batch, seq=args.seq, lr=args.lr, total_steps=args.steps,

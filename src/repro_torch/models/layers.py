@@ -94,6 +94,8 @@ def gemm(
     bias: Optional[torch.Tensor] = None,
     activation: Optional[str] = None,
     residual: Optional[torch.Tensor] = None,
+    mesh: Any = None,
+    shard: Any = None,
 ) -> torch.Tensor:
     """Config-routed GEMM via plan/execute: the `torch` backend, or the mesh
     kernel (`cuda_mesh`) when cfg.use_mesh_kernel.
@@ -103,6 +105,12 @@ def gemm(
     site, identical semantics.  Block shapes come from cfg.mesh_block_m/n/k
     when set (> 0).  Under autograd the plan runs its product as the op
     `repro_torch::gemm`, which the `dots` remat policy saves.
+
+    With `shard` (a `kernels.api.ShardSpec`) and its device `mesh`, the
+    plan is a ShardedPlan: the same per-shard product inside the
+    ShardSpec's collective schedule, run by every rank of the mesh on the
+    same global operands and returning the global result, so call sites do
+    not change shape-wise.
     """
     backend = "cuda_mesh" if cfg.use_mesh_kernel else "torch"
     blocks = (cfg.mesh_block_m or None, cfg.mesh_block_n or None, cfg.mesh_block_k or None)
@@ -116,8 +124,9 @@ def gemm(
         ),
         out_dtype=x.dtype,
         blocks=blocks,
+        shard=shard,
     )
-    return _api.plan(spec, backend=backend, device=x.device)(
+    return _api.plan(spec, backend=backend, device=x.device, mesh=mesh)(
         x, w, bias=bias, residual=residual
     )
 
@@ -160,9 +169,12 @@ def dense(
     *,
     activation: Optional[str] = None,
     residual: Optional[torch.Tensor] = None,
+    mesh: Any = None,
+    shard: Any = None,
 ) -> torch.Tensor:
     """Dense projection with the fused epilogue: one kernel on the mesh path."""
-    return gemm(x, w, cfg, bias=b, activation=activation, residual=residual)
+    return gemm(x, w, cfg, bias=b, activation=activation, residual=residual, mesh=mesh,
+                shard=shard)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:

@@ -10,9 +10,16 @@ The recurrence S_t = diag(w_t) S_{t-1} + k_t^T v_t runs per token
 (`_wkv_scan`, the faithful form, which decode takes) or chunk-parallel
 (`_wkv_chunked`, with cfg.wkv_chunked when the length is a multiple of
 cfg.wkv_chunk: `tuned()` turns it on).  Both are plain torch ops: the
-reference writes them in XLA, not Pallas.  The reference's two-level chunking
-of the scan only bounds what its autodiff saves, so a flat loop over tokens
-gives the same values.  Every projection goes through `layers.gemm` (kernel
+reference writes them in XLA, not Pallas.  As in the reference, each chunk
+of the chunked form, and each 128-step chunk of the scan when T is a larger
+multiple of 128, runs under a checkpoint where autograd records
+(`torch.utils.checkpoint`, the reference's `jax.checkpoint`): the backward
+keeps one (B, H, K, V) state a chunk and recomputes the chunk's
+intermediates, with the same values and gradients bit for bit.  At 2 x
+2048 tokens the chunked form's (B, C, C, H, K) intermediates would
+otherwise hold about 1.7 GiB a layer of RWKV-6, and the scan one state a
+step.  `chunk_checkpoint(False)` turns it off (a memory reading).  Every
+projection goes through `layers.gemm` (kernel
 K1 under cfg.use_mesh_kernel, with the silu, relu and sigmoid epilogues
 fused); the LoRA einsums stay `torch.einsum` in the activation type, as in
 the reference.
@@ -25,17 +32,44 @@ Entry points mirror the transformer's: `rwkv_specs` / `rwkv_forward` /
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import PSpec, gemm, padded_vocab, rmsnorm
 from repro_torch.models.transformer import _layer, embed_tokens, stack_specs, unembed
 
-__all__ = ["rwkv_specs", "rwkv_forward", "rwkv_prefill", "rwkv_decode", "rwkv_state_specs"]
+__all__ = [
+    "chunk_checkpoint", "rwkv_specs", "rwkv_forward", "rwkv_prefill", "rwkv_decode",
+    "rwkv_state_specs",
+]
 
 _LORA = 32  # ddlerp LoRA rank
 _DECAY_LORA = 64
+_WKV_CHUNK = 128  # the scan's checkpointed chunk, in steps
+_CHECKPOINT = [True]
+
+
+@contextlib.contextmanager
+def chunk_checkpoint(enabled: bool):
+    """Scoped switch of the WKV chunk checkpoint (on by default)."""
+    prev = _CHECKPOINT[0]
+    _CHECKPOINT[0] = bool(enabled)
+    try:
+        yield
+    finally:
+        _CHECKPOINT[0] = prev
+
+
+def _chunked(fn, *args):
+    """fn(*args), under a checkpoint where autograd records and the switch
+    is on: the backward then keeps `args` and recomputes fn's
+    intermediates."""
+    if _CHECKPOINT[0] and torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def _layer_specs(cfg) -> Dict[str, Any]:
@@ -135,9 +169,7 @@ def _wkv_chunked(r, k, v, w, u, s0, chunk: int = 16):
     cw_prev = cw - lw  # exclusive (cw_{t-1}; row 0 = 0)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), diagonal=-1)
 
-    s, outs = s0, []
-    for i in range(nc):
-        rj, kj, vj, cwj, cwp = rc[i], kc[i], vc[i], cw[i], cw_prev[i]  # (B, C, H, K)
+    def body(s, rj, kj, vj, cwj, cwp):  # (B, C, H, K) each
         # intra-chunk attention matrix A[t, j] (strictly causal, decayed)
         diff = cwp[:, :, None] - cwj[:, None, :]  # (B, C, C, H, K): t, j
         diff = torch.where(tri[None, :, :, None, None], diff, -1e30)
@@ -148,6 +180,11 @@ def _wkv_chunked(r, k, v, w, u, s0, chunk: int = 16):
         # chunk-final state
         wj = torch.exp(cwj[:, -1:, :, :] - cwj)  # e^{cw_C - cw_j} <= 1
         s = s * torch.exp(cwj[:, -1])[..., None] + torch.einsum("bjhk,bjhv->bhkv", kj * wj, vj)
+        return s, o
+
+    s, outs = s0, []
+    for i in range(nc):
+        s, o = _chunked(body, s, rc[i], kc[i], vc[i], cw[i], cw_prev[i])
         outs.append(o)
     o = torch.stack(outs, dim=1).reshape(b, t, h, vdim)
     return o, s
@@ -158,15 +195,32 @@ def _wkv_scan(r, k, v, w, u, s0):
 
     r/k/v/w: (B, T, H, K) f32; u: (H, K); s0: (B, H, K, V).
     Returns (o (B, T, H, V), s_final).
+
+    As in the reference, the time loop runs in chunks of _WKV_CHUNK steps,
+    each under a checkpoint (`_chunked`), when T is a multiple of the chunk
+    and longer than one; otherwise it is one flat loop.
     """
+
+    def steps(s, rc, kc, vc, wc):  # (B, C, H, K) each
+        outs = []
+        for i in range(rc.shape[1]):
+            rt, kt, vt, wt = rc[:, i], kc[:, i], vc[:, i], wc[:, i]  # (B, H, K) each
+            kv = kt[..., None] * vt[..., None, :]  # (B, H, K, V)
+            s_eff = s + u[None, :, :, None] * kv
+            outs.append(torch.einsum("bhk,bhkv->bhv", rt, s_eff))
+            s = wt[..., None] * s + kv
+        return s, torch.stack(outs, dim=1)
+
+    t = r.shape[1]
+    if t % _WKV_CHUNK or t <= _WKV_CHUNK:
+        s, o = steps(s0, r, k, v, w)
+        return o, s
     s, outs = s0, []
-    for i in range(r.shape[1]):
-        rt, kt, vt, wt = r[:, i], k[:, i], v[:, i], w[:, i]  # (B, H, K) each
-        kv = kt[..., None] * vt[..., None, :]  # (B, H, K, V)
-        s_eff = s + u[None, :, :, None] * kv
-        outs.append(torch.einsum("bhk,bhkv->bhv", rt, s_eff))
-        s = wt[..., None] * s + kv
-    return torch.stack(outs, dim=1), s
+    for c0 in range(0, t, _WKV_CHUNK):
+        c1 = c0 + _WKV_CHUNK
+        s, o = _chunked(steps, s, r[:, c0:c1], k[:, c0:c1], v[:, c0:c1], w[:, c0:c1])
+        outs.append(o)
+    return torch.cat(outs, dim=1), s
 
 
 def _time_mix(p, x, cfg, state_wkv, x_last):

@@ -2,8 +2,8 @@
 `repro.models.ssm`).
 
 Mamba2's scalar-per-head decay keeps the chunked SSD form numerically safe
-(every exponent is a difference of a monotone cumulative log-decay, hence
-<= 0), so prefill runs the matmul-rich chunked form (`ssd_chunked`) and
+(every exponent it uses is a difference of a monotone cumulative log-decay,
+hence <= 0), so prefill runs the matmul-rich chunked form (`ssd_chunked`) and
 decode carries the (H, P, N) state with an O(1) step (`ssd_step`); the
 sequential `ssd_scan` is the oracle.  All three are plain torch ops: the
 reference writes them in XLA, not Pallas.  The projections go through
@@ -95,7 +95,12 @@ def ssd_chunked(x, dt, a_log, b, c, d_skip, h0, chunk: int = _CHUNK):
     # Intra-chunk: y[t] += sum_{j<=t} exp(la_t - la_j) dt_j (C_t.B_j) x_j
     diff = la[:, :, :, None, :] - la[:, :, None, :, :]  # (B, nc, C, C, H): t, j
     mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device))
-    L = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    # Above the diagonal (j > t) the exponent is >= 0 and may overflow: it is
+    # masked to -inf BEFORE the exp, which gives the 0 the reference's
+    # where-after-exp gives (the same values, bit for bit), while the
+    # backward never forms 0 * inf.  The reference's gradients turn NaN where
+    # a masked exponent overflows (la falling by more than 88 in a chunk).
+    L = torch.exp(diff.masked_fill(~mask[None, None, :, :, None], float("-inf")))
     G = torch.einsum("bktn,bkjn->bktj", cc, bc)  # (B, nc, C, C)
     M = G[..., None] * L * dtc[:, :, None, :, :]  # weight for (t, j, h)
     y = torch.einsum("bktjh,bkjhp->bkthp", M, xc)

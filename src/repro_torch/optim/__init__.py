@@ -5,13 +5,14 @@ from repro_torch.optim.adamw import (
     clip_by_global_norm,
     global_norm,
 )
-from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.optim.schedules import constant, warmup_cosine
 
 __all__ = [
     "AdamWConfig",
     "adamw_init",
     "adamw_update",
     "clip_by_global_norm",
+    "constant",
     "global_norm",
     "warmup_cosine",
 ]

@@ -7,7 +7,12 @@ import math
 
 import torch
 
-__all__ = ["warmup_cosine"]
+__all__ = ["constant", "warmup_cosine"]
+
+
+def constant(lr: float):
+    """lr at every step: an f32 0-d tensor on the step's device."""
+    return lambda step: torch.full((), lr, dtype=torch.float32, device=step.device)
 
 
 def warmup_cosine(peak_lr: float, warmup_steps: int, total_steps: int, final_frac: float = 0.1):

@@ -1,0 +1,359 @@
+"""Overlapped collective-matmul building blocks (port of
+`repro.parallel.collectives`).
+
+Tensor-parallel layers do `all_gather(x) @ W` or `reduce_scatter(x @ W)`
+as two serial phases; these ring variants fuse the neighbour exchanges with
+the local products.  Each helper has two selectable dataflows:
+
+  overlap=False   the serial oracle: each ring step's hop waits for the
+                  step's product.
+  overlap=True    double-buffered: the hop of the next shard is posted
+                  (`isend`/`irecv`) before the product of this one runs, and
+                  waited after it, so the transfer and the kernel overlap.
+                  The products and the accumulation order are the serial
+                  path's, so the outputs are bitwise-equal to it.
+
+SPMD in place of `shard_map`: every process runs the same function on its
+own shard, and `jax.lax.ppermute` becomes `dist.batch_isend_irecv` over a
+send to one ring neighbour and a receive from the other (`_Hop`).  A ring
+is an axis of a device mesh (`parallel.sharding.mesh_layout`): `axis` names
+it and `mesh` holds it.  Under the gloo backend a CUDA tensor's hop is
+staged through host memory (gloo moves host buffers only); NCCL moves it in
+place.  On a ring of size 1 nothing moves.
+
+The planner's sharded schedules (`kernels/api.py`: `allgather_a[_overlap]`,
+`reduce_scatter_k[_overlap]`, `pipeline`) run their per-shard products
+through the `matmul=` hook, so each local product is the plan's own
+backend: K1 on the card, its plain version on the CPU.  Every helper checks
+the `collective.step` fault site on entry, and the double-buffered ones at
+each step as well (with its step index), as the reference does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.sharding import MeshLayout, mesh_layout, mesh_shape
+from repro_torch.resilience import faults
+
+__all__ = [
+    "matmul_ring_reducescatter",
+    "psum_if_multi",
+    "ring_allgather_matmul",
+    "ring_pipeline_matmul",
+]
+
+# Per-step local product hook: (chunk, weights) -> f32 partial.  None selects
+# a plain f32 matmul; ShardedPlan passes its per-shard Plan executor here.
+MatmulFn = Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
+
+
+def _default_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x.float(), w.float())
+
+
+def _shift(p: int, by: int = 1):
+    return [(s, (s - by) % p) for s in range(p)]
+
+
+def _staged(x: torch.Tensor) -> bool:
+    """A CUDA tensor under gloo travels through host memory."""
+    return x.is_cuda and dist.get_backend() == "gloo"
+
+
+class _Hop:
+    """One ppermute in flight over a ring: this process sends `x` to the
+    rank `perm` maps its index to and receives from the rank that maps to
+    it.  `wait()` returns the received tensor (once; later calls return it
+    again).  `ranks` are the ring's global ranks in index order."""
+
+    def __init__(self, x: torch.Tensor, ranks: Sequence[int], idx: int, perm, tag: int = 0):
+        dst = next(d for s, d in perm if s == idx)
+        src = next(s for s, d in perm if d == idx)
+        self._out, self._works, self._device = None, [], x.device
+        if dst == idx and src == idx:
+            self._out = x
+            return
+        send = x.detach().contiguous()
+        if _staged(send):
+            send = send.cpu()
+        self._buf = torch.empty_like(send)
+        self._send = send  # alive until the transfer completes
+        ops = [dist.P2POp(dist.isend, send, int(ranks[dst]), tag=tag),
+               dist.P2POp(dist.irecv, self._buf, int(ranks[src]), tag=tag)]
+        self._works = dist.batch_isend_irecv(ops)
+
+    def wait(self) -> torch.Tensor:
+        if self._out is None:
+            for w in self._works:
+                w.wait()
+            self._out = self._buf.to(self._device)
+        return self._out
+
+
+@contextlib.contextmanager
+def _hops(ranks: Sequence[int], idx: int) -> Iterator[Callable[..., _Hop]]:
+    """`start(x, perm, tag)` posts a hop; every hop posted is waited for on
+    the way out, so a fault raised mid-ring leaves no transfer pending on
+    any rank (every rank raises at the same step)."""
+    live: List[_Hop] = []
+
+    def start(x, perm, tag: int = 0) -> _Hop:
+        live.append(_Hop(x, ranks, idx, perm, tag))
+        return live[-1]
+
+    try:
+        yield start
+    finally:
+        for h in live:
+            h.wait()
+
+
+def _ppermute(x: torch.Tensor, ranks: Sequence[int], idx: int, perm) -> torch.Tensor:
+    return _Hop(x, ranks, idx, perm).wait()
+
+
+def _ring(axis: str, mesh):
+    """(size, index, global ranks) of the ring along `axis`."""
+    return mesh_layout(mesh).ring(axis)
+
+
+def ring_allgather_matmul(
+    x_blk: torch.Tensor,
+    w: torch.Tensor,
+    axis: str,
+    *,
+    mesh,
+    matmul: MatmulFn = None,
+    overlap: bool = False,
+) -> torch.Tensor:
+    """Computes all_gather(x, axis) @ w without materializing the gather.
+
+    x_blk: local (m_blk, k) shard of a row-sharded X (full X is (p*m_blk,
+    k)); w: replicated (k, n).  Returns the full (p*m_blk, n) product on
+    every rank.  Each rank computes its own (m_blk, n) partial ONCE and the
+    f32 result chunks hop the ring, not the input chunks.
+
+    overlap=True splits the local product into two column halves: the
+    first half's chunk is on the wire while the second half's product runs,
+    and the two chains' hops and writes interleave.  A `matmul` hook then
+    receives (m_blk, k) @ (k, n/2) halves.
+    """
+    sched = "allgather_a_overlap" if overlap else "allgather_a"
+    faults.check("collective.step", schedule=sched, axis=axis)
+    mm = matmul or _default_mm
+    p, idx, ranks = _ring(axis, mesh)
+    m_blk, n = x_blk.shape[0], w.shape[1]
+    out = torch.zeros((p * m_blk, n), dtype=torch.promote_types(x_blk.dtype, torch.float32),
+                      device=x_blk.device)
+
+    def rows(src: int) -> slice:
+        return slice(src * m_blk, (src + 1) * m_blk)
+
+    if not overlap or p == 1 or n < 2:
+        cur = mm(x_blk, w)  # the ONE local kernel call
+        for t in range(p):
+            out[rows((idx + t) % p)] = cur  # computed by rank (idx + t) mod p
+            if t < p - 1:
+                cur = _ppermute(cur, ranks, idx, _shift(p, 1))
+        return out
+
+    n2 = n // 2
+    with _hops(ranks, idx) as hop:
+        cur0 = mm(x_blk, w[:, :n2])
+        out[rows(idx), :n2] = cur0
+        h0 = hop(cur0, _shift(p, 1), 0)
+        cur1 = mm(x_blk, w[:, n2:])  # half 0's chunk is on the wire meanwhile
+        out[rows(idx), n2:] = cur1
+        h1 = hop(cur1, _shift(p, 1), 1)
+        for t in range(1, p):
+            faults.check("collective.step", schedule=sched, axis=axis, step=t)
+            cur0, cur1 = h0.wait(), h1.wait()
+            out[rows((idx + t) % p), :n2] = cur0
+            out[rows((idx + t) % p), n2:] = cur1
+            if t < p - 1:
+                h0 = hop(cur0, _shift(p, 1), 0)
+                h1 = hop(cur1, _shift(p, 1), 1)
+    return out
+
+
+def matmul_ring_reducescatter(
+    x: torch.Tensor,
+    w_blk: torch.Tensor,
+    axis: str,
+    *,
+    mesh,
+    matmul: MatmulFn = None,
+    overlap: bool = False,
+) -> torch.Tensor:
+    """Computes reduce_scatter(x @ w_col_shards) with ring accumulation.
+
+    x: local (m, k_blk) shard of a column-sharded X; w_blk: local (k_blk,
+    n).  Each rank ends with its (m/p, n) row slice of sum_k X_k @ W_k.
+
+    overlap=True posts step t's accumulator hop before step t+1's product
+    (which reads only resident operands) and waits after it.  The
+    accumulator receives the same partials in the same order either way.
+    """
+    sched = "reduce_scatter_k_overlap" if overlap else "reduce_scatter_k"
+    faults.check("collective.step", schedule=sched, axis=axis)
+    mm = matmul or _default_mm
+    p, idx, ranks = _ring(axis, mesh)
+    m, n = x.shape[0], w_blk.shape[1]
+    if m % p:
+        raise ValueError(f"rows {m} not divisible by ring size {p}")
+    mb = m // p
+
+    def rows_for(step: int) -> torch.Tensor:
+        # The chain that ENDS at rank r is held by rank r + (p-1-t) at step
+        # t, so rank `idx` at step t adds the rows destined for
+        # (idx + t + 1) mod p.
+        dst = (idx + step + 1) % p
+        return x[dst * mb:(dst + 1) * mb]
+
+    acc = torch.zeros((mb, n), dtype=torch.promote_types(x.dtype, torch.float32),
+                      device=x.device)
+    if not overlap:
+        for t in range(p):
+            acc = acc + mm(rows_for(t), w_blk)
+            if t < p - 1:
+                acc = _ppermute(acc, ranks, idx, _shift(p, 1))
+        return acc
+
+    with _hops(ranks, idx) as hop:
+        part = mm(rows_for(0), w_blk)
+        for t in range(p):
+            acc = acc + part
+            if t < p - 1:
+                faults.check("collective.step", schedule=sched, axis=axis, step=t)
+                h = hop(acc, _shift(p, 1))
+                part = mm(rows_for(t + 1), w_blk)  # while the hop is in flight
+                acc = h.wait()
+    return acc
+
+
+def ring_pipeline_matmul(
+    x: torch.Tensor,
+    w_blk: torch.Tensor,
+    axis: str,
+    *,
+    mesh,
+    microbatches: int,
+    matmul: MatmulFn = None,
+) -> torch.Tensor:
+    """1F1B-microbatched reduce-scatter: the planner's `pipeline` schedule.
+
+    The contract of `matmul_ring_reducescatter`, with each rank's row block
+    split into `microbatches/p` sub-slices whose accumulator chains flow
+    through the ring one tick apart: at each tick one hop is in flight
+    behind one product.  `microbatches` must be a positive multiple of the
+    ring size and divide m.  Rows accumulate in the reduce-scatter's ring
+    order, so the output is bitwise-equal to it.
+    """
+    faults.check("collective.step", schedule="pipeline", axis=axis)
+    mm = matmul or _default_mm
+    p, idx, ranks = _ring(axis, mesh)
+    m, n = x.shape[0], w_blk.shape[1]
+    if microbatches % p or microbatches <= 0:
+        raise ValueError(
+            f"microbatches {microbatches} must be a positive multiple of the ring size {p}")
+    if m % microbatches:
+        raise ValueError(f"rows {m} not divisible by microbatches {microbatches}")
+    f = microbatches // p  # chains per rank (pipeline rounds)
+    mb = m // p  # rows this rank ends with
+    msb = mb // f  # rows per microbatch chain
+
+    def part_for(rnd: int, step: int) -> torch.Tensor:
+        dst = (idx + step + 1) % p
+        r0 = dst * mb + rnd * msb
+        return mm(x[r0:r0 + msb], w_blk)
+
+    outs = []
+    with _hops(ranks, idx) as hop:
+        part = part_for(0, 0)  # fill: the first microbatch's product
+        for rnd in range(f):
+            acc = torch.zeros((msb, n), dtype=torch.promote_types(x.dtype, torch.float32),
+                              device=x.device)
+            for t in range(p):
+                acc = acc + part
+                if rnd == f - 1 and t == p - 1:
+                    break  # drain: the last chain's final add, nothing in flight
+                faults.check("collective.step", schedule="pipeline", axis=axis, step=(rnd, t))
+                nrnd, nt = (rnd, t + 1) if t < p - 1 else (rnd + 1, 0)
+                h = hop(acc, _shift(p, 1)) if t < p - 1 else None
+                part = part_for(nrnd, nt)  # steady state: the hop overlaps it
+                if h is not None:
+                    acc = h.wait()
+            outs.append(acc)
+    return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+
+
+def psum_if_multi(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
+    """Sum over the ring along `axis`; x itself where the mesh has no such
+    axis or it has size 1 (mesh-shape agnostic)."""
+    if mesh is None or mesh_shape(mesh).get(axis, 1) <= 1:
+        return x
+    out = x.detach().clone()
+    buf = out.cpu() if _staged(out) else out
+    dist.all_reduce(buf, group=mesh.get_group(axis))
+    return buf.to(x.device)
+
+
+# -- SPMD shards of global operands ---------------------------------------------
+
+
+def _flat_index(shape, coord, axes):
+    idx, count = 0, 1
+    for name in (axes,) if isinstance(axes, str) else (axes or ()):
+        idx = idx * shape[name] + coord[name]
+        count *= shape[name]
+    return idx, count
+
+
+def local_shard(x: torch.Tensor, spec, lay: MeshLayout) -> torch.Tensor:
+    """This process's block of the global `x` under the PartitionSpec
+    `spec` (the shard_map in_spec): each partitioned dim is cut into as
+    many equal chunks as its axes' sizes multiply to."""
+    for d, axes in enumerate(spec):
+        idx, count = _flat_index(lay.shape, lay.coord, axes)
+        if count > 1:
+            size = x.shape[d] // count
+            x = x.narrow(d, idx * size, size)
+    return x
+
+
+def assemble(blk: torch.Tensor, spec, lay: MeshLayout) -> torch.Tensor:
+    """The global tensor whose blocks the mesh's processes hold under the
+    PartitionSpec `spec` (the shard_map out_spec), on every process: the
+    blocks are all-gathered over the default group, which the mesh must
+    span, as bytes (staged through host memory under gloo)."""
+    sharded = [d for d, axes in enumerate(spec) if _flat_index(lay.shape, lay.coord, axes)[1] > 1]
+    if not sharded:
+        return blk
+    world = dist.get_world_size()
+    if lay.ranks is None or lay.ranks.size != world:
+        raise ValueError(f"a sharded output needs a mesh over all {world} ranks")
+    blk = blk.contiguous()
+    raw = blk.reshape(-1).view(torch.uint8)
+    if _staged(raw):
+        raw = raw.cpu()
+    parts = [torch.empty_like(raw) for _ in range(world)]
+    dist.all_gather(parts, raw)
+    full = list(blk.shape)
+    for d in sharded:
+        full[d] *= _flat_index(lay.shape, lay.coord, spec[d])[1]
+    out = blk.new_empty(full)
+    for coord in np.ndindex(lay.ranks.shape):
+        at = dict(zip(lay.shape, coord))
+        piece = parts[int(lay.ranks[coord])].to(blk.device).view(blk.dtype).reshape(blk.shape)
+        region = []
+        for d in range(blk.dim()):
+            i = _flat_index(lay.shape, at, spec[d])[0] if d < len(spec) else 0
+            region.append(slice(i * blk.shape[d], (i + 1) * blk.shape[d]))
+        out[tuple(region)] = piece
+    return out

@@ -1,0 +1,230 @@
+"""Logical-axis sharding rules and device-mesh layouts (port of the parts of
+`repro.parallel.sharding` the sharded planner reads).
+
+Models name every dim with a *logical* axis ('batch', 'mlp', 'experts',
+...); a `ShardingRules` table maps them to physical mesh axes, and
+`logical_to_physical` turns a tuple of logical names into a
+`PartitionSpec`: per tensor dim, the mesh axis (or axis tuple) that
+partitions it, or None.  The default table is the reference's:
+
+    batch    -> ('pod', 'data')     heads, kv_heads, mlp -> 'model'
+    experts  -> 'model'             vocab -> 'model'; seq, embed -> None
+
+A mesh is either a `torch.distributed.device_mesh.DeviceMesh` (named dims
+over live ranks) or a plain layout, a mapping or sequence of (name, size)
+pairs: `mesh_shape` reads the reference's `mesh.shape` (name -> size, in
+mesh order) from both, so schedule resolution, `describe()` and the cost
+model need no ranks.  `MeshLayout` adds this process's coordinate and the
+global rank at every coordinate, which SPMD execution slices shards by.
+
+Tree shardings and `constrain` come with the distributed training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+
+__all__ = [
+    "DEFAULT_RULES",
+    "MeshLayout",
+    "PartitionSpec",
+    "ShardingRules",
+    "logical_to_physical",
+    "mesh_layout",
+    "mesh_shape",
+]
+
+
+class PartitionSpec(tuple):
+    """Per tensor dim, the mesh axis (a name or a tuple of names) that
+    partitions it, or None; dims past the spec's length are whole."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+_DEFAULT: dict = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "seq_sp": None,
+    "seq_attn": None,
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "expert_rows": "model",
+    "vocab": "model",
+    "state": None,
+    "kv_seq": None,
+    "kv_batch": ("pod", "data"),
+    "layers": None,
+    "stage": "stage",
+    "frames": None,
+    "patches": None,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Immutable logical->physical table; `replace` builds variants."""
+
+    table: Tuple[Tuple[str, Any], ...]
+
+    @classmethod
+    def make(cls, overrides: Optional[Mapping[str, Any]] = None) -> "ShardingRules":
+        merged = dict(_DEFAULT)
+        if overrides:
+            merged.update(overrides)
+        return cls(tuple(sorted(merged.items())))
+
+    def get(self, logical: Optional[str]):
+        if logical is None:
+            return None
+        d = dict(self.table)
+        if logical not in d:
+            raise KeyError(f"unknown logical axis {logical!r}")
+        return d[logical]
+
+    def replace(self, **overrides) -> "ShardingRules":
+        d = dict(self.table)
+        d.update(overrides)
+        return ShardingRules(tuple(sorted(d.items())))
+
+
+DEFAULT_RULES = ShardingRules.make()
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """{axis name: size} in mesh order, of a DeviceMesh, a (name, size)
+    layout (mapping or pairs) or anything with such a `.shape` mapping."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:  # a DeviceMesh
+        return dict(zip(names, (int(s) for s in mesh.mesh.shape)))
+    if isinstance(getattr(mesh, "shape", None), Mapping):
+        mesh = mesh.shape
+    items = mesh.items() if isinstance(mesh, Mapping) else mesh
+    return {str(n): int(s) for n, s in items}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """A mesh as SPMD execution reads it: axis names and sizes, this
+    process's coordinate, and `ranks`, the global rank at every coordinate
+    (None for a plain layout, whose axes all have size 1)."""
+
+    shape: Dict[str, int]
+    coord: Dict[str, int]
+    ranks: Optional[np.ndarray]
+
+    def ring(self, axis: str) -> Tuple[int, int, list]:
+        """(size, this process's index, global ranks in index order) of the
+        ring along `axis`, the other coordinates held at this process's."""
+        size = self.shape[axis]
+        if self.ranks is None:
+            return size, 0, [0]
+        names = list(self.shape)
+        at = tuple(slice(None) if n == axis else self.coord[n] for n in names)
+        return size, self.coord[axis], [int(r) for r in self.ranks[at]]
+
+
+def mesh_layout(mesh) -> MeshLayout:
+    """The `MeshLayout` of `mesh` for this process.  A plain layout needs
+    no ranks, so every axis must have size 1; a DeviceMesh must hold this
+    process's rank."""
+    shape = mesh_shape(mesh)
+    if getattr(mesh, "mesh_dim_names", None) is None:
+        if math.prod(shape.values()) != 1:
+            raise ValueError(
+                f"mesh layout {shape} has axes of size > 1; executing across them needs a"
+                " DeviceMesh over live ranks (launch/mesh.make_local_mesh)")
+        return MeshLayout(shape, {n: 0 for n in shape}, None)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"this rank is not in the device mesh {shape}")
+    return MeshLayout(shape, dict(zip(shape, coord)), mesh.mesh.cpu().numpy())
+
+
+def _axes_on_mesh(mesh, axes):
+    """Drop rule axes the mesh doesn't have (e.g. 'pod' on single-pod)."""
+    if axes is None:
+        return None
+    shape = mesh_shape(mesh)
+    if isinstance(axes, str):
+        return axes if axes in shape else None
+    present = tuple(a for a in axes if a in shape)
+    if not present:
+        return None
+    return present if len(present) > 1 else present[0]
+
+
+def logical_to_physical(
+    logical_axes: Sequence[Optional[str]],
+    mesh,
+    rules: ShardingRules = DEFAULT_RULES,
+) -> PartitionSpec:
+    """('batch', 'seq', 'embed') -> PartitionSpec(('pod','data'), None, None)."""
+    phys = [_axes_on_mesh(mesh, rules.get(ax)) for ax in logical_axes]
+    # A physical axis may appear at most once in a spec; later wins -> None.
+    seen = set()
+    cleaned = []
+    for a in phys:
+        names = (a,) if isinstance(a, str) else (a or ())
+        if any(n in seen for n in names):
+            cleaned.append(None)
+            continue
+        seen.update(names)
+        cleaned.append(a)
+    return PartitionSpec(*cleaned)
+
+
+def _axes_size(shape: Mapping[str, int], a) -> int:
+    if a is None:
+        return 1
+    if isinstance(a, str):
+        return shape[a]
+    return math.prod(shape[x] for x in a)
+
+
+# (spec, shape, mesh-shape) triples already warned about: each distinct drop
+# warns exactly once.
+_WARNED_DROPS: set = set()
+
+
+def _drop_indivisible(spec: PartitionSpec, shape: Sequence[int], mesh) -> PartitionSpec:
+    """Replicate any dim whose size doesn't divide by its mapped axes'
+    product (odd published dims: vocab 49155, 40 heads against 16-way TP),
+    warning once per distinct (spec, shape, mesh)."""
+    mshape = mesh_shape(mesh)
+    out, dropped = [], []
+    for dim, a in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if a is None or dim % _axes_size(mshape, a) == 0:
+            out.append(a)
+        else:
+            out.append(None)
+            dropped.append((dim, a))
+    if dropped:
+        key = (tuple(spec), tuple(shape), tuple(mshape.items()))
+        if key not in _WARNED_DROPS:
+            _WARNED_DROPS.add(key)
+            detail = ", ".join(
+                f"dim {dim} % {_axes_size(mshape, a)} != 0 (axes {a!r})" for dim, a in dropped
+            )
+            warnings.warn(
+                f"sharding {spec} of shape {tuple(shape)} fell back to replicated on"
+                f" indivisible dim(s): {detail}",
+                UserWarning,
+                stacklevel=3,
+            )
+    return PartitionSpec(*out)

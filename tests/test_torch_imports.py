@@ -52,7 +52,9 @@ print("WALKED", " ".join(names))
                  "costmodel.calibrate", "costmodel.choose", "kernels.autotune",
                  "launch.roofline", "launch.hillclimb", "models.rwkv", "models.ssm",
                  "models.vlm", "models.whisper", "configs.rwkv6_1b6", "configs.zamba2_1b2",
-                 "configs.pixtral_12b", "configs.whisper_medium"):
+                 "configs.pixtral_12b", "configs.whisper_medium", "parallel",
+                 "parallel.collectives", "parallel.systolic", "parallel.sharding",
+                 "launch.mesh"):
         assert "repro_torch." + name in walked, name
 
 
@@ -83,6 +85,7 @@ calls = {
     "server rwkv": lambda: ContinuousBatchingServer(rwkv, None, ServeConfig()),
     "server pixtral": lambda: ContinuousBatchingServer(pixtral, None, ServeConfig()),
     "main zamba": lambda: serve.main(["--arch", "zamba2-1.2b", "--reduced"]),
+    "train rwkv": lambda: train.main(["--arch", "rwkv6-1.6b", "--reduced", "--steps", "1"]),
 }
 for name, call in calls.items():
     try:
@@ -98,11 +101,12 @@ train.main(["--arch", "mesh-paper", "--reduced", "--device", "cpu", "--steps", "
     res = _run(code)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.split("\n")
-    assert lines[:13] == ["refused init", "refused init moe", "refused init qwen",
+    assert lines[:14] == ["refused init", "refused init moe", "refused init qwen",
                           "refused server moe", "refused server qwen", "refused server",
                           "refused main", "refused train", "refused hillclimb",
                           "refused init rwkv", "refused server rwkv",
-                          "refused server pixtral", "refused main zamba"], res.stdout
+                          "refused server pixtral", "refused main zamba",
+                          "refused train rwkv"], res.stdout
     assert "[done] mesh-paper steps=1" in res.stdout and "device=cpu" in res.stdout
 
 

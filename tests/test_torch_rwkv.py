@@ -13,7 +13,8 @@ own rounding is larger (`_chunked_tol`: near-0 decays):
     decode logits and states;
   * the continuous-batching server on its stacked-state path: the
     reference server's greedy tokens, and the port's own `generate`;
-  * `launch/train.py` refuses the family until its training is ported.
+  * `launch/train.py` trains the family (it refused until its training
+    was ported).
 """
 
 import types
@@ -218,9 +219,14 @@ def test_serve_cli_scheduler_on_cpu(capsys):
     assert "req0: ok" in out and "req1: ok" in out
 
 
-def test_train_refuses_ssm_until_ported():
-    with pytest.raises(NotImplementedError, match="training of the four families"):
-        ttrain.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "1"])
+def test_train_refuses_ssm_until_ported(capsys):
+    """The launcher refused the ssm family until its training was ported;
+    now it trains it: one step on the CPU with a finite loss."""
+    ttrain.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "1",
+                 "--batch", "2", "--seq", "16"])
+    done = capsys.readouterr().out.split("[done]")[1]
+    assert f"{ARCH} steps=1" in done and "device=cpu" in done
+    assert np.isfinite(float(done.split("final_loss=")[1].split()[0]))
 
 
 def test_tuned_chunk_condition_is_the_reference_one(models, monkeypatch):
