@@ -6,7 +6,9 @@ the reference's parameter tree after `jax.tree.map(np.asarray, params)`,
 done by the caller — into the port's tensors, so both packages compute on
 the same weights.  `train_state_from_numpy` does the same for a whole train
 state (params, AdamW `m`/`v`/`count`, `step`), and `train_state_to_numpy`
-goes back, so a port state can be handed to the reference.  bfloat16 arrays arrive as `ml_dtypes.bfloat16`, which
+goes back, so a port state can be handed to the reference;
+`stack_ranks` stacks the data-parallel ranks' (1, *shape) residual slices
+into the reference's (dp, *shape) layout.  bfloat16 arrays arrive as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses; they travel as their 16-bit patterns
 (`view(np.uint16)`) and are reinterpreted as `torch.bfloat16`.  Neither
 `jax` nor `ml_dtypes` is imported here.
@@ -22,7 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.tree import tree_map
 
-__all__ = ["params_from_numpy", "train_state_from_numpy", "train_state_to_numpy"]
+__all__ = ["params_from_numpy", "stack_ranks", "train_state_from_numpy", "train_state_to_numpy"]
 
 
 def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -69,3 +71,13 @@ def train_state_to_numpy(state: Any) -> Any:
         return t.numpy().copy()
 
     return tree_map(convert, state)
+
+
+def stack_ranks(trees) -> Any:
+    """The ranks' trees of numpy arrays, in rank order, each leaf a (1,
+    ...) slice (the compressed DP step's "err") -> one tree whose leaves
+    are their concatenation on axis 0, the reference's (dp, ...) leaves."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_ranks([t[k] for t in trees]) for k in first}
+    return np.concatenate(trees, axis=0)

@@ -1,5 +1,6 @@
-"""Device meshes for the sharded planner (port of `repro.launch.mesh`'s
-`make_local_mesh`).
+"""Device meshes and the process group (port of `repro.launch.mesh`'s
+`make_local_mesh`, with the process-group start that `--mesh local-dp`
+needs).
 
 A mesh names the dims of a grid of ranks.  Over live ranks (a
 `torch.distributed` process group the caller started, one process per
@@ -11,17 +12,26 @@ layout every planner entry point also takes: all sizes 1.
     dist.init_process_group("gloo", init_method="file:///tmp/pg", rank=r,
                             world_size=4)
     mesh = make_local_mesh((4,), ("x",))
+
+`init_distributed` starts the default group for data-parallel training
+from torchrun's environment (RANK, WORLD_SIZE, MASTER_ADDR) or a
+rendezvous the caller passes, and picks the backend: NCCL when every rank
+of the host has a card of its own, gloo otherwise (NCCL refuses two ranks
+on one card; gloo stages CUDA tensors through host memory).
 """
 
 from __future__ import annotations
 
+import datetime
 import math
+import os
+import sys
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["make_local_mesh"]
+__all__ = ["init_distributed", "make_local_mesh"]
 
 
 def make_local_mesh(shape, axes):
@@ -50,3 +60,34 @@ def make_local_mesh(shape, axes):
     if need == have:
         return init_device_mesh(device_type, shape, mesh_dim_names=axes)
     return DeviceMesh(device_type, torch.arange(need).reshape(shape), mesh_dim_names=axes)
+
+
+def init_distributed(device, init_method=None, *, world_size=None, rank=None,
+                     timeout_s: float = 600.0):
+    """Join the default process group; returns (world size, rank).
+
+    An existing group is used as it is.  Else `init_method` (e.g. a
+    `file://` rendezvous, with `world_size` and `rank`), else torchrun's
+    environment (`env://`).  With neither there is one rank and no group.
+    On a CUDA `device` where the host has a card for each of its ranks
+    (LOCAL_WORLD_SIZE, by default the world), the backend is NCCL and this
+    process takes card LOCAL_RANK; otherwise gloo.  The choice is logged
+    on stderr.  A collective that waits longer than `timeout_s` raises.
+    """
+    if dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    if init_method is None:
+        if not all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR")):
+            return 1, 0
+        init_method = "env://"
+        world_size, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    cards = torch.cuda.device_count() if torch.device(device).type == "cuda" else 0
+    backend = "nccl" if cards >= local_world else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    print(f"[dist] rank {rank} of {world_size}: backend {backend} ({cards} card(s) for"
+          f" {local_world} rank(s) on this host)", file=sys.stderr, flush=True)
+    return world_size, rank

@@ -18,21 +18,36 @@ Examples
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
       --reduced --device cpu --steps 2
 
+  # data-parallel ranks through torchrun (gloo on the host; on a machine
+  # with a card per rank, NCCL and --device omitted)
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch mesh-paper --reduced --device cpu --mesh local-dp
+
 `--async-ckpt` writes the checkpoints on a worker thread
-(`AsyncCheckpointer`).  Distribution (`--mesh` other than `none`) is not
-ported yet; audio and vlm are refused, as in the reference.
+(`AsyncCheckpointer`).  `--mesh local-dp` trains data-parallel over every
+rank of the process group (`launch.mesh.init_distributed`: torchrun's
+environment, or one rank without it) on a ("data", "model") mesh of
+(world, 1), as the reference's `make_local_mesh((jax.device_count(), 1))`:
+every rank draws the same global batch and takes its rows
+(`train_step.make_train_step` with the mesh); rank 0 writes the checkpoints, every
+rank restores.  `--mesh prod` (the production mesh) comes with the dry
+runs and raises NotImplementedError; audio and vlm are refused, as in the
+reference.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import AsyncCheckpointer, CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.models import get_model
 from repro_torch.optim import AdamWConfig, warmup_cosine
 from repro_torch.train.loop import LoopConfig, train_loop
@@ -47,6 +62,7 @@ def build_trainer(
     *,
     batch: int,
     seq: int,
+    mesh=None,
     lr: float = 3e-4,
     total_steps: int = 1000,
     grad_accum: int = 1,
@@ -56,11 +72,14 @@ def build_trainer(
     """Construct (train_step_fn, state, data_iter) for a config on `device`
     (cuda unless the caller names another).  Parameters are drawn from a
     torch generator seeded with `seed`; the data stream is the reference's
-    `SyntheticLM` with the same seed."""
+    `SyntheticLM` with the same seed.  With `mesh` (a ("data", "model")
+    mesh: a DeviceMesh over the ranks, or a plain layout of one rank), the
+    step is this rank's data-parallel step on the global batch; every rank
+    draws the same parameters and the same batches."""
     dev = resolve_device(device)
     model = get_model(cfg)
     schedule = warmup_cosine(lr, min(100, total_steps // 10 + 1), total_steps)
-    step_fn = make_train_step(model, schedule, AdamWConfig(), grad_accum=grad_accum)
+    step_fn = make_train_step(model, schedule, AdamWConfig(), grad_accum=grad_accum, mesh=mesh)
     state = init_train_state(model, torch.Generator(device=dev).manual_seed(seed), dev)
     data = SyntheticLM(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=seed)
@@ -83,15 +102,17 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", default=None, choices=(None, "auto"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="none", choices=("none", "local-dp", "prod"),
-                    help="only 'none' is ported; the others raise NotImplementedError")
+                    help="local-dp: data-parallel over the process group's ranks;"
+                         " 'prod' raises NotImplementedError")
     ap.add_argument("--step-deadline-s", type=float, default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (use 'cpu' to run on the host)")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: distributed training is not ported yet")
+    if args.mesh == "prod":
+        raise NotImplementedError("--mesh prod: the production mesh comes with the dry runs"
+                                  " (ROADMAP A14)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -100,13 +121,19 @@ def main(argv=None) -> None:
         raise SystemExit(f"{args.arch}: synthetic LM trainer covers token-LM families; "
                          "see tests/test_models_smoke.py for audio/vlm train steps")
 
+    mesh, group, world, rank = None, None, 1, 0
+    if args.mesh == "local-dp":
+        world, rank = init_distributed(device)
+        mesh = make_local_mesh((world, 1), ("data", "model"))
+        group = dist.group.WORLD if world > 1 else None
+
     step_fn, state, data = build_trainer(
-        cfg, batch=args.batch, seq=args.seq, lr=args.lr, total_steps=args.steps,
+        cfg, batch=args.batch, seq=args.seq, mesh=mesh, lr=args.lr, total_steps=args.steps,
         grad_accum=args.grad_accum, seed=args.seed, device=device,
     )
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    writer = AsyncCheckpointer(ckpt) if (ckpt and args.async_ckpt) else None
+    writer = AsyncCheckpointer(ckpt) if (ckpt and args.async_ckpt and rank == 0) else None
     if ckpt and args.resume == "auto":
         latest = ckpt.latest_step()
         if latest is not None:
@@ -120,13 +147,14 @@ def main(argv=None) -> None:
         step_deadline_s=args.step_deadline_s,
         log_every=args.log_every,
     )
-    logger = MetricsLogger()
+    logger = MetricsLogger(stream=None if rank == 0 else io.StringIO())  # rank 0 logs
     state = train_loop(step_fn, state, data, loop_cfg, ckpt=ckpt, logger=logger,
-                       checkpointer=writer)
+                       checkpointer=writer, group=group)
     if writer is not None:
         writer.close()
     final_loss = logger.history[-1]["loss"] if logger.history else float("nan")
-    print(f"[done] {args.arch} steps={args.steps} final_loss={final_loss:.4f} device={device}")
+    print(f"[done] {args.arch} steps={args.steps} final_loss={final_loss:.4f} device={device}"
+          + (f" mesh=local-dp rank={rank}/{world}" if mesh is not None else ""))
 
 
 if __name__ == "__main__":

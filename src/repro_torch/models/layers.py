@@ -1,7 +1,7 @@
 """Shared building blocks: param specs, norms, RoPE, the config-routed GEMM.
 
-Port of `repro.models.layers` (without sharding, which arrives with its
-slice).  Each model family defines
+Port of `repro.models.layers` (without `ShardCtx`, which comes with
+tensor-parallel model code).  Each model family defines
 a `param_specs(cfg)` tree whose leaves are `PSpec(shape, logical_axes,
 scale, dtype, init)`; `init_params` materializes it from a
 `torch.Generator` on an explicit device.  All GEMMs go through the
@@ -28,6 +28,7 @@ __all__ = [
     "gemm",
     "grouped_gemm",
     "init_params",
+    "logical_axes_tree",
     "padded_vocab",
     "rmsnorm",
     "softmax_xent",
@@ -75,6 +76,11 @@ def init_params(
         return x.mul_(s.scale).to(dt)
 
     return _map_specs(make, specs)
+
+
+def logical_axes_tree(specs) -> Any:
+    """Matching tree of logical-axis tuples, for `parallel.sharding`."""
+    return _map_specs(lambda s: s.axes, specs)
 
 
 def padded_vocab(cfg) -> int:

@@ -21,18 +21,33 @@ num_shared_experts that every token runs, scaled by a per-token sigmoid
 gate, an f32 GEMM with N = 1 planned like every other projection.
 
 Aux: Switch load-balance loss + router z-loss, returned for the train loop.
+
+Data-parallel training (`global_routing`): the reference's pjit step
+routes the GLOBAL batch, so capacity, each pair's rank within its expert
+and the load-balance loss see every rank's tokens.  Inside
+`global_routing(group, rows)` each rank holds a contiguous slice of the
+global batch's `rows` rows (ranks in row order), one all-gather of the
+per-expert counts gives the global demand and the counts of the ranks
+before this one, and capacity, keep/drop and `load` are the global step's;
+`imp` and `router_z` stay local means, which the step's row-weighted
+average of the ranks' losses turns into the global means.  So a rank's
+kept pairs, and the weighted loss and its gradients, are the global
+step's up to rounding, drops included.  (Under gloo the all-gather stages
+the counts through host memory, the one host sync of this path.)
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.layers import PSpec, gemm, grouped_gemm
 
-__all__ = ["moe_block", "moe_specs", "swiglu", "swiglu_specs"]
+__all__ = ["global_routing", "moe_block", "moe_specs", "swiglu", "swiglu_specs"]
 
 _GROUP_SIZE = 1024  # tokens per dispatch group at scale (capacity scaling)
 _EXACT_GROUP = 256  # groups this small route exactly (no capacity drops)
@@ -58,10 +73,15 @@ def swiglu(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg) -> torch.Tensor:
 def moe_specs(cfg) -> Dict[str, PSpec]:
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     out_scale = 0.02 / max(1.0, (2 * cfg.num_layers) ** 0.5)
+    # EP where the experts divide the production 'model' axis (16); else
+    # the expert hidden dim shards, as in the reference.
+    ep_divisible = e % 16 == 0
+    eax = "experts" if ep_divisible else None
+    fax = None if ep_divisible else "mlp"
     specs = {
         "router": PSpec((d, e), ("embed", None), 0.02, dtype=torch.float32),
-        "wi": PSpec((e, d, 2 * f), ("experts", "embed", "mlp"), 0.02),
-        "wo": PSpec((e, f, d), ("experts", "mlp", "embed"), out_scale),
+        "wi": PSpec((e, d, 2 * f), (eax, "embed", fax), 0.02),
+        "wo": PSpec((e, f, d), (eax, fax, "embed"), out_scale),
     }
     if cfg.num_shared_experts:
         # The reference's key order: parameters are drawn and carried over
@@ -83,6 +103,37 @@ def _capacity(n: int, t: int, e: int, k: int, capacity_factor: float) -> int:
     if s <= _EXACT_GROUP:
         return n
     return (n // s) * max(1, int(capacity_factor * s * k / e))
+
+
+# (process group, global batch rows) while a data-parallel step routes the
+# global batch, else None; set only by `train_step.make_train_step`, whose
+# docstring says why it is process-wide.
+_GLOBAL_ROUTING: Dict[str, Optional[tuple]] = {"on": None}
+
+
+@contextlib.contextmanager
+def global_routing(group, rows: int):
+    """Within the block, moe_block routes as if the ranks of `group` held
+    one batch of `rows` rows, each a contiguous slice in rank order (module
+    docstring).  `group` None (one rank) changes nothing."""
+    prev = _GLOBAL_ROUTING["on"]
+    _GLOBAL_ROUTING["on"] = None if group is None else (group, rows)
+    try:
+        yield
+    finally:
+        _GLOBAL_ROUTING["on"] = prev
+
+
+def _counts_before_and_total(counts: torch.Tensor, group):
+    """(sum of the counts of the ranks before this one, sum over all ranks)
+    of the (e,) per-expert counts, by one all-gather (staged through host
+    memory for a CUDA tensor under gloo)."""
+    staged = counts.is_cuda and dist.get_backend(group) == "gloo"
+    mine = counts.cpu() if staged else counts
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
+    allc = torch.stack(parts).to(counts.device)
+    return allc[:dist.get_rank(group)].sum(0), allc.sum(0)
 
 
 def _top_k(probs: torch.Tensor, k: int) -> torch.Tensor:
@@ -111,10 +162,6 @@ def moe_block(
     topv = torch.gather(probs, 1, topi)
     topv = topv / topv.sum(dim=-1, keepdim=True)
 
-    cap = _capacity(n, t, e, k, capacity_factor)
-    rpg = -(-cap // _ROW_ALIGN) * _ROW_ALIGN  # static rows-per-group bound
-    rows = e * rpg
-
     # Sort/segment permutation: rank each (token, choice) pair within its
     # expert (the stable sort keeps token order), keep the first `cap`, and
     # scatter kept tokens into the group-major capacity buffer.
@@ -126,11 +173,27 @@ def moe_block(
     starts = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(n * k, device=dev) - starts[flat_e[order]]
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
-    keep = rank < cap
+
+    if _GLOBAL_ROUTING["on"] is None:
+        n_all, counts_all = n, counts
+        cap = room = _capacity(n, t, e, k, capacity_factor)
+        keep = rank < cap
+    else:
+        group, global_rows = _GLOBAL_ROUTING["on"]
+        n_all = global_rows * t
+        before, counts_all = _counts_before_and_total(counts, group)
+        cap = _capacity(n_all, t, e, k, capacity_factor)
+        # A pair is kept if its rank among all ranks' pairs of its expert
+        # (the pairs of earlier ranks first) is below the capacity.
+        room = torch.clamp(cap - before, min=0)  # (e,) slots left for this rank
+        keep = rank < room[flat_e]
+        cap = min(cap, n)  # the rows-per-group bound: at most n pairs a rank
+    rpg = -(-cap // _ROW_ALIGN) * _ROW_ALIGN  # static rows-per-group bound
+    rows = e * rpg
     gate = topv.reshape(-1) * keep.to(topv.dtype)
     dest = torch.where(keep, flat_e * rpg + rank, rows)  # rows => dropped
 
-    sizes = torch.clamp(counts, max=cap)
+    sizes = torch.clamp(counts, max=room)
     group_offsets = torch.cat(
         [torch.zeros(1, dtype=torch.int32, device=dev), torch.cumsum(sizes, 0).to(torch.int32)]
     )
@@ -159,7 +222,7 @@ def moe_block(
         y = y + (shared * sg).reshape(b, t, d)
 
     # Switch load-balance + router z-loss (means over all tokens).
-    load = counts.float() / n  # fraction routed per expert
+    load = counts_all.float() / n_all  # fraction routed per expert
     imp = probs.mean(dim=0)
     lb_loss = e * torch.sum(load * imp) / k
     router_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)

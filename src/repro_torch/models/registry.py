@@ -3,6 +3,7 @@
 
 `get_model(cfg)` returns a `Model` with a family-independent interface:
   init(generator, device)                 parameter tree (1 source: PSpec)
+  logical_axes()                          its logical axes, for sharding
   forward(params, batch)                  train/eval logits
   loss(params, batch)                     scalar loss + metrics
   prefill / decode + decode_state_specs   dense-cache serving path
@@ -20,7 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import rwkv, ssm, transformer, vlm, whisper
-from repro_torch.models.layers import init_params, softmax_xent
+from repro_torch.models.layers import init_params, logical_axes_tree, softmax_xent
 
 __all__ = ["Model", "get_model"]
 
@@ -44,6 +45,9 @@ class Model:
         caller names another; the generator must live on that device)."""
         return init_params(generator, self.specs(), self.cfg.pdtype,
                            device=resolve_device(device))
+
+    def logical_axes(self):
+        return logical_axes_tree(self.specs())
 
     # -- compute ------------------------------------------------------------
     def forward(self, params, batch: Dict[str, torch.Tensor]):

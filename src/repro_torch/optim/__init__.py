@@ -6,6 +6,7 @@ from repro_torch.optim.adamw import (
     global_norm,
 )
 from repro_torch.optim.schedules import constant, warmup_cosine
+from repro_torch.optim.zero import zero1_rules, zero1_state_axes
 
 __all__ = [
     "AdamWConfig",
@@ -15,4 +16,6 @@ __all__ = [
     "constant",
     "global_norm",
     "warmup_cosine",
+    "zero1_rules",
+    "zero1_state_axes",
 ]

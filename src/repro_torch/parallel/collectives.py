@@ -27,12 +27,18 @@ through the `matmul=` hook, so each local product is the plan's own
 backend: K1 on the card, its plain version on the CPU.  Every helper checks
 the `collective.step` fault site on entry, and the double-buffered ones at
 each step as well (with its step index), as the reference does.
+
+The data-parallel layer's helpers live here too, outside `__all__` (which
+is the reference's): `all_reduce` (a copy reduced over a group, staged
+under gloo), `axis_group` (the process group along mesh axes) and
+`raise_together` (one flag all-reduce, so that every rank raises when one
+fails).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator, List, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -298,10 +304,48 @@ def psum_if_multi(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
     axis or it has size 1 (mesh-shape agnostic)."""
     if mesh is None or mesh_shape(mesh).get(axis, 1) <= 1:
         return x
-    out = x.detach().clone()
-    buf = out.cpu() if _staged(out) else out
-    dist.all_reduce(buf, group=mesh.get_group(axis))
+    return all_reduce(x, group=mesh.get_group(axis))
+
+
+def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """`x` reduced over `group` (None: the default group), as a new tensor
+    on x's device; a CUDA tensor under gloo is staged through host memory.
+    The reduction runs in x's dtype: callers reduce in f32 (gloo sums bf16
+    in bf16, hop by hop) and integer payloads as int32 (int8 overflows)."""
+    buf = x.detach().cpu() if _staged(x) else x.detach().clone()
+    dist.all_reduce(buf, op=op, group=group)
     return buf.to(x.device)
+
+
+def axis_group(mesh, axes) -> Tuple[Optional[dist.ProcessGroup], int, int]:
+    """(group, size, this process's index) of the ranks that differ from
+    this one only along the mesh axes `axes` (a name or a tuple; axes the
+    mesh lacks are skipped).  Size 1 gives group None.  `mesh` None means
+    the default group: every rank, or one rank with no process group."""
+    if mesh is None:
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return None, 1, 0
+        return dist.group.WORLD, dist.get_world_size(), dist.get_rank()
+    lay = mesh_layout(mesh)
+    names = tuple(a for a in ((axes,) if isinstance(axes, str) else axes)
+                  if lay.shape.get(a, 1) > 1)
+    idx, size = _flat_index(lay.shape, lay.coord, names)
+    if size == 1:
+        return None, 1, 0
+    if len(names) > 1:
+        raise ValueError(f"a group over several mesh axes of size > 1 ({names}) is not supported")
+    return mesh.get_group(names[0]), size, idx
+
+
+def raise_together(error: Optional[BaseException], group, device) -> None:
+    """One all-reduce of a failure flag over `group`: if any rank passes an
+    error, every rank raises (its own error, or one naming the others), so
+    no rank goes on into a collective that the failed rank never joins."""
+    flag = torch.tensor(0 if error is None else 1, dtype=torch.int32, device=device)
+    if group is not None and int(all_reduce(flag, dist.ReduceOp.MAX, group)):
+        raise error or RuntimeError("another rank failed this step")
+    if error is not None:
+        raise error
 
 
 # -- SPMD shards of global operands ---------------------------------------------

@@ -1,5 +1,5 @@
-"""Logical-axis sharding rules and device-mesh layouts (port of the parts of
-`repro.parallel.sharding` the sharded planner reads).
+"""Logical-axis sharding rules, device-mesh layouts and tree shardings (port
+of `repro.parallel.sharding`).
 
 Models name every dim with a *logical* axis ('batch', 'mlp', 'experts',
 ...); a `ShardingRules` table maps them to physical mesh axes, and
@@ -17,7 +17,15 @@ mesh order) from both, so schedule resolution, `describe()` and the cost
 model need no ranks.  `MeshLayout` adds this process's coordinate and the
 global rank at every coordinate, which SPMD execution slices shards by.
 
-Tree shardings and `constrain` come with the distributed training slice.
+`named_sharding` / `tree_shardings` map a parameter tree's logical axes
+(`Model.logical_axes()`) to `NamedSharding` records, the reference's
+`NamedSharding(mesh, spec)` as a frozen (mesh, PartitionSpec) pair;
+`shard_of` slices this rank's block of a global tensor by its mesh
+coordinate and `gather_global` all-gathers the blocks back (tests,
+checkpoints).  Nothing here moves a tensor on its own: under SPMD by hand
+a sharding is a description that `shard_of` and the collectives read.
+`constrain` and the models' `ctx.c` are not ported: they only take effect
+with tensor-parallel model code, which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -32,11 +40,19 @@ import numpy as np
 __all__ = [
     "DEFAULT_RULES",
     "MeshLayout",
+    "NamedSharding",
+    "PARAM_RULES",
     "PartitionSpec",
+    "SP_DECODE_RULES",
     "ShardingRules",
+    "TRAIN_RULES",
+    "gather_global",
     "logical_to_physical",
     "mesh_layout",
     "mesh_shape",
+    "named_sharding",
+    "shard_of",
+    "tree_shardings",
 ]
 
 
@@ -104,6 +120,18 @@ class ShardingRules:
 
 
 DEFAULT_RULES = ShardingRules.make()
+
+# FSDP parameter rules: every weight's 'embed' dim is also sharded over the
+# DP axes, so parameters and optimizer state shard across the full mesh.
+PARAM_RULES = DEFAULT_RULES.replace(embed=("pod", "data"))
+
+# Megatron sequence parallelism for training: remat-saved layer-boundary
+# carriers stored seq-sharded over 'model'.
+TRAIN_RULES = DEFAULT_RULES.replace(seq_sp="model")
+
+# Sequence-parallel decode: long-context KV caches and recurrent streams
+# sharded along their length over 'data' (the batch is tiny there).
+SP_DECODE_RULES = DEFAULT_RULES.replace(kv_seq=("pod", "data"), kv_batch=None, batch=None)
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -228,3 +256,60 @@ def _drop_indivisible(spec: PartitionSpec, shape: Sequence[int], mesh) -> Partit
                 stacklevel=3,
             )
     return PartitionSpec(*out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """How a tensor lies on a mesh: per dim, the mesh axes that partition
+    it (`spec`).  `mesh` is a DeviceMesh or a plain (name, size) layout."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+
+def named_sharding(
+    logical_axes: Sequence[Optional[str]],
+    mesh,
+    rules: ShardingRules = DEFAULT_RULES,
+    shape: Optional[Sequence[int]] = None,
+) -> NamedSharding:
+    """The sharding of a tensor with these logical axes; with `shape`, dims
+    that do not divide by their axes' product fall back to replicated."""
+    spec = logical_to_physical(logical_axes, mesh, rules)
+    if shape is not None:
+        spec = _drop_indivisible(spec, shape, mesh)
+    return NamedSharding(mesh, spec)
+
+
+def tree_shardings(logical_tree, mesh, rules: ShardingRules = DEFAULT_RULES, aval_tree=None):
+    """A tree of logical-axis tuples (None: replicated) -> the same tree of
+    NamedShardings.  With `aval_tree` (the matching tree of tensors, or
+    anything with `.shape`), indivisible dims drop to replicated."""
+    def one(axes, aval=None):
+        if axes is None:
+            return NamedSharding(mesh, PartitionSpec())
+        return named_sharding(axes, mesh, rules, None if aval is None else aval.shape)
+
+    def walk(node, aval):
+        if isinstance(node, dict):
+            return {k: walk(v, None if aval is None else aval[k]) for k, v in node.items()}
+        return one(node, aval)
+
+    return walk(logical_tree, aval_tree)
+
+
+def shard_of(x, sharding: NamedSharding, layout: Optional[MeshLayout] = None):
+    """This process's block of the global tensor `x` under `sharding`, cut
+    by its coordinate on the mesh (`layout`, by default the mesh's own)."""
+    from repro_torch.parallel.collectives import local_shard
+
+    return local_shard(x, sharding.spec, layout or mesh_layout(sharding.mesh))
+
+
+def gather_global(blk, sharding: NamedSharding, layout: Optional[MeshLayout] = None):
+    """The inverse of `shard_of`: the global tensor, on every process, from
+    the blocks the mesh's processes hold (an all-gather over the default
+    group, which the mesh must span)."""
+    from repro_torch.parallel.collectives import assemble
+
+    return assemble(blk, sharding.spec, layout or mesh_layout(sharding.mesh))

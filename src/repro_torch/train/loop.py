@@ -13,6 +13,14 @@ Mechanics:
 A step's time is taken after `torch.cuda.synchronize()` on the card (the
 reference's `block_until_ready`), so it is the device's time, not the
 enqueue.
+
+Data-parallel ranks (`group`, the process group of the ranks training
+together): rank 0 alone writes checkpoints and the others wait at a
+barrier; every rank restores.  The restart decision is the same on every
+rank: a failure before the step (the hook, the data) is agreed by one
+all-reduce of a flag, and the data-parallel step agrees on failures of its
+local computation itself (`train_step.make_train_step` with a mesh), so no rank
+restarts alone while the others wait in a collective.
 """
 
 from __future__ import annotations
@@ -22,8 +30,10 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.parallel.collectives import raise_together
 from repro_torch.train.metrics import MetricsLogger
 
 __all__ = ["LoopConfig", "train_loop"]
@@ -52,17 +62,20 @@ def train_loop(
     logger: Optional[MetricsLogger] = None,
     failure_hook: Optional[Callable[[int], None]] = None,
     checkpointer=None,  # optional AsyncCheckpointer wrapping `ckpt`
+    group=None,  # the data-parallel ranks' process group, if any
 ) -> Dict[str, Any]:
     """Runs to cfg.total_steps; returns the final state.
 
     `data_iter` must expose .state()/.restore(step) (see data/pipeline.py);
     checkpoint metadata records the data position so resume is exact.
+    Under `group`, only rank 0 passes a `checkpointer`.
     """
     owns_logger = logger is None
     logger = logger or MetricsLogger()
     step = int(state["step"])
     restarts = 0
     stragglers = 0
+    writes = group is None or dist.get_rank(group) == 0
 
     def save(step_i: int) -> None:
         if ckpt is None:
@@ -70,14 +83,22 @@ def train_loop(
         meta = {"data_step": data_iter.state()}
         if checkpointer is not None:
             checkpointer.submit(step_i, state, meta)
-        else:
+        elif writes:
             ckpt.save(step_i, state, meta)
+        if group is not None:
+            dist.barrier(group)
 
     while step < cfg.total_steps:
         try:
-            if failure_hook is not None:
-                failure_hook(step)
-            batch = next(data_iter)
+            failed = None
+            try:
+                if failure_hook is not None:
+                    failure_hook(step)
+                batch = next(data_iter)
+            except Exception as e:  # noqa: BLE001 - re-raised on every rank below
+                failed = e
+            if group is not None or failed is not None:
+                raise_together(failed, group, state["step"].device)
             t0 = time.monotonic()
             state, metrics = train_step(state, batch)
             _sync(state)
@@ -101,6 +122,8 @@ def train_loop(
                 raise
             if checkpointer is not None:
                 checkpointer.wait()
+            if group is not None:
+                dist.barrier(group)  # rank 0's writes are on disk
             latest = ckpt.latest_step()
             logger.warn(
                 f"step {step} failed ({type(e).__name__}: {e}); "

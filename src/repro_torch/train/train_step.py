@@ -7,21 +7,46 @@ global-norm clipping and AdamW with a schedule, optionally over microbatches
 PyTorch runs eagerly, so a step is a plain function where the reference
 returns one for `jax.jit`; the step updates the state's parameter and
 moment tensors in place (see `optim.adamw`) and returns the same state.
-The compressed data-parallel step arrives with the distribution slice.
+
+Data parallelism, SPMD (one process per rank; `mesh` a DeviceMesh whose
+'batch' axes, ('pod', 'data') by the rules, hold the ranks):
+`make_train_step(..., mesh=)` is the torch form of the reference's pjit
+step on a ("data", "model") mesh with model = 1.  Every rank gets the same
+global batch and takes its contiguous rows; the gradients and metrics are
+all-reduced in f32 into the global batch's, each rank weighted by its row
+count, which is exact for the token-mean loss even when the rows do not
+divide by the ranks (MoE routes the global batch: `moe.global_routing`);
+then clipping and AdamW run on every rank, so the parameters stay bitwise
+equal across ranks.  `make_dp_train_step_compressed` is the reference's
+shard_map step with the int8 error-feedback all-reduce
+(`parallel.compression`): its state carries "err", each rank's own
+residual as a (1, *shape) slice of the reference's (dp, *shape) leaves
+(`interop.stack_ranks` stacks the ranks' slices).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import moe
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.parallel.collectives import all_reduce, axis_group, raise_together
+from repro_torch.parallel.compression import compressed_pmean_tree, init_error_state
+from repro_torch.parallel.sharding import logical_to_physical
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["init_train_state", "make_prefill_step", "make_serve_step", "make_train_step"]
+__all__ = [
+    "init_dp_train_state_compressed",
+    "init_train_state",
+    "make_dp_train_step_compressed",
+    "make_prefill_step",
+    "make_serve_step",
+    "make_train_step",
+]
 
 
 def init_train_state(model: Model, generator: torch.Generator, device=None) -> Dict[str, Any]:
@@ -32,50 +57,167 @@ def init_train_state(model: Model, generator: torch.Generator, device=None) -> D
     return {"params": params, "opt": adamw_init(params), "step": step}
 
 
+def _grads_of(model: Model, params, batch):
+    """Gradients of model.loss at `params` (leaf dtypes) and its metrics."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = model.loss(params, batch)
+        flat = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return tree_unflatten(params, flat), {k: v.detach() for k, v in metrics.items()}
+
+
+def _on_device(batch, params) -> Dict[str, torch.Tensor]:
+    dev = tree_leaves(params)[0].device
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def _apply(state, grads, metrics, schedule, adamw_cfg):
+    """Clip, AdamW at the schedule's lr, step + 1: (state, metrics)."""
+    params = state["params"]
+    lr = schedule(state["opt"]["count"])
+    new_params, new_opt, gnorm = adamw_update(grads, state["opt"], params, lr, adamw_cfg)
+    metrics = {**metrics, "grad_norm": gnorm, "lr": lr}
+    return {"params": new_params, "opt": new_opt, "step": state["step"] + 1}, metrics
+
+
+def _dp_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes the logical 'batch' axis maps to (the DP axes)."""
+    axes = logical_to_physical(("batch",), mesh)[0]
+    return () if axes is None else ((axes,) if isinstance(axes, str) else tuple(axes))
+
+
+def _row_range(rows: int, ranks: int, idx: int) -> Tuple[int, int]:
+    """Rank idx's contiguous rows of `rows`, as torch.tensor_split cuts them
+    (the first rows % ranks ranks take one more)."""
+    base, extra = divmod(rows, ranks)
+    lo = idx * base + min(idx, extra)
+    return lo, lo + base + (idx < extra)
+
+
+def _reduce_metrics(metrics: Dict[str, torch.Tensor], weight: float, group):
+    """sum over ranks of weight x metric, in f32, by one all-reduce."""
+    names = sorted(metrics)
+    vec = torch.stack([metrics[k].float() for k in names]) * weight
+    if group is not None:
+        vec = all_reduce(vec, group=group)
+    return dict(zip(names, vec.unbind()))
+
+
 def make_train_step(
     model: Model,
     schedule: Callable[[torch.Tensor], torch.Tensor],
     adamw_cfg: AdamWConfig = AdamWConfig(),
     grad_accum: int = 1,
+    mesh=None,
 ) -> Callable:
-    """grad_accum > 1: the batch splits on its leading dim into that many
-    microbatches, run one after another into an f32 gradient sum, as the
-    reference's scan does; the step then uses their mean."""
+    """The step of this process (module docstring); with `mesh`, this
+    rank's data-parallel step on the global batch.  grad_accum > 1 splits
+    the global batch on its leading dim into that many microbatches, run
+    one after another into an f32 gradient sum, as the reference's scan
+    does (under pjit too: each rank takes its rows of each microbatch); the
+    step then uses their mean.  On one rank the gradients are the
+    single-process ones, in the leaf dtypes without accumulation.  A rank
+    whose local computation raises makes every rank raise before the
+    gradient all-reduce (`collectives.raise_together`).  `step.grads(params,
+    batch)` returns the global batch's gradients and metrics alone.
 
-    def grads_of(params, batch):
-        leaves = tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        with torch.enable_grad():
-            loss, metrics = model.loss(params, batch)
-            flat = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                       materialize_grads=True)
-        return tree_unflatten(params, flat), {k: v.detach() for k, v in metrics.items()}
+    MoE under several ranks routes the global batch through
+    `moe.global_routing`, a process-wide setting rather than an argument of
+    `model.loss`: the `dots` remat policy recomputes moe_block during the
+    backward on autograd's device thread, outside any argument or
+    thread-local state of this call, so the setting spans the whole of
+    `_grads_of` and is restored after it."""
+    group, ranks, idx = (None, 1, 0) if mesh is None else axis_group(mesh, _dp_axes(mesh))
 
-    def train_step(state, batch):
-        params = state["params"]
+    def grads(params, batch):
+        """The global batch's gradients (on every rank) and metrics."""
+        batch = _on_device(batch, params)
+        total = next(iter(batch.values())).shape[0]
+        if total // grad_accum < ranks:
+            raise ValueError(f"a global batch of {total} rows in {grad_accum} microbatches"
+                             f" leaves a rank of {ranks} without rows")
         dev = tree_leaves(params)[0].device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        if grad_accum == 1:
-            grads, metrics = grads_of(params, batch)
-        else:
-            size = next(iter(batch.values())).shape[0] // grad_accum
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
-            mstack = []
-            for i in range(grad_accum):
-                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-                g, m = grads_of(params, mb)
-                tree_map(lambda a, x: a.add_(x.float()), gsum, g)
-                mstack.append(m)
-            grads = tree_map(lambda g: g / grad_accum, gsum)
-            metrics = {k: torch.stack([m[k] for m in mstack]).mean() for k in mstack[0]}
-        lr = schedule(state["opt"]["count"])
-        new_params, new_opt, gnorm = adamw_update(grads, state["opt"], params, lr, adamw_cfg)
-        metrics = {**metrics, "grad_norm": gnorm, "lr": lr}
-        return {"params": new_params, "opt": new_opt, "step": state["step"] + 1}, metrics
+        acc, macc, error = None, None, None
+        try:
+            for mb in range(grad_accum):
+                m_lo, m_hi = _row_range(total, grad_accum, mb)
+                lo, hi = _row_range(m_hi - m_lo, ranks, idx)
+                local = {k: v[m_lo + lo:m_lo + hi] for k, v in batch.items()}
+                with moe.global_routing(group, m_hi - m_lo):
+                    g, m = _grads_of(model, params, local)
+                if ranks == 1 and grad_accum == 1:
+                    return g, m
+                w = (hi - lo) / (m_hi - m_lo)  # this rank's share of the microbatch
+                part = tree_map(lambda x: x.float() * w, g)
+                acc = part if acc is None else tree_map(torch.add, acc, part)
+                mw = {k: v.float() * w for k, v in m.items()}
+                macc = mw if macc is None else {k: macc[k] + mw[k] for k in mw}
+                del g, part
+        except Exception as e:  # noqa: BLE001 - re-raised on every rank below
+            error = e
+        raise_together(error, group, dev)
+        if group is not None:
+            acc = tree_map(lambda x: all_reduce(x, group=group), acc)
+        if grad_accum == 1:  # the single-process step's leaf dtypes
+            out = tree_map(lambda x, p: x.to(p.dtype), acc, params)
+        else:  # the f32 mean
+            out = tree_map(lambda x: x / grad_accum, acc)
+        return out, _reduce_metrics(macc, 1.0 / grad_accum, group)
 
-    return train_step
+    def step(state, batch):
+        g, metrics = grads(state["params"], batch)
+        return _apply(state, g, metrics, schedule, adamw_cfg)
+
+    step.grads = grads
+    return step
+
+
+def make_dp_train_step_compressed(
+    model: Model,
+    schedule: Callable,
+    mesh,
+    adamw_cfg: AdamWConfig = AdamWConfig(),
+    dp_axes: Tuple[str, ...] = ("data",),
+) -> Callable:
+    """Data-parallel step with the explicit int8 error-feedback all-reduce
+    (the reference's shard_map step).  State additionally carries
+    {"err": this rank's residual tree, leaves (1, *shape)}; params and
+    optimizer state are replicated.  The global batch splits evenly over
+    the ranks of `dp_axes`; each rank routes and averages its own rows,
+    and the metrics are the ranks' plain mean, as under shard_map."""
+    group, ranks, idx = axis_group(mesh, dp_axes)
+
+    def step(state, batch):
+        params = state["params"]
+        batch = _on_device(batch, params)
+        total = next(iter(batch.values())).shape[0]
+        if total % ranks:
+            raise ValueError(f"a global batch of {total} rows does not split over {ranks} ranks")
+        size = total // ranks
+        local = {k: v[idx * size:(idx + 1) * size] for k, v in batch.items()}
+        grads, metrics = _grads_of(model, params, local)
+        err = tree_map(lambda e: e[0], state["err"])
+        means, new_err = compressed_pmean_tree(grads, err, dp_axes, mesh=mesh)
+        del grads
+        metrics = _reduce_metrics(metrics, 1.0 / ranks, group)
+        lr = schedule(state["opt"]["count"])
+        new_params, new_opt, gnorm = adamw_update(means, state["opt"], params, lr, adamw_cfg)
+        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1,
+                     "err": tree_map(lambda e: e[None], new_err)}
+        return new_state, {**metrics, "grad_norm": gnorm}
+
+    return step
+
+
+def init_dp_train_state_compressed(model: Model, generator: torch.Generator, device=None):
+    """`init_train_state` plus this rank's zero residuals: err leaves
+    (1, *param_shape), its slice of the reference's (dp, *param_shape)
+    (so, unlike the reference's, it needs no mesh)."""
+    state = init_train_state(model, generator, device)
+    state["err"] = tree_map(lambda e: e[None], init_error_state(state["params"]))
+    return state
 
 
 def make_prefill_step(model: Model) -> Callable:

@@ -67,8 +67,9 @@ def test_the_port_registers_eleven_configs(jx):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_get_model_builds_every_config(jx, arch):
     """`get_model` builds every published config, through `tuned()` too,
-    and its parameter specs are the reference's: the same tree, shapes and
-    init scales, at full width (specs only, nothing is allocated)."""
+    and its parameter specs are the reference's: the same tree, shapes,
+    init scales and logical axes, at full width (specs only, nothing is
+    allocated)."""
     for variant in (lambda c: c, lambda c: c.tuned()):
         tm = get_model(variant(get_config(arch)))
         jm = jx.get_model(variant(jx.get_config(arch)))
@@ -79,8 +80,8 @@ def test_get_model_builds_every_config(jx, arch):
         got, want = flat(got), flat(want)
         assert got.keys() == want.keys()
         for name in want:
-            assert (got[name].shape, got[name].scale, got[name].init) == (
-                want[name].shape, want[name].scale, want[name].init), name
+            assert (got[name].shape, got[name].scale, got[name].init, got[name].axes) == (
+                want[name].shape, want[name].scale, want[name].init, want[name].axes), name
         assert tm.supports_paged == jm.supports_paged
 
 

@@ -393,8 +393,16 @@ def test_cli_trains_reduced_on_cpu(tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["step_00000002", "step_00000003"]
     with redirect_stdout(io.StringIO()):
         ttrain.main(argv[:6] + ["4", *argv[7:], "--resume", "auto"])
-    with pytest.raises(NotImplementedError):
-        ttrain.main(["--arch", "mesh-paper", "--reduced", "--device", "cpu", "--mesh", "local-dp"])
+    # --mesh local-dp with no process group: one rank on a (1, 1) mesh, the
+    # single-process step's losses; --mesh prod is not ported.
+    one = io.StringIO()
+    with redirect_stdout(one):
+        ttrain.main(argv[:11] + ["--mesh", "local-dp"])
+    assert "mesh=local-dp rank=0/1" in one.getvalue()
+    assert one.getvalue().split("final_loss=")[1].split()[0] == (
+        out.getvalue().split("final_loss=")[1].split()[0])
+    with pytest.raises(NotImplementedError, match="A14"):
+        ttrain.main(["--arch", "mesh-paper", "--reduced", "--device", "cpu", "--mesh", "prod"])
 
 
 # -- on the card --------------------------------------------------------------
