@@ -27,8 +27,9 @@ Phases; any failure raises and the script exits non-zero:
               launch the tile its `tile_config` names (bf16 on the tensor
               cores), K5's backward (the `_gmm` VJP), K6 (flash attention)
               at Qwen2-7B's prefill and mesh-paper's training shapes in bf16
-              (tensor cores) and f32 (SIMT), causal with Tq != Tk, held by
-              output-relative measures, and K6 under `_FlashAttention`
+              (tensor cores) and f32 (SIMT), causal with Tq != Tk and at
+              a query offset, held by output-relative measures, and K6
+              under `_FlashAttention`
               yielding gradients; K4 is also timed at Qwen2-7B's decode (GQA
               rep 7, 2-4k-token contexts), and K1's decode shapes, K4 and K6
               are timed by the profiler's device time beside CUDA events,
@@ -121,7 +122,8 @@ Phases; any failure raises and the script exits non-zero:
               tokens: the kernel step's loss and gradients against the
               `torch` backend's ([train]'s limits), 3 AdamW steps through
               `train_loop` (K1 651 a step), and one step's peak memory with
-              the chunk checkpoint and without it;
+              the chunk checkpoint and without it; every K1 call of the
+              phase, the backward's too, held by [K1 train] on its blocks;
   10f. train_zamba  full-width Zamba2-1.2B the same way (K1 339 a step, K6
               6: the shared block's attention forward);
   11. paper    the paper's tables by simulation on the card (`core/`): 2n-1
@@ -161,6 +163,20 @@ Phases; any failure raises and the script exits non-zero:
               over 4 ranks, bitwise equal to the blocks in sequence here;
               every rank's plans on this process's blocks; walls and bytes
               printed, never as speeds;
+  12c. serve_tp  tensor-parallel serving on 2 ranks sharing the card (gloo):
+              full-width mesh-paper through `ContinuousBatchingServer(ctx=)`
+              with serve's requests (8 of 16 heads a rank; req0's first
+              token equal to the single-process server's, teacher-forced
+              TP logits against single-process ones, K1 and K4 launches
+              against the server's counters), OLMoE-1B-7B with 32 of its
+              64 experts a rank (one 128-token prefill and 8 decode steps
+              on the single-process routing replayed and free-running,
+              the flipped routing sets counted; K1 and K5 launches), and
+              Qwen2-7B at 4 of its 28 layers, its 2048-token chunked
+              prefill context-parallel under 'seq_attn' (K6 at q_offset 0
+              and 1024); the parent plans every shard shape first and
+              holds every K1 call of the ranks on its blocks; walls and
+              each rank's peak memory printed, never as speeds;
   13. obs      observability and the cost model at mesh-paper's full width:
               (a) the blocks the autotuner picked on the card for every
               main-path product, each timed candidate's device ms, every
@@ -519,17 +535,116 @@ def k1_calls():
 def check_k1_held(tag, seen):
     """Each K1 call in `seen` is one [K1 train] held against its plain
     version, blocks and all, when it ran in this process; else at least one
-    of dp_products' shapes (the blocks unchecked, as logged)."""
+    of dp_products' or family_train_products' shapes (the blocks
+    unchecked, as logged)."""
     if "k1_bwd" in K1_HELD_BY:
         stray = [x for x in seen if x not in K1_HELD]
         how = "held by [K1]/[K1 train] on the same blocks"
     else:
         shapes = {(a, b, dt) for _, a, b, dt, _ in dp_products(lambda *_: None)}
+        shapes |= {key[:3] for key in family_train_products(lambda *_: (128, 128, 128))}
         stray = [x for x in seen if x[:3] not in shapes]
-        how = "among [train_dp]'s shapes ([K1 train] did not run here: blocks unchecked)"
+        how = "among [train_dp]'s and the families' shapes ([K1 train] did not run here: blocks" \
+              " unchecked)"
     log(f"[{tag}] {len(seen)} distinct K1 calls (a, b, dtype, out, blocks, stagger, scramble,"
         f" activation, bias, residual), {len(seen) - len(stray)} {how}")
     check(not stray, f"{tag}: K1 calls that [K1 train] does not hold: {sorted(stray, key=str)}")
+
+
+@contextlib.contextmanager
+def k4_k5_calls():
+    """Records every K4 and K5 launch the model code makes inside the
+    block as the case it runs: K4's operand shapes, dtype, block table and
+    lengths; K5's operand shapes, dtypes, blocks, stagger, epilogue and
+    group sizes.  Each call reads its table, lengths or sizes back to the
+    host (a sync)."""
+    import dataclasses
+
+    from repro_torch.kernels import api
+    from repro_torch.kernels import paged_attention as pa
+
+    k4, k5 = set(), set()
+    door, grouped = pa._PAGED_REGISTRY["cuda_paged"], api.grouped_mesh_matmul
+
+    def paged(q, kp, vp, bt, ln):
+        k4.add((tuple(q.shape), tuple(kp.shape), str(q.dtype)[6:],
+                tuple(map(tuple, bt.tolist())), tuple(ln.tolist())))
+        return door.fn(q, kp, vp, bt, ln)
+
+    def ragged(tokens, sizes, w, **kw):
+        k5.add((tuple(tokens.shape), tuple(w.shape), str(tokens.dtype)[6:],
+                str(kw.get("out_dtype") or tokens.dtype)[6:],
+                tuple(kw[f"block_{x}"] for x in "mnk"), kw["stagger"], kw["activation"],
+                kw.get("bias") is not None, kw.get("residual") is not None,
+                tuple(sizes.tolist())))
+        return grouped(tokens, sizes, w, **kw)
+
+    pa._PAGED_REGISTRY["cuda_paged"] = dataclasses.replace(door, fn=paged)
+    api.grouped_mesh_matmul = ragged
+    try:
+        yield k4, k5
+    finally:
+        pa._PAGED_REGISTRY["cuda_paged"] = door
+        api.grouped_mesh_matmul = grouped
+
+
+def _as_key(x):
+    """A JSON-read key of k1_calls or k4_k5_calls (lists) as the tuple it
+    was."""
+    return tuple(_as_key(v) for v in x) if isinstance(x, list) else x
+
+
+def hold_k4_k5_calls(torch, tag, k4, k5):
+    """Holds every K4 and K5 call recorded by k4_k5_calls against its
+    plain version, at [K4]'s and [K5]'s limits: random operands of the
+    call's shapes and types (one set per shape) with its block table and
+    lengths, or its group sizes.  Logs each failure and the worst case of
+    each kernel; returns (K4 calls held, K5 calls held)."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def rnd(shape, dt):
+        return torch.randn(*shape, generator=g, device="cuda").to(getattr(torch, dt))
+
+    failed, worst, operands = [], {}, {}
+    for key in sorted(k4, key=str):
+        q_shape, pool_shape, dt, table, lengths = key
+        if (q_shape, pool_shape, dt) not in operands:
+            operands.clear()
+            operands[(q_shape, pool_shape, dt)] = (rnd(q_shape, dt), rnd(pool_shape, dt),
+                                                  rnd(pool_shape, dt))
+        q, kp, vp = operands[(q_shape, pool_shape, dt)]
+        bt = torch.tensor(table, dtype=torch.int32, device="cuda")
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        err, bad, line = _k4_case(torch, tag, "K4 call", q, kp, vp, bt, ln, sms)
+        worst["K4"] = max(worst.get("K4", (-1.0, "")), (err, line))
+        if bad:
+            log(line)
+            failed.append(f"K4 {key}: {'; '.join(bad)}")
+    operands.clear()
+    for key in sorted(k5, key=str):
+        t_shape, w_shape, dt, out_dt, blocks, stagger, act, bias, res, sizes = key
+        if (t_shape, w_shape, dt) not in operands:
+            operands.clear()
+            operands[(t_shape, w_shape, dt)] = (rnd(t_shape, dt), rnd(w_shape, dt))
+        tokens, w = operands[(t_shape, w_shape, dt)]
+        kw = dict(block_m=blocks[0], block_n=blocks[1], block_k=blocks[2], stagger=stagger,
+                  activation=act, out_dtype=getattr(torch, out_dt))
+        if bias:
+            kw["bias"] = rnd((w_shape[0], w_shape[2]), dt)
+        if res:
+            kw["residual"] = rnd((t_shape[0], w_shape[2]), dt)
+        sz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        err, bad, line = _k5_case(torch, tag, "K5 call", tokens, sz, w, kw)
+        worst["K5"] = max(worst.get("K5", (-1.0, "")), (err, line))
+        if bad:
+            log(line)
+            failed.append(f"K5 {key[:-1]} sizes {sizes}: {'; '.join(bad)}")
+    operands.clear()
+    for name, (_, line) in sorted(worst.items()):
+        log(f"[{tag}] {name}: the call with the largest |d| of those held: {line}")
+    check(not failed, f"{tag}: K4/K5 calls disagree with their plain versions: {failed}")
+    return len(k4), len(k5)
 
 
 def phase_k1(torch):
@@ -591,6 +706,8 @@ def phase_k1(torch):
         ("N=1 bias+sigmoid+residual", (PROMPT, 2048, 1), f32,
          dict(activation="sigmoid", bias=True, residual=True)),
         ("bf16 N=3 M=4", (SLOTS, 2048, 3), bf16, {}),
+        # The server's warmup canary (every serving phase and rank runs it).
+        ("warmup canary 8x8x8", (8, 8, 8), f32, dict(block_m=8, block_n=8, block_k=8)),
     ]
     # Every GEMM of [serve_rwkv], [serve_zamba] and [serve_whisper], with its
     # fused epilogue, at each M its phase runs it, on the blocks the planner
@@ -616,6 +733,19 @@ def phase_k1(torch):
     for label, (k, n) in QMOE_DENSE_GEMMS.items():
         for m in (SLOTS, PROMPT):
             cases.append((f"qwen2-moe {label} M={m}", (m, k, n), bf16, {}))
+    # [serve_tp]'s products on a rank (its heads, its gate and up slices,
+    # its vocab rows; the row-parallel ones with f32 outputs), on the blocks
+    # the planner resolves: planned here, so [serve_tp]'s ranks read them
+    # from the run's autotune cache.
+    tp_blocks, seen = plan_tp_products(torch), set()
+    for label, m, k, n, out_dt in tp_products(torch):
+        if (m, k, n, out_dt) in seen:
+            continue
+        seen.add((m, k, n, out_dt))
+        kw = dict(zip(("block_m", "block_n", "block_k"), tp_blocks[(m, k, n)]))
+        if out_dt is not None:
+            kw["out_dtype"] = out_dt
+        cases.append((f"serve_tp {label}", (m, k, n), bf16, kw))
     max_err, failed = 0.0, []
     for label, (m, k, n), dtype, kw in cases:
         kw = dict(kw)
@@ -732,11 +862,7 @@ K4_LIMITS = {"bfloat16": dict(rel=2.0**-7, row=2.0**-6, elem=2.0**-5, abs=2.0**-
 def phase_k4(torch):
     """K4 (paged_attention_cuda) against paged_attention_torch, every case
     checked before a failure is raised, then timings."""
-    from repro_torch.kernels.paged_attention import (
-        paged_attention_cuda,
-        paged_attention_torch,
-        split_plan,
-    )
+    from repro_torch.kernels.paged_attention import split_plan
 
     g = torch.Generator(device="cuda").manual_seed(2)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -751,6 +877,10 @@ def phase_k4(torch):
     # label, (S, H, KV, hd), lengths, dtype, table width (None: from lengths)
     cases = [
         ("mesh-paper H=KV=16 rep=1", (SLOTS, 16, 16, 128), live, bf16, None),
+        # A rank's heads of mesh-paper under [serve_tp] (the split's pairs
+        # are slots x the rank's kv heads).
+        ("mesh-paper TP rank: 8 of 16 heads", TP_DECODE, live, bf16, None),
+        ("mesh-paper TP rank: 8 of 16 heads f32", TP_DECODE, live, f32, None),
         ("GQA rep=4", (SLOTS, 16, 4, 128), live, bf16, None),
         ("f32 rep=2, length 1", (3, 8, 4, 64), [1, 13, 40], f32, None),
         ("qwen2-7b rep=7, 2-4k tokens", qwen, QWEN_LIVE, bf16, None),
@@ -769,50 +899,65 @@ def phase_k4(torch):
     max_err, failed = 0.0, []
     for label, (s, h, kvh, hd), lengths, dtype, width in cases:
         q, kp, vp, bt, ln = _paged_inputs(torch, g, s, h, kvh, hd, lengths, dtype, width)
-        split_pages, n_splits = split_plan(bt.shape[1], s * kvh, sms)
-        before = paged_attention_cuda.launches
-        out = paged_attention_cuda(q, kp, vp, bt, ln)
-        launched = paged_attention_cuda.launches - before
-        ref = paged_attention_torch(q, kp, vp, bt, ln)
-        torch.cuda.synchronize()
-        got = disagreement(torch, out, ref)
-        err = got["err"]
-        # bf16: probabilities round to bf16 before the p.v product at
-        # different points (unnormalized per key group in the kernel,
-        # normalized in the plain version), each term off by <= 2^-8
-        # relative, plus the output rounding: 2^-6 of the largest |v|.  f32:
-        # summation order only.  That bound does not scale with the output
-        # (|out| is about sqrt(e / n) over n live keys), so the measures
-        # relative to the output, K4_LIMITS, hold each case beside it.
-        vmax = vp.float().abs().max().item()
-        tol = (2.0**-6 if dtype == bf16 else 1e-5) * vmax
-        why = ("2^-6 max|v|: p rounded to bf16 at different points, bf16 output"
-               if dtype == bf16 else "1e-5 max|v|: summation order only")
-        lim = K4_LIMITS[str(dtype).removeprefix("torch.")]
-        bad = [f"{name} {got[name]:.3e} > {x:.3e}" for name, x in lim.items()
-               if not got[name] <= x]
-        if not bool(torch.isfinite(out.float()).all()):
-            bad.append("non-finite output")
-        if not err <= tol:
-            bad.append(f"err {err} > tol {tol}")
-        if launched != 1:
-            bad.append(f"{launched} counted launches")
-        log(f"[K4] {label:30s} {str(dtype)[6:]:8s} S={s} H={h} KV={kvh} hd={hd}"
-            f" lengths={lengths} splits={n_splits}x{split_pages} pages"
-            f" max|out|={ref.float().abs().max().item():.3e} "
-            + " ".join(f"{name}={x:.3e}" for name, x in got.items())
-            + f" tol={tol:.3e} ({why}) limits {lim}: "
-            + ("FAIL " + "; ".join(bad) if bad else "ok"))
+        err, bad, line = _k4_case(torch, "K4", f"{label:30s}", q, kp, vp, bt, ln, sms)
+        log(line)
         if bad:
             failed.append(f"{label} {dtype}: {'; '.join(bad)}")
         max_err = max(max_err, err)
-        del q, kp, vp, bt, ln, out, ref
+        del q, kp, vp, bt, ln
     check(not failed, f"K4 disagrees with its plain version: {failed}")
 
     # Timings at the serving decode shapes (one launch per layer and tick):
     # mesh-paper's and Qwen2-7B's.
     mesh = _k4_time(torch, g, (SLOTS, 16, 16, 128), live)
     return max_err, mesh, _k4_time(torch, g, qwen, QWEN_LIVE)
+
+
+def _k4_case(torch, tag, label, q, kp, vp, bt, ln, sms):
+    """One launch of K4 on (q, pools, table, lengths) against
+    paged_attention_torch: (max |d|, the failed measures, a log line)."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_cuda,
+        paged_attention_torch,
+        split_plan,
+    )
+
+    s, h, _ = q.shape
+    kvh, dtype = kp.shape[2], q.dtype
+    split_pages, n_splits = split_plan(bt.shape[1], s * kvh, sms)
+    before = paged_attention_cuda.launches
+    out = paged_attention_cuda(q, kp, vp, bt, ln)
+    launched = paged_attention_cuda.launches - before
+    ref = paged_attention_torch(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    got = disagreement(torch, out, ref)
+    err = got["err"]
+    # bf16: probabilities round to bf16 before the p.v product at different
+    # points (unnormalized per key group in the kernel, normalized in the
+    # plain version), each term off by <= 2^-8 relative, plus the output
+    # rounding: 2^-6 of the largest |v|.  f32: summation order only.  That
+    # bound does not scale with the output (|out| is about sqrt(e / n) over
+    # n live keys), so the measures relative to the output, K4_LIMITS, hold
+    # each case beside it.
+    bf16 = dtype == torch.bfloat16
+    tol = (2.0**-6 if bf16 else 1e-5) * vp.float().abs().max().item()
+    why = ("2^-6 max|v|: p rounded to bf16 at different points, bf16 output"
+           if bf16 else "1e-5 max|v|: summation order only")
+    lim = K4_LIMITS[str(dtype).removeprefix("torch.")]
+    bad = [f"{name} {got[name]:.3e} > {x:.3e}" for name, x in lim.items() if not got[name] <= x]
+    if not bool(torch.isfinite(out.float()).all()):
+        bad.append("non-finite output")
+    if not err <= tol:
+        bad.append(f"err {err} > tol {tol}")
+    if launched != 1:
+        bad.append(f"{launched} counted launches")
+    line = (f"[{tag}] {label} {str(dtype)[6:]:8s} S={s} H={h} KV={kvh} hd={q.shape[-1]}"
+        f" lengths={ln.tolist()} splits={n_splits}x{split_pages} pages"
+        f" max|out|={ref.float().abs().max().item():.3e} "
+        + " ".join(f"{name}={x:.3e}" for name, x in got.items())
+        + f" tol={tol:.3e} ({why}) limits {lim}: "
+        + ("FAIL " + "; ".join(bad) if bad else "ok"))
+    return err, bad, line
 
 
 def _k4_time(torch, g, shape, live):
@@ -1045,10 +1190,47 @@ def phase_k1_backward(torch):
         del p, q, out, ref
     log(f"[K1 train] [train_dp]'s products: {ran} checked here, the rest held above")
     check(not failed, f"K1 at [train_dp]'s shapes differs from its plain version: {failed}")
+
+    # [train_rwkv]'s and [train_zamba]'s calls, forward and backward, on the
+    # blocks the planner resolves for their forward products.
+    keys = family_train_products(lambda m, k, n: planned(1, m, k, n))
+    here, before = hold_k1_keys(torch, "K1 train", keys)
+    log(f"[K1 train] [train_rwkv]'s and [train_zamba]'s {len(keys)} K1 calls (forward, z"
+        f" recomputed where an activation is fused, dA, dB): {here} checked here, {before}"
+        " held above")
+
+    # mesh-paper's step on the blocks the planner resolves (the run's timed
+    # autotuner), at a DP rank's 2048 rows and the full batch's 4096: each
+    # product's kernel time times its launches a step.
+    planner_step = {}
+    for m in (TRAIN_SEQ, TRAIN_BATCH * TRAIN_SEQ):
+        total, used = {"fwd bf16": 0.0, "dA f32": 0.0, "dB f32": 0.0}, {}
+        for label, (k, n) in MESH_PAPER_GEMMS.items():
+            bm, bn, bk = planned(1, m, k, n)
+            used[label] = (bm, bn, bk)
+            x, w = rnd(m, k), rnd(k, n)
+            dz, w_t, x_t = rnd(m, n).float(), w.t().float().contiguous(), x.t().float().contiguous()
+            work = {"fwd bf16": (x, w, dict(block_m=bm, block_n=bn, block_k=bk)),
+                    "dA f32": (dz, w_t, dict(block_m=bm, block_n=bk, block_k=bn)),
+                    "dB f32": (x_t, dz, dict(block_m=bk, block_n=bn, block_k=bm))}
+            for kind, (p, q, blocks) in work.items():
+                iters = 3 if kind != "fwd bf16" else 10
+                ms = time_ms(torch, [lambda p=p, q=q, b=blocks: mesh_matmul(p, q, **b)], iters,
+                             warmup=1)
+                total[kind] += ms * per_layer[label]
+            del x, w, dz, w_t, x_t
+        planner_step[m] = dict(ms=sum(total.values()), **total, blocks=used)
+        log(f"[K1 train] one mesh-paper step's 75 K1 launches at M = {m} on the planner's"
+            f" blocks {used}: {sum(total.values()):.1f} ms (fwd {total['fwd bf16']:.1f}, dA"
+            f" {total['dA f32']:.1f}, dB {total['dB f32']:.1f})")
     K1_HELD_BY.add("k1_bwd")
     return max_err, dict(ms=sum(step.values()), library_ms=library,
                          bound_ms=sum(bound.values()), shape="one mesh-paper train step's"
-                         " 75 products at M = 4096 (25 bf16 forward, 50 f32 backward)")
+                         " 75 products at M = 4096 (25 bf16 forward, 50 f32 backward) on 128^3"
+                         " blocks", planner_blocks={
+                             str(m): {k: (v if k != "blocks" else {lb: list(b) for lb, b in
+                                                                  v.items()})
+                                      for k, v in r.items()} for m, r in planner_step.items()})
 
 
 def _routed_sizes(rng, tokens: int, experts: int = OLMOE_EXPERTS, topk: int = OLMOE_TOPK):
@@ -1111,6 +1293,16 @@ def phase_k5(torch):
             for how, sizes in (("edge sizes", edge), ("routed", qrouted)):
                 cases.append((f"qwen2-moe {phase} {label} {how}", QMOE_EXPERTS, rpg, bm, k, n,
                               sizes, torch.bfloat16, {}))
+    # [serve_tp]'s expert parallelism: a rank's 32 of OLMoE's 64 experts (its
+    # half of the routed sizes) at the same decode and prefill rows.
+    ep = OLMOE_EXPERTS // TP_RANKS
+    for phase, (rpg, bm) in K5_SHAPES.items():
+        edge = rng.integers(0, rpg + 1, ep).astype(np.int32)
+        edge[:3] = (0, rpg, rpg // 2)
+        for label, (k, n) in K5_GEMMS.items():
+            for how, sizes in (("edge sizes", edge), ("routed", routed[phase][ep:])):
+                cases.append((f"EP rank {phase} {label} {how}", ep, rpg, bm, k, n, sizes,
+                              torch.bfloat16, {}))
     # [train_moe]'s forward: OLMoE's experts at capacity MOE_TRAIN_CAP rows
     # (a step's tokens routed top-8, the excess dropped), block_m 128.
     edge = rng.integers(0, MOE_TRAIN_CAP + 1, n_grp).astype(np.int32)
@@ -1136,45 +1328,19 @@ def phase_k5(torch):
                   np.array([16, 0, 15, 1, 9, 16], np.int32), torch.bfloat16, {}))
     max_err, failed = 0.0, []
     for label, grp, rpg, bm, k, n, sizes_np, dtype, kw in cases:
-        kw = dict(kw)
+        kw = dict(kw, block_m=bm, block_n=128, block_k=128)
         sizes = torch.as_tensor(sizes_np, device="cuda")
         tokens, w = rnd(grp * rpg, k, dtype=dtype), rnd(grp, k, n, dtype=dtype)
         if kw.pop("bias", False):
             kw["bias"] = rnd(grp, n, dtype=dtype)
         if kw.pop("residual", False):
             kw["residual"] = rnd(grp * rpg, n, dtype=dtype)
-        blocks = dict(block_m=bm, block_n=128, block_k=128)
-        want = gr.tile_config(n, k, bm, 128, 128, dtype)
-        before = dict(grouped_mesh_matmul.launches_by_config)
-        out = grouped_mesh_matmul(tokens, sizes, w, **blocks, **kw)
-        ran = [c for c, x in grouped_mesh_matmul.launches_by_config.items()
-               if x != before.get(c, 0)]
-        ref = grouped_mesh_matmul_torch(tokens, sizes, w, **blocks, **kw)
-        torch.cuda.synchronize()
-        masked = out.reshape(grp, rpg, n)[~valid_rows(sizes, rpg)]
-        nonzero = int(torch.count_nonzero(masked))
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = (1e-5 if dtype == torch.float32 else 2.0**-7) * ref.float().abs().max().item()
-        why = ("1e-5 max|ref|: summation order only" if dtype == torch.float32
-               else "2^-7 max|ref|: adjacent bf16 roundings")
-        bad = []
-        if nonzero:
-            bad.append(f"{nonzero} masked values are not exact zeros")
-        if not bool(torch.isfinite(out.float()).all()):
-            bad.append("non-finite output")
-        if not err <= tol:
-            bad.append(f"err {err} > tol {tol}")
-        if ran != [want]:
-            bad.append(f"ran on {ran}, tile_config names {want}")
-        if dtype == torch.bfloat16 and not want.startswith("tc"):
-            bad.append(f"a bf16 case on the SIMT tile {want}")
-        log(f"[K5] {label:30s} {str(dtype)[6:]:8s} G={grp} rpg={rpg} bm={bm} K={k} N={n}"
-            f" on {want}: non-empty={int((sizes > 0).sum())} masked rows nonzero={nonzero}"
-            f" err={err:.3e} tol={tol:.3e} ({why}): " + ("FAIL " + "; ".join(bad) if bad else "ok"))
+        err, bad, line = _k5_case(torch, "K5", f"{label:30s}", tokens, sizes, w, kw)
+        log(line)
         if bad:
             failed.append(f"{label} {dtype}: {'; '.join(bad)}")
         max_err = max(max_err, err)
-        del tokens, w, out, ref, kw
+        del tokens, w, kw
     failed += _k5_order_witness(torch, gr)
     check(not failed, f"K5 disagrees with its plain version: {failed}")
 
@@ -1227,6 +1393,44 @@ def phase_k5(torch):
     log(f"[K5] one decode step (32 launches, {SLOTS} tokens): " + json.dumps(tick))
     log(f"[K5] one {PROMPT}-token prefill (32 launches): " + json.dumps(prefill))
     return max_err, tick, prefill
+
+
+def _k5_case(torch, tag, label, tokens, sizes, w, kw):
+    """One launch of K5 (grouped_mesh_matmul(tokens, sizes, w, **kw))
+    against grouped_mesh_matmul_torch: (max |d|, the failures, a log
+    line)."""
+    from repro_torch.kernels import grouped as gr
+    from repro_torch.kernels.grouped import grouped_mesh_matmul, grouped_mesh_matmul_torch
+
+    grp, k, n = w.shape
+    rpg, dtype, bm = tokens.shape[0] // grp, tokens.dtype, kw["block_m"]
+    want = gr.tile_config(n, k, bm, kw["block_n"], kw["block_k"], dtype)
+    before = dict(grouped_mesh_matmul.launches_by_config)
+    out = grouped_mesh_matmul(tokens, sizes, w, **kw)
+    ran = [c for c, x in grouped_mesh_matmul.launches_by_config.items() if x != before.get(c, 0)]
+    ref = grouped_mesh_matmul_torch(tokens, sizes, w, **kw)
+    torch.cuda.synchronize()
+    valid = torch.arange(rpg, device="cuda")[None, :] < sizes[:, None]  # (G, rpg)
+    nonzero = int(torch.count_nonzero(out.reshape(grp, rpg, n)[~valid]))
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (1e-5 if dtype == torch.float32 else 2.0**-7) * ref.float().abs().max().item()
+    why = ("1e-5 max|ref|: summation order only" if dtype == torch.float32
+           else "2^-7 max|ref|: adjacent bf16 roundings")
+    bad = []
+    if nonzero:
+        bad.append(f"{nonzero} masked values are not exact zeros")
+    if not bool(torch.isfinite(out.float()).all()):
+        bad.append("non-finite output")
+    if not err <= tol:
+        bad.append(f"err {err} > tol {tol}")
+    if ran != [want]:
+        bad.append(f"ran on {ran}, tile_config names {want}")
+    if dtype == torch.bfloat16 and not want.startswith("tc"):
+        bad.append(f"a bf16 case on the SIMT tile {want}")
+    line = (f"[{tag}] {label} {str(dtype)[6:]:8s} G={grp} rpg={rpg} bm={bm} K={k} N={n}"
+        f" on {want}: non-empty={int((sizes > 0).sum())} masked rows nonzero={nonzero}"
+        f" err={err:.3e} tol={tol:.3e} ({why}): " + ("FAIL " + "; ".join(bad) if bad else "ok"))
+    return err, bad, line
 
 
 def _k5_order_witness(torch, gr):
@@ -1386,7 +1590,9 @@ def phase_k6(torch):
     the serving and training paths give it, in bf16 (as they run: the
     tensor-core kernel) and f32 (the SIMT kernel, where the two agree to
     summation order), and causal with Tq != Tk (the reference's top-left
-    mask), and non-causal at Whisper's encoder shape, then timings: the
+    mask), causal at a query offset (a context-parallel rank's block of
+    rows: [serve_tp]'s Qwen2-7B rank 1, and ragged offsets), and non-causal
+    at Whisper's encoder shape, then timings: the
     kernel (CUDA events and profiler device time), the plain version, SDPA
     (causal or full, GQA; timed here only) and the bound.
     Every case is checked before a failure is raised, so one run shows which
@@ -1400,6 +1606,7 @@ def phase_k6(torch):
     qwen, mesh = (1, 2048, h, kvh, hd), (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 128)
     whisper, zamba = (2, WHISPER_FRAMES, 16, 16, 64), (2, ZAMBA_PROMPT, 32, 32, 64)
     # label, (B, Tq, H, KV, hd), Tk (None: Tq), causal, dtype, (block_q, block_k)
+    # [, q_offset]
     cases = [
         ("qwen2-7b prefill T=2048", qwen, None, True, bf16, blocks),
         ("qwen2-7b prefill T=2048", qwen, None, True, f32, blocks),
@@ -1425,14 +1632,23 @@ def phase_k6(torch):
         ("pixtral prefill T=2048", (1, 2048, *PIXTRAL_HEADS), None, True, f32, blocks),
         ("pixtral prefill T=4096", (1, 4096, *PIXTRAL_HEADS), None, True, bf16, blocks),
         ("pixtral prefill T=4096", (1, 4096, *PIXTRAL_HEADS), None, True, f32, blocks),
+        # [serve_tp]'s context-parallel Qwen2-7B prefill: rank 1's rows
+        # [1024, 2048) over all 28 heads against keys [0, 2048).
+        ("qwen2-7b seq_attn rank 1", (1, TP_QWEN_PROMPT // TP_RANKS, h, kvh, hd),
+         TP_QWEN_PROMPT, True, bf16, blocks, TP_QWEN_PROMPT // TP_RANKS),
+        ("qwen2-7b seq_attn rank 1", (1, TP_QWEN_PROMPT // TP_RANKS, h, kvh, hd),
+         TP_QWEN_PROMPT, True, f32, blocks, TP_QWEN_PROMPT // TP_RANKS),
+        ("q_offset 100 rep=3 ragged", (1, 200, 6, 2, 64), 300, True, bf16, (8, 50), 100),
+        ("q_offset 100 rep=3 ragged", (1, 200, 6, 2, 64), 300, True, f32, (8, 50), 100),
+        ("q_offset 37 rep=1 past Tk", (2, 96, 8, 8, 128), 64, True, bf16, (32, 32), 37),
     ]
     max_err, failed = 0.0, []
-    for label, (b, t, hq, kv, d), tk, causal, dtype, (bq, bk) in cases:
-        tk = t if tk is None else tk
+    for label, (b, t, hq, kv, d), tk, causal, dtype, (bq, bk), *offset in cases:
+        tk, off = (t if tk is None else tk), (offset or [0])[0]
         q = torch.randn(b, t, hq, d, generator=g, device="cuda").to(dtype)
         k, v = (torch.randn(b, tk, kv, d, generator=g, device="cuda").to(dtype) for _ in "kv")
-        out = flash_attention_cuda(q, k, v, causal=causal)
-        ref = flash_attention_torch(q, k, v, causal=causal, block_q=bq, block_k=bk)
+        out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+        ref = flash_attention_torch(q, k, v, causal=causal, block_q=bq, block_k=bk, q_offset=off)
         torch.cuda.synchronize()
         got = disagreement(torch, out, ref)
         lim = K6_LIMITS[str(dtype).removeprefix("torch.")]
@@ -1442,7 +1658,7 @@ def phase_k6(torch):
             bad.append("non-finite output")
         kernel = "mma.sync" if dtype == bf16 else "SIMT f32"
         log(f"[K6] {label:30s} {str(dtype)[6:]:8s} Tq={t} Tk={tk} causal={causal}"
-            f" blocks=({bq},{bk}) on {kernel}: "
+            f" q_offset={off} blocks=({bq},{bk}) on {kernel}: "
             + " ".join(f"{name}={x:.3e}" for name, x in got.items())
             + f" (max|v| {v.float().abs().max().item():.3f}) limits {lim}: "
             + ("FAIL " + "; ".join(bad) if bad else "ok"))
@@ -2963,9 +3179,9 @@ def phase_configs(torch):
         seen = []
         original = transformer.unembed
 
-        def capture(p, x, cfg_):
+        def capture(p, x, cfg_, *ctx):
             seen.append(x)
-            return original(p, x, cfg_)
+            return original(p, x, cfg_, *ctx)
 
         transformer.unembed = capture
         try:
@@ -3642,7 +3858,19 @@ def _train_family(torch, tag, cfg, per_step, held_layers=None):
         `per_step`, wall ms and tokens/s, peak device memory;
     (c) RWKV: one step's peak device memory with the WKV chunk checkpoint
         and one without it, from the same state, at RWKV_MEMORY_LAYERS.
+
+    Every K1 call of the phase, forward and backward, is recorded
+    (`k1_calls`) and must be one [K1] / [K1 train] held on its blocks
+    (`check_k1_held`).
     """
+    with k1_calls() as seen:
+        out = _train_family_work(torch, tag, cfg, per_step, held_layers)
+    check_k1_held(tag, seen)
+    return out
+
+
+def _train_family_work(torch, tag, cfg, per_step, held_layers):
+    """_train_family's work, every K1 call of it recorded by the caller."""
     import dataclasses
 
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -4372,12 +4600,36 @@ def dp_products(blocks_of):
     return out
 
 
+def family_train_products(blocks_of):
+    """[train_rwkv]'s and [train_zamba]'s K1 calls as k1_key tuples: each
+    GEMM's forward at M = 2 x 2048 on the blocks `blocks_of(M, K, N)` gives
+    it (with its fused activation), and the `_mm` backward's f32 calls as
+    api.mm_backward makes them: z recomputed where an activation is fused,
+    then dA and dB."""
+    keys = set()
+    for table in (RWKV_TRAIN_GEMMS, ZAMBA_GEMMS):
+        for k, n, kw, _ in table.values():
+            m, act = TRAIN_BATCH * TRAIN_SEQ, kw.get("activation")
+            bm, bn, bk = blocks_of(m, k, n)
+            keys.add(((m, k), (k, n), "bfloat16", "bfloat16", (bm, bn, bk), True, False, act,
+                      False, False))
+            if act is not None:
+                keys.add(((m, k), (k, n), "float32", "float32", (bm, bn, bk), True, False, None,
+                          False, False))
+            keys.add(((m, n), (n, k), "float32", "float32", (bm, bk, bn), True, False, None,
+                      False, False))
+            keys.add(((k, m), (m, n), "float32", "float32", (bk, bn, bm), True, False, None,
+                      False, False))
+    return keys
+
+
 def _plan_blocks():
-    """{plan key: blocks} of every cuda_mesh plan this process holds."""
+    """{plan key: blocks} of every cuda_mesh plan this process holds (a
+    grouped plan keyed apart by its groups and rows per group)."""
     from repro_torch.kernels import api
 
     return {json.dumps([d["structure"], d["mkn"], d["dtypes"], d["out_dtype"], d["batch"],
-                        d["epilogue"]["activation"]]): d["blocks"]
+                        d["epilogue"]["activation"], d.get("grouped")]): d["blocks"]
             for d in api.plan_cache_info()["plans"] if d["backend"] == "cuda_mesh"}
 
 
@@ -4748,6 +5000,566 @@ def phase_train_dp(torch):
             "pipeline_scramble_blocks": sum(f["pipeline"]["k3"] for f in ranks)}
 
 
+# [serve_tp]: tensor-parallel serving on TP_RANKS ranks that share the card
+# (gloo, every collective staged through host memory): full-width
+# mesh-paper through the continuous-batching server, OLMoE-1B-7B with its 64
+# experts split over the ranks (expert parallelism), and Qwen2-7B's chunked
+# prefill context-parallel under the 'seq_attn' rule (K6 at a query offset
+# on rank 1).  The parent computes each single-process reference and plans
+# every shard shape first, so the ranks read its autotune cache.
+TP_RANKS, TP_TIMEOUT_S = 2, 420
+# K4's (S, H, KV, hd) on a rank: mesh-paper's 16 heads split over the ranks.
+TP_DECODE = (SLOTS, 16 // TP_RANKS, 16 // TP_RANKS, 128)
+# mesh-paper: teacher-forced decode steps after req0's prefill, on the
+# single-process greedy tokens (dense decode, then paged decode).
+TP_TF_STEPS = 8
+# OLMoE: one prompt and teacher-forced decode steps.
+TP_MOE_PROMPT, TP_MOE_STEPS = 128, 8
+# Qwen2-7B: 4 of its 28 layers (a cut: the phase's time), one 2048-token
+# prompt, attn_chunk 1024, and the positions whose logits are compared
+# (both sides of the ranks' boundary).
+TP_QWEN_LAYERS, TP_QWEN_PROMPT = 4, 2048
+TP_QWEN_POSITIONS = (0, 1023, 1024, 2047)
+# Limits, each about 3x its first reading on an H100 (the readings are in
+# PERF.md): mesh-paper's teacher-forced TP logits, dense and paged, against
+# the single-process dense ones; OLMoE's on the single-process routing (replayed:
+# the roundings only) and free-running (held at the steps where no layer's
+# routing set differs; the differing (step, layer) sets counted); Qwen2-7B's
+# context-parallel prefill logits against the single-process K6 prefill.
+# First readings (NVIDIA H100 80GB HBM3, both ranks alike): 0.0508;
+# 0.0391 replayed; 32 of 144 sets flipped, the 2 flip-free steps 0.0400
+# (held at [serve_moe]'s 0.25, 3x its own first reading); 0.0547 on logits
+# up to 6.03.
+TP_LOGIT_TOL = 0.15
+TP_MOE_REPLAY_TOL = 0.12
+TP_MOE_FREE_TOL = MOE_LOGIT_TOL
+TP_MOE_FLIP_TOL = 96
+TP_QWEN_TOL = 0.165
+
+
+def _tp_ctx(world):
+    """A ShardCtx on a plain (data 1, model `world`) layout at model
+    coordinate 0: the shard shapes of a rank, without ranks."""
+    import numpy as np
+
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.parallel.sharding import MeshLayout
+
+    shape = {"data": 1, "model": world}
+    return ShardCtx(tuple(shape.items()), None,
+                    MeshLayout(shape, {"data": 0, "model": 0},
+                               np.arange(world).reshape(1, world)))
+
+
+def tp_products(torch):
+    """[serve_tp]'s K1 products on a rank, (label, M, K, N, out dtype):
+    mesh-paper's and OLMoE's column-parallel projections (a rank's heads,
+    its gate and up slices, its vocab rows) and row-parallel ones (f32
+    partial sums), at each M the phase runs them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import head_layout
+    from repro_torch.models.layers import padded_vocab
+
+    ctx = _tp_ctx(TP_RANKS)
+    out = []
+    for name, cfg, ms in (
+            ("mesh-paper", get_config("mesh-paper"), (1, SLOTS, PROMPT)),
+            ("olmoe", dataclasses.replace(get_config("olmoe-1b-7b"), use_mesh_kernel=True),
+             (1, TP_MOE_PROMPT))):
+        d, hd = cfg.d_model, cfg.head_dim_
+        lay = head_layout(cfg, ctx)
+        f32 = torch.float32 if lay.q.count > 1 else None
+        prods = [("wq", d, lay.q.size * hd, None), ("wk|wv", d, lay.kv.size * hd, None),
+                 ("wo", lay.q.size * hd, d, f32)]
+        if not cfg.is_moe:
+            fp = ctx.part("mlp", cfg.d_ff)
+            prods += [("mlp wi", d, 2 * fp.size, None),
+                      ("mlp wo", fp.size, d, torch.float32 if fp.count > 1 else None)]
+        vocab = ctx.part("vocab", padded_vocab(cfg))
+        prods.append(("lm_head", d, vocab.size, None))
+        for m in ms:
+            out += [(f"{name} {label} M={m}", m, k, n, dt) for label, k, n, dt in prods]
+    return out
+
+
+def plan_tp_products(torch):
+    """Plans every product of `tp_products` on the cuda_mesh backend (the
+    timed autotuner, its cache the run's): {(M, K, N): blocks}."""
+    from repro_torch.kernels import api
+
+    blocks = {}
+    for _, m, k, n, dt in tp_products(torch):
+        x = torch.empty(m, k, dtype=torch.bfloat16, device="cuda")
+        w = torch.empty(k, n, dtype=torch.bfloat16, device="cuda")
+        spec = api.GemmSpec.from_operands(x, w, epilogue=api.Epilogue(),
+                                          out_dtype=dt or torch.bfloat16,
+                                          blocks=(None, None, None))
+        blocks[(m, k, n)] = api.plan(spec, backend="cuda_mesh", device="cuda").blocks
+    return blocks
+
+
+# Two f32 sums of K terms in different orders differ by a random walk of
+# their roundings, which grows as sqrt(K) against max|ref|.  [K1 train]'s
+# 1e-5·max|ref| was set on sums up to K = 32,768, where it reads 0.74-1.03
+# on an NVIDIA H100 80GB HBM3 (lm_head's dA 0.74-0.84, Zamba2's 32,000-deep
+# head dA 0.88 and 1.03; RWKV-6's 65,536-deep one 1.22 and 1.47).  The
+# calls this file holds anew keep 1e-5 up to K = 16,384 and take
+# 1e-5·sqrt(K / 16384) past it; the existing cases keep their limits.
+F32_DEEP_K = 16384
+
+
+def hold_k1_keys(torch, tag, keys):
+    """Holds each K1 call in `keys` (k1_key tuples) that [K1] / [K1 train]
+    did not hold in this process: the kernel against mesh_matmul_torch on
+    the same blocks, random operands of the call's shapes and types, at
+    [K1]'s limits (by input type: 2^-7·max|ref| for bf16, 1e-5 for f32),
+    the f32 one times sqrt(K / 16384) past K = 16384 (F32_DEEP_K).
+    Returns (held here, held before)."""
+    from repro_torch.kernels.mesh_matmul import mesh_matmul, mesh_matmul_torch
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    here, failed = 0, []
+    for key in sorted(keys, key=str):
+        if key in K1_HELD:
+            continue
+        a_shape, b_shape, dt, out_dt, blocks, stagger, scramble, act, bias, res = key
+        dtype, out_dtype = getattr(torch, dt), getattr(torch, out_dt)
+        a = torch.randn(*a_shape, generator=g, device="cuda").to(dtype)
+        b = torch.randn(*b_shape, generator=g, device="cuda").to(dtype)
+        kw = dict(block_m=blocks[0], block_n=blocks[1], block_k=blocks[2], stagger=stagger,
+                  scramble_out=scramble, activation=act, out_dtype=out_dtype)
+        if bias:
+            kw["bias"] = torch.randn(b_shape[-1], generator=g, device="cuda").to(dtype)
+        if res:
+            kw["residual"] = torch.randn(*a_shape[:-1], b_shape[-1], generator=g,
+                                         device="cuda").to(dtype)
+        out, ref = mesh_matmul(a, b, **kw).float(), mesh_matmul_torch(a, b, **kw).float()
+        err = (out - ref).abs().max().item()
+        tol = (1e-5 * max(1.0, math.sqrt(a_shape[-1] / F32_DEEP_K)) if dtype == torch.float32
+               else 2.0**-7) * ref.abs().max().item()
+        here += 1
+        log(f"[{tag}] K1 call {a_shape}x{b_shape} {dt}->{out_dt} blocks {blocks}: err={err:.3e}"
+            f" tol={tol:.3e}")
+        if err <= tol and bool(torch.isfinite(out).all()):
+            K1_HELD.add(key)
+        else:
+            failed.append(f"{a_shape}x{b_shape} {dt}->{out_dt} blocks {blocks}: {err} > {tol}")
+        del a, b, out, ref
+    check(not failed, f"{tag}: K1 disagrees with its plain version: {failed}")
+    return here, len(keys) - here
+
+
+def serve_tp_rank(rank, world, init, tmp):
+    """One rank of [serve_tp] (run by the phase in its own process): its
+    findings, K1, K4 and K5 calls and plans' blocks go to tmp as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world)
+    with k1_calls() as calls, k4_k5_calls() as (k4, k5):
+        found = _serve_tp_rank(torch, rank, world, tmp)
+    found["k1_calls"] = sorted(calls, key=str)
+    found["k4_calls"], found["k5_calls"] = sorted(k4, key=str), sorted(k5, key=str)
+    found["blocks"] = _plan_blocks()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(found, f)
+    dist.destroy_process_group()
+
+
+def _tp_params(torch, model, ctx):
+    """The seed-0 init on the card, cut to this rank's blocks."""
+    from repro_torch.interop import shard_params
+
+    full = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = shard_params(full, model, ctx)
+    del full
+    _free(torch)
+    return params
+
+
+def _serve_tp_rank(torch, rank, world, tmp):
+    """serve_tp_rank's work, in its process group."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.grouped import grouped_mesh_matmul
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
+    from repro_torch.models import get_model
+    from repro_torch.models.attention import head_layout
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.parallel.sharding import DEFAULT_RULES
+
+    mesh = make_local_mesh((1, world), ("data", "model"))
+    ctx = ShardCtx(mesh)
+    found = {}
+
+    def gathered(lg):
+        """The last position's logits, whole on every rank."""
+        return ctx.gather(lg[:, -1, :].float(), ("batch", "vocab"),
+                          (lg.shape[0], lg.shape[-1] * world))[0]
+
+    # (a) mesh-paper through the server, then req0 teacher-forced through
+    # dense decode and through paged decode (K4 on the rank's pools).
+    ref = torch.load(os.path.join(tmp, "mesh_paper.pt"))
+    cfg = get_config("mesh-paper")
+    model = get_model(cfg)
+    params = _tp_params(torch, model, ctx)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32) for _ in range(REQUESTS)]
+    pages = -(-(PROMPT + NEW_TOKENS) // PAGE)
+    scfg = ServeConfig(max_slots=SLOTS, page_size=PAGE, num_pages=1 + SLOTS * pages,
+                       max_pages_per_seq=pages, queue_capacity=REQUESTS,
+                       warmup_prompt_lens=(PROMPT,))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_k1(mesh_matmul)
+    paged_attention_cuda.launches = 0
+    t0 = time.monotonic()
+    server = ContinuousBatchingServer(model, params, scfg, ctx, device="cuda")
+    server.warmup()
+    results = server.run([Request(rid=f"req{i}", prompt=p, max_new_tokens=NEW_TOKENS)
+                          for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    lay = head_layout(cfg, ctx)
+    found["serve"] = dict(
+        wall_s=time.monotonic() - t0, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        k1=mesh_matmul.launches, k4=paged_attention_cuda.launches, tiles=tile_counts(mesh_matmul),
+        counters={k: v for k, v in server.counters.items()},
+        statuses=[r.status for r in results.values()],
+        lengths=[len(r.tokens) for r in results.values()],
+        req0=results["req0"].tokens, heads=[lay.q.size, lay.kv.size, len(lay.read)])
+    del server
+    reset_k1(mesh_matmul)
+    diffs = []
+    with torch.inference_mode():
+        prompt = torch.as_tensor(prompts[0], device="cuda")[None]
+        lg, state = model.prefill(params, {"tokens": prompt}, ctx)
+        diffs.append((gathered(lg) - ref["logits"][0].cuda()).abs().max().item())
+        state = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, TP_TF_STEPS))
+                 for k, v in state.items()}
+        for i in range(TP_TF_STEPS):
+            tok = torch.tensor([[ref["feed"][i]]], dtype=torch.int32, device="cuda")
+            lg, state = model.decode(params, tok, state, PROMPT + i, ctx)
+            diffs.append((gathered(lg) - ref["logits"][i + 1].cuda()).abs().max().item())
+    torch.cuda.synchronize()
+    found["teacher_forced"] = dict(diffs=diffs, k1=mesh_matmul.launches)
+    reset_k1(mesh_matmul)
+    paged_attention_cuda.launches = 0
+    diffs = []
+    with torch.inference_mode():
+        lg, caches = model.prefill(params, {"tokens": prompt}, ctx)
+        diffs.append((gathered(lg) - ref["logits"][0].cuda()).abs().max().item())
+        n_pages = -(-(PROMPT + TP_TF_STEPS) // PAGE)
+        pools = {}
+        for k, c in caches.items():  # (L, 1, T, kv heads, hd): the read heads, paged
+            c = torch.nn.functional.pad(lay.select(c[:, 0], dim=2),
+                                        (0, 0, 0, 0, 0, n_pages * PAGE - PROMPT))
+            pools[k] = torch.zeros((c.shape[0], 1 + n_pages, PAGE, *c.shape[2:]),
+                                   dtype=c.dtype, device="cuda")
+            pools[k][:, 1:] = c.reshape(c.shape[0], n_pages, PAGE, *c.shape[2:])
+        specs = model.paged_pool_specs(1 + n_pages, PAGE, ctx)
+        shapes = {k: list(v.shape) for k, v in pools.items()}
+        want = {k: list(shape) for k, (shape, _) in specs.items()}
+        bt = torch.arange(1, 1 + n_pages, dtype=torch.int32, device="cuda")[None]
+        for i in range(TP_TF_STEPS):
+            tok = torch.tensor([[ref["feed"][i]]], dtype=torch.int32, device="cuda")
+            pos = torch.tensor([PROMPT + i], dtype=torch.int32, device="cuda")
+            lg, pools = model.paged_decode(params, tok, pools, bt, pos, ctx)
+            diffs.append((gathered(lg) - ref["logits"][i + 1].cuda()).abs().max().item())
+    torch.cuda.synchronize()
+    found["paged_teacher_forced"] = dict(diffs=diffs, k1=mesh_matmul.launches,
+                                         k4=paged_attention_cuda.launches, pools=shapes,
+                                         pool_specs=want)
+    del params, state, caches, pools, lg, model
+    _free(torch)
+
+    # (b) OLMoE-1B-7B, expert parallelism: 32 of 64 experts a rank.
+    ref = torch.load(os.path.join(tmp, "olmoe.pt"))
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), use_mesh_kernel=True)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = _tp_params(torch, model, ctx)
+    found["olmoe_init_s"] = time.monotonic() - t0
+    found["olmoe_experts"] = list(params["blocks"]["moe"]["wi"].shape[:2])
+    runs = {}
+    for how in ("replayed", "free"):
+        reset_k1(mesh_matmul)
+        grouped_mesh_matmul.launches = 0
+        replay = [r.cuda() for r in ref["routes"]] if how == "replayed" else None
+        t0 = time.monotonic()
+        with torch.inference_mode(), routing(replay) as routes:
+            prompt = ref["prompt"].cuda()[None]
+            lg, state = model.prefill(params, {"tokens": prompt}, ctx)
+            diffs = [(gathered(lg) - ref["logits"][0].cuda()).abs().max().item()]
+            state = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, TP_MOE_STEPS))
+                     for k, v in state.items()}
+            for i in range(TP_MOE_STEPS):
+                tok = torch.tensor([[ref["feed"][i]]], dtype=torch.int32, device="cuda")
+                lg, state = model.decode(params, tok, state, TP_MOE_PROMPT + i, ctx)
+                diffs.append((gathered(lg) - ref["logits"][i + 1].cuda()).abs().max().item())
+        torch.cuda.synchronize()
+        flips = [int(not torch.equal(a.sort(-1).values, b.cuda().sort(-1).values))
+                 for a, b in zip(routes, ref["routes"])]
+        runs[how] = dict(diffs=diffs, flips=flips, wall_s=time.monotonic() - t0,
+                         k1=mesh_matmul.launches, k5=grouped_mesh_matmul.launches,
+                         routes=[_sha(torch, r) for r in routes])
+        del lg, state, routes
+    found["olmoe"] = dict(runs, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del params, model
+    _free(torch)
+
+    # (c) Qwen2-7B, 4 layers: the chunked prefill context-parallel.
+    ref = torch.load(os.path.join(tmp, "qwen2.pt"))
+    cfg = dataclasses.replace(get_config("qwen2-7b"), attn_chunk=QWEN_CHUNK,
+                              num_layers=TP_QWEN_LAYERS)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    qctx = ShardCtx(mesh, DEFAULT_RULES.replace(seq_attn="model"))
+    params = _tp_params(torch, model, qctx)
+    offsets, launch = [], fa.flash_attention_cuda
+
+    def recorded(q, k, v, **kw):
+        offsets.append((list(q.shape), list(k.shape), kw.get("q_offset", 0)))
+        return launch(q, k, v, **kw)
+
+    fa.flash_attention_cuda = recorded
+    fa.flash_attention.launches = 0
+    try:
+        t0 = time.monotonic()
+        with torch.inference_mode():
+            prompt = ref["prompt"].cuda()[None]
+            lg, _ = model.prefill(params, {"tokens": prompt}, qctx)
+            at = lg[:, list(TP_QWEN_POSITIONS)].float()
+            at = qctx.gather(at, ("batch", None, "vocab"), (1, len(TP_QWEN_POSITIONS),
+                                                            lg.shape[-1] * world))[0]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        fa.flash_attention_cuda = launch
+    diffs = (at - ref["logits"].cuda()).abs().amax(dim=-1).tolist()
+    found["qwen2"] = dict(diffs=diffs, scale=ref["logits"].abs().max().item(), offsets=offsets,
+                          k6=fa.flash_attention.launches, wall_s=wall,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return found
+
+
+def phase_serve_tp(torch):
+    """Tensor-parallel serving on TP_RANKS ranks sharing the card (see the
+    constants above): the parent computes the single-process references
+    and plans every shard shape, the ranks serve, and the parent holds
+    their K1 calls, launches and logits.  Walls and memory are printed,
+    never as speeds."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serving_steps
+    from repro_torch.models import get_model
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="serve_tp")
+    try:
+        with k1_calls() as parent_calls:
+            planned = plan_tp_products(torch)
+            # mesh-paper: req0's single-process prefill (the server's first
+            # token) and its greedy teacher-forced logits.
+            cfg = get_config("mesh-paper")
+            model = get_model(cfg)
+            params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+            rng = np.random.default_rng(0)
+            prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32),
+                                     device="cuda")[None]
+            first = int(serving_steps(model)[0](params, {"tokens": prompt})[0][0])
+            logits, feed = _greedy_logits(torch, model, params, prompt, TP_TF_STEPS)
+            torch.save({"logits": logits, "feed": feed, "first": first},
+                       os.path.join(tmp, "mesh_paper.pt"))
+            del params, model
+            _free(torch)
+            # OLMoE: single-process kernel path, its routing recorded.
+            cfg = dataclasses.replace(get_config("olmoe-1b-7b"), use_mesh_kernel=True)
+            model = get_model(cfg)
+            params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+            moe_prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                           TP_MOE_PROMPT).astype(np.int32)
+            with routing() as routes:
+                mlogits, mfeed = _greedy_logits(
+                    torch, model, params, torch.as_tensor(moe_prompt, device="cuda")[None],
+                    TP_MOE_STEPS)
+            torch.save({"logits": mlogits, "feed": mfeed, "prompt": torch.as_tensor(moe_prompt),
+                        "routes": [r.cpu() for r in routes]}, os.path.join(tmp, "olmoe.pt"))
+            del params, model, routes
+            _free(torch)
+        # Qwen2-7B (the `torch` backend, as published): the K6 prefill.
+        cfg = dataclasses.replace(get_config("qwen2-7b"), attn_chunk=QWEN_CHUNK,
+                                  num_layers=TP_QWEN_LAYERS)
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        q_prompt = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                                     TP_QWEN_PROMPT).astype(np.int32)
+        with torch.inference_mode():
+            lg, _ = model.prefill(params, {"tokens": torch.as_tensor(q_prompt, device="cuda")[None]})
+            qlogits = lg[0, list(TP_QWEN_POSITIONS)].float().cpu()
+        torch.save({"logits": qlogits, "prompt": torch.as_tensor(q_prompt)},
+                   os.path.join(tmp, "qwen2.pt"))
+        del params, model, lg
+        _free(torch)
+        log(f"[serve_tp] single-process references and {len(planned)} shard shapes planned in"
+            f" {time.monotonic() - t_phase:.1f} s; req0's first token {first}")
+
+        t0 = time.monotonic()
+        runs = _spawn(lambda r: (
+            "import chip_smoke; chip_smoke.serve_tp_rank("
+            f"{r}, {TP_RANKS}, {os.path.join(tmp, 'gloo')!r}, {tmp!r})"),
+            TP_RANKS, TP_TIMEOUT_S)
+        wall = time.monotonic() - t0
+        bad = [f"rank {r}: rc={rc} {e[-3000:]}" for r, (rc, _, e) in enumerate(runs) if rc != 0]
+        check(not bad, "[serve_tp] rank failures:\n" + "\n".join(bad))
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+        parent_blocks = _plan_blocks()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[serve_tp] {TP_RANKS} gloo ranks on one card: {wall:.1f} s wall in all, process start,"
+        " CUDA init and three models' init included (not a speed: the ranks share the card and"
+        " every collective goes through host memory)")
+
+    failed = []
+    per_prefill = sum(TICK_LAUNCHES.values())
+    for r, f in enumerate(ranks):
+        s = f["serve"]
+        c = s["counters"]
+        want_k1 = per_prefill * (c["prefills"] + c["decode_steps"]) + sum(CANARY_TILES.values())
+        want_k4 = get_config("mesh-paper").num_layers * c["decode_steps"]
+        log(f"[serve_tp] rank {r} mesh-paper server: {REQUESTS} requests x {NEW_TOKENS} tokens,"
+            f" statuses {sorted(set(s['statuses']))}, wall {s['wall_s']:.2f} s (not a speed),"
+            f" peak {s['peak_gib']:.2f} GiB; heads a rank (query, kv, pool) {s['heads']};"
+            f" K1 {s['k1']} (want {want_k1}: {per_prefill} x ({c['prefills']} prefills +"
+            f" {c['decode_steps']} decode steps) + the canary's 2), K4 {s['k4']} (want"
+            f" {want_k4}), tiles {s['tiles']}; req0's first token {s['req0'][0]} (single process"
+            f" {first})")
+        if (s["k1"], s["k4"]) != (want_k1, want_k4):
+            failed.append(f"rank {r} server launches K1 {s['k1']} K4 {s['k4']}")
+        if set(s["statuses"]) != {"ok"} or set(s["lengths"]) != {NEW_TOKENS}:
+            failed.append(f"rank {r} server results {s['statuses']} {s['lengths']}")
+        if s["req0"][0] != first:
+            failed.append(f"rank {r} req0 first token {s['req0'][0]} != {first}")
+        if s["heads"][0] != 16 // TP_RANKS:
+            failed.append(f"rank {r} query heads {s['heads']}")
+        old = {t: n for t, n in s["tiles"].items() if t in OLD_TILES}
+        if old != CANARY_TILES:
+            failed.append(f"rank {r} K1 on the first SIMT tiles {old}")
+        tf = f["teacher_forced"]
+        log(f"[serve_tp] rank {r} req0 teacher-forced, TP against single-process logits (prefill"
+            f" then {TP_TF_STEPS} dense decode steps): max |d| per step"
+            f" {[round(x, 4) for x in tf['diffs']]}, largest {max(tf['diffs']):.4f} (tol"
+            f" {TP_LOGIT_TOL}); K1 {tf['k1']}")
+        if max(tf["diffs"]) > TP_LOGIT_TOL or tf["k1"] != per_prefill * (1 + TP_TF_STEPS):
+            failed.append(f"rank {r} teacher-forced {tf}")
+        pt = f["paged_teacher_forced"]
+        want_k4 = get_config("mesh-paper").num_layers * TP_TF_STEPS
+        log(f"[serve_tp] rank {r} req0 teacher-forced through paged decode (pools {pt['pools']['k']},"
+            f" the rank's read kv heads): TP paged against single-process dense logits, max |d|"
+            f" per step {[round(x, 4) for x in pt['diffs']]}, largest {max(pt['diffs']):.4f} (tol"
+            f" {TP_LOGIT_TOL}); K1 {pt['k1']} K4 {pt['k4']} (want {want_k4})")
+        if (max(pt["diffs"]) > TP_LOGIT_TOL or pt["k4"] != want_k4
+                or pt["k1"] != per_prefill * (1 + TP_TF_STEPS) or pt["pools"] != pt["pool_specs"]
+                or pt["pools"]["k"][3] != TP_DECODE[2]):
+            failed.append(f"rank {r} paged teacher-forced {pt}")
+        o = f["olmoe"]
+        for how, run in o.items():
+            if how == "peak_gib":
+                continue
+            steps = [run["flips"][i * OLMOE_LAYERS:(i + 1) * OLMOE_LAYERS]
+                     for i in range(1 + TP_MOE_STEPS)]
+            clean = [d for d, st in zip(run["diffs"], steps) if not any(st)]
+            n_flips = sum(run["flips"])
+            want = (MOE_STEP_LAUNCHES["mesh_matmul"] * (1 + TP_MOE_STEPS),
+                    MOE_STEP_LAUNCHES["grouped_mesh_matmul"] * (1 + TP_MOE_STEPS))
+            tol = TP_MOE_REPLAY_TOL if how == "replayed" else TP_MOE_FREE_TOL
+            log(f"[serve_tp] rank {r} OLMoE EP ({f['olmoe_experts'][1]} experts a rank),"
+                f" {how} routing: max |d| per step {[round(x, 4) for x in run['diffs']]},"
+                f" held at {len(clean)} of {1 + TP_MOE_STEPS} steps (no flipped layer), largest"
+                f" {max(clean, default=0.0):.4f} (tol {tol}); flipped (step, layer) sets {n_flips}"
+                f" of {len(run['flips'])} (tol {TP_MOE_FLIP_TOL}); K1 {run['k1']} K5 {run['k5']}"
+                f" (want {want}); wall {run['wall_s']:.2f} s (not a speed)")
+            if (run["k1"], run["k5"]) != want:
+                failed.append(f"rank {r} OLMoE {how} launches {run['k1']} {run['k5']}")
+            if max(clean, default=0.0) > tol or n_flips > TP_MOE_FLIP_TOL:
+                failed.append(f"rank {r} OLMoE {how}: {run}")
+            if how == "replayed" and (n_flips or len(clean) != 1 + TP_MOE_STEPS):
+                failed.append(f"rank {r} OLMoE replay flipped {n_flips}")
+            if run["routes"] != ranks[0]["olmoe"][how]["routes"]:
+                failed.append(f"rank {r} OLMoE {how}: its routing differs from rank 0's")
+        log(f"[serve_tp] rank {r} OLMoE peak {o['peak_gib']:.2f} GiB, init {f['olmoe_init_s']:.1f} s")
+        q = f["qwen2"]
+        want_off = [(TP_QWEN_PROMPT // TP_RANKS) * r] * TP_QWEN_LAYERS
+        log(f"[serve_tp] rank {r} Qwen2-7B ({TP_QWEN_LAYERS} of {QWEN_LAYERS} layers) {TP_QWEN_PROMPT}"
+            f"-token prefill, seq_attn on 'model': K6 {q['k6']} launches at (q, k, q_offset)"
+            f" {q['offsets']}; logits at positions {TP_QWEN_POSITIONS} against the"
+            f" single-process K6 prefill: max |d| {[round(x, 4) for x in q['diffs']]} on logits"
+            f" up to {q['scale']:.2f} (tol {TP_QWEN_TOL}); wall {q['wall_s']:.2f} s (not a"
+            f" speed), peak {q['peak_gib']:.2f} GiB")
+        if q["k6"] != TP_QWEN_LAYERS or [o[2] for o in q["offsets"]] != want_off:
+            failed.append(f"rank {r} Qwen2 K6 {q['k6']} {q['offsets']}")
+        if max(q["diffs"]) > TP_QWEN_TOL:
+            failed.append(f"rank {r} Qwen2 logits {q['diffs']}")
+        moved = {k: (v, parent_blocks.get(k)) for k, v in f["blocks"].items()
+                 if k in parent_blocks and parent_blocks[k] != v}
+        if moved:
+            failed.append(f"rank {r} planned other blocks than this process: {moved}")
+    calls = parent_calls | {_as_key(key) for f in ranks for key in f["k1_calls"]}
+    here, before = hold_k1_keys(torch, "serve_tp", calls)
+    log(f"[serve_tp] {len(calls)} distinct K1 calls of the parent and the ranks: {before} held by"
+        f" [K1]/[K1 train] before, {here} held here on the same blocks")
+    k4_held, k5_held = hold_k4_k5_calls(
+        torch, "serve_tp", {_as_key(x) for f in ranks for x in f["k4_calls"]},
+        {_as_key(x) for f in ranks for x in f["k5_calls"]})
+    log(f"[serve_tp] the ranks' distinct K4 calls ({k4_held}: shapes, table and lengths) and K5"
+        f" calls ({k5_held}: shapes, blocks and group sizes) each held against the plain version"
+        " at [K4]'s and [K5]'s limits")
+    if not k4_held or not k5_held:
+        failed.append(f"K4/K5 calls recorded: {k4_held} {k5_held}")
+    check(not failed, "[serve_tp] failed:\n" + "\n".join(failed))
+    return {"mesh_matmul": sum(f["serve"]["k1"] + f["teacher_forced"]["k1"]
+                               + f["paged_teacher_forced"]["k1"]
+                               + sum(f["olmoe"][h]["k1"] for h in ("replayed", "free"))
+                               for f in ranks),
+            "paged_attention": sum(f["serve"]["k4"] + f["paged_teacher_forced"]["k4"]
+                                   for f in ranks),
+            "grouped_mesh_matmul": sum(f["olmoe"][h]["k5"] for f in ranks
+                                       for h in ("replayed", "free")),
+            "flash_attention": sum(f["qwen2"]["k6"] for f in ranks)}
+
+
+def _greedy_logits(torch, model, params, prompt, steps):
+    """Single-process prefill of `prompt` (1, T) and `steps` dense decode
+    steps on its own greedy tokens: (last-position logits (1 + steps, V) f32
+    on the host, the fed tokens)."""
+    with torch.inference_mode():
+        lg, state = model.prefill(params, {"tokens": prompt})
+        out, feed = [lg[0, -1].float()], []
+        state = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, steps)) for k, v in state.items()}
+        t = prompt.shape[1]
+        for i in range(steps):
+            feed.append(int(out[-1].argmax()))
+            tok = torch.tensor([[feed[-1]]], dtype=torch.int32, device="cuda")
+            lg, state = model.decode(params, tok, state, t + i)
+            out.append(lg[0, -1].float())
+    return torch.stack(out).cpu(), feed
+
+
 def main_path_products():
     """mesh-paper's main-path K1 products (M, K, N), bf16: decode (M =
     SLOTS), prefill (M = PROMPT) and the training forward (M = TRAIN_BATCH x
@@ -5094,7 +5906,8 @@ def main() -> int:
         ("serve_rwkv", phase_serve_rwkv), ("serve_pixtral", phase_serve_pixtral),
         ("serve_zamba", phase_serve_zamba), ("serve_whisper", phase_serve_whisper),
         ("train_rwkv", phase_train_rwkv), ("train_zamba", phase_train_zamba),
-        ("sharded", phase_sharded), ("train_dp", phase_train_dp))}
+        ("sharded", phase_sharded), ("train_dp", phase_train_dp),
+        ("serve_tp", phase_serve_tp))}
     phases["paper"] = healthy("paper", lambda torch: phase_paper(torch, smi))
     phases["planner"] = phase_planner
     phases["obs"] = healthy("obs", lambda torch: phase_obs(torch, smi))
@@ -5133,6 +5946,7 @@ def main() -> int:
     train_zamba = phases["train_zamba"](torch)
     sharded = phases["sharded"](torch)
     train_dp = phases["train_dp"](torch)
+    serve_tp = phases["serve_tp"](torch)
     phases["paper"](torch)
     planner = phases["planner"](torch)
     phases["obs"](torch)
@@ -5150,7 +5964,7 @@ def main() -> int:
             + planner["mesh_matmul"] + serve_rwkv["mesh_matmul"] + serve_zamba["mesh_matmul"]
             + serve_whisper["mesh_matmul"] + train_rwkv["mesh_matmul"]
             + train_zamba["mesh_matmul"] + sharded["mesh_matmul"] + train_dp["mesh_matmul"]
-            + train_dp["pipeline_mesh_matmul"], k1_err, k1,
+            + train_dp["pipeline_mesh_matmul"] + serve_tp["mesh_matmul"], k1_err, k1,
             "one decode tick: 25 launches at M=4",
             launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"],
                               "serve_moe": serve_moe["mesh_matmul"],
@@ -5164,7 +5978,8 @@ def main() -> int:
                               "train_zamba": train_zamba["mesh_matmul"],
                               "sharded (4 ranks)": sharded["mesh_matmul"],
                               "train_dp (2 ranks)": train_dp["mesh_matmul"],
-                              "pipeline (4 ranks)": train_dp["pipeline_mesh_matmul"]},
+                              "pipeline (4 ranks)": train_dp["pipeline_mesh_matmul"],
+                              "serve_tp (2 ranks)": serve_tp["mesh_matmul"]},
             launches_by_tile=K1_TILES, train_step=k1_train,
             batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
                      "shape": "B=4 M=128 K=1024 N=512 bf16"}),
@@ -5172,14 +5987,16 @@ def main() -> int:
             "src/repro/kernels/paged_attention.py:182",
             serve["paged_attention"] + serve_moe["paged_attention"]
             + serve_qwen2["paged_attention"] + serve_qwen2_moe["paged_attention"]
-            + configs["paged_attention"] + serve_pixtral["paged_attention"], k4_err, k4,
+            + configs["paged_attention"] + serve_pixtral["paged_attention"]
+            + serve_tp["paged_attention"], k4_err, k4,
             "one launch: S=4 H=KV=16 hd=128 bf16, 128-160 token contexts",
             launches_by_path={"serve": serve["paged_attention"],
                               "serve_moe": serve_moe["paged_attention"],
                               "serve_qwen2": serve_qwen2["paged_attention"],
                               "serve_qwen2_moe": serve_qwen2_moe["paged_attention"],
                               "configs": configs["paged_attention"],
-                              "serve_pixtral": serve_pixtral["paged_attention"]},
+                              "serve_pixtral": serve_pixtral["paged_attention"],
+                              "serve_tp (2 ranks)": serve_tp["paged_attention"]},
             qwen2={**k4_qwen, "shape": f"one launch: S=4 H=28 KV=4 hd=128 bf16, contexts"
                    f" {QWEN_LIVE}"}),
         row("scramble_blocks", "scramble_blocks.cu",
@@ -5193,13 +6010,15 @@ def main() -> int:
                               "pipeline (4 ranks)": train_dp["pipeline_scramble_blocks"]}),
         row("grouped_mesh_matmul", "grouped_matmul.cu", "src/repro/kernels/grouped.py:119",
             serve_moe["grouped_mesh_matmul"] + serve_qwen2_moe["grouped_mesh_matmul"]
-            + train_moe["grouped_mesh_matmul"] + sharded["grouped_mesh_matmul"], k5_err, k5_tick,
+            + train_moe["grouped_mesh_matmul"] + sharded["grouped_mesh_matmul"]
+            + serve_tp["grouped_mesh_matmul"], k5_err, k5_tick,
             f"one OLMoE decode step: 32 launches (wi, wo x 16 layers), 64 experts x 8 rows,"
             f" {SLOTS} tokens routed; library_ms is torch.bmm + segment mask",
             launches_by_path={"serve_moe": serve_moe["grouped_mesh_matmul"],
                               "serve_qwen2_moe": serve_qwen2_moe["grouped_mesh_matmul"],
                               "train_moe": train_moe["grouped_mesh_matmul"],
-                              "sharded (4 ranks)": sharded["grouped_mesh_matmul"]},
+                              "sharded (4 ranks)": sharded["grouped_mesh_matmul"],
+                              "serve_tp (2 ranks)": serve_tp["grouped_mesh_matmul"]},
             launches_by_tile=K5_TILES, qwen2_moe_decode_step=serve_qwen2_moe["k5_decode_step"],
             prefill={**k5_prefill, "shape": f"one {PROMPT}-token prefill: 32 launches,"
                      " 64 experts x 128 rows"}),
@@ -5207,7 +6026,7 @@ def main() -> int:
             serve_qwen2["flash_attention"] + train_flash["flash_attention"]
             + configs["flash_attention"] + serve_pixtral["flash_attention"]
             + serve_zamba["flash_attention"] + serve_whisper["flash_attention"]
-            + train_zamba["flash_attention"], k6_err,
+            + train_zamba["flash_attention"] + serve_tp["flash_attention"], k6_err,
             k6["qwen2 T=2048"],
             "one launch: Qwen2-7B prefill B=1 T=2048 H=28 KV=4 hd=128 bf16 causal; library_ms"
             " is scaled_dot_product_attention (is_causal, enable_gqa)",
@@ -5217,7 +6036,8 @@ def main() -> int:
                               "serve_pixtral": serve_pixtral["flash_attention"],
                               "serve_zamba": serve_zamba["flash_attention"],
                               "serve_whisper": serve_whisper["flash_attention"],
-                              "train_zamba": train_zamba["flash_attention"]},
+                              "train_zamba": train_zamba["flash_attention"],
+                              "serve_tp (2 ranks)": serve_tp["flash_attention"]},
             device_ms=k6["qwen2 T=2048"]["device_ms"],
             library_device_ms=k6["qwen2 T=2048"]["library_device_ms"],
             t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"],

@@ -15,9 +15,11 @@
 // Tq * rep query rows ordered (token, rep), row r being token r / rep of
 // head kv * rep + r % rep.  Those rows sit rep * hd apart in q's own layout,
 // so the kernel addresses them in place (the reference transposes q into
-// that order first).  The causal mask is the reference's, top-left aligned:
-// key <= r / rep, with no query offset, so Tq and Tk may differ (a row past
-// the last key sees every key).  Keys past Tk (a ragged last tile) get
+// that order first).  The causal mask is the reference's, top-left aligned
+// and shifted by `q_offset`: key <= r / rep + q_offset, so Tq and Tk may
+// differ (a row past the last key sees every key).  A context-parallel rank
+// holding query tokens [q_offset, q_offset + Tq) of a longer sequence passes
+// that offset; at 0 every output is bitwise what it was without it.  Keys past Tk (a ragged last tile) get
 // p = 0; the reference has none.
 //
 // What bounds it on this card: operations.  Causal Qwen2-7B prefill at
@@ -102,7 +104,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int tq, int tk,
-                       int kvh, int hd, int rep, int causal, float scale) {
+                       int kvh, int hd, int rep, int causal, int q_offset, float scale) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [hd][kBM]
   float* ks = qs + hd * kBM;                      // [kBN][hd + 4]
@@ -142,14 +144,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int last_key = tk - 1;
-  if (causal) last_key = min(last_key, min(rows - 1, r0 + kBM - 1) / rep);
+  if (causal) last_key = min(last_key, min(rows - 1, r0 + kBM - 1) / rep + q_offset);
   const int n_tiles = last_key / kBN + 1;
 
   int token[4];
   float m[4], l[4], acc[4][kMaxDims];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    token[i] = (r0 + ty * 4 + i) / rep;
+    token[i] = (r0 + ty * 4 + i) / rep + q_offset;
     m[i] = kNegInf;
     l[i] = 0.0f;
 #pragma unroll
@@ -298,7 +300,7 @@ template <int HD>
 __global__ void __launch_bounds__(32 * kMmaWarps, 2)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int tq, int tk, int kvh,
-                 int rep, int causal, float scale) {
+                 int rep, int causal, int q_offset, float scale) {
   using S = MmaTile<HD>;
   constexpr int KD = HD / 16;        // 16-deep steps over the head dim
   constexpr int NS = kMmaKeys / 8;   // 8-key column tiles of S
@@ -329,7 +331,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
 
   int last_key = tk - 1;
-  if (causal) last_key = min(last_key, min(rows - 1, r0 + S::kRows - 1) / rep);
+  if (causal) last_key = min(last_key, min(rows - 1, r0 + S::kRows - 1) / rep + q_offset);
   const int n_tiles = last_key / kMmaKeys + 1;
 
   auto load_tile = [&](int stage, int t) {
@@ -360,9 +362,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // This thread's two rows of the warp's 16: lane / 4 and lane / 4 + 8.
   const int wr0 = r0 + warp * 16;
-  const int tok_lo = wr0 / rep;  // the warp's first token
-  const int tok_a = (wr0 + (lane >> 2)) / rep;
-  const int tok_b = (wr0 + (lane >> 2) + 8) / rep;
+  const int tok_lo = wr0 / rep + q_offset;  // the warp's first token
+  const int tok_a = (wr0 + (lane >> 2)) / rep + q_offset;
+  const int tok_b = (wr0 + (lane >> 2) + 8) / rep + q_offset;
   const float scale2 = scale * kLog2e;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
   float o[2 * KD][4];
@@ -488,8 +490,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int batch,
-                       int tq, int tk, int kvh, int rep, int causal, float scale,
-                       cudaStream_t st) {
+                       int tq, int tk, int kvh, int rep, int causal, int q_offset,
+                       float scale, cudaStream_t st) {
   using S = MmaTile<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
@@ -498,16 +500,16 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   const dim3 grid((rows + S::kRows - 1) / S::kRows, batch * kvh);
   flash_mma_kernel<HD><<<grid, S::kThreads, S::kSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), tq, tk, kvh, rep, causal, scale);
+      static_cast<bf16*>(out), tq, tk, kvh, rep, causal, q_offset, scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int batch,
-                        int tq, int tk, int kvh, int hd, int rep, int causal, float scale,
-                        cudaStream_t st) {
+                        int tq, int tk, int kvh, int hd, int rep, int causal, int q_offset,
+                        float scale, cudaStream_t st) {
 #define FLASH_MMA(HD)                                                                   \
   case HD / 16:                                                                         \
-    return launch_mma<HD>(q, k, v, out, batch, tq, tk, kvh, rep, causal, scale, st)
+    return launch_mma<HD>(q, k, v, out, batch, tq, tk, kvh, rep, causal, q_offset, scale, st)
   if (hd % 16) return cudaErrorInvalidValue;
   switch (hd / 16) {
     FLASH_MMA(16);
@@ -528,7 +530,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
 // ---------------------------------------------------------------------------
 
 int launch_f32(const void* q, const void* k, const void* v, void* out, int batch, int tq,
-               int tk, int kvh, int hd, int rep, int causal, float scale, cudaStream_t st) {
+               int tk, int kvh, int hd, int rep, int causal, int q_offset, float scale,
+               cudaStream_t st) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<float>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -538,25 +541,29 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int batch
   const dim3 grid((rows + kBM - 1) / kBM, batch * kvh);
   flash_attention_kernel<float><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), tq, tk, kvh, hd, rep, causal, scale);
+      static_cast<float*>(out), tq, tk, kvh, hd, rep, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the tensor-core
-// kernel).  Returns cudaGetLastError() after the launch (0 = launched).
+// kernel).  q_offset >= 0 shifts the causal mask (key <= token + q_offset).
+// Returns cudaGetLastError() after the launch (0 = launched).
 // The caller checks hd <= 128 and hd % 8 == 0 for f32, hd % 16 == 0 for
 // bf16, that every pointer is 16-byte aligned and the tensors contiguous.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int batch, int tq, int tk, int kvh, int hd, int rep,
-                                      int causal, float scale, int dtype, void* stream) {
+                                      int causal, int q_offset, float scale, int dtype,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
-    case 0: return launch_f32(q, k, v, out, batch, tq, tk, kvh, hd, rep, causal, scale, st);
+    case 0:
+      return launch_f32(q, k, v, out, batch, tq, tk, kvh, hd, rep, causal, q_offset, scale, st);
     case 1:
-      return static_cast<int>(
-          launch_bf16(q, k, v, out, batch, tq, tk, kvh, hd, rep, causal, scale, st));
+      return static_cast<int>(launch_bf16(q, k, v, out, batch, tq, tk, kvh, hd, rep, causal,
+                                          q_offset, scale, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

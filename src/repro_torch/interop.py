@@ -8,7 +8,8 @@ the same weights.  `train_state_from_numpy` does the same for a whole train
 state (params, AdamW `m`/`v`/`count`, `step`), and `train_state_to_numpy`
 goes back, so a port state can be handed to the reference;
 `stack_ranks` stacks the data-parallel ranks' (1, *shape) residual slices
-into the reference's (dp, *shape) layout.  bfloat16 arrays arrive as `ml_dtypes.bfloat16`, which
+into the reference's (dp, *shape) layout.  `shard_params` cuts a full
+parameter tree into this rank's blocks for tensor-parallel serving.  bfloat16 arrays arrive as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses; they travel as their 16-bit patterns
 (`view(np.uint16)`) and are reinterpreted as `torch.bfloat16`.  Neither
 `jax` nor `ml_dtypes` is imported here.
@@ -24,7 +25,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.tree import tree_map
 
-__all__ = ["params_from_numpy", "stack_ranks", "train_state_from_numpy", "train_state_to_numpy"]
+__all__ = ["params_from_numpy", "shard_params", "stack_ranks", "train_state_from_numpy",
+           "train_state_to_numpy"]
 
 
 def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -81,3 +83,55 @@ def stack_ranks(trees) -> Any:
     if isinstance(first, dict):
         return {k: stack_ranks([t[k] for t in trees]) for k in first}
     return np.concatenate(trees, axis=0)
+
+
+def shard_params(params: Any, model, ctx) -> Any:
+    """This rank's blocks of the full parameter tree `params` (from the
+    reference's init through `params_from_numpy`, or the port's own), laid
+    out as the model code under `ctx` (a `models.layers.ShardCtx`) reads
+    them.
+
+    Each leaf is `shard_of` its `tree_shardings(model.logical_axes(), mesh,
+    rules)` sharding (indivisible dims replicated), with two exceptions,
+    where the port's layout is not the flat split of the dim:
+      * 'heads' and 'kv_heads' dims (h * hd, kv * hd) split in whole heads,
+        and replicate unless the head count divides the axis;
+      * a fused [gate | up] dim (`moe.FUSED_GATE_UP`) gives each rank its
+        slice of gate beside its slice of up, so the model's local split
+        pairs them (a flat split would give rank 0 all of gate).
+    Without a live mesh the tree comes back as it is.
+    """
+    from repro_torch.models.moe import FUSED_GATE_UP
+    from repro_torch.parallel.sharding import named_sharding, shard_of
+
+    if not ctx.active:
+        return params
+    cfg, hd = model.cfg, model.cfg.head_dim_
+    rules, _, lay = ctx._resolved
+    units = {"heads": (cfg.num_heads, hd), "kv_heads": (cfg.num_kv_heads, hd)}
+
+    def cut(t, axes, key):
+        special = [a in units or (a == "mlp" and key in FUSED_GATE_UP) for a in axes]
+        if not any(special):
+            return shard_of(t, named_sharding(axes, ctx.mesh, rules, shape=t.shape), lay)
+        for d, a in enumerate(axes):
+            if a in units:
+                n, unit = units[a]
+                part = ctx.part(a, n)
+                t = t.narrow(d, part.start * unit, part.size * unit)
+            elif a == "mlp" and key in FUSED_GATE_UP:
+                part = ctx.part(a, t.shape[d] // 2)
+                gate, up = t.chunk(2, dim=d)
+                t = torch.cat([gate.narrow(d, part.start, part.size),
+                               up.narrow(d, part.start, part.size)], dim=d)
+            elif a is not None:
+                part = ctx.part(a, t.shape[d])
+                t = t.narrow(d, part.start, part.size)
+        return t.contiguous()
+
+    def walk(node, axes, key):
+        if isinstance(node, dict):
+            return {k: walk(v, axes[k], k) for k, v in node.items()}
+        return cut(node, axes, key).clone()
+
+    return walk(params, model.logical_axes(), None)

@@ -13,7 +13,10 @@ contract are the reference's:
 
 `Tq * rep % block_q` and `Tk % block_k` must be 0 (ValueError otherwise).
 The causal mask is the reference's, top-left aligned: query token t sees
-keys 0..t, with no offset, so Tq and Tk may differ.
+keys 0..t + q_offset, so Tq and Tk may differ.  `q_offset` (default 0, the
+reference's kernel) is where a context-parallel rank's query rows start in
+the sequence: a rank holding tokens [o, o + Tq) attends them to keys
+[0, o + Tq) with q_offset = o (`models.attention`, the 'seq_attn' rule).
 
 On a CUDA tensor `flash_attention` launches the hand-written kernel
 (`csrc/flash_attention.cu`, see its header for the design: bf16 on the
@@ -53,7 +56,7 @@ _MAX_HEAD_DIM = 128  # csrc/flash_attention.cu: kMaxHeadDim
 _HEAD_DIM_STEP = {torch.bfloat16: 16, torch.float32: 8}
 
 
-def _check(q, k, v, causal, block_q, block_k):
+def _check(q, k, v, causal, block_q, block_k, q_offset=0):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             f"flash attention takes q (B, Tq, H, hd) and k, v (B, Tk, KV, hd), got"
@@ -63,6 +66,8 @@ def _check(q, k, v, causal, block_q, block_k):
     b2, tk, kvh, hd2 = k.shape
     if b != b2 or hd != hd2 or kvh == 0 or h % kvh:
         raise ValueError(f"q {tuple(q.shape)} does not group over k {tuple(k.shape)}")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"q_offset must be a non-negative int, got {q_offset!r}")
     rows = tq * (h // kvh)
     if block_q < 1 or block_k < 1 or rows % block_q or tk % block_k:
         raise ValueError(
@@ -77,6 +82,7 @@ def _sdpa_chunked(
     *,
     causal: bool,
     chunk: int,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Flash-style attention: online softmax over KV chunks.
 
@@ -85,7 +91,10 @@ def _sdpa_chunked(
     (m, l, acc) recurrence in f32, probabilities cast to q's type before the
     V contraction (whose result is in q's type, as the reference's einsum
     gives), and acc / l cast back.  The reference's `lax.scan` is a Python
-    loop; autograd differentiates it as `jax.grad` does the scan.
+    loop; autograd differentiates it as `jax.grad` does the scan.  With
+    `q_offset`, query token t is token t + q_offset of the sequence for the
+    causal mask, as in `models.attention._sdpa` (the reference's chunked
+    form has no offset; at 0 this is it).
     """
     b, tq, h, hd = q.shape
     tk, kvh = k.shape[1], k.shape[2]
@@ -94,7 +103,7 @@ def _sdpa_chunked(
         raise ValueError(f"Tk={tk} not divisible by chunk={chunk}")
     q5 = q.reshape(b, tq, kvh, rep, hd).float()
     scale = hd**-0.5
-    qpos = torch.arange(tq, device=q.device)[:, None]  # (Tq, 1)
+    qpos = torch.arange(tq, device=q.device)[:, None] + q_offset  # (Tq, 1)
 
     m = torch.full((b, kvh, rep, tq), _NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kvh, rep, tq), dtype=torch.float32, device=q.device)
@@ -125,16 +134,17 @@ def flash_attention_torch(
     causal: bool = True,
     block_q: int = 512,
     block_k: int = 512,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """The plain version of K6: `_sdpa_chunked` over chunks of block_k keys."""
-    _check(q, k, v, causal, block_q, block_k)
-    return _sdpa_chunked(q, k, v, causal=causal, chunk=block_k)
+    _check(q, k, v, causal, block_q, block_k, q_offset)
+    return _sdpa_chunked(q, k, v, causal=causal, chunk=block_k, q_offset=q_offset)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.library("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -155,12 +165,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Launch K6 on CUDA tensors (no fallback: a refused launch raises):
     bf16 runs the tensor-core kernel, f32 the SIMT kernel.  Shapes as
     `flash_attention`; no gradient (see `_FlashAttention`)."""
-    _check(q, k, v, causal, 1, 1)
+    _check(q, k, v, causal, 1, 1, q_offset)
     if any(t.device.type != "cuda" or t.device != q.device for t in (q, k, v)):
         raise ValueError("flash_attention_cuda needs q, k and v on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -182,7 +193,7 @@ def flash_attention_cuda(
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, tq, tk, kvh, hd,
-        h // kvh, int(causal), hd**-0.5, _DTYPE_CODES[q.dtype],
+        h // kvh, int(causal), q_offset, hd**-0.5, _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -192,28 +203,31 @@ def flash_attention_cuda(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """`forward_impl(q, k, v, causal)` forward; the backward recomputes the
-    chunked recurrence (`_sdpa_chunked`, chunk `chunk`) under autograd and
-    returns its gradient — the reference's autodiff of the same function.
-    The forward is an argument so that the backward runs on the CPU too."""
+    """`forward_impl(q, k, v, causal)` forward (with `q_offset` bound in
+    it); the backward recomputes the chunked recurrence (`_sdpa_chunked`,
+    chunk `chunk`, the same `q_offset`) under autograd and returns its
+    gradient — the reference's autodiff of the same function.  The forward
+    is an argument so that the backward runs on the CPU too."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, chunk: int, forward_impl: Callable):
+    def forward(ctx, q, k, v, causal: bool, chunk: int, forward_impl: Callable,
+                q_offset: int = 0):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.chunk = causal, chunk
+        ctx.causal, ctx.chunk, ctx.q_offset = causal, chunk, q_offset
         return forward_impl(q, k, v, causal)
 
     @staticmethod
     def backward(ctx, d_out):
         q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
         with torch.enable_grad():
-            out = _sdpa_chunked(q, k, v, causal=ctx.causal, chunk=ctx.chunk)
+            out = _sdpa_chunked(q, k, v, causal=ctx.causal, chunk=ctx.chunk,
+                                q_offset=ctx.q_offset)
             dq, dk, dv = torch.autograd.grad(out, (q, k, v), d_out)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def _launch(q, k, v, causal):
-    return flash_attention_cuda(q, k, v, causal=causal)
+def _launch(q, k, v, causal, q_offset=0):
+    return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def flash_attention(
@@ -224,16 +238,19 @@ def flash_attention(
     causal: bool = True,
     block_q: int = 512,
     block_k: int = 512,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """SDPA with traffic Q + K + V + O: CPU tensors run
     `flash_attention_torch`; CUDA tensors launch K6 inside `_FlashAttention`
     (gradients by recompute)."""
-    _check(q, k, v, causal, block_q, block_k)
+    _check(q, k, v, causal, block_q, block_k, q_offset)
     if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+        return flash_attention_torch(q, k, v, causal=causal, block_q=block_q, block_k=block_k,
+                                     q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
-    return _FlashAttention.apply(q, k, v, causal, block_k, _launch)
+    return _FlashAttention.apply(q, k, v, causal, block_k,
+                                 functools.partial(_launch, q_offset=q_offset), q_offset)
 
 
 flash_attention.launches = 0

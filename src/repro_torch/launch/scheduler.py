@@ -51,6 +51,15 @@ position-free.  hybrid and audio are not schedulable, as in the reference.
 The decode step runs at a fixed (max_slots,) shape; on the paged path each
 tick writes its new K/V rows into the pools in place (see
 `attention_paged_decode`).
+
+Tensor-parallel serving (`ctx`, a `ShardCtx` over a ('data', 'model')
+mesh): every rank runs the same server on the same requests, so the
+host-side scheduling (queue, admission, pages, deadlines in ticks) is the
+same on every rank, and its steps are the tensor-parallel model's: the
+page pools hold the kv heads this rank's query heads read, and each
+step's next tokens are gathered from the vocab shards on every rank.  A
+'data' axis of more than one rank is refused (NotImplementedError): the
+reference splits the slots over it, which is ROADMAP 13(d).
 """
 
 from __future__ import annotations
@@ -63,9 +72,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.attention import head_layout
+from repro_torch.models.layers import NO_SHARD, ShardCtx
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _obs
 from repro_torch.resilience import faults, ledger
+from repro_torch.train.train_step import _next_token
 
 __all__ = [
     "ContinuousBatchingServer",
@@ -197,8 +209,13 @@ class ContinuousBatchingServer:
     must already live there.
     """
 
-    def __init__(self, model, params, cfg: ServeConfig, *, device=None):
+    def __init__(self, model, params, cfg: ServeConfig, ctx: ShardCtx = NO_SHARD, *,
+                 device=None):
         fam = model.cfg.family
+        if ctx.axis_size("data") > 1:
+            raise NotImplementedError(
+                "the continuous-batching server under a 'data' axis of more than one rank"
+                " is not ported (ROADMAP 13(d)); serve under a 1xM mesh")
         if fam not in _SCHEDULABLE:
             raise NotImplementedError(
                 f"family {fam!r} is not schedulable (supported: {_SCHEDULABLE});"
@@ -213,6 +230,7 @@ class ContinuousBatchingServer:
         self.model = model
         self.params = params
         self.cfg = cfg
+        self.ctx = ctx
         self._paged = model.supports_paged  # dense/moe/vlm; ssm stacks state
         self._patch_offset = model.cfg.num_stub_patches if fam == "vlm" else 0
         self._tick = 0
@@ -252,14 +270,15 @@ class ContinuousBatchingServer:
 
         if self._paged:
             self.alloc = PageAllocator(cfg.num_pages)
-            self.pools = zeros(model.paged_pool_specs(cfg.num_pages, cfg.page_size))
+            self.pools = zeros(model.paged_pool_specs(cfg.num_pages, cfg.page_size, ctx))
+            self._heads = head_layout(model.cfg, ctx)
             self.state = None
         else:
             self.alloc = self.pools = None
             self.state = zeros(model.decode_state_specs(cfg.max_slots, 0))
         from repro_torch.launch.serve import serving_steps
 
-        self._prefill, _ = serving_steps(model)
+        self._prefill, _ = serving_steps(model, ctx)
 
     # -- device steps ----------------------------------------------------------
 
@@ -277,12 +296,13 @@ class ContinuousBatchingServer:
                 self.pools,
                 torch.as_tensor(tables, device=dev),
                 torch.as_tensor(positions, device=dev),
+                self.ctx,
                 impl=self.cfg.impl,
             )
         else:  # ssm: position-free, one state row per slot
             logits, state = self.model.decode(
-                self.params, torch.as_tensor(tokens, device=dev), self.state, 0)
-        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32), state
+                self.params, torch.as_tensor(tokens, device=dev), self.state, 0, self.ctx)
+        return _next_token(logits, tokens.shape[0], self.model.cfg, self.ctx), state
 
     @torch.inference_mode()
     def _insert_state(self, new, slot: int) -> None:
@@ -295,10 +315,11 @@ class ContinuousBatchingServer:
     def _scatter(self, caches, pages: List[int]) -> None:
         """Write a prefill's (L, 1, T, KV, hd) caches into `pages` of the
         pools.  T is padded up to len(pages)*page_size; the zero tail is
-        masked by `lengths` in attention and overwritten as decode goes on."""
+        masked by `lengths` in attention and overwritten as decode goes on.
+        Under a mesh the pools take the kv heads this rank reads."""
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
         for name in ("k", "v"):
-            pool, c = self.pools[name], caches[name]
+            pool, c = self.pools[name], self._heads.select(caches[name], 3)
             layers, _, t, kvh, hd = c.shape
             n, ps = len(pages), pool.shape[2]
             c2 = torch.nn.functional.pad(c[:, 0], (0, 0, 0, 0, 0, n * ps - t))

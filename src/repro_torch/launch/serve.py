@@ -17,6 +17,18 @@ that raises is reported, recorded in the resilience ledger and skipped.
 `--scheduler` serves each request as one single-prompt request of the
 continuous-batching scheduler (`launch/scheduler.py`) instead.
 
+`--mesh DxM` serves tensor-parallel under a ('data', 'model') mesh of D x M
+ranks, one process each, started by torchrun (or any rendezvous
+`launch.mesh.init_distributed` reads):
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch mesh-paper \
+      --reduced --device cpu --mesh 1x2
+
+Every rank draws the same parameters from the seed and keeps its block
+(`interop.shard_params`), gets the same prompts and the same tokens back;
+the batch rows split over 'data' where they divide.  Rank 0 prints.  On
+one card the ranks share it over gloo (NCCL takes one rank a card).
+
 `--obs-export PATH` turns tracing on before any model work, installs the
 obs bridge (ledger events -> `repro_degradations_total`, `plan.execute`
 spans -> cost-model calibration records, on the card with the device time
@@ -40,6 +52,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.kernels import api as kernel_api
 from repro_torch.models import get_model
+from repro_torch.models.layers import NO_SHARD, ShardCtx
 from repro_torch.obs import trace as _obs
 from repro_torch.resilience import faults as _faults
 from repro_torch.resilience import ledger as _rledger
@@ -54,11 +67,12 @@ __all__ = [
 ]
 
 
-def serving_steps(model):
-    """The (prefill_step, serve_step) pair for a model.  PyTorch runs
-    eagerly, so there is no trace to cache: the steps are plain functions,
-    shared by `generate` and the continuous-batching scheduler."""
-    return make_prefill_step(model), make_serve_step(model)
+def serving_steps(model, ctx: ShardCtx = NO_SHARD):
+    """The (prefill_step, serve_step) pair for a model under `ctx`.  PyTorch
+    runs eagerly, so there is no trace to cache: the steps are plain
+    functions, shared by `generate` and the continuous-batching
+    scheduler."""
+    return make_prefill_step(model, ctx), make_serve_step(model, ctx)
 
 
 def report_plan_cache(prefix: str = "[serve]") -> dict:
@@ -71,10 +85,14 @@ def report_plan_cache(prefix: str = "[serve]") -> dict:
     measured milliseconds when the calibration file holds a record for the
     same shape/backend, and the p50/p99 of its traced executions — and
     entries whose backend the cost model chose print the decision (chosen
-    candidate, how many were ranked, calibration source).
+    candidate, how many were ranked, calibration source).  Sharded plans
+    (a ShardSpec) print their collective schedule, mesh, bytes moved and
+    the roofline's collective time (`shard=<schedule>@<mesh> moved=<bytes>B
+    t_coll=<us>`, ` ov` for an overlapped schedule), others `shard=-`.
     """
     from repro_torch.costmodel import current_coefficients, predict, terms_from_describe
     from repro_torch.costmodel.calibrate import default_cache
+    from repro_torch.launch.roofline import analyze_plan
 
     info = kernel_api.plan_cache_info()
     print(
@@ -99,6 +117,15 @@ def report_plan_cache(prefix: str = "[serve]") -> dict:
         ) or "-"
         grp = p["grouped"]
         grp_s = f" grouped {grp['num_groups']}x{grp['rows_per_group']} rows" if grp else ""
+        sh = p.get("sharding")
+        shard_s = "-"
+        if sh:
+            mesh_s = "x".join(str(size) for _, size in sh["mesh"])
+            shard_s = (f"{sh['schedule']}@{mesh_s} moved={sh['bytes_moved']}B"
+                       f" t_coll={analyze_plan(p)['t_collective_s'] * 1e6:.2f}us")
+            if sh.get("overlap"):
+                eff = sh.get("overlap_efficiency")
+                shard_s += " ov" + (f"={eff:.2f}x" if eff else "")
         coeffs = current_coefficients(p["device"])
         try:
             measured_ms = {rec.get("key"): rec["ms"]
@@ -120,7 +147,8 @@ def report_plan_cache(prefix: str = "[serve]") -> dict:
         print(
             f"{prefix}   {p['backend']:9s} {p['device']:4s} {p['structure']:9s} "
             f"{p['mkn']:>18s} batch={p['batch'] or '-'} blocks={blocks} "
-            f"epi={epi_s:12s} flops={p['flops']:.2e}{grp_s} {cost_s} decision={dec_s}"
+            f"epi={epi_s:12s} flops={p['flops']:.2e}{grp_s} shard={shard_s} {cost_s}"
+            f" decision={dec_s}"
         )
     return info
 
@@ -133,17 +161,19 @@ _GROWN_CACHES = {"dense": None, "moe": None, "vlm": None,  # None: every entry
                  "hybrid": ("kv_k", "kv_v"), "audio": ("k", "v"), "ssm": ()}
 
 
-def generate(model, params, prompts: torch.Tensor, *, gen_len: int):
+def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
+             ctx: ShardCtx = NO_SHARD):
     """Prefill the prompts then decode `gen_len` tokens greedily against a
     dense KV cache (attention is the plain `_sdpa`).  vlm prompts get zero
     stub patches and decode from t_prompt + num_stub_patches.
 
-    prompts: (B, T_prompt) int32 on the parameters' device.  Returns
-    (tokens (B, gen_len) int32, decode steps per second).
+    prompts: (B, T_prompt) int32 on the parameters' device, the same on
+    every rank under a mesh (`ctx`), where `params` is this rank's block.
+    Returns (tokens (B, gen_len) int32, decode steps per second).
     """
     cfg = model.cfg
     b, t_prompt = prompts.shape
-    prefill, serve = serving_steps(model)
+    prefill, serve = serving_steps(model, ctx)
     batch = {"tokens": prompts, "labels": prompts}
     if cfg.family == "vlm":
         batch["patches"] = torch.zeros((b, cfg.num_stub_patches, cfg.d_model),
@@ -170,7 +200,8 @@ def generate(model, params, prompts: torch.Tensor, *, gen_len: int):
     return out, steps_per_s
 
 
-def serve_requests(model, params, request_prompts, *, gen_len: int, prefix: str = "[serve]"):
+def serve_requests(model, params, request_prompts, *, gen_len: int, prefix: str = "[serve]",
+                   ctx: ShardCtx = NO_SHARD):
     """Serve independent prompt batches via `generate`, isolating failures:
     a request that raises is reported, recorded in the ledger under
     `serve.request`, and skipped.  Returns a list parallel to
@@ -181,7 +212,7 @@ def serve_requests(model, params, request_prompts, *, gen_len: int, prefix: str 
             with _obs.span("serve.request", request=i, batch=int(prompts.shape[0]),
                            gen=gen_len):
                 _faults.check("serve.request", request=i)
-                results.append(generate(model, params, prompts, gen_len=gen_len))
+                results.append(generate(model, params, prompts, gen_len=gen_len, ctx=ctx))
         except Exception as e:  # a request boundary: report, record, go on
             _rledger.record(
                 "serve.request", cause=f"{type(e).__name__}: {e}", fallback="skip", request=i
@@ -192,6 +223,10 @@ def serve_requests(model, params, request_prompts, *, gen_len: int, prefix: str 
     if served < len(results):
         print(f"{prefix} served {served}/{len(results)} requests")
     return results
+
+
+def _silent(*_) -> None:
+    """`print` on the ranks that do not print."""
 
 
 def main(argv=None) -> None:
@@ -235,6 +270,14 @@ def main(argv=None) -> None:
         "PATH.jsonl raw spans); also bridges ledger events into metrics and "
         "feeds plan.execute spans to the cost-model calibration cache",
     )
+    ap.add_argument(
+        "--mesh",
+        default=None,
+        metavar="DxM",
+        help="serve tensor-parallel under a ('data', 'model') mesh of D x M ranks,"
+        " one process each (torchrun or a rendezvous; ranks past D x M take no"
+        " part); rank 0 prints",
+    )
     args = ap.parse_args(argv)
 
     if args.obs_export:
@@ -247,6 +290,19 @@ def main(argv=None) -> None:
         _bridge.install()
 
     device = resolve_device(args.device)
+    ctx, lead = NO_SHARD, True
+    if args.mesh:
+        from repro_torch.launch.mesh import init_distributed, make_local_mesh
+
+        shape = tuple(int(x) for x in args.mesh.lower().split("x"))
+        _, rank = init_distributed(device)
+        ctx = ShardCtx(make_local_mesh(shape, ("data", "model")))
+        if rank >= shape[0] * shape[1]:
+            return  # this rank is not in the mesh
+        lead = rank == 0
+    out = print if lead else _silent
+    if args.mesh:
+        out(f"[serve] mesh: data={shape[0]} model={shape[1]}")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -255,6 +311,10 @@ def main(argv=None) -> None:
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device)
+    if ctx.active:
+        from repro_torch.interop import shard_params
+
+        params = shard_params(params, model, ctx)
     request_prompts = []
     for r in range(max(args.requests, 1)):
         g = torch.Generator(device=device).manual_seed(args.seed + 1 + r)
@@ -279,7 +339,7 @@ def main(argv=None) -> None:
             queue_capacity=max(args.requests, 1),
             warmup_prompt_lens=(args.prompt_len,),
         )
-        server = ContinuousBatchingServer(model, params, scfg, device=device)
+        server = ContinuousBatchingServer(model, params, scfg, ctx, device=device)
         server.warmup()
         reqs = [
             Request(rid=f"req{r}", prompt=p[0].cpu().numpy(), max_new_tokens=args.gen)
@@ -288,46 +348,46 @@ def main(argv=None) -> None:
         t0 = time.monotonic()
         results_by_rid = server.run(reqs)
         dt = time.monotonic() - t0
-        print(
+        out(
             f"[serve] {args.arch} scheduler slots={scfg.max_slots} "
             f"pages={scfg.num_pages}x{scfg.page_size} prompt={args.prompt_len} "
             f"gen={args.gen} ticks={server.counters['ticks']} device={device}"
         )
         for r in reqs:
             res = results_by_rid[r.rid]
-            print(
+            out(
                 f"[serve] {res.rid}: {res.status:9s} {len(res.tokens)} tokens "
                 f"lat={res.latency_s * 1e3:.1f}ms {res.tokens[:16]}"
             )
         rate = server.counters["decode_tokens"] / dt if dt > 0 else 0.0
-        print(f"[serve] {server.counters}, {rate:.1f} tok/s")
+        out(f"[serve] {server.counters}, {rate:.1f} tok/s")
     else:
-        results = serve_requests(model, params, request_prompts, gen_len=args.gen)
-        print(
+        results = serve_requests(model, params, request_prompts, gen_len=args.gen, ctx=ctx)
+        out(
             f"[serve] {args.arch} batch={args.batch} prompt={args.prompt_len} "
             f"gen={args.gen} device={device}"
         )
         for r, res in enumerate(results):
             if res is None:
                 continue
-            out, rate = res
-            print(
+            toks, rate = res
+            out(
                 f"[serve] req {r}: decode steps/s {rate:.2f} "
-                f"({rate * args.batch:.1f} tok/s batched), row 0: {out[0].tolist()[:16]}"
+                f"({rate * args.batch:.1f} tok/s batched), row 0: {toks[0].tolist()[:16]}"
             )
-    if args.plan_stats:
+    if args.plan_stats and lead:
         report_plan_cache()
         if _obs.is_enabled():
             st = _obs.stats()
-            print(
+            out(
                 f"[serve] obs: {st['finished']} spans "
                 f"({st['retained']} retained, {st['dropped']} dropped, "
                 f"{st['suppressed_in_trace']} suppressed-in-trace)"
             )
     if _rledger.count():
-        print(_rledger.format_summary("[serve]"))
+        out(_rledger.format_summary("[serve]"))
 
-    if args.obs_export:
+    if args.obs_export and lead:
         from repro_torch.obs import bridge as _bridge
         from repro_torch.obs import export as _export
 
@@ -344,7 +404,7 @@ def main(argv=None) -> None:
         )
         _export.write_prometheus(args.obs_export + ".prom")
         _export.write_spans_jsonl(args.obs_export + ".jsonl")
-        print(
+        out(
             f"[serve] obs export: {args.obs_export} (+.prom, +.jsonl), "
             f"{ingested} calibration records ingested"
         )

@@ -9,23 +9,47 @@ chunk (and longer than one) takes the flash path: `kernels.flash_attention`,
 kernel K6 on the card and `_sdpa_chunked` on the CPU, causal or not (the
 Whisper encoder's full attention).  Cross-attention (`cross_kv`) projects
 only the queries and attends, unrotated and unmasked, over keys and values
-the caller computed.  Sharding constraints (the reference's 'seq_attn' rule
-among them) arrive with their slice.
+the caller computed.
+
+Tensor parallelism (a `ShardCtx` with a live mesh; `HeadLayout`): wq, wk
+and wv are column-parallel, so each process projects its own query heads
+and kv heads, K4 and K6 run on them, and wo is row-parallel (f32 partials,
+one all-reduce: `layers.dense_rows`).  Heads shard where their count
+divides the 'model' axis and replicate otherwise, as the reference's
+`_drop_indivisible` does; where the query heads shard and the kv heads do
+not, every process holds all kv heads (the reference's replicated cache)
+and its query head g reads global kv head g // rep.  With the 'seq_attn'
+rule on 'model' the chunked path is context-parallel: q goes to a block of
+query rows over all heads (first-wins takes 'model' from 'heads'), K and V
+are gathered whole, each process attends its rows [o, o + T/M) to keys
+[0, o + T/M) through K6 with q_offset = o, and the rows are gathered back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import PSpec, apply_rope, dense
+from repro_torch.models.layers import (
+    NO_SHARD,
+    Part,
+    PSpec,
+    ShardCtx,
+    apply_rope,
+    dense,
+    dense_rows,
+)
+from repro_torch.parallel.sharding import PartitionSpec as P
 
 __all__ = [
+    "HeadLayout",
     "attn_specs",
     "attention",
     "attention_paged_decode",
+    "head_layout",
     "init_cache_shape",
     "Cache",
 ]
@@ -55,6 +79,56 @@ def attn_specs(cfg, *, prefix_scale: float = 1.0) -> Dict[str, PSpec]:
 def init_cache_shape(cfg, batch: int, max_len: int) -> Dict[str, Tuple[int, ...]]:
     kv, hd = cfg.num_kv_heads, cfg.head_dim_
     return {"k": (batch, max_len, kv, hd), "v": (batch, max_len, kv, hd)}
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadLayout:
+    """Which heads this process holds under a `ShardCtx`.
+
+    q          this process's `Part` of the query heads
+    kv         its `Part` of the kv heads: the heads its projections and
+               its dense KV cache hold (all of them where they replicate)
+    read       the cache's heads (indices into `kv`'s block) its query
+               heads attend, in order; the paged pools hold just these
+    rep        query heads per read kv head
+    """
+
+    q: Part
+    kv: Part
+    read: Tuple[int, ...]
+    rep: int
+
+    @property
+    def reads_all(self) -> bool:
+        return self.read == tuple(range(self.kv.size))
+
+    def select(self, t: torch.Tensor, dim: int = 2) -> torch.Tensor:
+        """The `read` heads of `t`, whose dim `dim` holds the kv block."""
+        if self.reads_all:
+            return t
+        lo = self.read[0]
+        if self.read == tuple(range(lo, lo + len(self.read))):
+            return t.narrow(dim, lo, len(self.read))
+        return t.index_select(dim, torch.tensor(self.read, device=t.device))
+
+
+def head_layout(cfg, ctx: ShardCtx = NO_SHARD) -> HeadLayout:
+    """The `HeadLayout` of cfg's attention under `ctx` (module docstring)."""
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    rep = h // kvh
+    qp, kvp = ctx.part("heads", h), ctx.part("kv_heads", kvh)
+    if kvp.count > 1:
+        if (qp.count, qp.axes) != (kvp.count, kvp.axes):
+            raise NotImplementedError(f"kv heads sharded {kvp} where the query heads are {qp}")
+        return HeadLayout(qp, kvp, tuple(range(kvp.size)), rep)
+    if qp.count == 1:
+        return HeadLayout(qp, kvp, tuple(range(kvh)), rep)
+    q0, n = qp.start, qp.size
+    if n % rep == 0:  # whole groups of rep query heads
+        return HeadLayout(qp, kvp, tuple(range(q0 // rep, (q0 + n) // rep)), rep)
+    if rep % n == 0:  # all of them inside one group
+        return HeadLayout(qp, kvp, (q0 // rep,), n)
+    return HeadLayout(qp, kvp, tuple((q0 + j) // rep for j in range(n)), 1)
 
 
 def _sdpa(
@@ -99,6 +173,7 @@ def attention_paged_decode(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (S, 1, D) — one new token per sequence slot
     cfg,
+    ctx: ShardCtx = NO_SHARD,
     *,
     k_pool: torch.Tensor,  # (P, page_size, KV, hd) shared page pool
     v_pool: torch.Tensor,
@@ -116,44 +191,80 @@ def attention_paged_decode(
     that fails part way has written only the rows at each slot's current
     position, which a retry of the same step rewrites with the same values.
     Inactive slots (all-zero block table, position 0) write into page 0 —
-    the scheduler's scratch page.  Returns (y (S, 1, D), (k_pool, v_pool)).
+    the scheduler's scratch page.  Under a mesh the pools hold the kv heads
+    this process's query heads read (`HeadLayout.read`).  Returns
+    (y (S, 1, D), (k_pool, v_pool)).
     """
     from repro_torch.kernels.paged_attention import paged_attention
 
-    s, t, _ = x.shape
+    s, t, d = x.shape
     if t != 1:
         raise ValueError(f"paged decode is single-token; got T={t}")
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    h, hd = cfg.num_heads, cfg.head_dim_
+    lay = head_layout(cfg, ctx)
     pos2 = positions[:, None]  # (S, 1) per-row positions for RoPE
 
-    q = dense(x, p["wq"], cfg, p.get("bq")).reshape(s, 1, h, hd)
-    k = dense(x, p["wk"], cfg, p.get("bk")).reshape(s, 1, kvh, hd)
-    v = dense(x, p["wv"], cfg, p.get("bv")).reshape(s, 1, kvh, hd)
+    q = dense(x, p["wq"], cfg, p.get("bq")).reshape(s, 1, lay.q.size, hd)
+    k = dense(x, p["wk"], cfg, p.get("bk")).reshape(s, 1, lay.kv.size, hd)
+    v = dense(x, p["wv"], cfg, p.get("bv")).reshape(s, 1, lay.kv.size, hd)
     q = apply_rope(q, pos2, cfg.rope_theta)
     k = apply_rope(k, pos2, cfg.rope_theta)
+    q = ctx.c(q, ("batch", "seq", "heads", "head_dim"), (None, 1, h, hd))
 
-    ps = k_pool.shape[1]
+    ps, n_pool = k_pool.shape[1], k_pool.shape[2]
     pos_l = positions.long()
     page = torch.gather(block_tables.long(), 1, (pos_l // ps)[:, None])
     flat = page[:, 0] * ps + pos_l % ps  # (S,) rows in the (P*ps, ...) view
-    k_pool.view(-1, kvh, hd)[flat] = k[:, 0].to(k_pool.dtype)
-    v_pool.view(-1, kvh, hd)[flat] = v[:, 0].to(v_pool.dtype)
+    k_pool.view(-1, n_pool, hd)[flat] = lay.select(k[:, 0], 1).to(k_pool.dtype)
+    v_pool.view(-1, n_pool, hd)[flat] = lay.select(v[:, 0], 1).to(v_pool.dtype)
 
     out = paged_attention(
-        q.reshape(s, h, hd),
+        q.reshape(s, lay.q.size, hd),
         k_pool,
         v_pool,
         block_tables,
         positions + 1,  # valid length includes the token just written
         impl=impl,
-    ).reshape(s, 1, h, hd)
-    return dense(out.reshape(s, 1, h * hd), p["wo"], cfg), (k_pool, v_pool)
+    ).reshape(s, 1, lay.q.size, hd)
+    out = ctx.c(out, ("batch", "seq", "heads", "head_dim"), (None, 1, h, hd))
+    y = dense_rows(out.reshape(s, 1, lay.q.size * hd), p["wo"], cfg, ctx, lay.q,
+                   ("batch", "seq", "embed"), (None, 1, d))
+    return y, (k_pool, v_pool)
+
+
+def _flash(q, k, v, cfg, ctx: ShardCtx, lay: HeadLayout, causal: bool, chunk: int):
+    """The chunked path (K6 on the card): (out, the layout out is in).
+
+    Unless the 'seq_attn' rule takes the query heads' mesh axis, K6 runs
+    on this process's query heads and the kv heads they read.  If it does
+    (first-wins: the heads replicate in that layout), context parallelism:
+    this process's block [o, o + T/M) of the query rows over all heads
+    (all rows where T does not divide), against every kv head and the keys
+    up to its last row, at q_offset o; `out` comes back in that layout."""
+    b, t, _, hd = q.shape
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    axes = ("batch", "seq_attn", "heads", "head_dim")
+    takes = ctx.axes_of("seq_attn")
+    if takes is None or lay.q.count == 1 or takes != lay.q.axes:
+        q = ctx.c(q, axes, (None, t, h, hd))
+        out = flash_attention(q, lay.select(k), lay.select(v), causal=causal, block_q=chunk,
+                              block_k=chunk)
+        return ctx.c(out, axes, (None, t, h, hd)), None
+    rows = ctx.part("seq_attn", t)
+    q = ctx.c(q, axes, (None, t, h, hd), src=P(None, None, lay.q.axes, None))
+    k = ctx.gather(k, ("batch", "seq", "kv_heads", "head_dim"), (None, t, kvh, hd))
+    v = ctx.gather(v, ("batch", "seq", "kv_heads", "head_dim"), (None, t, kvh, hd))
+    keys = min(t, -(-(rows.start + rows.size) // chunk) * chunk) if causal else t
+    out = flash_attention(q, k[:, :keys], v[:, :keys], causal=causal,
+                          block_q=rows.size * (h // kvh), block_k=chunk, q_offset=rows.start)
+    return ctx.c(out, axes, (None, t, h, hd)), P(None, rows.axes, None, None)
 
 
 def attention(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (B, T, D)
     cfg,
+    ctx: ShardCtx = NO_SHARD,
     *,
     positions: Optional[torch.Tensor] = None,
     causal: bool = True,
@@ -173,43 +284,58 @@ def attention(
       cross_kv=(k, v)                   cross-attention: only wq projects,
                                         nothing is rotated, no mask, plain
                                         `_sdpa`; the cache args are ignored
+
+    Under a mesh, x holds this process's batch rows, whole in D; the cache
+    holds its kv heads (`HeadLayout.kv`); the output is whole in D.
     """
     b, t, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    lay = head_layout(cfg, ctx)
     if positions is None:
         start = cache_pos if cache_pos is not None else 0
         positions = torch.arange(t, device=x.device)[None, :] + start
         positions = positions.expand(b, t)
 
-    q = dense(x, p["wq"], cfg, p.get("bq")).reshape(b, t, h, hd)
-    if cross_kv is not None:
+    q = dense(x, p["wq"], cfg, p.get("bq")).reshape(b, t, lay.q.size, hd)
+    if cross_kv is None:
+        k = dense(x, p["wk"], cfg, p.get("bk")).reshape(b, t, lay.kv.size, hd)
+        v = dense(x, p["wv"], cfg, p.get("bv")).reshape(b, t, lay.kv.size, hd)
+        if use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+    else:
         k, v = cross_kv
-        out = _sdpa(q, k, v, causal=False)
-        return dense(out.reshape(b, t, h * hd), p["wo"], cfg), None
-    k = dense(x, p["wk"], cfg, p.get("bk")).reshape(b, t, kvh, hd)
-    v = dense(x, p["wv"], cfg, p.get("bv")).reshape(b, t, kvh, hd)
-    if use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q = ctx.c(q, ("batch", "seq", "heads", "head_dim"), (None, t, h, hd))
 
     new_cache: Optional[Cache] = None
-    if cache is not None:
+    out_src = None  # the layout `out` is in, where it is not the heads'
+    kv_axes = ("kv_batch", "kv_seq", "kv_heads", "head_dim")
+    if cross_kv is not None:
+        out = _sdpa(q, lay.select(k), lay.select(v), causal=False)
+    elif cache is not None:
         # Decode: write the T new keys at cache_pos, attend over the prefix.
         ck = cache["k"].clone()
         cv = cache["v"].clone()
         ck[:, cache_pos : cache_pos + t] = k.to(ck.dtype)
         cv[:, cache_pos : cache_pos + t] = v.to(cv.dtype)
+        ck = ctx.c(ck, kv_axes, (None, ck.shape[1], kvh, hd))
+        cv = ctx.c(cv, kv_axes, (None, cv.shape[1], kvh, hd))
         new_cache = {"k": ck, "v": cv}
-        out = _sdpa(
-            q, ck, cv, causal=True, q_offset=cache_pos, kv_valid_len=cache_pos + t
-        )
+        out = _sdpa(q, lay.select(ck), lay.select(cv), causal=True, q_offset=cache_pos,
+                    kv_valid_len=cache_pos + t)
     else:
+        k = ctx.c(k, ("batch", "seq", "kv_heads", "head_dim"), (None, t, kvh, hd))
+        v = ctx.c(v, ("batch", "seq", "kv_heads", "head_dim"), (None, t, kvh, hd))
         chunk = cfg.attn_chunk
         if chunk and t > chunk and t % chunk == 0:
-            out = flash_attention(q, k, v, causal=causal, block_q=chunk, block_k=chunk)
+            out, out_src = _flash(q, k, v, cfg, ctx, lay, causal, chunk)
         else:
-            out = _sdpa(q, k, v, causal=causal)
+            out = _sdpa(q, lay.select(k), lay.select(v), causal=causal)
         if write_cache:
-            new_cache = {"k": k, "v": v}
+            new_cache = {"k": ctx.c(k, kv_axes, (None, t, kvh, hd)),
+                         "v": ctx.c(v, kv_axes, (None, t, kvh, hd))}
 
-    return dense(out.reshape(b, t, h * hd), p["wo"], cfg), new_cache
+    out = ctx.c(out, ("batch", "seq", "heads", "head_dim"), (None, t, h, hd), src=out_src)
+    y = dense_rows(out.reshape(b, t, lay.q.size * hd), p["wo"], cfg, ctx, lay.q,
+                   ("batch", "seq", "embed"), (None, t, d))
+    return y, new_cache

@@ -1,7 +1,7 @@
-"""Shared building blocks: param specs, norms, RoPE, the config-routed GEMM.
+"""Shared building blocks: param specs, norms, RoPE, the config-routed GEMM,
+and `ShardCtx`, which threads a device mesh through the model code.
 
-Port of `repro.models.layers` (without `ShardCtx`, which comes with
-tensor-parallel model code).  Each model family defines
+Port of `repro.models.layers`.  Each model family defines
 a `param_specs(cfg)` tree whose leaves are `PSpec(shape, logical_axes,
 scale, dtype, init)`; `init_params` materializes it from a
 `torch.Generator` on an explicit device.  All GEMMs go through the
@@ -10,21 +10,32 @@ GemmSpec, `api.plan` resolves the backend once per logical shape
 (cfg.use_mesh_kernel selects the mesh kernel), and the cached plan executes
 per call; `grouped_gemm` does the same for the MoE experts' ragged
 products.
+
+Tensor parallelism is SPMD by hand: under a `ShardCtx` with a live
+('data', 'model') mesh every process holds its own block of each weight
+(`interop.shard_params`) and of each activation, and the model code calls
+`torch.distributed` where GSPMD inserts a collective for the reference
+(`ShardCtx` below).  Without a mesh, the default, nothing changes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+import functools
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import api as _api
 
 __all__ = [
+    "NO_SHARD",
     "PSpec",
+    "Part",
+    "ShardCtx",
     "apply_rope",
     "dense",
+    "dense_rows",
     "gemm",
     "grouped_gemm",
     "init_params",
@@ -83,6 +94,136 @@ def logical_axes_tree(specs) -> Any:
     return _map_specs(lambda s: s.axes, specs)
 
 
+class Part(NamedTuple):
+    """This process's block of a dim of `n` along a logical axis: rows
+    [start, start + size) of n, cut `count` ways over the mesh `axes`
+    (count 1, axes None: whole)."""
+
+    start: int
+    size: int
+    count: int
+    axes: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Threading (mesh, rules) through model code; None mesh = no layouts.
+
+    `mesh` is a ('data', 'model') DeviceMesh over live ranks
+    (`launch.mesh.make_local_mesh`), `rules` a `ShardingRules` table
+    (DEFAULT_RULES when None).  Every model function takes one; the
+    default `ShardCtx()` makes every method below the identity, so a
+    single process computes exactly what it computes without the argument.
+
+    `c(x, axes, shape)` is where the port states a tensor's layout, at the
+    reference's `ctx.c` call sites.  It CHECKS that `x` is this process's
+    block of a tensor of global `shape` laid out as `axes` name it
+    (ValueError otherwise), and MOVES it there where the caller says how
+    it differs: a dim that arrives whole (at its global size) is sliced
+    into the layout, a dim sharded along other axes (`src`, a
+    PartitionSpec) is all-gathered, and a partial sum (`partial`, a `Part`
+    or mesh axes) is all-reduced.  A None entry of `shape` leaves that dim
+    as `x` holds it: the batch rows, which the serving steps split over
+    'data' before the model runs (`for_rows`) and which stay this
+    process's after.  `shape` None reads `x` as the whole tensor, the
+    reference's reading.  See `parallel.sharding.constrain`, which does
+    the work.
+
+    `part(axis, n)` is this process's `Part` of a dim of n along a logical
+    axis (replicated where n does not divide the axis, the reference's
+    `_drop_indivisible`); `gather(x, axes, shape)` all-gathers every dim
+    the layout shards (the serving steps' logits, tests).
+    """
+
+    mesh: Any = None
+    rules: Any = None
+    # This process's place on the mesh where it is not the mesh's own (a
+    # `parallel.sharding.MeshLayout`: laying out a rank's blocks without
+    # ranks, as `interop.shard_params` tests do); None reads the mesh.
+    layout: Any = None
+
+    @functools.cached_property
+    def _resolved(self):
+        from repro_torch.parallel import sharding
+
+        rules = self.rules or sharding.DEFAULT_RULES
+        shape = sharding.mesh_shape(self.mesh)
+        live = self.mesh is not None and any(s > 1 for s in shape.values())
+        lay = (self.layout or sharding.mesh_layout(self.mesh)) if live else None
+        return rules, shape, lay
+
+    @property
+    def active(self) -> bool:
+        """A mesh with an axis of more than one rank."""
+        return self.mesh is not None and self._resolved[2] is not None
+
+    def axis_size(self, name: str) -> int:
+        """The size of mesh axis `name` (1 without a mesh or that axis)."""
+        if self.mesh is None:
+            return 1
+        return self._resolved[1].get(name, 1)
+
+    def axes_of(self, logical: str):
+        """The mesh axes (a name or tuple) the rules map `logical` to, of
+        more than one rank in all; None otherwise."""
+        if not self.active:
+            return None
+        from repro_torch.parallel import sharding
+
+        rules, shape, _ = self._resolved
+        axes = sharding._axes_on_mesh(self.mesh, rules.get(logical))
+        return axes if sharding._count(shape, axes) > 1 else None
+
+    def part(self, logical: str, n: int) -> Part:
+        if not self.active:
+            return Part(0, n, 1, None)
+        from repro_torch.parallel import collectives, sharding
+
+        rules, shape, lay = self._resolved
+        axes = sharding._axes_on_mesh(self.mesh, rules.get(logical))
+        count = sharding._count(shape, axes)
+        if count == 1 or n % count:
+            return Part(0, n, 1, None)
+        idx, _ = collectives._flat_index(lay.shape, lay.coord, axes)
+        return Part(idx * (n // count), n // count, count, axes)
+
+    def for_rows(self, n: int) -> "ShardCtx":
+        """This ctx for a batch of n rows: itself where the rows split over
+        the batch axes (or there are none), else the same mesh with the
+        batch and its caches replicated (the rule for indivisible dims)."""
+        if self.axes_of("batch") is None or self.part("batch", n).count > 1:
+            return self
+        return ShardCtx(self.mesh, self._resolved[0].replace(batch=None, kv_batch=None),
+                        self.layout)
+
+    def c(self, x: torch.Tensor, axes: Sequence[Optional[str]],
+          shape: Optional[Sequence[Optional[int]]] = None, *, src=None,
+          partial=None) -> torch.Tensor:
+        if self.mesh is None:
+            return x
+        from repro_torch.parallel.sharding import constrain
+
+        if isinstance(partial, Part):
+            partial = partial.axes if partial.count > 1 else None
+        rules, _, lay = self._resolved
+        return constrain(x, axes, self.mesh, rules, shape=shape, src=src, partial=partial,
+                         layout=lay)
+
+    def gather(self, x: torch.Tensor, axes: Sequence[Optional[str]],
+               shape: Sequence[Optional[int]]) -> torch.Tensor:
+        if not self.active:
+            return x
+        from repro_torch.parallel.sharding import _count, logical_to_physical
+
+        rules, mshape, _ = self._resolved
+        spec = tuple(a if g is not None and g % _count(mshape, a) == 0 else None
+                     for g, a in zip(shape, logical_to_physical(axes, self.mesh, rules)))
+        return self.c(x, (None,) * x.dim(), shape, src=spec)
+
+
+NO_SHARD = ShardCtx()
+
+
 def padded_vocab(cfg) -> int:
     """Embedding/lm_head row count, padded to cfg.vocab_pad_multiple (0 =
     exact).  Padded logits are masked out of argmax."""
@@ -102,9 +243,12 @@ def gemm(
     residual: Optional[torch.Tensor] = None,
     mesh: Any = None,
     shard: Any = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Config-routed GEMM via plan/execute: the `torch` backend, or the mesh
-    kernel (`cuda_mesh`) when cfg.use_mesh_kernel.
+    kernel (`cuda_mesh`) when cfg.use_mesh_kernel.  The output is in x's
+    type unless `out_dtype` names another (a row-parallel product's f32
+    partial sums).
 
     The epilogue (y = act(xW + bias) + residual) is fused into the kernel on
     the mesh path and applied as plain ops on the torch backend — one call
@@ -128,7 +272,7 @@ def gemm(
             activation=activation,
             residual=residual is not None,
         ),
-        out_dtype=x.dtype,
+        out_dtype=out_dtype or x.dtype,
         blocks=blocks,
         shard=shard,
     )
@@ -142,6 +286,8 @@ def grouped_gemm(
     group_offsets: torch.Tensor,  # (num_groups + 1,) cumulative valid-row counts
     weights: torch.Tensor,  # (num_groups, K, N) stacked per-group slabs
     cfg,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Config-routed grouped (ragged-batch) GEMM via plan/execute.
 
@@ -151,6 +297,7 @@ def grouped_gemm(
     `bmm` on the `torch` backend), with rows past each group's size coming
     back zero.  Plans are cached per logical group shape exactly like
     `gemm`: every layer and step reuses one plan per expert projection.
+    The output is in the tokens' type unless `out_dtype` names another.
     """
     backend = "cuda_mesh" if cfg.use_mesh_kernel else "torch"
     num_groups, kd, n = weights.shape
@@ -161,7 +308,7 @@ def grouped_gemm(
         n=n,
         dtype_a=tokens.dtype,
         dtype_b=weights.dtype,
-        out_dtype=tokens.dtype,
+        out_dtype=out_dtype or tokens.dtype,
         blocks=blocks,
     )
     return _api.plan(spec, backend=backend, device=tokens.device)(tokens, group_offsets, weights)
@@ -177,10 +324,25 @@ def dense(
     residual: Optional[torch.Tensor] = None,
     mesh: Any = None,
     shard: Any = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Dense projection with the fused epilogue: one kernel on the mesh path."""
     return gemm(x, w, cfg, bias=b, activation=activation, residual=residual, mesh=mesh,
-                shard=shard)
+                shard=shard, out_dtype=out_dtype)
+
+
+def dense_rows(x: torch.Tensor, w: torch.Tensor, cfg, ctx: ShardCtx, part: Part,
+               axes: Sequence[Optional[str]], shape: Sequence[Optional[int]]) -> torch.Tensor:
+    """A row-parallel projection and its layout: `x`'s last dim and `w`'s
+    rows are this process's `part` of the contraction.  Sharded, each
+    process writes its f32 partial sums, which are all-reduced in f32 over
+    the part's axes and then cast to x's type: the one f32 accumulation of
+    the unsharded product, in another order.  Unsharded, it is `dense`
+    followed by `ctx.c`, bit for bit the product without a mesh."""
+    if part.count == 1:
+        return ctx.c(dense(x, w, cfg), axes, shape)
+    y = dense(x, w, cfg, out_dtype=torch.float32)
+    return ctx.c(y, axes, shape, partial=part).to(x.dtype)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:

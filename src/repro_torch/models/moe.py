@@ -1,5 +1,5 @@
 """Feed-forward blocks: dense SwiGLU and the routed Mixture-of-Experts block
-(port of `repro.models.moe`, without sharding and expert parallelism).
+(port of `repro.models.moe`).
 
 Expert compute rides the grouped-GEMM planner: each (token, choice) pair is
 ranked within its expert by a stable sort and scattered into a group-major
@@ -34,6 +34,23 @@ average of the ranks' losses turns into the global means.  So a rank's
 kept pairs, and the weighted loss and its gradients, are the global
 step's up to rounding, drops included.  (Under gloo the all-gather stages
 the counts through host memory, the one host sync of this path.)
+
+Tensor parallelism (a `ShardCtx` with a live mesh).  The fused gate+up
+weights (`FUSED_GATE_UP`: `wi`, `shared_wi`, each expert's `wi`) are
+column-parallel in halves: a process holds its slice of gate beside its
+slice of up (`interop.shard_params`), so the local split pairs them as
+the unsharded split does; `wo` is row-parallel, its f32 partial sums
+all-reduced, then cast.  Expert parallelism where `moe_specs` puts the
+experts on the axis (e % 16 == 0, OLMoE) and they divide it: routing runs
+whole and identically on every process (the router replicates), each
+process fills only its experts' rows of the capacity buffer and runs K5
+on its groups, and the combine's f32 partial sums (0 from other
+processes' experts) are all-reduced before the cast.  Otherwise (the
+`fax` branch, Qwen1.5-MoE's 60 experts) the expert hidden dim shards:
+every process routes and fills the whole buffer, runs K5 on its slice of
+the hidden dim and writes f32 partials, all-reduced before the combine.
+With the batch split over 'data', routing is global over the data ranks
+(`global_routing`'s counts exchange) and the aux losses are their means.
 """
 
 from __future__ import annotations
@@ -45,13 +62,26 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.models.layers import PSpec, gemm, grouped_gemm
+from repro_torch.models.layers import (
+    NO_SHARD,
+    Part,
+    PSpec,
+    ShardCtx,
+    dense_rows,
+    gemm,
+    grouped_gemm,
+)
 
-__all__ = ["global_routing", "moe_block", "moe_specs", "swiglu", "swiglu_specs"]
+__all__ = ["FUSED_GATE_UP", "global_routing", "moe_block", "moe_specs", "swiglu",
+           "swiglu_specs"]
 
 _GROUP_SIZE = 1024  # tokens per dispatch group at scale (capacity scaling)
 _EXACT_GROUP = 256  # groups this small route exactly (no capacity drops)
 _ROW_ALIGN = 8  # capacity rounds up so row blocks tile the ragged grid
+
+# Weights whose last dim is [gate | up] side by side: tensor parallelism
+# gives each process its slice of both halves (`interop.shard_params`).
+FUSED_GATE_UP = ("wi", "shared_wi")
 
 
 def swiglu_specs(cfg, d_ff: int) -> Dict[str, PSpec]:
@@ -63,11 +93,19 @@ def swiglu_specs(cfg, d_ff: int) -> Dict[str, PSpec]:
     }
 
 
-def swiglu(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg) -> torch.Tensor:
+def swiglu(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+           ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """SwiGLU of width cfg.d_ff; under a mesh `wi` holds this process's
+    gate and up slices and `wo` its rows (column- then row-parallel)."""
+    f, d, t = cfg.d_ff, x.shape[-1], x.shape[1]
+    part = ctx.part("mlp", f)
     gate_up = gemm(x, p["wi"], cfg)
+    # The fused dim's layout is the port's (gate and up halves, each cut
+    # alike), checked where the hidden dim shards.
+    gate_up = ctx.c(gate_up, ("batch", "seq", "mlp"), (None, t, 2 * f if part.count > 1 else None))
     gate, up = torch.chunk(gate_up, 2, dim=-1)
     h = F.silu(gate) * up
-    return gemm(h, p["wo"], cfg)
+    return dense_rows(h, p["wo"], cfg, ctx, part, ("batch", "seq", "embed"), (None, t, d))
 
 
 def moe_specs(cfg) -> Dict[str, PSpec]:
@@ -142,10 +180,21 @@ def _top_k(probs: torch.Tensor, k: int) -> torch.Tensor:
     return torch.argsort(probs, dim=-1, descending=True, stable=True)[:, :k]
 
 
+def _expert_parts(cfg, ctx: ShardCtx) -> Tuple[Part, Part]:
+    """(experts, expert hidden dim) `Part`s under ctx: `moe_specs` puts the
+    experts on the 'experts' axis where e % 16 == 0, else the hidden dim
+    on 'mlp'; either replicates where it does not divide the axis."""
+    e, f = cfg.num_experts, cfg.moe_d_ff
+    if e % 16 == 0:
+        return ctx.part("experts", e), Part(0, f, 1, None)
+    return Part(0, e, 1, None), ctx.part("mlp", f)
+
+
 def moe_block(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (B, T, D)
     cfg,
+    ctx: ShardCtx = NO_SHARD,
     *,
     capacity_factor: float = 1.25,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -154,8 +203,10 @@ def moe_block(
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     n = b * t
     dev = x.device
+    ep, fp = _expert_parts(cfg, ctx)
 
     xf = x.reshape(n, d)
+    xf = ctx.c(xf, ("batch", "embed"), (None, d))
     logits = torch.matmul(xf.float(), p["router"].float())  # (n, e)
     probs = torch.softmax(logits, dim=-1)
     topi = _top_k(probs, k)
@@ -174,12 +225,19 @@ def moe_block(
     rank_sorted = torch.arange(n * k, device=dev) - starts[flat_e[order]]
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
 
-    if _GLOBAL_ROUTING["on"] is None:
+    glob, dp = _GLOBAL_ROUTING["on"], None
+    if glob is None and ctx.axes_of("batch") is not None:
+        # The batch rows split over 'data': route the global batch.
+        from repro_torch.parallel.collectives import axis_group
+
+        dp, ranks, _ = axis_group(ctx.mesh, ctx.axes_of("batch"))
+        glob = (dp, b * ranks)
+    if glob is None:
         n_all, counts_all = n, counts
         cap = room = _capacity(n, t, e, k, capacity_factor)
         keep = rank < cap
     else:
-        group, global_rows = _GLOBAL_ROUTING["on"]
+        group, global_rows = glob
         n_all = global_rows * t
         before, counts_all = _counts_before_and_total(counts, group)
         cap = _capacity(n_all, t, e, k, capacity_factor)
@@ -197,28 +255,48 @@ def moe_block(
     group_offsets = torch.cat(
         [torch.zeros(1, dtype=torch.int32, device=dev), torch.cumsum(sizes, 0).to(torch.int32)]
     )
+    if ep.count > 1:
+        # Expert parallelism: this process's experts' rows of the buffer,
+        # their offsets from its first row; other pairs are dropped here.
+        lo, mine = ep.start * rpg, ep.size * rpg
+        local = (dest >= lo) & (dest < lo + mine)
+        dest = torch.where(local, dest - lo, mine)
+        gate = gate * local.to(gate.dtype)
+        group_offsets = group_offsets[ep.start:ep.start + ep.size + 1] - group_offsets[ep.start]
+        rows = mine
+    row_axis = "expert_rows" if ep.count > 1 else None
 
     # Dropped pairs land in one extra row past the buffer, sliced away (an
     # index of `rows` is out of range for a rows-long buffer; clipping it
     # would overwrite row rows - 1).
     buf = torch.zeros((rows + 1, d), dtype=x.dtype, device=dev)
     buf = buf.index_put((dest,), xf[flat_t])[:rows]
+    buf = ctx.c(buf, (row_axis, "embed"), (e * rpg if ep.count > 1 else rows, d))
 
     gate_up = grouped_gemm(buf, group_offsets, p["wi"], cfg)  # (rows, 2f)
     gate_h, up_h = torch.chunk(gate_up, 2, dim=-1)
     h = F.silu(gate_h) * up_h
-    ex_out = grouped_gemm(h, group_offsets, p["wo"], cfg)  # (rows, d)
+    if fp.count > 1:  # the hidden dim sharded: f32 partials, all-reduced
+        ex_out = grouped_gemm(h, group_offsets, p["wo"], cfg, out_dtype=torch.float32)
+        ex_out = ctx.c(ex_out, (None, "embed"), (rows, d), partial=fp).to(x.dtype)
+    else:
+        ex_out = grouped_gemm(h, group_offsets, p["wo"], cfg)  # (rows, d)
+        ex_out = ctx.c(ex_out, (row_axis, "embed"), (e * rpg if ep.count > 1 else rows, d))
 
     # Combine: gather each pair's expert output back and weight by its gate
-    # (dropped pairs carry gate 0, so the clipped gather never contributes).
+    # (dropped pairs carry gate 0, so the clipped gather never contributes);
+    # under EP each process sums its experts' terms, all-reduced in f32.
     contrib = ex_out[torch.clamp(dest, 0, rows - 1)] * gate.to(x.dtype)[:, None]
-    y = contrib.float().reshape(n, k, d).sum(dim=1).to(x.dtype).reshape(b, t, d)
+    y = contrib.float().reshape(n, k, d).sum(dim=1)
+    y = ctx.c(y, ("batch", "embed"), (None, d), partial=ep).to(x.dtype).reshape(b, t, d)
 
     if cfg.num_shared_experts:
         # The gate is an f32 GEMM (the router's numerics) through the planner.
+        fs = cfg.moe_d_ff * cfg.num_shared_experts
         sg = torch.sigmoid(gemm(xf.float(), p["shared_gate"].float(), cfg)).to(x.dtype)
         g_, u_ = torch.chunk(gemm(xf, p["shared_wi"], cfg), 2, dim=-1)
-        shared = gemm(F.silu(g_) * u_, p["shared_wo"], cfg)
+        shared = dense_rows(F.silu(g_) * u_, p["shared_wo"], cfg, ctx, ctx.part("mlp", fs),
+                            ("batch", "embed"), (None, d))
         y = y + (shared * sg).reshape(b, t, d)
 
     # Switch load-balance + router z-loss (means over all tokens).
@@ -226,4 +304,9 @@ def moe_block(
     imp = probs.mean(dim=0)
     lb_loss = e * torch.sum(load * imp) / k
     router_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    return y, {"lb_loss": lb_loss, "router_z": router_z}
+    if dp is not None:  # the data ranks' means: their token means of imp and z
+        from repro_torch.parallel.collectives import all_reduce
+
+        lb_loss, router_z = all_reduce(torch.stack([lb_loss, router_z]), group=dp) / ranks
+    return ctx.c(y, ("batch", "seq", "embed"), (None, t, d)), {"lb_loss": lb_loss,
+                                                              "router_z": router_z}

@@ -4,11 +4,18 @@
 `get_model(cfg)` returns a `Model` with a family-independent interface:
   init(generator, device)                 parameter tree (1 source: PSpec)
   logical_axes()                          its logical axes, for sharding
-  forward(params, batch)                  train/eval logits
-  loss(params, batch)                     scalar loss + metrics
+  forward(params, batch, ctx)             train/eval logits
+  loss(params, batch, ctx)                scalar loss + metrics
   prefill / decode + decode_state_specs   dense-cache serving path
   paged_decode + paged_pool_specs         continuous-batching path (dense,
                                           moe, vlm)
+
+Every compute method takes a `ShardCtx` (default: none), as in the
+reference.  dense, moe and vlm run tensor-parallel under it
+(`models.transformer`).  ssm, hybrid and audio accept it and run where its
+'model' axis has one rank (on the rows they are given: the serving steps
+split the batch over 'data'); a larger 'model' axis raises
+NotImplementedError (ROADMAP 13(d)).
 """
 
 from __future__ import annotations
@@ -21,7 +28,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import rwkv, ssm, transformer, vlm, whisper
-from repro_torch.models.layers import init_params, logical_axes_tree, softmax_xent
+from repro_torch.models.layers import (
+    NO_SHARD,
+    ShardCtx,
+    init_params,
+    logical_axes_tree,
+    softmax_xent,
+)
 
 __all__ = ["Model", "get_model"]
 
@@ -50,22 +63,22 @@ class Model:
         return logical_axes_tree(self.specs())
 
     # -- compute ------------------------------------------------------------
-    def forward(self, params, batch: Dict[str, torch.Tensor]):
-        return self._forward(params, batch, self.cfg)
+    def forward(self, params, batch: Dict[str, torch.Tensor], ctx: ShardCtx = NO_SHARD):
+        return self._forward(params, batch, self.cfg, ctx)
 
-    def loss(self, params, batch):
-        logits, aux = self.forward(params, batch)
+    def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):
+        logits, aux = self.forward(params, batch, ctx)
         loss, acc = softmax_xent(logits, batch["labels"])
         if self.cfg.is_moe:
             loss = loss + self.cfg.router_aux_coef * aux["lb_loss"] + 1e-3 * aux["router_z"]
         metrics = {"loss": loss, "accuracy": acc, **aux}
         return loss, metrics
 
-    def prefill(self, params, batch: Dict[str, torch.Tensor]):
-        return self._prefill(params, batch, self.cfg)
+    def prefill(self, params, batch: Dict[str, torch.Tensor], ctx: ShardCtx = NO_SHARD):
+        return self._prefill(params, batch, self.cfg, ctx)
 
-    def decode(self, params, tokens, state, pos):
-        return self._decode(params, tokens, state, pos, self.cfg)
+    def decode(self, params, tokens, state, pos, ctx: ShardCtx = NO_SHARD):
+        return self._decode(params, tokens, state, pos, self.cfg, ctx)
 
     def decode_state_specs(self, batch: int, max_len: int):
         return self._state_specs(self.cfg, batch, max_len)
@@ -75,27 +88,41 @@ class Model:
     def supports_paged(self) -> bool:
         return self._paged_decode is not None
 
-    def paged_decode(self, params, tokens, pools, block_tables, positions, *,
-                     impl: Optional[str] = None):
+    def paged_decode(self, params, tokens, pools, block_tables, positions,
+                     ctx: ShardCtx = NO_SHARD, *, impl: Optional[str] = None):
         """One continuous-batching decode step against paged KV pools."""
         if self._paged_decode is None:
             raise NotImplementedError(f"family {self.cfg.family!r} has no paged decode path")
         return self._paged_decode(
-            params, tokens, pools, block_tables, positions, self.cfg, impl=impl
+            params, tokens, pools, block_tables, positions, self.cfg, ctx, impl=impl
         )
 
-    def paged_pool_specs(self, num_pages: int, page_size: int):
+    def paged_pool_specs(self, num_pages: int, page_size: int, ctx: ShardCtx = NO_SHARD):
         if self._paged_decode is None:
             raise NotImplementedError(f"family {self.cfg.family!r} has no paged decode path")
-        return transformer.paged_pool_specs(self.cfg, num_pages, page_size)
+        return transformer.paged_pool_specs(self.cfg, num_pages, page_size, ctx)
 
 
-def _lm_forward(params, batch, cfg):
-    return transformer.lm_forward(params, batch["tokens"], cfg)
+def _lm_forward(params, batch, cfg, ctx):
+    return transformer.lm_forward(params, batch["tokens"], cfg, ctx)
 
 
-def _lm_prefill(params, batch, cfg):
-    return transformer.lm_prefill(params, batch["tokens"], cfg)
+def _lm_prefill(params, batch, cfg, ctx):
+    return transformer.lm_prefill(params, batch["tokens"], cfg, ctx)
+
+
+def _no_tp(fn):
+    """`fn(*args, cfg)` of a family without tensor-parallel code as the
+    Model's `(*args, cfg, ctx)`: it runs where ctx's 'model' axis has one
+    rank, else raises."""
+    def run(*args):
+        *args, cfg, ctx = args
+        if ctx.axis_size("model") > 1:
+            raise NotImplementedError(
+                f"family {cfg.family!r} has no tensor-parallel code yet (ROADMAP 13(d));"
+                " serve it under a mesh whose 'model' axis is 1")
+        return fn(*args, cfg)
+    return run
 
 
 def _rwkv_forward(params, batch, cfg):
@@ -130,27 +157,27 @@ def get_model(cfg: ArchConfig) -> Model:
         return Model(
             cfg,
             rwkv.rwkv_specs,
-            _rwkv_forward,
-            _rwkv_prefill,
-            rwkv.rwkv_decode,
+            _no_tp(_rwkv_forward),
+            _no_tp(_rwkv_prefill),
+            _no_tp(rwkv.rwkv_decode),
             lambda c, b, m: rwkv.rwkv_state_specs(c, b),
         )
     if fam == "hybrid":
         return Model(
             cfg,
             ssm.zamba_specs,
-            _zamba_forward,
-            _zamba_prefill,
-            ssm.zamba_decode,
+            _no_tp(_zamba_forward),
+            _no_tp(_zamba_prefill),
+            _no_tp(ssm.zamba_decode),
             ssm.zamba_state_specs,
         )
     if fam == "audio":
         return Model(
             cfg,
             whisper.whisper_specs,
-            whisper.whisper_forward,
-            whisper.whisper_prefill,
-            whisper.whisper_decode,
+            _no_tp(whisper.whisper_forward),
+            _no_tp(whisper.whisper_prefill),
+            _no_tp(whisper.whisper_decode),
             lambda c, b, m: whisper.whisper_cache_specs(c, b, m, m // c.dec_ratio),
         )
     if fam == "vlm":

@@ -24,6 +24,19 @@ expert products, which carry a group batch dim).  A selective-checkpoint
 policy decides by the op the dispatcher sees, and K1 launches through
 ctypes: so a dense plan runs its product as one op, `repro_torch::gemm`
 (`kernels/api.py`), which the policy names beside `aten.mm`.
+
+Every entry point takes a `ShardCtx` (default: none) and calls `ctx.c` at
+the reference's sites.  Under a live ('data', 'model') mesh it serves
+tensor-parallel: `tokens` are this process's batch rows (the serving steps
+split the batch over 'data' where it divides, `ShardCtx.for_rows`), the
+embedding is vocab-parallel (a masked lookup of this process's vocab rows,
+then one all-reduce), the blocks are the column/row-parallel attention and
+feed-forward of `attention` and `moe`, and the lm head is vocab-parallel:
+`unembed` leaves the logits sharded over 'vocab' (the padded-vocab mask
+on the global index), and the serving steps gather them where they take
+the argmax.  Caches and page pools hold this process's rows and kv heads.
+Training under a model mesh is not ported (ROADMAP 13(d)): the
+collectives here carry no gradient, so `lm_forward` refuses to record one.
 """
 
 from __future__ import annotations
@@ -35,8 +48,13 @@ import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.kernels.ops import scramble_blocks
-from repro_torch.models.attention import attention, attention_paged_decode, attn_specs
-from repro_torch.models.layers import PSpec, gemm, padded_vocab, rmsnorm
+from repro_torch.models.attention import (
+    attention,
+    attention_paged_decode,
+    attn_specs,
+    head_layout,
+)
+from repro_torch.models.layers import NO_SHARD, PSpec, ShardCtx, gemm, padded_vocab, rmsnorm
 from repro_torch.models.moe import moe_block, moe_specs, swiglu, swiglu_specs
 
 __all__ = [
@@ -96,26 +114,44 @@ def _layer(tree: Any, i: int) -> Any:
     return {k: _layer(v, i) for k, v in tree.items()}
 
 
-def embed_tokens(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.adtype)
+def embed_tokens(params, tokens: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """Vocab-parallel under a mesh: each process looks up the tokens in its
+    rows of the table (0 elsewhere) and one all-reduce sums the blocks,
+    exactly (one term is not 0)."""
+    vp = ctx.part("vocab", padded_vocab(cfg))
+    if vp.count == 1:
+        x = params["embed"][tokens.long()]
+    else:
+        idx = tokens.long() - vp.start
+        mine = (idx >= 0) & (idx < vp.size)
+        rows = params["embed"][idx.clamp(0, vp.size - 1)]
+        x = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                           device=rows.device))
+    x = x.to(cfg.adtype)
+    return ctx.c(x, ("batch", "seq", "embed"), (None, tokens.shape[1], cfg.d_model),
+                 partial=vp)
 
 
-def unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = gemm(x, head.to(x.dtype), cfg)
-    # Padded vocab rows (vocab_pad_multiple) never win argmax.
-    if head.shape[-1] != cfg.vocab_size:
-        mask = torch.arange(head.shape[-1], device=x.device) < cfg.vocab_size
+    vpad = padded_vocab(cfg)
+    vp = ctx.part("vocab", vpad)
+    # Padded vocab rows (vocab_pad_multiple) never win argmax; the mask is
+    # on the global vocab index.
+    if vpad != cfg.vocab_size:
+        mask = torch.arange(vp.start, vp.start + vp.size, device=x.device) < cfg.vocab_size
         logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=logits.dtype,
                                                          device=x.device))
-    return logits
+    return ctx.c(logits, ("batch", "seq", "vocab"), (None, x.shape[1], vpad))
 
 
 def block_apply(
     p: Dict[str, Any],
     x: torch.Tensor,
     cfg,
+    ctx: ShardCtx = NO_SHARD,
     *,
     cache=None,
     cache_pos=None,
@@ -127,20 +163,31 @@ def block_apply(
         p["attn"],
         rmsnorm(x, p["ln1"], cfg.norm_eps),
         cfg,
+        ctx,
         cache=cache,
         cache_pos=cache_pos,
         write_cache=write_cache,
     )
     x = x + h
-    h2, aux = _ffn(p, x, cfg)
+    h2, aux = _ffn(p, x, cfg, ctx)
     return x + h2, new_cache, aux
 
 
-def _ffn(p: Dict[str, Any], x: torch.Tensor, cfg):
+def _ffn(p: Dict[str, Any], x: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
     """The block's feed-forward half on rmsnorm(x): (output, aux)."""
     if cfg.is_moe:
-        return moe_block(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
-    return swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), {}
+        return moe_block(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, ctx)
+    return swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, ctx), {}
+
+
+def _no_model_training(ctx: ShardCtx) -> None:
+    if ctx.axis_size("model") > 1 and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "training under a 'model' mesh axis is not ported (ROADMAP 13(d)): the"
+            " tensor-parallel collectives carry no gradient; run under torch.no_grad()")
+    if ctx.axes_of("seq_sp") is not None:
+        raise NotImplementedError("the 'seq_sp' rule (sequence-parallel training) is not"
+                                  " ported (ROADMAP 13(d))")
 
 
 # The ops whose outputs `dots` saves: 2-D products with no batch dim (the
@@ -182,14 +229,17 @@ def _maybe_scramble(x: torch.Tensor, cfg, inverse: bool = False) -> torch.Tensor
     return scramble_blocks(x, block_m=bm, block_n=bn, k=-1 if inverse else 1)
 
 
-def lm_forward(params, tokens: torch.Tensor, cfg):
+def lm_forward(params, tokens: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
     """Train/eval forward: (B, T) int32 -> (logits (B, T, V), aux dict)."""
-    x = embed_tokens(params, tokens, cfg)
+    _no_model_training(ctx)
+    t = tokens.shape[1]
+    x = embed_tokens(params, tokens, cfg, ctx)
     x = _maybe_scramble(x, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def body(x, lp):
-        y, _, aux = block_apply(lp, x, cfg)
+        y, _, aux = block_apply(lp, x, cfg, ctx)
+        y = ctx.c(y, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))  # SP remat carrier
         # A dense block has no router: its entries are zeros, as in the
         # reference's per-layer aux stack.
         return y, torch.stack([aux.get("lb_loss", zero), aux.get("router_z", zero)])
@@ -200,20 +250,23 @@ def lm_forward(params, tokens: torch.Tensor, cfg):
         x, aux_vec = body(x, _layer(params["blocks"], i))
         aux_stack.append(aux_vec)
     x = _maybe_scramble(x, cfg, inverse=True)
-    logits = unembed(params, x, cfg)
+    logits = unembed(params, x, cfg, ctx)
     aux_mean = torch.stack(aux_stack).mean(dim=0)
     return logits, {"lb_loss": aux_mean[0], "router_z": aux_mean[1]}
 
 
-def lm_prefill(params, tokens: torch.Tensor, cfg):
+def lm_prefill(params, tokens: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
     """Prefill: returns (logits (B, T, V), stacked caches (L, B, T, KV, hd))."""
-    x = embed_tokens(params, tokens, cfg)
+    _no_model_training(ctx)
+    t = tokens.shape[1]
+    x = embed_tokens(params, tokens, cfg, ctx)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, cache, _ = block_apply(_layer(params["blocks"], i), x, cfg, write_cache=True)
+        x, cache, _ = block_apply(_layer(params["blocks"], i), x, cfg, ctx, write_cache=True)
+        x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
         ks.append(cache["k"])
         vs.append(cache["v"])
-    logits = unembed(params, x, cfg)
+    logits = unembed(params, x, cfg, ctx)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -223,18 +276,19 @@ def lm_decode(
     caches,  # stacked (L, B, T_max, KV, hd) {"k","v"}
     pos: int,  # current length
     cfg,
+    ctx: ShardCtx = NO_SHARD,
 ):
     """One decode step against per-layer KV caches; returns (logits, caches)."""
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, ctx)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         layer_cache = {"k": caches["k"][i], "v": caches["v"][i]}
         x, new_cache, _ = block_apply(
-            _layer(params["blocks"], i), x, cfg, cache=layer_cache, cache_pos=int(pos)
+            _layer(params["blocks"], i), x, cfg, ctx, cache=layer_cache, cache_pos=int(pos)
         )
         ks.append(new_cache["k"])
         vs.append(new_cache["v"])
-    logits = unembed(params, x, cfg)
+    logits = unembed(params, x, cfg, ctx)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -242,6 +296,7 @@ def block_apply_paged(
     p: Dict[str, Any],
     x: torch.Tensor,  # (S, 1, D)
     cfg,
+    ctx: ShardCtx = NO_SHARD,
     *,
     k_pool: torch.Tensor,
     v_pool: torch.Tensor,
@@ -254,6 +309,7 @@ def block_apply_paged(
         p["attn"],
         rmsnorm(x, p["ln1"], cfg.norm_eps),
         cfg,
+        ctx,
         k_pool=k_pool,
         v_pool=v_pool,
         block_tables=block_tables,
@@ -261,7 +317,7 @@ def block_apply_paged(
         impl=impl,
     )
     x = x + h
-    h2, _ = _ffn(p, x, cfg)
+    h2, _ = _ffn(p, x, cfg, ctx)
     return x + h2, pools
 
 
@@ -272,6 +328,7 @@ def lm_decode_paged(
     block_tables: torch.Tensor,  # (S, n_pages) int32
     positions: torch.Tensor,  # (S,) int32 per-slot lengths
     cfg,
+    ctx: ShardCtx = NO_SHARD,
     *,
     impl: Optional[str] = None,
 ):
@@ -279,26 +336,29 @@ def lm_decode_paged(
     against its own block-table pages.  The new K/V rows are written into
     `pools` in place (see `attention_paged_decode`).  Returns
     (logits (S, 1, V), pools)."""
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, ctx)
     for i in range(cfg.num_layers):
         x, _ = block_apply_paged(
             _layer(params["blocks"], i),
             x,
             cfg,
+            ctx,
             k_pool=pools["k"][i],
             v_pool=pools["v"][i],
             block_tables=block_tables,
             positions=positions,
             impl=impl,
         )
-    logits = unembed(params, x, cfg)
+    logits = unembed(params, x, cfg, ctx)
     return logits, pools
 
 
-def paged_pool_specs(cfg, num_pages: int, page_size: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
+def paged_pool_specs(cfg, num_pages: int, page_size: int,
+                     ctx: ShardCtx = NO_SHARD) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """Stacked page pools for the serving scheduler (one per layer), as
-    {name: (shape, dtype)}."""
-    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+    {name: (shape, dtype)}; under a mesh, of the kv heads this process's
+    query heads read (`attention.HeadLayout.read`)."""
+    kv, hd = len(head_layout(cfg, ctx).read), cfg.head_dim_
     shp = (cfg.num_layers, num_pages, page_size, kv, hd)
     return {"k": (shp, cfg.adtype), "v": (shp, cfg.adtype)}
 

@@ -8,6 +8,9 @@ patches + text, so decode positions count from the start of that stream.
 Decode is the transformer's (`lm_decode`, and `lm_decode_paged` on the
 continuous-batching path, and `decode_cache_specs` over patches + text):
 patches only change prefill, so the registry uses the transformer's.
+Under a `ShardCtx` the batch carries this process's rows, patches
+included, and the blocks and head are the transformer's tensor-parallel
+ones; `patch_proj` replicates.
 """
 
 from __future__ import annotations
@@ -16,8 +19,15 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.models.layers import PSpec, gemm
-from repro_torch.models.transformer import _layer, block_apply, embed_tokens, lm_specs, unembed
+from repro_torch.models.layers import NO_SHARD, PSpec, ShardCtx, gemm
+from repro_torch.models.transformer import (
+    _layer,
+    _no_model_training,
+    block_apply,
+    embed_tokens,
+    lm_specs,
+    unembed,
+)
 
 __all__ = ["vlm_specs", "vlm_forward", "vlm_prefill"]
 
@@ -28,31 +38,36 @@ def vlm_specs(cfg) -> Dict[str, Any]:
     return specs
 
 
-def _embed_multimodal(params, batch, cfg) -> torch.Tensor:
+def _embed_multimodal(params, batch, cfg, ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """concat(project(patch_embeds), embed(tokens)) -> (B, P+T, D)."""
     patches = gemm(batch["patches"].to(cfg.adtype), params["patch_proj"].to(cfg.adtype), cfg)
-    text = embed_tokens(params, batch["tokens"], cfg)
+    patches = ctx.c(patches, ("batch", "patches", "embed"), (None, *patches.shape[1:]))
+    text = embed_tokens(params, batch["tokens"], cfg, ctx)
     return torch.cat([patches, text], dim=1)
 
 
-def vlm_forward(params, batch: Dict[str, torch.Tensor], cfg):
+def vlm_forward(params, batch: Dict[str, torch.Tensor], cfg, ctx: ShardCtx = NO_SHARD):
     """batch: {"patches": (B, P, D), "tokens": (B, T)} -> (text logits, aux).
     Causal over the concatenated stream."""
-    x = _embed_multimodal(params, batch, cfg)
+    _no_model_training(ctx)
+    x = _embed_multimodal(params, batch, cfg, ctx)
     for i in range(cfg.num_layers):
-        x, _, _ = block_apply(_layer(params["blocks"], i), x, cfg)
+        x, _, _ = block_apply(_layer(params["blocks"], i), x, cfg, ctx)
+        x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, *x.shape[1:]))
     n_patches = batch["patches"].shape[1]
-    return unembed(params, x[:, n_patches:], cfg), {}
+    return unembed(params, x[:, n_patches:], cfg, ctx), {}
 
 
-def vlm_prefill(params, batch, cfg):
+def vlm_prefill(params, batch, cfg, ctx: ShardCtx = NO_SHARD):
     """Returns (text logits, stacked caches (L, B, P+T, KV, hd))."""
-    x = _embed_multimodal(params, batch, cfg)
+    _no_model_training(ctx)
+    x = _embed_multimodal(params, batch, cfg, ctx)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, cache, _ = block_apply(_layer(params["blocks"], i), x, cfg, write_cache=True)
+        x, cache, _ = block_apply(_layer(params["blocks"], i), x, cfg, ctx, write_cache=True)
+        x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, *x.shape[1:]))
         ks.append(cache["k"])
         vs.append(cache["v"])
     n_patches = batch["patches"].shape[1]
-    logits = unembed(params, x[:, n_patches:], cfg)
+    logits = unembed(params, x[:, n_patches:], cfg, ctx)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}

@@ -23,6 +23,7 @@ from repro_torch.parallel.sharding import (
     TRAIN_RULES,
     NamedSharding,
     ShardingRules,
+    constrain,
     gather_global,
     logical_to_physical,
     named_sharding,
@@ -57,6 +58,7 @@ __all__ = [
     "TRAIN_RULES",
     "SP_DECODE_RULES",
     "NamedSharding",
+    "constrain",
     "logical_to_physical",
     "named_sharding",
     "tree_shardings",

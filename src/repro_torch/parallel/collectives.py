@@ -28,11 +28,11 @@ backend: K1 on the card, its plain version on the CPU.  Every helper checks
 the `collective.step` fault site on entry, and the double-buffered ones at
 each step as well (with its step index), as the reference does.
 
-The data-parallel layer's helpers live here too, outside `__all__` (which
-is the reference's): `all_reduce` (a copy reduced over a group, staged
-under gloo), `axis_group` (the process group along mesh axes) and
-`raise_together` (one flag all-reduce, so that every rank raises when one
-fails).
+The data- and tensor-parallel layers' helpers live here too, outside
+`__all__` (which is the reference's): `all_reduce` and `all_gather` (a
+copy reduced or concatenated over a group, staged under gloo),
+`axis_group` (the process group along mesh axes) and `raise_together`
+(one flag all-reduce, so that every rank raises when one fails).
 """
 
 from __future__ import annotations
@@ -315,6 +315,19 @@ def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tenso
     buf = x.detach().cpu() if _staged(x) else x.detach().clone()
     dist.all_reduce(buf, op=op, group=group)
     return buf.to(x.device)
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks `x` of the ranks of `group`, concatenated along `dim` in
+    the group's rank order (a mesh axis's coordinate order), as a new
+    tensor on x's device; staged through host memory under gloo."""
+    if group is None:
+        return x
+    src = x.detach().contiguous()
+    buf = src.cpu() if _staged(src) else src
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
 
 
 def axis_group(mesh, axes) -> Tuple[Optional[dist.ProcessGroup], int, int]:

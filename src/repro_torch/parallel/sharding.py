@@ -22,10 +22,20 @@ global rank at every coordinate, which SPMD execution slices shards by.
 `NamedSharding(mesh, spec)` as a frozen (mesh, PartitionSpec) pair;
 `shard_of` slices this rank's block of a global tensor by its mesh
 coordinate and `gather_global` all-gathers the blocks back (tests,
-checkpoints).  Nothing here moves a tensor on its own: under SPMD by hand
-a sharding is a description that `shard_of` and the collectives read.
-`constrain` and the models' `ctx.c` are not ported: they only take effect
-with tensor-parallel model code, which the port does not have yet.
+checkpoints).
+
+`constrain` is the port's `with_sharding_constraint`, the one place a
+tensor moves between two layouts of the same logical axes.  The reference
+hands XLA a global array and a sharding, and GSPMD inserts whatever
+collective reaches it; SPMD by hand holds each process's local block, so
+`constrain` is told the global shape (`shape`, with None for a dim that
+stays as the caller holds it) and, where it is not in the target layout
+already, the layout the block is in now (`src`) or the mesh axes over
+which it is a partial sum (`partial`).  It then checks the block's shape
+against its layout and moves it: an all-gather of a dim sharded
+otherwise, a slice of a dim that arrives whole, an all-reduce of a
+partial sum.
+The models call it through `models.layers.ShardCtx.c`.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ __all__ = [
     "SP_DECODE_RULES",
     "ShardingRules",
     "TRAIN_RULES",
+    "constrain",
     "gather_global",
     "logical_to_physical",
     "mesh_layout",
@@ -313,3 +324,73 @@ def gather_global(blk, sharding: NamedSharding, layout: Optional[MeshLayout] = N
     from repro_torch.parallel.collectives import assemble
 
     return assemble(blk, sharding.spec, layout or mesh_layout(sharding.mesh))
+
+
+def _count(shape: Mapping[str, int], a) -> int:
+    return 1 if a is None else _axes_size(shape, a)
+
+
+def constrain(
+    x,
+    logical_axes: Sequence[Optional[str]],
+    mesh,
+    rules: ShardingRules = DEFAULT_RULES,
+    *,
+    shape: Optional[Sequence[Optional[int]]] = None,
+    src: Optional[Sequence[Any]] = None,
+    partial: Any = None,
+    layout: Optional[MeshLayout] = None,
+):
+    """This process's block of a tensor of global `shape` laid out as
+    `logical_axes` name it under `rules` (indivisible dims replicated, as
+    the reference's `constrain`), from its block `x` in the layout `src`.
+
+    `shape` None: `x` is the whole tensor (the reference's own reading of
+    `x.shape`).  A None entry of `shape` leaves that dim as `x` holds it,
+    unchecked (the batch rows inside a model, split once where they
+    enter).  `src` None: each dim of `x` is whole if it has the global
+    size, else already in the target layout.  `partial`: mesh axes (a name
+    or tuple) over which `x` holds partial sums; they are all-reduced in
+    x's dtype (callers pass f32 partials), after the moves above, on the
+    block.
+    Raises ValueError where the block's shape does not fit its layout.
+    """
+    from repro_torch.parallel import collectives
+
+    mshape = mesh_shape(mesh)
+    glob = tuple(x.shape) if shape is None else tuple(shape)
+    if len(glob) != x.dim() or len(logical_axes) != x.dim():
+        raise ValueError(f"constrain: block {tuple(x.shape)}, global shape {glob} and axes"
+                         f" {tuple(logical_axes)} must have one entry per dim")
+    dst = logical_to_physical(logical_axes, mesh, rules)
+    known = [g if g is not None else max(1, _count(mshape, a)) for g, a in zip(glob, dst)]
+    dst = tuple(_drop_indivisible(dst, known, mesh))
+    if src is None:
+        src = tuple(a if g is not None and n != g else None
+                    for n, g, a in zip(x.shape, glob, dst))
+    src = tuple(src) + (None,) * (x.dim() - len(tuple(src)))
+    for d, (n, g, a) in enumerate(zip(x.shape, glob, src)):
+        if g is not None and (g % _count(mshape, a) or n != g // _count(mshape, a)):
+            raise ValueError(f"constrain: dim {d} of the block {tuple(x.shape)} is not the"
+                             f" {a!r} block of a global {g} on mesh {mshape}")
+    if math.prod(mshape.values()) == 1:
+        return x
+    lay = layout or mesh_layout(mesh)
+
+    def block(x, d, g, axes):
+        idx, count = collectives._flat_index(lay.shape, lay.coord, axes)
+        return x.narrow(d, idx * (g // count), g // count)
+
+    # Gathers first: a block of one dim must not be cut from another's
+    # before the ranks' blocks are joined.  Partial sums commute with both.
+    for d, (g, a, b) in enumerate(zip(glob, src, dst)):
+        if g is not None and a is not None and a != b:
+            x = collectives.all_gather(x, d, collectives.axis_group(mesh, a)[0])
+            if b is not None:
+                x = block(x, d, g, b)
+    for d, (g, a, b) in enumerate(zip(glob, src, dst)):
+        if g is not None and a is None and b is not None:  # whole -> this block
+            x = block(x, d, g, b)
+    if partial is not None and _count(mshape, partial) > 1:
+        x = collectives.all_reduce(x, group=collectives.axis_group(mesh, partial)[0])
+    return x

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import moe
+from repro_torch.models.layers import NO_SHARD, ShardCtx, padded_vocab
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.parallel.collectives import all_reduce, axis_group, raise_together
@@ -220,22 +221,45 @@ def init_dp_train_state_compressed(model: Model, generator: torch.Generator, dev
     return state
 
 
-def make_prefill_step(model: Model) -> Callable:
+def _next_token(logits: torch.Tensor, rows: int, cfg, ctx: ShardCtx) -> torch.Tensor:
+    """Greedy next token of each of the batch's `rows` rows, on every rank:
+    the last position's logits, gathered over the ranks that hold other
+    rows or vocab entries, then the argmax (the serving handoff)."""
+    last = logits[:, -1, :]
+    vocab = last.shape[-1] * ctx.part("vocab", padded_vocab(cfg)).count
+    last = ctx.gather(last, ("batch", "vocab"), (rows, vocab))
+    return torch.argmax(last, dim=-1).to(torch.int32)
+
+
+def _local_rows(tree, ctx: ShardCtx):
+    """This process's rows of every tensor of `tree` (dim 0: the batch)."""
+    return {k: ctx.c(v, ("batch",) + (None,) * (v.dim() - 1)) for k, v in tree.items()}
+
+
+def make_prefill_step(model: Model, ctx: ShardCtx = NO_SHARD) -> Callable:
+    """(params, batch) -> (next tokens (B,), decode state).  Under a mesh,
+    every rank passes the whole batch; the model runs on this process's
+    rows (split over 'data' where they divide) and the state holds them."""
     @torch.inference_mode()
     def prefill_step(params, batch):
-        logits, state = model.prefill(params, batch)
+        rows = batch["tokens"].shape[0]
+        c = ctx.for_rows(rows)
+        logits, state = model.prefill(params, _local_rows(batch, c), c)
         # next token from the last position — the serving handoff
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return next_tok, state
+        return _next_token(logits, rows, model.cfg, c), state
 
     return prefill_step
 
 
-def make_serve_step(model: Model) -> Callable:
+def make_serve_step(model: Model, ctx: ShardCtx = NO_SHARD) -> Callable:
+    """(params, tokens (B, T), state, pos) -> (next tokens (B,), state), the
+    tokens whole on every rank as `make_prefill_step`'s."""
     @torch.inference_mode()
     def serve_step(params, tokens, state, pos):
-        logits, new_state = model.decode(params, tokens, state, pos)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return next_tok, new_state
+        rows = tokens.shape[0]
+        c = ctx.for_rows(rows)
+        logits, new_state = model.decode(params, _local_rows({"t": tokens}, c)["t"], state,
+                                         pos, c)
+        return _next_token(logits, rows, model.cfg, c), new_state
 
     return serve_step
