@@ -79,7 +79,7 @@ Phases; any failure raises and the script exits non-zero:
               and on the dense step's routing), K5 per decode step
               against its byte bound, a 2-layer f32 witness of the kernel
               path against the `torch` backend, one window profiled;
-  9. train_moe  OLMoE-1B-7B at full width and 4 of its 16 layers on the
+  9. train_moe  OLMoE-1B-7B at full width and 2 of its 16 layers on the
               kernel path, 2 x 2048 tokens (capacity 640 rows per expert,
               pairs dropped): the kernel step against the `torch` step,
               `dots` against `none` (loss bitwise), 6 steps through
@@ -120,9 +120,10 @@ Phases; any failure raises and the script exits non-zero:
   10e. train_rwkv  full-width RWKV-6 1.6B through `tuned()` (the chunked
               WKV, its chunk checkpoint on) on the kernel path, 2 x 2048
               tokens: the kernel step's loss and gradients against the
-              `torch` backend's ([train]'s limits), 3 AdamW steps through
+              `torch` backend's ([train]'s limits), 2 AdamW steps through
               `train_loop` (K1 651 a step), and one step's peak memory with
-              the chunk checkpoint and without it; every K1 call of the
+              the chunk checkpoint and without it (6 of 24 layers); every
+              K1 call of the
               phase, the backward's too, held by [K1 train] on its blocks;
   10f. train_zamba  full-width Zamba2-1.2B the same way (K1 339 a step, K6
               6: the shared block's attention forward);
@@ -175,8 +176,21 @@ Phases; any failure raises and the script exits non-zero:
               Qwen2-7B at 4 of its 28 layers, its 2048-token chunked
               prefill context-parallel under 'seq_attn' (K6 at q_offset 0
               and 1024); the parent plans every shard shape first and
-              holds every K1 call of the ranks on its blocks; walls and
-              each rank's peak memory printed, never as speeds;
+              holds every K1 call of the ranks on its blocks and every K4,
+              K5 and K6 call against its plain version; walls and each
+              rank's peak memory printed, never as speeds;
+  12d. serve_tp_families  on 4 ranks sharing the card (gloo): RWKV-6
+              1.6B, Zamba2-1.2B and Whisper-medium at full width through
+              `tuned()` on 1x2 (RWKV-6's generate, its 4-slot server and
+              req0 teacher-forced, with an f32 witness; Zamba2's and
+              Whisper's prefill and 8 teacher-forced decode steps; logits
+              against the single-process ones), then mesh-paper through
+              the server with serve's requests on 2x1 (2 slots a data
+              rank: bitwise the single-process server) and 2x2 (2 slots
+              and 8 of 16 heads a rank; its device steps teacher-forced);
+              K1, K4 and K6 launches per rank against the code's counts,
+              every K1 call held on its blocks and every K4 and K6 call
+              against its plain version;
   13. obs      observability and the cost model at mesh-paper's full width:
               (a) the blocks the autotuner picked on the card for every
               main-path product, each timed candidate's device ms, every
@@ -317,19 +331,22 @@ QMOE_F32_TOL = 5e-5
 QMOE_CHECKED = 3
 QMOE_SAME_ROUTING_TOL = 0.25
 QMOE_F32_DECODE_TOL = 3.5e-5
-# OLMoE-1B-7B trained at full width and 4 of its 16 layers: AdamW's f32
+# OLMoE-1B-7B trained at full width and 2 of its 16 layers: AdamW's f32
 # moments for the 6.919 B parameters alone take 55 GB, a full-depth step
-# about 83 GB; 4 layers hold 1.88 B parameters, about 19 GB of state.
-MOE_TRAIN_LAYERS = 4
+# about 83 GB; 4 layers hold 1.88 B parameters, about 19 GB of state, and
+# the three checkpoint writes of that state took most of the phase's
+# 209-238 s, so the depth is cut to 2 to keep the whole run within its time.
+MOE_TRAIN_LAYERS = 2
 # Its capacity: 1.25 x 4096 tokens x 8 choices / 64 experts, rows per expert.
 MOE_TRAIN_CAP = 640
 # (token, choice) pairs of one step that the `torch` backend routes to
-# another expert than the kernel path, over the 4 layers' 131,072: the
-# first reading was 917, and the limit is 3x that.
+# another expert than the kernel path: the first reading, over 4 layers'
+# 131,072, was 917, and the limit is 3x that (at 2 layers it bounds fewer).
 MOE_TRAIN_FLIP_TOL = 2750
 # Its free-running kernel-vs-torch grad norm (each step routing for itself)
-# follows the flips: 0.0469 % in four runs and 0.1119 % in one, of one tree
-# whose timed autotuner picked other blocks; the limit is 3x the larger.
+# follows the flips: 0.0469 % in four runs and 0.1119 % in one at 4 layers,
+# of one tree whose timed autotuner picked other blocks; the limit is 3x the
+# larger.
 # The 0.1 % limit of a step that differs in roundings only holds the torch
 # step replaying the kernel step's routing.
 MOE_TRAIN_FREE_NORM_TOL = 3.4e-3
@@ -553,18 +570,20 @@ def check_k1_held(tag, seen):
 
 @contextlib.contextmanager
 def k4_k5_calls():
-    """Records every K4 and K5 launch the model code makes inside the
+    """Records every K4, K5 and K6 launch the model code makes inside the
     block as the case it runs: K4's operand shapes, dtype, block table and
     lengths; K5's operand shapes, dtypes, blocks, stagger, epilogue and
-    group sizes.  Each call reads its table, lengths or sizes back to the
-    host (a sync)."""
+    group sizes; K6's operand shapes, dtype, mask and query offset.  Each
+    K4 and K5 call reads its table, lengths or sizes back to the host (a
+    sync).  Yields the three sets (k4, k5, k6)."""
     import dataclasses
 
     from repro_torch.kernels import api
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
 
-    k4, k5 = set(), set()
-    door, grouped = pa._PAGED_REGISTRY["cuda_paged"], api.grouped_mesh_matmul
+    k4, k5, k6 = set(), set(), set()
+    door, grouped, flash = pa._PAGED_REGISTRY["cuda_paged"], api.grouped_mesh_matmul, fa._launch
 
     def paged(q, kp, vp, bt, ln):
         k4.add((tuple(q.shape), tuple(kp.shape), str(q.dtype)[6:],
@@ -579,13 +598,19 @@ def k4_k5_calls():
                 tuple(sizes.tolist())))
         return grouped(tokens, sizes, w, **kw)
 
+    def attend(q, k, v, causal, q_offset=0):
+        k6.add((tuple(q.shape), tuple(k.shape), str(q.dtype)[6:], bool(causal), int(q_offset)))
+        return flash(q, k, v, causal, q_offset)
+
     pa._PAGED_REGISTRY["cuda_paged"] = dataclasses.replace(door, fn=paged)
     api.grouped_mesh_matmul = ragged
+    fa._launch = attend
     try:
-        yield k4, k5
+        yield k4, k5, k6
     finally:
         pa._PAGED_REGISTRY["cuda_paged"] = door
         api.grouped_mesh_matmul = grouped
+        fa._launch = flash
 
 
 def _as_key(x):
@@ -594,12 +619,16 @@ def _as_key(x):
     return tuple(_as_key(v) for v in x) if isinstance(x, list) else x
 
 
-def hold_k4_k5_calls(torch, tag, k4, k5):
-    """Holds every K4 and K5 call recorded by k4_k5_calls against its
-    plain version, at [K4]'s and [K5]'s limits: random operands of the
-    call's shapes and types (one set per shape) with its block table and
-    lengths, or its group sizes.  Logs each failure and the worst case of
-    each kernel; returns (K4 calls held, K5 calls held)."""
+def hold_k4_k5_calls(torch, tag, k4, k5, k6=()):
+    """Holds every K4, K5 and K6 call recorded by k4_k5_calls against its
+    plain version, at [K4]'s, [K5]'s and [K6]'s limits: random operands of
+    the call's shapes and types (one set per shape) with its block table
+    and lengths, its group sizes, or its mask and query offset (K6's plain
+    version in chunks of QWEN_CHUNK keys, as [K6] and the models' attn_chunk
+    run it).  Logs each failure and the worst case of each kernel; returns
+    (K4 calls held, K5 calls held, K6 calls held)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_torch
+
     g = torch.Generator(device="cuda").manual_seed(12)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -641,10 +670,28 @@ def hold_k4_k5_calls(torch, tag, k4, k5):
             log(line)
             failed.append(f"K5 {key[:-1]} sizes {sizes}: {'; '.join(bad)}")
     operands.clear()
+    for key in sorted(k6, key=str):
+        q_shape, k_shape, dt, causal, off = key
+        q, k, v = rnd(q_shape, dt), rnd(k_shape, dt), rnd(k_shape, dt)
+        chunk = QWEN_CHUNK if k_shape[1] % QWEN_CHUNK == 0 else k_shape[1]
+        out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+        ref = flash_attention_torch(q, k, v, causal=causal, block_q=1, block_k=chunk,
+                                    q_offset=off)
+        got, lim = disagreement(torch, out, ref), K6_LIMITS[dt]
+        bad = [f"{m} {got[m]:.3e} > {x:.3e}" for m, x in lim.items() if not got[m] <= x]
+        if not bool(torch.isfinite(out.float()).all()):
+            bad.append("non-finite output")
+        line = (f"[{tag}] K6 call q {q_shape} k {k_shape} {dt} causal={causal} q_offset={off}: "
+                + " ".join(f"{m}={x:.3e}" for m, x in got.items()))
+        worst["K6"] = max(worst.get("K6", (-1.0, "")), (got["err"], line))
+        if bad:
+            log(line)
+            failed.append(f"K6 {key}: {'; '.join(bad)}")
+        del q, k, v, out, ref
     for name, (_, line) in sorted(worst.items()):
         log(f"[{tag}] {name}: the call with the largest |d| of those held: {line}")
-    check(not failed, f"{tag}: K4/K5 calls disagree with their plain versions: {failed}")
-    return len(k4), len(k5)
+    check(not failed, f"{tag}: K4/K5/K6 calls disagree with their plain versions: {failed}")
+    return len(k4), len(k5), len(k6)
 
 
 def phase_k1(torch):
@@ -737,7 +784,7 @@ def phase_k1(torch):
     # its vocab rows; the row-parallel ones with f32 outputs), on the blocks
     # the planner resolves: planned here, so [serve_tp]'s ranks read them
     # from the run's autotune cache.
-    tp_blocks, seen = plan_tp_products(torch), set()
+    tp_blocks, seen = plan_products(torch, tp_products(torch)), set()
     for label, m, k, n, out_dt in tp_products(torch):
         if (m, k, n, out_dt) in seen:
             continue
@@ -3800,7 +3847,7 @@ def phase_serve_whisper(torch):
 # pre-activation: RWKV's silu, relu and sigmoid (3 a layer); Zamba2 fuses
 # none.  K6: Zamba2's 6 shared-block attentions forward (the backward
 # recomputes the plain chunked path).
-FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_STEPS = 2  # 3 until the whole run outgrew its time
 # RWKV-6's gradient at random init is chaotic in depth: two plain paths
 # that only round differently (the `torch` backend, and the same step with
 # the `ref` forward's f32 products) read per-parameter ||d||/||g|| of 0.026
@@ -3811,8 +3858,9 @@ FAMILY_TRAIN_STEPS = 3
 RWKV_HELD_LAYERS = 2
 # Without the chunk checkpoint a full-depth RWKV-6 step does not fit the
 # card's 80 GB (12 layers peak at 47.17 GiB without it, 26.81 with it, on an
-# H100 80GB HBM3), so that reading is taken at half the depth, both ways.
-RWKV_MEMORY_LAYERS = RWKV_LAYERS // 2
+# H100 80GB HBM3), so that reading is taken at a quarter of the depth (half
+# until the whole run outgrew its time), both ways.
+RWKV_MEMORY_LAYERS = RWKV_LAYERS // 4
 RWKV_TRAIN_LAUNCHES = {"mesh_matmul": 3 * RWKV_STEP_LAUNCHES + 3 * RWKV_LAYERS,
                        "flash_attention": 0}
 ZAMBA_TRAIN_LAUNCHES = {"mesh_matmul": 3 * ZAMBA_STEP_LAUNCHES, "flash_attention": ZAMBA_APPS}
@@ -5084,13 +5132,14 @@ def tp_products(torch):
     return out
 
 
-def plan_tp_products(torch):
-    """Plans every product of `tp_products` on the cuda_mesh backend (the
-    timed autotuner, its cache the run's): {(M, K, N): blocks}."""
+def plan_products(torch, products):
+    """Plans every (label, M, K, N, out dtype) of `products` on the
+    cuda_mesh backend (the timed autotuner, its cache the run's): {(M, K,
+    N): blocks}."""
     from repro_torch.kernels import api
 
     blocks = {}
-    for _, m, k, n, dt in tp_products(torch):
+    for _, m, k, n, dt in products:
         x = torch.empty(m, k, dtype=torch.bfloat16, device="cuda")
         w = torch.empty(k, n, dtype=torch.bfloat16, device="cuda")
         spec = api.GemmSpec.from_operands(x, w, epilogue=api.Epilogue(),
@@ -5160,10 +5209,11 @@ def serve_tp_rank(rank, world, init, tmp):
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world)
-    with k1_calls() as calls, k4_k5_calls() as (k4, k5):
+    with k1_calls() as calls, k4_k5_calls() as (k4, k5, k6):
         found = _serve_tp_rank(torch, rank, world, tmp)
     found["k1_calls"] = sorted(calls, key=str)
     found["k4_calls"], found["k5_calls"] = sorted(k4, key=str), sorted(k5, key=str)
+    found["k6_calls"] = sorted(k6, key=str)
     found["blocks"] = _plan_blocks()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(found, f)
@@ -5368,12 +5418,13 @@ def phase_serve_tp(torch):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serving_steps
     from repro_torch.models import get_model
+    from repro_torch.models.layers import NO_SHARD
 
     t_phase = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="serve_tp")
     try:
         with k1_calls() as parent_calls:
-            planned = plan_tp_products(torch)
+            planned = plan_products(torch, tp_products(torch))
             # mesh-paper: req0's single-process prefill (the server's first
             # token) and its greedy teacher-forced logits.
             cfg = get_config("mesh-paper")
@@ -5383,8 +5434,9 @@ def phase_serve_tp(torch):
             prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32),
                                      device="cuda")[None]
             first = int(serving_steps(model)[0](params, {"tokens": prompt})[0][0])
-            logits, feed = _greedy_logits(torch, model, params, prompt, TP_TF_STEPS)
-            torch.save({"logits": logits, "feed": feed, "first": first},
+            logits, feed = _tf_logits(torch, model, params, {"tokens": prompt}, TP_TF_STEPS,
+                                      NO_SHARD)
+            torch.save({"logits": logits[:, 0], "feed": [f[0] for f in feed], "first": first},
                        os.path.join(tmp, "mesh_paper.pt"))
             del params, model
             _free(torch)
@@ -5395,10 +5447,12 @@ def phase_serve_tp(torch):
             moe_prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                            TP_MOE_PROMPT).astype(np.int32)
             with routing() as routes:
-                mlogits, mfeed = _greedy_logits(
-                    torch, model, params, torch.as_tensor(moe_prompt, device="cuda")[None],
-                    TP_MOE_STEPS)
-            torch.save({"logits": mlogits, "feed": mfeed, "prompt": torch.as_tensor(moe_prompt),
+                mlogits, mfeed = _tf_logits(
+                    torch, model, params,
+                    {"tokens": torch.as_tensor(moe_prompt, device="cuda")[None]}, TP_MOE_STEPS,
+                    NO_SHARD)
+            torch.save({"logits": mlogits[:, 0], "feed": [f[0] for f in mfeed],
+                        "prompt": torch.as_tensor(moe_prompt),
                         "routes": [r.cpu() for r in routes]}, os.path.join(tmp, "olmoe.pt"))
             del params, model, routes
             _free(torch)
@@ -5523,14 +5577,16 @@ def phase_serve_tp(torch):
     here, before = hold_k1_keys(torch, "serve_tp", calls)
     log(f"[serve_tp] {len(calls)} distinct K1 calls of the parent and the ranks: {before} held by"
         f" [K1]/[K1 train] before, {here} held here on the same blocks")
-    k4_held, k5_held = hold_k4_k5_calls(
+    k4_held, k5_held, k6_held = hold_k4_k5_calls(
         torch, "serve_tp", {_as_key(x) for f in ranks for x in f["k4_calls"]},
-        {_as_key(x) for f in ranks for x in f["k5_calls"]})
-    log(f"[serve_tp] the ranks' distinct K4 calls ({k4_held}: shapes, table and lengths) and K5"
-        f" calls ({k5_held}: shapes, blocks and group sizes) each held against the plain version"
-        " at [K4]'s and [K5]'s limits")
-    if not k4_held or not k5_held:
-        failed.append(f"K4/K5 calls recorded: {k4_held} {k5_held}")
+        {_as_key(x) for f in ranks for x in f["k5_calls"]},
+        {_as_key(x) for f in ranks for x in f["k6_calls"]})
+    log(f"[serve_tp] the ranks' distinct K4 calls ({k4_held}: shapes, table and lengths), K5"
+        f" calls ({k5_held}: shapes, blocks and group sizes) and K6 calls ({k6_held}: shapes,"
+        " mask and query offset) each held against the plain version at [K4]'s, [K5]'s and"
+        " [K6]'s limits")
+    if not k4_held or not k5_held or not k6_held:
+        failed.append(f"K4/K5/K6 calls recorded: {k4_held} {k5_held} {k6_held}")
     check(not failed, "[serve_tp] failed:\n" + "\n".join(failed))
     return {"mesh_matmul": sum(f["serve"]["k1"] + f["teacher_forced"]["k1"]
                                + f["paged_teacher_forced"]["k1"]
@@ -5543,21 +5599,616 @@ def phase_serve_tp(torch):
             "flash_attention": sum(f["qwen2"]["k6"] for f in ranks)}
 
 
-def _greedy_logits(torch, model, params, prompt, steps):
-    """Single-process prefill of `prompt` (1, T) and `steps` dense decode
-    steps on its own greedy tokens: (last-position logits (1 + steps, V) f32
-    on the host, the fed tokens)."""
+# [serve_tp_families]: tensor-parallel serving of the other families, and the
+# continuous-batching server with its slots split over 'data', on ranks that
+# share the card (gloo, every collective staged through host memory).  RWKV-6
+# 1.6B, Zamba2-1.2B and Whisper-medium at full width through tuned() on 1x2
+# (ranks 0-1: 16 of 32 WKV heads, 32 of 64 SSM heads and 16 of 32 attention
+# heads, 8 of 16 heads a rank), then mesh-paper through the server on 2x1
+# (ranks 0-1, 2 of its 4 slots a data rank) and on 2x2 (all 4 ranks, 2 slots
+# and 8 of 16 heads a rank).  The parent computes every single-process
+# reference and plans every shard shape first, so the ranks read its
+# autotune cache.
+TPF_RANKS, TPF_TIMEOUT_S = 4, 600
+TPF_TF_STEPS = 8  # teacher-forced decode steps after each prefill
+TPF_SERVER_MESHES = ((2, 1), (2, 2))
+# Zamba2's prefill logits are compared at these positions (both sides of
+# K6's 1024-key chunk boundary), Whisper's at these of its decoder prompt.
+TPF_ZAMBA_POSITIONS = (0, 1023, 1024, ZAMBA_PROMPT - 1)
+TPF_WHISPER_POSITIONS = (0, 127, 128, WHISPER_PROMPT - 1)
+# Limits of the teacher-forced TP logits against the single-process ones
+# (prefill and every decode step), each about 3x its first reading (NVIDIA
+# H100 80GB HBM3, both ranks alike; PERF.md): RWKV-6 0.2695 (24 layers of
+# bf16 roundings, as its chunked WKV against the scan reads 0.2622),
+# Zamba2 0.0901, Whisper 0.0713, mesh-paper's device steps on 2x2 0.0547.
+# On 2x1 the decode step of 2 slots a rank runs the single process's
+# products on the same blocks (a slot's row stays in K1's tile 0), so its
+# logits and tokens are held bitwise.  RWKV-6's f32 witness: req0's
+# prefill with f32 weights and activations on the `torch` backend, TP
+# against single-process: 4.208e-05 at first.
+TPF_TOL = {"rwkv": 0.8, "zamba": 0.27, "whisper": 0.21, "server": 0.165}
+TPF_RWKV_F32_TOL = 1.3e-4
+
+
+def tp_family_products(torch):
+    """[serve_tp_families]' K1 products on a rank, (label, M, K, N, out
+    dtype): each family's column-parallel projections (a rank's heads, its
+    gate and up slices, Mamba2's [z | x | B | C | dt] of its SSM heads, its
+    vocab rows), its row-parallel ones (f32 partial sums) and its replicated
+    ones, at each M the phase runs them; mesh-paper's at 2 slots a data
+    rank whole (2x1) and on 8 heads (2x2), and at a prefill's 128 rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import head_layout
+    from repro_torch.models.layers import padded_vocab
+
+    f32 = torch.float32
+    out = []
+
+    def add(name, prods, ms):
+        for m in ms:
+            out.extend((f"{name} {label} M={m}", m, k, n, dt) for label, k, n, dt in prods)
+
+    def dense(cfg, ctx):
+        d, hd = cfg.d_model, cfg.head_dim_
+        lay, mlp = head_layout(cfg, ctx), ctx.part("mlp", cfg.d_ff)
+        split = lay.q.count > 1
+        return [("wq", d, lay.q.size * hd, None), ("wk|wv", d, lay.kv.size * hd, None),
+                ("wo", lay.q.size * hd, d, f32 if split else None),
+                ("wi", d, 2 * mlp.size, None),
+                ("mlp wo", mlp.size, d, f32 if mlp.count > 1 else None)]
+
+    def head(cfg, ctx):
+        return [("head", cfg.d_model, ctx.part("vocab", padded_vocab(cfg)).size, None)]
+
+    ctx = _tp_ctx(2)
+    cfg = get_config("rwkv6-1.6b")
+    d, hp, fp = cfg.d_model, ctx.part("heads", cfg.num_heads), ctx.part("mlp", cfg.d_ff)
+    cols = hp.size * cfg.head_dim_
+    add("rwkv", [("wr|wk|wv|wg", d, cols, None), ("wo", cols, d, f32),
+                 ("cm_wk", d, fp.size, None), ("cm_wv", fp.size, d, f32), ("cm_wr", d, d, None)]
+        + head(cfg, ctx), (1, SLOTS, PROMPT))
+    cfg = get_config("zamba2-1.2b")
+    d_in, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state_size
+    hs = ctx.part("mlp", cfg.ssm_num_heads)
+    p = d_in // cfg.ssm_num_heads
+    add("zamba", [("in_proj", cfg.d_model, 2 * hs.size * p + 2 * n + hs.size, None),
+                  ("out_proj", hs.size * p, cfg.d_model, f32)] + dense(cfg, ctx) + head(cfg, ctx),
+        ZAMBA_MS)
+    cfg = get_config("whisper-medium")
+    add("whisper", [("frame_proj", cfg.d_model, cfg.d_model, None)] + dense(cfg, ctx)
+        + head(cfg, ctx), WHISPER_MS)
+    cfg = get_config("mesh-paper")
+    whole = _tp_ctx(1)
+    add("mesh-paper 2x1", dense(cfg, whole) + head(cfg, whole), (2, PROMPT))
+    add("mesh-paper 2x2", dense(cfg, ctx) + head(cfg, ctx), (2, PROMPT))
+    return out
+
+
+@contextlib.contextmanager
+def _counted(torch):
+    """Resets K1's, K4's and K6's launch counters and the peak memory; the
+    yielded dict gets, at the block's end, the launches (k1, k4, k6), the
+    wall and the peak (GiB) of the block."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    torch.cuda.synchronize()
+    reset_k1(mesh_matmul)
+    flash_attention.launches = paged_attention_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    got, t0 = {}, time.monotonic()
+    yield got
+    torch.cuda.synchronize()
+    got.update(k1=mesh_matmul.launches, k4=paged_attention_cuda.launches,
+               k6=flash_attention.launches, wall_s=time.monotonic() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _tf_logits(torch, model, params, batch, steps, ctx, feed=None, positions=None):
+    """`batch` prefilled, then `steps` decode steps with the caches
+    `generate` grows, fed `feed` ((steps, B) tokens) or, without it, each
+    step's greedy argmax; under `ctx` the logits are gathered whole.
+    Returns (the prefill's logits at `positions` (default: the last) then
+    each step's, (P + steps, B, V) f32 on the host; the tokens fed)."""
+    from repro_torch.launch.serve import _GROWN_CACHES
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.train.train_step import _local_rows
+
+    b, t = batch["tokens"].shape
+    c, vocab = ctx.for_rows(b), padded_vocab(model.cfg)
+    grown = _GROWN_CACHES[model.cfg.family]
+
+    def whole(lg):  # (rows, P, vocab block) -> (B, P, V)
+        return c.gather(lg.float(), ("batch", None, "vocab"), (b, lg.shape[1], vocab))
+
     with torch.inference_mode():
-        lg, state = model.prefill(params, {"tokens": prompt})
-        out, feed = [lg[0, -1].float()], []
-        state = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, steps)) for k, v in state.items()}
-        t = prompt.shape[1]
+        lg, state = model.prefill(params, _local_rows(batch, c), c)
+        rows = [whole(lg[:, list(positions or (t - 1,))]).transpose(0, 1)]
+        last = whole(lg[:, -1:])[:, 0]
+        del lg
+        state = {k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, steps))
+                     if grown is None or k in grown else v) for k, v in state.items()}
+        fed = []
         for i in range(steps):
-            feed.append(int(out[-1].argmax()))
-            tok = torch.tensor([[feed[-1]]], dtype=torch.int32, device="cuda")
-            lg, state = model.decode(params, tok, state, t + i)
-            out.append(lg[0, -1].float())
-    return torch.stack(out).cpu(), feed
+            tok = (last.argmax(-1).to(torch.int32) if feed is None
+                   else torch.tensor(feed[i], dtype=torch.int32, device="cuda"))
+            fed.append(tok.tolist())
+            lg, state = model.decode(params, _local_rows({"t": tok[:, None]}, c)["t"], state,
+                                     t + i, c)
+            last = whole(lg)[:, 0]
+            rows.append(last[None])
+    return torch.cat(rows).cpu(), fed
+
+
+def _slots_tf(torch, model, params, prompts, steps, ctx, feed=None):
+    """The server's device steps on [serve]'s first SLOTS prompts: each
+    prefilled alone (a batch of 1, replicated under a mesh, as the server
+    runs it), its caches on its own pages, then `steps` paged decode steps
+    of the SLOTS slots fed `feed` ((steps, SLOTS) tokens) or their own
+    greedy tokens; under `ctx` each rank runs its block of the slot rows.
+    Returns ((1 + steps, SLOTS, V) f32 logits on the host, the tokens
+    fed)."""
+    from repro_torch.models.attention import head_layout
+    from repro_torch.models.layers import padded_vocab
+
+    cfg, vocab = model.cfg, padded_vocab(model.cfg)
+    c1, c = ctx.for_rows(1), ctx.for_rows(SLOTS)
+    mine, lay = c.part("batch", SLOTS), head_layout(cfg, ctx)
+    n_pages = -(-(PROMPT + steps) // PAGE)
+    pools = {k: torch.zeros(shape, dtype=dt, device="cuda") for k, (shape, dt)
+             in model.paged_pool_specs(1 + SLOTS * n_pages, PAGE, ctx).items()}
+    tables = torch.arange(1, 1 + SLOTS * n_pages, dtype=torch.int32,
+                          device="cuda").reshape(SLOTS, n_pages)
+    lo, hi = mine.start, mine.start + mine.size
+    with torch.inference_mode():
+        firsts = []
+        for s in range(SLOTS):
+            prompt = torch.as_tensor(prompts[s], device="cuda")[None]
+            lg, caches = model.prefill(params, {"tokens": prompt}, c1)
+            firsts.append(c1.gather(lg[:, -1].float(), ("batch", "vocab"), (1, vocab))[0])
+            for name in ("k", "v"):  # (L, 1, T, kv, hd): the read heads on the slot's pages
+                kv = torch.nn.functional.pad(lay.select(caches[name][:, 0], 2),
+                                             (0, 0, 0, 0, 0, n_pages * PAGE - PROMPT))
+                pools[name][:, tables[s].long()] = kv.reshape(
+                    kv.shape[0], n_pages, PAGE, *kv.shape[2:]).to(pools[name].dtype)
+            del lg, caches
+        last = torch.stack(firsts)
+        rows, fed = [last], []
+        for i in range(steps):
+            tok = (last.argmax(-1).to(torch.int32) if feed is None
+                   else torch.tensor(feed[i], dtype=torch.int32, device="cuda"))
+            fed.append(tok.tolist())
+            pos = torch.full((mine.size,), PROMPT + i, dtype=torch.int32, device="cuda")
+            lg, pools = model.paged_decode(params, tok[lo:hi, None], pools, tables[lo:hi], pos, c)
+            last = c.gather(lg[:, -1].float(), ("batch", "vocab"), (SLOTS, vocab))
+            rows.append(last)
+    return torch.stack(rows).cpu(), fed
+
+
+def _tf_diffs(got, want, vocab):
+    """max |d| of each row of two (P + steps, B, V) logit stacks over the
+    real vocab entries."""
+    return (got[..., :vocab] - want[..., :vocab]).abs().amax(dim=(1, 2)).tolist()
+
+
+def _family_cfgs():
+    """The three families as [serve_rwkv], [serve_zamba] and [serve_whisper]
+    run them: tuned(), on the kernel path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return {name: dataclasses.replace(get_config(arch).tuned(), use_mesh_kernel=True)
+            for name, arch in (("rwkv", "rwkv6-1.6b"), ("zamba", "zamba2-1.2b"),
+                               ("whisper", "whisper-medium"))}
+
+
+def _family_inputs(torch, name, cfg):
+    """The phases' seeded inputs: [serve_rwkv]'s prompts (a list of
+    REQUESTS arrays), [serve_zamba]'s 2 x 2048 prompts, [serve_whisper]'s
+    frames and 256-token prompts (as batches on the card)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    if name == "rwkv":
+        return [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32) for _ in range(REQUESTS)]
+    if name == "zamba":
+        return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, ZAMBA_PROMPT))
+                                          .astype(np.int32), device="cuda")}
+    frames = rng.normal(size=(2, WHISPER_FRAMES, cfg.d_model)).astype(np.float32)
+    prompt = rng.integers(0, cfg.vocab_size, (2, WHISPER_PROMPT)).astype(np.int32)
+    return {"frames": torch.as_tensor(frames, device="cuda"),
+            "tokens": torch.as_tensor(prompt, device="cuda")}
+
+
+def _f32_model(torch, model, params):
+    """The model with f32 weights and activations on the `torch` backend
+    (cuBLAS, TF32 off), and `params` in f32 (the bf16 tree freed): a witness
+    of the model code's arithmetic, K1's f32 products being held by [K1]
+    and [K1 train]."""
+    import dataclasses
+
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_map
+
+    params = tree_map(lambda t: t.float(), params)
+    _free(torch)
+    return get_model(dataclasses.replace(model.cfg, param_dtype="float32",
+                                         activation_dtype="float32",
+                                         use_mesh_kernel=False)), params
+
+
+def serve_tp_families_rank(rank, world, init, tmp):
+    """One rank of [serve_tp_families] (run by the phase in its own
+    process): its findings, K1, K4 and K6 calls and plans' blocks go to tmp
+    as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world)
+    with k1_calls() as calls, k4_k5_calls() as (k4, k5, k6):
+        found = _serve_tp_families_rank(torch, rank, tmp)
+    found["k1_calls"] = sorted(calls, key=str)
+    found["k4_calls"], found["k6_calls"] = sorted(k4, key=str), sorted(k6, key=str)
+    found["k5_calls"] = len(k5)
+    found["blocks"] = _plan_blocks()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(found, f)
+    dist.destroy_process_group()
+
+
+def _serve_tp_families_rank(torch, rank, tmp):
+    """serve_tp_families_rank's work, in its process group."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import get_model
+    from repro_torch.models.attention import head_layout
+    from repro_torch.models.layers import ShardCtx
+
+    meshes = {s: make_local_mesh(s, ("data", "model")) for s in ((1, 2),) + TPF_SERVER_MESHES}
+    found = {}
+    if rank < 2:
+        ctx = ShardCtx(meshes[(1, 2)])
+        cfgs = _family_cfgs()
+        # (a) RWKV-6 1.6B: req0 through generate, the 8 requests through
+        # the 4-slot server, req0 teacher-forced.
+        ref = torch.load(os.path.join(tmp, "rwkv.pt"))
+        model = get_model(cfgs["rwkv"])
+        params = _tp_params(torch, model, ctx)
+        prompts = _family_inputs(torch, "rwkv", model.cfg)
+        prompt = torch.as_tensor(prompts[0], device="cuda")[None]
+        with _counted(torch) as gen:
+            toks, _ = generate(model, params, prompt, gen_len=NEW_TOKENS, ctx=ctx)
+        gen["tokens"] = toks[0].tolist()
+        scfg = ServeConfig(max_slots=SLOTS, queue_capacity=REQUESTS, warmup_prompt_lens=(PROMPT,))
+        with _counted(torch) as srv:
+            server = ContinuousBatchingServer(model, params, scfg, ctx, device="cuda")
+            server.warmup()
+            results = server.run([Request(rid=f"req{i}", prompt=p, max_new_tokens=NEW_TOKENS)
+                                  for i, p in enumerate(prompts)])
+        srv.update(counters=dict(server.counters), wkv=list(server.state["wkv"].shape),
+                   statuses=[r.status for r in results.values()],
+                   lengths=[len(r.tokens) for r in results.values()],
+                   req0=results["req0"].tokens)
+        del server
+        with _counted(torch) as tf:
+            logits, _ = _tf_logits(torch, model, params, {"tokens": prompt}, TPF_TF_STEPS, ctx,
+                                   feed=ref["feed"])
+        tf["diffs"] = _tf_diffs(logits, ref["logits"], model.cfg.vocab_size)
+        tf["first"] = int(logits[0, 0].argmax())
+        del logits
+        with _counted(torch) as f32:
+            model, params = _f32_model(torch, model, params)
+            logits, _ = _tf_logits(torch, model, params, {"tokens": prompt}, 0, ctx)
+        f32.update(diff=_tf_diffs(logits, ref["f32_logits"], model.cfg.vocab_size)[0],
+                   first=int(logits[0, 0].argmax()))
+        found["rwkv"] = dict(generate=gen, server=srv, tf=tf, f32=f32)
+        del params, model, logits
+        _free(torch)
+        # (b) Zamba2-1.2B and (c) Whisper-medium: [serve_zamba]'s and
+        # [serve_whisper]'s batches prefilled, then teacher-forced steps.
+        for name, positions in (("zamba", TPF_ZAMBA_POSITIONS),
+                                ("whisper", TPF_WHISPER_POSITIONS)):
+            ref = torch.load(os.path.join(tmp, f"{name}.pt"))
+            model = get_model(cfgs[name])
+            params = _tp_params(torch, model, ctx)
+            with _counted(torch) as tf:
+                logits, _ = _tf_logits(torch, model, params,
+                                       _family_inputs(torch, name, model.cfg), TPF_TF_STEPS,
+                                       ctx, feed=ref["feed"], positions=positions)
+            tf["diffs"] = _tf_diffs(logits, ref["logits"], model.cfg.vocab_size)
+            tf["scale"] = ref["logits"][..., :model.cfg.vocab_size].abs().max().item()
+            lay = head_layout(model.cfg, ctx)
+            tf["heads"] = [lay.q.size, lay.kv.size]
+            if name == "zamba":
+                tf["ssm_heads"] = ctx.part("mlp", model.cfg.ssm_num_heads).size
+                tf["in_proj"] = list(params["mamba_seg"]["in_proj"].shape)
+            found[name] = tf
+            del params, model, logits
+            _free(torch)
+    # (d) mesh-paper through the server on 2x1 (ranks 0-1) and 2x2 (all).
+    ref = torch.load(os.path.join(tmp, "mesh_paper.pt"))
+    prompts = list(ref["prompts"].numpy())
+    cfg = get_config("mesh-paper")
+    for shape in TPF_SERVER_MESHES:
+        dist.barrier()  # the ranks not in the 2x1 mesh wait here, not in a collective
+        if rank >= shape[0] * shape[1]:
+            continue
+        ctx = ShardCtx(meshes[shape])
+        model = get_model(cfg)
+        params = _tp_params(torch, model, ctx)
+        pages = -(-(PROMPT + NEW_TOKENS) // PAGE)
+        scfg = ServeConfig(max_slots=SLOTS, page_size=PAGE, num_pages=1 + SLOTS * pages,
+                           max_pages_per_seq=pages, queue_capacity=REQUESTS,
+                           warmup_prompt_lens=(PROMPT,))
+        with _counted(torch) as srv:
+            server = ContinuousBatchingServer(model, params, scfg, ctx, device="cuda")
+            server.warmup()
+            results = server.run([Request(rid=f"req{i}", prompt=p, max_new_tokens=NEW_TOKENS)
+                                  for i, p in enumerate(prompts)])
+        lay = head_layout(cfg, ctx)
+        srv.update(counters=dict(server.counters), rows=[server._rows.start, server._rows.size],
+                   heads=[lay.q.size, lay.kv.size, len(lay.read)],
+                   pool=list(server.pools["k"].shape),
+                   statuses=[r.status for r in results.values()],
+                   tokens={rid: r.tokens for rid, r in results.items()})
+        del server
+        with _counted(torch) as tf:
+            logits, _ = _slots_tf(torch, model, params, prompts, TPF_TF_STEPS, ctx,
+                                  feed=ref["feed"])
+        tf["diffs"] = _tf_diffs(logits, ref["logits"], cfg.vocab_size)
+        found[f"server {shape[0]}x{shape[1]}"] = dict(server=srv, tf=tf)
+        del params, model, logits
+        _free(torch)
+    return found
+
+
+def phase_serve_tp_families(torch):
+    """RWKV-6, Zamba2 and Whisper tensor-parallel on 1x2 and mesh-paper's
+    server on 2x1 and 2x2, on TPF_RANKS ranks sharing the card (see the
+    constants above): the parent computes the single-process references
+    and plans every shard shape, the ranks serve, and the parent holds
+    their launches, tokens and logits and every K1, K4 and K6 call they
+    made against its plain version.  Walls and memory are printed, never
+    as speeds."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.scheduler import ContinuousBatchingServer, Request, ServeConfig
+    from repro_torch.launch.serve import generate, serving_steps
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import NO_SHARD
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="serve_tp_families")
+    cfgs = _family_cfgs()
+    try:
+        with k1_calls() as parent_calls:
+            planned = plan_products(torch, tp_family_products(torch))
+            # RWKV-6: req0's first token and generate's tokens, single-process,
+            # and its greedy teacher-forced logits.
+            model, params = _init_full_width(torch, "serve_tp_families", cfgs["rwkv"])
+            prompts = _family_inputs(torch, "rwkv", model.cfg)
+            prompt = torch.as_tensor(prompts[0], device="cuda")[None]
+            first = int(serving_steps(model)[0](params, {"tokens": prompt})[0][0])
+            gen_tokens = generate(model, params, prompt, gen_len=NEW_TOKENS)[0][0].tolist()
+            logits, feed = _tf_logits(torch, model, params, {"tokens": prompt}, TPF_TF_STEPS,
+                                      NO_SHARD)
+            top2 = logits[0, 0, :model.cfg.vocab_size].topk(2).values.tolist()
+            model, params = _f32_model(torch, model, params)
+            f32_logits, _ = _tf_logits(torch, model, params, {"tokens": prompt}, 0, NO_SHARD)
+            torch.save({"logits": logits, "feed": feed, "f32_logits": f32_logits},
+                       os.path.join(tmp, "rwkv.pt"))
+            ref_logits = logits
+            del model, params
+            for name, positions in (("zamba", TPF_ZAMBA_POSITIONS),
+                                    ("whisper", TPF_WHISPER_POSITIONS)):
+                model, params = _init_full_width(torch, "serve_tp_families", cfgs[name])
+                logits, feed = _tf_logits(torch, model, params,
+                                          _family_inputs(torch, name, model.cfg), TPF_TF_STEPS,
+                                          NO_SHARD, positions=positions)
+                torch.save({"logits": logits, "feed": feed}, os.path.join(tmp, f"{name}.pt"))
+                del model, params
+            # mesh-paper: the single-process server's tokens, and the greedy
+            # teacher-forced logits of its device steps on 4 slots.
+            cfg = get_config("mesh-paper")
+            model, params = _init_full_width(torch, "serve_tp_families", cfg)
+            rng = np.random.default_rng(0)
+            mp_prompts = [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32)
+                          for _ in range(REQUESTS)]
+            pages = -(-(PROMPT + NEW_TOKENS) // PAGE)
+            scfg = ServeConfig(max_slots=SLOTS, page_size=PAGE, num_pages=1 + SLOTS * pages,
+                               max_pages_per_seq=pages, queue_capacity=REQUESTS,
+                               warmup_prompt_lens=(PROMPT,))
+            server = ContinuousBatchingServer(model, params, scfg, device="cuda")
+            server.warmup()
+            single = {rid: r.tokens for rid, r in server.run(
+                [Request(rid=f"req{i}", prompt=p, max_new_tokens=NEW_TOKENS)
+                 for i, p in enumerate(mp_prompts)]).items()}
+            del server
+            logits, feed = _slots_tf(torch, model, params, mp_prompts, TPF_TF_STEPS, NO_SHARD)
+            torch.save({"logits": logits, "feed": feed,
+                        "prompts": torch.as_tensor(np.stack(mp_prompts))},
+                       os.path.join(tmp, "mesh_paper.pt"))
+            del model, params
+            _free(torch)
+        log(f"[serve_tp_families] single-process references and {len(planned)} shard shapes"
+            f" planned in {time.monotonic() - t_phase:.1f} s; RWKV-6 req0's first token {first}")
+
+        t0 = time.monotonic()
+        runs = _spawn(lambda r: (
+            "import chip_smoke; chip_smoke.serve_tp_families_rank("
+            f"{r}, {TPF_RANKS}, {os.path.join(tmp, 'gloo')!r}, {tmp!r})"),
+            TPF_RANKS, TPF_TIMEOUT_S)
+        wall = time.monotonic() - t0
+        bad = [f"rank {r}: rc={rc} {e[-3000:]}" for r, (rc, _, e) in enumerate(runs) if rc != 0]
+        check(not bad, "[serve_tp_families] rank failures:\n" + "\n".join(bad))
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(TPF_RANKS)]
+        parent_blocks = _plan_blocks()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[serve_tp_families] {TPF_RANKS} gloo ranks on one card: {wall:.1f} s wall in all,"
+        " process start, CUDA init and every model's init included (not a speed: the ranks"
+        " share the card and every collective goes through host memory)")
+
+    failed = []
+
+    def launches(tag, got, want):
+        ok = all(got[k] == v for k, v in want.items())
+        if not ok:
+            failed.append(f"{tag}: launches {[got[k] for k in want]} != {want}")
+        return (f"K1 {got['k1']} K4 {got['k4']} K6 {got['k6']} (want"
+                f" {', '.join(f'{k.upper()} {v}' for k, v in want.items())})")
+
+    def held(tag, tf, tol, extra=""):
+        worst = max(tf["diffs"])
+        if not worst <= tol:
+            failed.append(f"{tag}: teacher-forced max |d| {worst} > {tol}")
+        return (f"max |d| per row {[round(x, 4) for x in tf['diffs']]}, largest {worst:.4f}"
+                f" (tol {tol}){extra}")
+
+    def spent(got):
+        return f"wall {got['wall_s']:.2f} s (not a speed), peak {got['peak_gib']:.2f} GiB"
+
+    rw, zm, wh = (RWKV_STEP_LAUNCHES, ZAMBA_STEP_LAUNCHES, WHISPER_DEC_LAUNCHES)
+    f32_first = int(f32_logits[0, 0].argmax())
+    per_tick = sum(TICK_LAUNCHES.values())
+    layers = get_config("mesh-paper").num_layers
+    for r, f in enumerate(ranks):
+        if r < 2:
+            g, s, tf = f["rwkv"]["generate"], f["rwkv"]["server"], f["rwkv"]["tf"]
+            c = s["counters"]
+            log(f"[serve_tp_families] rank {r} RWKV-6 1x2 (wkv state {s['wkv']}): generate"
+                f" {NEW_TOKENS} tokens, {sum(a == b for a, b in zip(g['tokens'], gen_tokens))}"
+                f" of {NEW_TOKENS} equal to the single process's, "
+                + launches(f"rank {r} RWKV generate", g, dict(k1=rw * NEW_TOKENS, k4=0, k6=0))
+                + f", {spent(g)}")
+            x = f["rwkv"]["f32"]
+            gap = top2[0] - ref_logits[0, 0, s["req0"][0]].item()
+            log(f"[serve_tp_families] rank {r} RWKV-6 server {REQUESTS} x {NEW_TOKENS} on"
+                f" {SLOTS} slots: statuses {sorted(set(s['statuses']))}, req0's first token"
+                f" {s['req0'][0]} (single process {first}; its logit {gap:.4f} below the single"
+                f" process's top, whose top-2 gap is {top2[0] - top2[1]:.4f}), "
+                + launches(f"rank {r} RWKV server", s,
+                           dict(k1=rw * (c["prefills"] + c["decode_steps"]) + 2, k4=0, k6=0))
+                + f" ({c['prefills']} prefills + {c['decode_steps']} decode steps), {spent(s)}")
+            if set(s["statuses"]) != {"ok"} or set(s["lengths"]) != {NEW_TOKENS}:
+                failed.append(f"rank {r} RWKV server results {s['statuses']} {s['lengths']}")
+            # bf16: the first token may flip only at a near-tie, one whose gap
+            # two logits moved by the measured TP prefill |d| can close; f32:
+            # equal, within its limit.
+            if s["req0"][0] != tf["first"] or (s["req0"][0] != first
+                                               and not gap <= 2 * tf["diffs"][0]):
+                failed.append(f"rank {r} RWKV req0 first token {s['req0'][0]} (teacher-forced"
+                              f" {tf['first']}) vs {first}, gap {gap} > 2 |d| {tf['diffs'][0]}")
+            log(f"[serve_tp_families] rank {r} RWKV-6 f32 witness (req0's prefill, f32 weights"
+                f" and activations, the torch backend): TP against single-process logits max |d|"
+                f" {x['diff']:.3e} (tol {TPF_RWKV_F32_TOL}), first token {x['first']} (single"
+                f" process {f32_first}); "
+                + launches(f"rank {r} RWKV f32", x, dict(k1=0, k4=0, k6=0))
+                + f", {spent(x)}")
+            if not x["diff"] <= TPF_RWKV_F32_TOL or x["first"] != f32_first:
+                failed.append(f"rank {r} RWKV f32 witness {x['diff']} first {x['first']}")
+            if s["wkv"] != [RWKV_LAYERS, SLOTS, 16, 64, 64]:
+                failed.append(f"rank {r} RWKV stacked state {s['wkv']}")
+            log(f"[serve_tp_families] rank {r} RWKV-6 req0 teacher-forced (prefill + {TPF_TF_STEPS}"
+                f" steps), TP against single-process logits: "
+                + held(f"rank {r} RWKV", tf, TPF_TOL["rwkv"]) + "; "
+                + launches(f"rank {r} RWKV tf", tf, dict(k1=rw * (1 + TPF_TF_STEPS), k4=0, k6=0))
+                + f", {spent(tf)}")
+            z = f["zamba"]
+            log(f"[serve_tp_families] rank {r} Zamba2 1x2 ({z['ssm_heads']} SSM heads, (query, kv)"
+                f" heads {z['heads']}, in_proj {z['in_proj']}): 2 x {ZAMBA_PROMPT} prefill at"
+                f" positions {TPF_ZAMBA_POSITIONS} then {TPF_TF_STEPS} teacher-forced steps: "
+                + held(f"rank {r} Zamba2", z, TPF_TOL["zamba"], f" on logits up to {z['scale']:.2f}")
+                + "; " + launches(f"rank {r} Zamba2", z,
+                                  dict(k1=zm * (1 + TPF_TF_STEPS), k4=0, k6=ZAMBA_APPS))
+                + f", {spent(z)}")
+            if z["ssm_heads"] != 32 or z["heads"] != [16, 16]:
+                failed.append(f"rank {r} Zamba2 heads {z['ssm_heads']} {z['heads']}")
+            w = f["whisper"]
+            log(f"[serve_tp_families] rank {r} Whisper 1x2 ((query, kv) heads {w['heads']}):"
+                f" 2 x {WHISPER_FRAMES} frames, {WHISPER_PROMPT}-token prompt at positions"
+                f" {TPF_WHISPER_POSITIONS}, then {TPF_TF_STEPS} teacher-forced steps: "
+                + held(f"rank {r} Whisper", w, TPF_TOL["whisper"],
+                       f" on logits up to {w['scale']:.2f}")
+                + "; " + launches(f"rank {r} Whisper", w,
+                                  dict(k1=WHISPER_ENC_LAUNCHES + wh * (1 + TPF_TF_STEPS), k4=0,
+                                       k6=WHISPER_LAYERS))
+                + f", {spent(w)}")
+            if w["heads"] != [8, 8]:
+                failed.append(f"rank {r} Whisper heads {w['heads']}")
+        for d, m in TPF_SERVER_MESHES:
+            if r >= d * m:
+                continue
+            s, tf = f[f"server {d}x{m}"]["server"], f[f"server {d}x{m}"]["tf"]
+            c = s["counters"]
+            same = [rid for rid in sorted(single) if s["tokens"][rid] == single[rid]]
+            firsts = sum(s["tokens"][rid][0] == single[rid][0] for rid in single)
+            diverge = {rid: next(i for i, (a, b) in enumerate(zip(s["tokens"][rid], single[rid]))
+                                 if a != b) for rid in single if rid not in same}
+            log(f"[serve_tp_families] rank {r} mesh-paper server {d}x{m} (slot rows {s['rows']},"
+                f" heads (query, kv, pool) {s['heads']}, pool {s['pool']}): {REQUESTS} x"
+                f" {NEW_TOKENS} tokens, statuses {sorted(set(s['statuses']))}; requests equal to"
+                f" the single-process server's: {len(same)} of {REQUESTS}, first tokens {firsts}"
+                f" of {REQUESTS}, first differing token {diverge}; "
+                + launches(f"rank {r} server {d}x{m}", s,
+                           dict(k1=per_tick * (c["prefills"] + c["decode_steps"])
+                                + sum(CANARY_TILES.values()), k4=layers * c["decode_steps"],
+                                k6=0))
+                + f" ({c['prefills']} prefills + {c['decode_steps']} decode steps), {spent(s)}")
+            rows = SLOTS // d
+            if s["rows"] != [(r // m) * rows, rows] or s["heads"][0] != 16 // m:
+                failed.append(f"rank {r} server {d}x{m} rows {s['rows']} heads {s['heads']}")
+            if m == 1 and (len(same) != REQUESTS or any(tf["diffs"])):
+                failed.append(f"rank {r} server {d}x{m}: not bitwise the single process's"
+                              f" ({len(same)} requests equal, |d| {tf['diffs']})")
+            if set(s["statuses"]) != {"ok"}:
+                failed.append(f"rank {r} server {d}x{m} statuses {s['statuses']}")
+            log(f"[serve_tp_families] rank {r} mesh-paper {d}x{m} teacher-forced device steps"
+                f" ({SLOTS} prompts prefilled alone, then {TPF_TF_STEPS} paged steps of {rows}"
+                f" slots a data rank) against the single process's on 4 slots: "
+                + held(f"rank {r} server {d}x{m}", tf, 0.0 if m == 1 else TPF_TOL["server"])
+                + "; "
+                + launches(f"rank {r} server {d}x{m} tf", tf,
+                           dict(k1=per_tick * (SLOTS + TPF_TF_STEPS), k4=layers * TPF_TF_STEPS,
+                                k6=0))
+                + f", {spent(tf)}")
+        moved = {k: (v, parent_blocks.get(k)) for k, v in f["blocks"].items()
+                 if k in parent_blocks and parent_blocks[k] != v}
+        if moved:
+            failed.append(f"rank {r} planned other blocks than this process: {moved}")
+    calls = parent_calls | {_as_key(key) for f in ranks for key in f["k1_calls"]}
+    here, before = hold_k1_keys(torch, "serve_tp_families", calls)
+    log(f"[serve_tp_families] {len(calls)} distinct K1 calls of the parent and the ranks: {before}"
+        f" held by [K1]/[K1 train]/[serve_tp] before, {here} held here on the same blocks")
+    k4_held, _, k6_held = hold_k4_k5_calls(
+        torch, "serve_tp_families", {_as_key(x) for f in ranks for x in f["k4_calls"]}, set(),
+        {_as_key(x) for f in ranks for x in f["k6_calls"]})
+    log(f"[serve_tp_families] the ranks' distinct K4 calls ({k4_held}: shapes, table and"
+        f" lengths) and K6 calls ({k6_held}: shapes, mask and query offset) each held against"
+        " the plain version at [K4]'s and [K6]'s limits")
+    if not k4_held or not k6_held or any(f["k5_calls"] for f in ranks):
+        failed.append(f"K4/K6 calls recorded: {k4_held} {k6_held}; K5"
+                      f" {[f['k5_calls'] for f in ranks]}")
+    check(not failed, "[serve_tp_families] failed:\n" + "\n".join(failed))
+    fams = ranks[:2]
+    k1 = sum(f[k]["k1"] for f in fams for k in ("zamba", "whisper"))
+    k1 += sum(f["rwkv"][k]["k1"] for f in fams for k in ("generate", "server", "tf"))
+    servers = [f[f"server {d}x{m}"] for f in ranks for d, m in TPF_SERVER_MESHES
+               if f"server {d}x{m}" in f]
+    return {"mesh_matmul": k1 + sum(s[k]["k1"] for s in servers for k in ("server", "tf")),
+            "paged_attention": sum(s[k]["k4"] for s in servers for k in ("server", "tf")),
+            "flash_attention": sum(f[k]["k6"] for f in fams for k in ("zamba", "whisper"))}
 
 
 def main_path_products():
@@ -5907,7 +6558,7 @@ def main() -> int:
         ("serve_zamba", phase_serve_zamba), ("serve_whisper", phase_serve_whisper),
         ("train_rwkv", phase_train_rwkv), ("train_zamba", phase_train_zamba),
         ("sharded", phase_sharded), ("train_dp", phase_train_dp),
-        ("serve_tp", phase_serve_tp))}
+        ("serve_tp", phase_serve_tp), ("serve_tp_families", phase_serve_tp_families))}
     phases["paper"] = healthy("paper", lambda torch: phase_paper(torch, smi))
     phases["planner"] = phase_planner
     phases["obs"] = healthy("obs", lambda torch: phase_obs(torch, smi))
@@ -5947,6 +6598,7 @@ def main() -> int:
     sharded = phases["sharded"](torch)
     train_dp = phases["train_dp"](torch)
     serve_tp = phases["serve_tp"](torch)
+    serve_tpf = phases["serve_tp_families"](torch)
     phases["paper"](torch)
     planner = phases["planner"](torch)
     phases["obs"](torch)
@@ -5964,7 +6616,8 @@ def main() -> int:
             + planner["mesh_matmul"] + serve_rwkv["mesh_matmul"] + serve_zamba["mesh_matmul"]
             + serve_whisper["mesh_matmul"] + train_rwkv["mesh_matmul"]
             + train_zamba["mesh_matmul"] + sharded["mesh_matmul"] + train_dp["mesh_matmul"]
-            + train_dp["pipeline_mesh_matmul"] + serve_tp["mesh_matmul"], k1_err, k1,
+            + train_dp["pipeline_mesh_matmul"] + serve_tp["mesh_matmul"]
+            + serve_tpf["mesh_matmul"], k1_err, k1,
             "one decode tick: 25 launches at M=4",
             launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"],
                               "serve_moe": serve_moe["mesh_matmul"],
@@ -5979,7 +6632,8 @@ def main() -> int:
                               "sharded (4 ranks)": sharded["mesh_matmul"],
                               "train_dp (2 ranks)": train_dp["mesh_matmul"],
                               "pipeline (4 ranks)": train_dp["pipeline_mesh_matmul"],
-                              "serve_tp (2 ranks)": serve_tp["mesh_matmul"]},
+                              "serve_tp (2 ranks)": serve_tp["mesh_matmul"],
+                              "serve_tp_families (4 ranks)": serve_tpf["mesh_matmul"]},
             launches_by_tile=K1_TILES, train_step=k1_train,
             batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
                      "shape": "B=4 M=128 K=1024 N=512 bf16"}),
@@ -5988,7 +6642,7 @@ def main() -> int:
             serve["paged_attention"] + serve_moe["paged_attention"]
             + serve_qwen2["paged_attention"] + serve_qwen2_moe["paged_attention"]
             + configs["paged_attention"] + serve_pixtral["paged_attention"]
-            + serve_tp["paged_attention"], k4_err, k4,
+            + serve_tp["paged_attention"] + serve_tpf["paged_attention"], k4_err, k4,
             "one launch: S=4 H=KV=16 hd=128 bf16, 128-160 token contexts",
             launches_by_path={"serve": serve["paged_attention"],
                               "serve_moe": serve_moe["paged_attention"],
@@ -5996,7 +6650,8 @@ def main() -> int:
                               "serve_qwen2_moe": serve_qwen2_moe["paged_attention"],
                               "configs": configs["paged_attention"],
                               "serve_pixtral": serve_pixtral["paged_attention"],
-                              "serve_tp (2 ranks)": serve_tp["paged_attention"]},
+                              "serve_tp (2 ranks)": serve_tp["paged_attention"],
+                              "serve_tp_families (4 ranks)": serve_tpf["paged_attention"]},
             qwen2={**k4_qwen, "shape": f"one launch: S=4 H=28 KV=4 hd=128 bf16, contexts"
                    f" {QWEN_LIVE}"}),
         row("scramble_blocks", "scramble_blocks.cu",
@@ -6026,7 +6681,8 @@ def main() -> int:
             serve_qwen2["flash_attention"] + train_flash["flash_attention"]
             + configs["flash_attention"] + serve_pixtral["flash_attention"]
             + serve_zamba["flash_attention"] + serve_whisper["flash_attention"]
-            + train_zamba["flash_attention"] + serve_tp["flash_attention"], k6_err,
+            + train_zamba["flash_attention"] + serve_tp["flash_attention"]
+            + serve_tpf["flash_attention"], k6_err,
             k6["qwen2 T=2048"],
             "one launch: Qwen2-7B prefill B=1 T=2048 H=28 KV=4 hd=128 bf16 causal; library_ms"
             " is scaled_dot_product_attention (is_causal, enable_gqa)",
@@ -6037,7 +6693,8 @@ def main() -> int:
                               "serve_zamba": serve_zamba["flash_attention"],
                               "serve_whisper": serve_whisper["flash_attention"],
                               "train_zamba": train_zamba["flash_attention"],
-                              "serve_tp (2 ranks)": serve_tp["flash_attention"]},
+                              "serve_tp (2 ranks)": serve_tp["flash_attention"],
+                              "serve_tp_families (4 ranks)": serve_tpf["flash_attention"]},
             device_ms=k6["qwen2 T=2048"]["device_ms"],
             library_device_ms=k6["qwen2 T=2048"]["library_device_ms"],
             t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"],

@@ -92,16 +92,20 @@ def shard_params(params: Any, model, ctx) -> Any:
     them.
 
     Each leaf is `shard_of` its `tree_shardings(model.logical_axes(), mesh,
-    rules)` sharding (indivisible dims replicated), with two exceptions,
+    rules)` sharding (indivisible dims replicated), with these exceptions,
     where the port's layout is not the flat split of the dim:
       * 'heads' and 'kv_heads' dims (h * hd, kv * hd) split in whole heads,
         and replicate unless the head count divides the axis;
       * a fused [gate | up] dim (`moe.FUSED_GATE_UP`) gives each rank its
         slice of gate beside its slice of up, so the model's local split
-        pairs them (a flat split would give rank 0 all of gate).
+        pairs them (a flat split would give rank 0 all of gate);
+      * Mamba2's 'mlp' dims (`ssm.MAMBA_LAYOUT`: in_proj's [z | x | B | C |
+        dt], conv_w / conv_b's [x | B | C], out_norm and out_proj's x) give
+        each rank its whole SSM heads of z, x and dt, and B and C whole.
     Without a live mesh the tree comes back as it is.
     """
     from repro_torch.models.moe import FUSED_GATE_UP
+    from repro_torch.models.ssm import MAMBA_LAYOUT, mamba_segments
     from repro_torch.parallel.sharding import named_sharding, shard_of
 
     if not ctx.active:
@@ -110,20 +114,31 @@ def shard_params(params: Any, model, ctx) -> Any:
     rules, _, lay = ctx._resolved
     units = {"heads": (cfg.num_heads, hd), "kv_heads": (cfg.num_kv_heads, hd)}
 
+    def segments(t, d, key):
+        """[(kind, units, unit)] of a fused 'mlp' dim, or None."""
+        if key in FUSED_GATE_UP:
+            return [("heads", t.shape[d] // 2, 1)] * 2
+        if cfg.family == "hybrid" and key in MAMBA_LAYOUT:
+            return mamba_segments(cfg, key)
+        return None
+
     def cut(t, axes, key):
-        special = [a in units or (a == "mlp" and key in FUSED_GATE_UP) for a in axes]
-        if not any(special):
+        fused = [a == "mlp" and segments(t, d, key) is not None for d, a in enumerate(axes)]
+        if not any(a in units for a in axes) and not any(fused):
             return shard_of(t, named_sharding(axes, ctx.mesh, rules, shape=t.shape), lay)
         for d, a in enumerate(axes):
             if a in units:
                 n, unit = units[a]
                 part = ctx.part(a, n)
                 t = t.narrow(d, part.start * unit, part.size * unit)
-            elif a == "mlp" and key in FUSED_GATE_UP:
-                part = ctx.part(a, t.shape[d] // 2)
-                gate, up = t.chunk(2, dim=d)
-                t = torch.cat([gate.narrow(d, part.start, part.size),
-                               up.narrow(d, part.start, part.size)], dim=d)
+            elif fused[d]:
+                pieces, off = [], 0
+                for kind, n, unit in segments(t, d, key):
+                    part = ctx.part(a, n) if kind == "heads" else None
+                    pieces.append(t.narrow(d, off, n * unit) if part is None
+                                  else t.narrow(d, off + part.start * unit, part.size * unit))
+                    off += n * unit
+                t = torch.cat(pieces, dim=d)
             elif a is not None:
                 part = ctx.part(a, t.shape[d])
                 t = t.narrow(d, part.start, part.size)

@@ -52,14 +52,27 @@ The decode step runs at a fixed (max_slots,) shape; on the paged path each
 tick writes its new K/V rows into the pools in place (see
 `attention_paged_decode`).
 
-Tensor-parallel serving (`ctx`, a `ShardCtx` over a ('data', 'model')
-mesh): every rank runs the same server on the same requests, so the
-host-side scheduling (queue, admission, pages, deadlines in ticks) is the
-same on every rank, and its steps are the tensor-parallel model's: the
-page pools hold the kv heads this rank's query heads read, and each
-step's next tokens are gathered from the vocab shards on every rank.  A
-'data' axis of more than one rank is refused (NotImplementedError): the
-reference splits the slots over it, which is ROADMAP 13(d).
+Serving under a mesh (`ctx`, a `ShardCtx` over a ('data', 'model') mesh
+of D x M ranks): every rank runs the same server on the same requests, so
+the host-side scheduling (queue, admission, slots, pages, deadlines in
+ticks) is the same on every rank, and its steps are the tensor-parallel
+model's.  The decode step's slot rows split over 'data' as the reference's
+GSPMD splits them: each data group runs its block of S / D slots
+(`ShardCtx.for_rows`; every rank runs all S where D does not divide S),
+and each tick's next tokens are gathered over 'data' and 'model' (the
+rows and the vocab shards), so every rank's host state stays the same.  A
+prefill is of one request, a batch of 1, which does not divide the axis:
+it is replicated, every rank computes it whole, as the reference does.
+
+Layout of the state: the page pools are whole in pages on every rank, of
+the kv heads its query heads read, with the page ids the one host
+allocator gives.  Every rank scatters every prefill's caches (replicated)
+into its pools, and a decode step writes the new K/V rows of its own
+slots only, so a rank's pools are right for the pages its slots read and
+may be stale in other slots' pages, which it never reads.  RWKV-6's
+stacked slot state holds this rank's slot rows and, under a 'model' axis,
+its WKV heads; a prefill's state is inserted by the rank that holds the
+slot.
 """
 
 from __future__ import annotations
@@ -212,10 +225,6 @@ class ContinuousBatchingServer:
     def __init__(self, model, params, cfg: ServeConfig, ctx: ShardCtx = NO_SHARD, *,
                  device=None):
         fam = model.cfg.family
-        if ctx.axis_size("data") > 1:
-            raise NotImplementedError(
-                "the continuous-batching server under a 'data' axis of more than one rank"
-                " is not ported (ROADMAP 13(d)); serve under a 1xM mesh")
         if fam not in _SCHEDULABLE:
             raise NotImplementedError(
                 f"family {fam!r} is not schedulable (supported: {_SCHEDULABLE});"
@@ -231,6 +240,9 @@ class ContinuousBatchingServer:
         self.params = params
         self.cfg = cfg
         self.ctx = ctx
+        # The decode step's ctx and this rank's block of the slot rows.
+        self._step_ctx = ctx.for_rows(cfg.max_slots)
+        self._rows = self._step_ctx.part("batch", cfg.max_slots)
         self._paged = model.supports_paged  # dense/moe/vlm; ssm stacks state
         self._patch_offset = model.cfg.num_stub_patches if fam == "vlm" else 0
         self._tick = 0
@@ -275,7 +287,7 @@ class ContinuousBatchingServer:
             self.state = None
         else:
             self.alloc = self.pools = None
-            self.state = zeros(model.decode_state_specs(cfg.max_slots, 0))
+            self.state = zeros(model.decode_state_specs(self._rows.size, 0, self._step_ctx))
         from repro_torch.launch.serve import serving_steps
 
         self._prefill, _ = serving_steps(model, ctx)
@@ -284,32 +296,34 @@ class ContinuousBatchingServer:
 
     @torch.inference_mode()
     def _decode(self, tokens: np.ndarray, tables: np.ndarray, positions: np.ndarray):
-        """One decode step: (next tokens, the stacked state after it).  The
-        paged step writes the pools in place; the stacked-state step returns
-        new tensors, which the tick keeps and the warmup drops."""
-        dev = self.device
+        """One decode step: (next tokens of every slot, the stacked state
+        after it).  The step runs on this rank's slot rows; the paged step
+        writes the pools in place; the stacked-state step returns new
+        tensors, which the tick keeps and the warmup drops."""
+        dev, c = self.device, self._step_ctx
+        lo, n = self._rows.start, self._rows.size
+
+        def mine(a):
+            return torch.as_tensor(a[lo:lo + n], device=dev)
+
         self.counters["decode_steps"] += 1
         if self._paged:
             logits, state = self.model.paged_decode(
-                self.params,
-                torch.as_tensor(tokens, device=dev),
-                self.pools,
-                torch.as_tensor(tables, device=dev),
-                torch.as_tensor(positions, device=dev),
-                self.ctx,
-                impl=self.cfg.impl,
-            )
+                self.params, mine(tokens), self.pools, mine(tables), mine(positions), c,
+                impl=self.cfg.impl)
         else:  # ssm: position-free, one state row per slot
-            logits, state = self.model.decode(
-                self.params, torch.as_tensor(tokens, device=dev), self.state, 0, self.ctx)
-        return _next_token(logits, tokens.shape[0], self.model.cfg, self.ctx), state
+            logits, state = self.model.decode(self.params, mine(tokens), self.state, 0, c)
+        return _next_token(logits, tokens.shape[0], self.model.cfg, c), state
 
     @torch.inference_mode()
     def _insert_state(self, new, slot: int) -> None:
         """Write a prefill's (L, 1, ...) state into rows `slot` of the
-        stacked (L, S, ...) state."""
+        stacked (L, S, ...) state, on the rank that holds the slot."""
+        row = slot - self._rows.start
+        if not 0 <= row < self._rows.size:
+            return
         for name, st in self.state.items():
-            st[:, slot] = new[name][:, 0].to(st.dtype)
+            st[:, row] = new[name][:, 0].to(st.dtype)
 
     @torch.inference_mode()
     def _scatter(self, caches, pages: List[int]) -> None:

@@ -26,8 +26,12 @@ ranks, one process each, started by torchrun (or any rendezvous
 
 Every rank draws the same parameters from the seed and keeps its block
 (`interop.shard_params`), gets the same prompts and the same tokens back;
-the batch rows split over 'data' where they divide.  Rank 0 prints.  On
-one card the ranks share it over gloo (NCCL takes one rank a card).
+the batch rows split over 'data' where they divide (with `--scheduler`,
+the server's decode slots).  Every family runs under it, RWKV-6 and
+Zamba2 too; Whisper (audio) is served by `generate` and `serve_requests`
+with its frames batch, and the CLI refuses it as the reference's does.
+Rank 0 prints.  On one card the ranks share it over gloo (NCCL takes one
+rank a card).
 
 `--obs-export PATH` turns tracing on before any model work, installs the
 obs bridge (ledger events -> `repro_degradations_total`, `plan.execute`
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import torch
 
@@ -162,10 +167,11 @@ _GROWN_CACHES = {"dense": None, "moe": None, "vlm": None,  # None: every entry
 
 
 def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
-             ctx: ShardCtx = NO_SHARD):
+             ctx: ShardCtx = NO_SHARD, frames: Optional[torch.Tensor] = None):
     """Prefill the prompts then decode `gen_len` tokens greedily against a
     dense KV cache (attention is the plain `_sdpa`).  vlm prompts get zero
-    stub patches and decode from t_prompt + num_stub_patches.
+    stub patches and decode from t_prompt + num_stub_patches; audio prompts
+    need their encoder input, `frames` (B, T_enc, D).
 
     prompts: (B, T_prompt) int32 on the parameters' device, the same on
     every rank under a mesh (`ctx`), where `params` is this rank's block.
@@ -175,6 +181,10 @@ def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
     b, t_prompt = prompts.shape
     prefill, serve = serving_steps(model, ctx)
     batch = {"tokens": prompts, "labels": prompts}
+    if cfg.family == "audio":
+        if frames is None:
+            raise ValueError("audio (whisper) prompts need their frames batch (frames=)")
+        batch["frames"] = frames
     if cfg.family == "vlm":
         batch["patches"] = torch.zeros((b, cfg.num_stub_patches, cfg.d_model),
                                        dtype=cfg.adtype, device=prompts.device)
@@ -201,18 +211,22 @@ def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
 
 
 def serve_requests(model, params, request_prompts, *, gen_len: int, prefix: str = "[serve]",
-                   ctx: ShardCtx = NO_SHARD):
+                   ctx: ShardCtx = NO_SHARD, request_frames=None):
     """Serve independent prompt batches via `generate`, isolating failures:
     a request that raises is reported, recorded in the ledger under
-    `serve.request`, and skipped.  Returns a list parallel to
-    `request_prompts`: (tokens, steps_per_s), or None for skipped ones."""
+    `serve.request`, and skipped.  `request_frames`, parallel to
+    `request_prompts`, holds audio requests' frames.  Returns a list
+    parallel to `request_prompts`: (tokens, steps_per_s), or None for
+    skipped ones."""
     results = []
     for i, prompts in enumerate(request_prompts):
+        frames = None if request_frames is None else request_frames[i]
         try:
             with _obs.span("serve.request", request=i, batch=int(prompts.shape[0]),
                            gen=gen_len):
                 _faults.check("serve.request", request=i)
-                results.append(generate(model, params, prompts, gen_len=gen_len, ctx=ctx))
+                results.append(generate(model, params, prompts, gen_len=gen_len, ctx=ctx,
+                                        frames=frames))
         except Exception as e:  # a request boundary: report, record, go on
             _rledger.record(
                 "serve.request", cause=f"{type(e).__name__}: {e}", fallback="skip", request=i

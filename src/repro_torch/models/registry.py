@@ -11,11 +11,12 @@
                                           moe, vlm)
 
 Every compute method takes a `ShardCtx` (default: none), as in the
-reference.  dense, moe and vlm run tensor-parallel under it
-(`models.transformer`).  ssm, hybrid and audio accept it and run where its
-'model' axis has one rank (on the rows they are given: the serving steps
-split the batch over 'data'); a larger 'model' axis raises
-NotImplementedError (ROADMAP 13(d)).
+reference, and every family runs tensor-parallel under it: dense, moe and
+vlm through `models.transformer`, ssm through `models.rwkv`, hybrid
+through `models.ssm` and audio through `models.whisper`, each on the rows
+it is given (the serving steps split the batch over 'data').
+`decode_state_specs(batch, max_len, ctx)` gives this process's block of
+the decode state under `ctx`.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ class Model:
     _forward: Callable
     _prefill: Callable
     _decode: Callable
-    _state_specs: Callable  # (batch, max_len) -> {name: (shape, dtype)}
+    _state_specs: Callable  # (cfg, batch, max_len, ctx) -> {name: (shape, dtype)}
     _paged_decode: Optional[Callable] = None
 
     # -- parameters ---------------------------------------------------------
@@ -80,8 +81,10 @@ class Model:
     def decode(self, params, tokens, state, pos, ctx: ShardCtx = NO_SHARD):
         return self._decode(params, tokens, state, pos, self.cfg, ctx)
 
-    def decode_state_specs(self, batch: int, max_len: int):
-        return self._state_specs(self.cfg, batch, max_len)
+    def decode_state_specs(self, batch: int, max_len: int, ctx: ShardCtx = NO_SHARD):
+        """This process's block of the decode state for `batch` rows (its
+        rows where the caller split them) under `ctx`."""
+        return self._state_specs(self.cfg, batch, max_len, ctx)
 
     # -- paged serving (continuous batching) ---------------------------------
     @property
@@ -111,34 +114,20 @@ def _lm_prefill(params, batch, cfg, ctx):
     return transformer.lm_prefill(params, batch["tokens"], cfg, ctx)
 
 
-def _no_tp(fn):
-    """`fn(*args, cfg)` of a family without tensor-parallel code as the
-    Model's `(*args, cfg, ctx)`: it runs where ctx's 'model' axis has one
-    rank, else raises."""
-    def run(*args):
-        *args, cfg, ctx = args
-        if ctx.axis_size("model") > 1:
-            raise NotImplementedError(
-                f"family {cfg.family!r} has no tensor-parallel code yet (ROADMAP 13(d));"
-                " serve it under a mesh whose 'model' axis is 1")
-        return fn(*args, cfg)
-    return run
+def _rwkv_forward(params, batch, cfg, ctx):
+    return rwkv.rwkv_forward(params, batch["tokens"], cfg, ctx)
 
 
-def _rwkv_forward(params, batch, cfg):
-    return rwkv.rwkv_forward(params, batch["tokens"], cfg)
+def _rwkv_prefill(params, batch, cfg, ctx):
+    return rwkv.rwkv_prefill(params, batch["tokens"], cfg, ctx)
 
 
-def _rwkv_prefill(params, batch, cfg):
-    return rwkv.rwkv_prefill(params, batch["tokens"], cfg)
+def _zamba_forward(params, batch, cfg, ctx):
+    return ssm.zamba_forward(params, batch["tokens"], cfg, ctx)
 
 
-def _zamba_forward(params, batch, cfg):
-    return ssm.zamba_forward(params, batch["tokens"], cfg)
-
-
-def _zamba_prefill(params, batch, cfg):
-    return ssm.zamba_prefill(params, batch["tokens"], cfg)
+def _zamba_prefill(params, batch, cfg, ctx):
+    return ssm.zamba_prefill(params, batch["tokens"], cfg, ctx)
 
 
 def get_model(cfg: ArchConfig) -> Model:
@@ -157,28 +146,28 @@ def get_model(cfg: ArchConfig) -> Model:
         return Model(
             cfg,
             rwkv.rwkv_specs,
-            _no_tp(_rwkv_forward),
-            _no_tp(_rwkv_prefill),
-            _no_tp(rwkv.rwkv_decode),
-            lambda c, b, m: rwkv.rwkv_state_specs(c, b),
+            _rwkv_forward,
+            _rwkv_prefill,
+            rwkv.rwkv_decode,
+            lambda c, b, m, ctx: rwkv.rwkv_state_specs(c, b, ctx),
         )
     if fam == "hybrid":
         return Model(
             cfg,
             ssm.zamba_specs,
-            _no_tp(_zamba_forward),
-            _no_tp(_zamba_prefill),
-            _no_tp(ssm.zamba_decode),
+            _zamba_forward,
+            _zamba_prefill,
+            ssm.zamba_decode,
             ssm.zamba_state_specs,
         )
     if fam == "audio":
         return Model(
             cfg,
             whisper.whisper_specs,
-            _no_tp(whisper.whisper_forward),
-            _no_tp(whisper.whisper_prefill),
-            _no_tp(whisper.whisper_decode),
-            lambda c, b, m: whisper.whisper_cache_specs(c, b, m, m // c.dec_ratio),
+            whisper.whisper_forward,
+            whisper.whisper_prefill,
+            whisper.whisper_decode,
+            lambda c, b, m, ctx: whisper.whisper_cache_specs(c, b, m, m // c.dec_ratio, ctx),
         )
     if fam == "vlm":
         return Model(
@@ -187,7 +176,7 @@ def get_model(cfg: ArchConfig) -> Model:
             vlm.vlm_forward,
             vlm.vlm_prefill,
             transformer.lm_decode,
-            lambda c, b, m: transformer.decode_cache_specs(c, b, m + c.num_stub_patches),
+            lambda c, b, m, ctx: transformer.decode_cache_specs(c, b, m + c.num_stub_patches, ctx),
             # vlm decode is structurally lm_decode (patches only affect
             # prefill); the scheduler offsets positions by num_stub_patches.
             _paged_decode=transformer.lm_decode_paged,

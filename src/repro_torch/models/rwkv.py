@@ -28,6 +28,19 @@ Entry points mirror the transformer's: `rwkv_specs` / `rwkv_forward` /
 `rwkv_prefill` / `rwkv_decode`, with stacked per-layer states {"wkv",
 "tm_shift", "cm_shift"}; the shift carries hold the *normalised* last token
 (time-mix and channel-mix receive rmsnorm(x)).
+
+Tensor parallelism (a `ShardCtx` with a live mesh), SPMD by hand as in
+`transformer`: wr, wk, wv and wg are column-parallel in whole WKV heads
+(`interop.shard_params`), so each process runs the recurrence, its state
+and the per-head group norm on its own heads; the per-channel parameters
+of those heads (the decay LoRA's ww2 columns, w0, u, gn_g, gn_b) are
+sliced from their replicated copies, and each output column is computed
+as without a mesh.  wo is row-parallel (f32 partial sums, one all-reduce:
+`layers.dense_rows`).  The channel-mix's cm_wk is column-parallel over
+'mlp' and cm_wv row-parallel; cm_wr (embed x embed) stays replicated.  The
+embedding and the head are vocab-parallel (`transformer.embed_tokens`,
+`unembed`).  The shift carries stay whole; the wkv state holds this
+process's heads (`rwkv_state_specs(cfg, batch, ctx)`).
 """
 
 from __future__ import annotations
@@ -38,8 +51,22 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import PSpec, gemm, padded_vocab, rmsnorm
-from repro_torch.models.transformer import _layer, embed_tokens, stack_specs, unembed
+from repro_torch.models.layers import (
+    NO_SHARD,
+    PSpec,
+    ShardCtx,
+    dense_rows,
+    gemm,
+    padded_vocab,
+    rmsnorm,
+)
+from repro_torch.models.transformer import (
+    _layer,
+    _no_model_training,
+    embed_tokens,
+    stack_specs,
+    unembed,
+)
 
 __all__ = [
     "chunk_checkpoint", "rwkv_specs", "rwkv_forward", "rwkv_prefill", "rwkv_decode",
@@ -112,9 +139,10 @@ def rwkv_specs(cfg) -> Dict[str, Any]:
     }
 
 
-def rwkv_state_specs(cfg, batch: int):
-    """Stacked per-layer recurrent state, as {name: (shape, dtype)}."""
-    h, k = cfg.num_heads, cfg.head_dim_
+def rwkv_state_specs(cfg, batch: int, ctx: ShardCtx = NO_SHARD):
+    """Stacked per-layer recurrent state, as {name: (shape, dtype)}; under
+    a mesh `wkv` holds this process's heads."""
+    h, k = ctx.part("heads", cfg.num_heads).size, cfg.head_dim_
     L, d = cfg.num_layers, cfg.d_model
     return {
         "wkv": ((L, batch, h, k, k), torch.float32),
@@ -123,9 +151,9 @@ def rwkv_state_specs(cfg, batch: int):
     }
 
 
-def _zero_state(cfg, batch: int, device):
+def _zero_state(cfg, batch: int, device, ctx: ShardCtx = NO_SHARD):
     return {name: torch.zeros(shape, dtype=dt, device=device)
-            for name, (shape, dt) in rwkv_state_specs(cfg, batch).items()}
+            for name, (shape, dt) in rwkv_state_specs(cfg, batch, ctx).items()}
 
 
 def _ddlerp(p, x, x_prev):
@@ -223,10 +251,18 @@ def _wkv_scan(r, k, v, w, u, s0):
     return torch.cat(outs, dim=1), s
 
 
-def _time_mix(p, x, cfg, state_wkv, x_last):
+def _heads(t: torch.Tensor, hp, hd: int) -> torch.Tensor:
+    """The columns of this process's heads (`hp`) of a per-channel (..., D)
+    parameter."""
+    return t if hp.count == 1 else t.narrow(-1, hp.start * hd, hp.size * hd)
+
+
+def _time_mix(p, x, cfg, ctx, state_wkv, x_last):
     """x: (B, T, D); x_last: (B, D) previous-token carry.  Returns (y, wkv', last')."""
     b, t, d = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim_
+    hd = cfg.head_dim_
+    hp = ctx.part("heads", cfg.num_heads)
+    h = hp.size  # this process's heads
     x_prev = torch.cat([x_last[:, None, :], x[:, :-1, :]], dim=1)
     xr, xk, xv, xw, xg = _ddlerp(p, x, x_prev)
 
@@ -237,67 +273,77 @@ def _time_mix(p, x, cfg, state_wkv, x_last):
     g = gemm(xg, p["wg"].to(x.dtype), cfg, activation="silu")
 
     # data-dependent decay w_t in (0, 1): exp(-exp(w0 + lora(xw)))
-    dec = p["w0"].to(f32) + torch.einsum(
+    dec = _heads(p["w0"], hp, hd).to(f32) + torch.einsum(
         "btr,rd->btd",
         torch.tanh(torch.einsum("btd,dr->btr", xw.to(f32), p["ww1"].to(f32))),
-        p["ww2"].to(f32),
+        _heads(p["ww2"], hp, hd).to(f32),
     )
     w = torch.exp(-torch.exp(dec)).reshape(b, t, h, hd)
-    u = p["u"].to(f32).reshape(h, hd)
+    u = _heads(p["u"], hp, hd).to(f32).reshape(h, hd)
 
     if cfg.wkv_chunked and t > 1 and t % cfg.wkv_chunk == 0:
         o, s_final = _wkv_chunked(r, k, v, w, u, state_wkv, chunk=cfg.wkv_chunk)
     else:
         o, s_final = _wkv_scan(r, k, v, w, u, state_wkv)
-    o = o.reshape(b, t, d).to(x.dtype)
+    o = o.reshape(b, t, h * hd).to(x.dtype)
     # per-head group norm (jnp.var is the biased variance)
     og = o.reshape(b, t, h, hd).to(f32)
     mean = og.mean(-1, keepdim=True)
     var = og.var(-1, keepdim=True, unbiased=False)
-    og = ((og - mean) * torch.rsqrt(var + 64e-5)).reshape(b, t, d).to(x.dtype)
-    o = og * p["gn_g"].to(x.dtype) + p["gn_b"].to(x.dtype)
-    y = gemm(o * g, p["wo"].to(x.dtype), cfg)
+    og = ((og - mean) * torch.rsqrt(var + 64e-5)).reshape(b, t, h * hd).to(x.dtype)
+    o = og * _heads(p["gn_g"], hp, hd).to(x.dtype) + _heads(p["gn_b"], hp, hd).to(x.dtype)
+    o = o * g
+    if hp.count > 1:
+        o = ctx.c(o, ("batch", "seq", "heads"), (None, t, d))
+    y = dense_rows(o, p["wo"].to(x.dtype), cfg, ctx, hp, ("batch", "seq", "embed"),
+                   (None, t, d))
     return y, s_final, x[:, -1, :]
 
 
-def _channel_mix(p, x, cfg, x_last):
+def _channel_mix(p, x, cfg, ctx, x_last):
+    t = x.shape[1]
+    fp = ctx.part("mlp", cfg.d_ff)
     x_prev = torch.cat([x_last[:, None, :], x[:, :-1, :]], dim=1)
     xk = x + (x_prev - x) * p["cm_mu_k"].to(x.dtype)
     xr = x + (x_prev - x) * p["cm_mu_r"].to(x.dtype)
     kk = torch.square(gemm(xk, p["cm_wk"].to(x.dtype), cfg, activation="relu"))
-    vv = gemm(kk, p["cm_wv"].to(x.dtype), cfg)
+    kk = ctx.c(kk, ("batch", "seq", "mlp"), (None, t, cfg.d_ff))
+    vv = dense_rows(kk, p["cm_wv"].to(x.dtype), cfg, ctx, fp, ("batch", "seq", "embed"),
+                    (None, t, cfg.d_model))
     rr = gemm(xr, p["cm_wr"].to(x.dtype), cfg, activation="sigmoid")
     return rr * vv, x[:, -1, :]
 
 
-def _run(params, tokens, cfg, state):
-    x = embed_tokens(params, tokens, cfg)
+def _run(params, tokens, cfg, ctx, state):
+    t = tokens.shape[1]
+    x = embed_tokens(params, tokens, cfg, ctx)
     new = {"wkv": [], "tm_shift": [], "cm_shift": []}
     for i in range(cfg.num_layers):
         lp = _layer(params["blocks"], i)
         xin = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        y, wkv, tm_last = _time_mix(lp, xin, cfg, state["wkv"][i], state["tm_shift"][i])
+        y, wkv, tm_last = _time_mix(lp, xin, cfg, ctx, state["wkv"][i], state["tm_shift"][i])
         x = x + y
         xin2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        y2, cm_last = _channel_mix(lp, xin2, cfg, state["cm_shift"][i])
-        x = x + y2
+        y2, cm_last = _channel_mix(lp, xin2, cfg, ctx, state["cm_shift"][i])
+        x = ctx.c(x + y2, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
         for name, val in (("wkv", wkv), ("tm_shift", tm_last), ("cm_shift", cm_last)):
             new[name].append(val)
-    logits = unembed(params, x, cfg)
+    logits = unembed(params, x, cfg, ctx)
     return logits, {name: torch.stack(vals) for name, vals in new.items()}
 
 
-def rwkv_forward(params, tokens, cfg):
-    logits, _ = rwkv_prefill(params, tokens, cfg)
+def rwkv_forward(params, tokens, cfg, ctx: ShardCtx = NO_SHARD):
+    logits, _ = rwkv_prefill(params, tokens, cfg, ctx)
     return logits, {}
 
 
-def rwkv_prefill(params, tokens, cfg):
-    state = _zero_state(cfg, tokens.shape[0], params["embed"].device)
-    return _run(params, tokens, cfg, state)
+def rwkv_prefill(params, tokens, cfg, ctx: ShardCtx = NO_SHARD):
+    _no_model_training(ctx)
+    state = _zero_state(cfg, tokens.shape[0], params["embed"].device, ctx)
+    return _run(params, tokens, cfg, ctx, state)
 
 
-def rwkv_decode(params, tokens, state, pos, cfg):
+def rwkv_decode(params, tokens, state, pos, cfg, ctx: ShardCtx = NO_SHARD):
     """pos unused (the state is position-free): kept for the API."""
     del pos
-    return _run(params, tokens, cfg, state)
+    return _run(params, tokens, cfg, ctx, state)

@@ -20,21 +20,53 @@ layers — n_seg applications, each with its own KV cache.  Parameters
 one block}; caches stacked (n_seg, B, T, KV, hd).  The shared block's
 attention takes the chunked path (kernel K6 on the card) for prompts that
 are a multiple of cfg.attn_chunk.
+
+Tensor parallelism (a `ShardCtx` with a live mesh), SPMD by hand: each
+process runs the Mamba2 block on its whole SSM heads (`ctx.part("mlp",
+ssm_num_heads)`; every head replicates where they do not divide the
+axis).  The fused in_proj's columns are laid out by `MAMBA_LAYOUT`: this
+process's heads of z, x and dt, and B and C whole (n_groups is 1, so
+every head reads them); conv_w / conv_b hold its x channels beside the
+whole B and C channels, out_norm its x channels and out_proj their rows
+(`interop.shard_params` cuts the tree so; a flat split of in_proj's 8384
+columns would give rank 0 all of z).  The gated RMSNorm over d_in
+normalises across the processes: each sums its channels' squares in f32,
+one all-reduce makes the sum whole.  out_proj is row-parallel (f32
+partials, one all-reduce: `layers.dense_rows`).  The shared block runs the
+dense family's tensor-parallel attention and SwiGLU.  The decode state
+holds this process's heads (`h`), its conv channels (`conv`) and its kv
+heads (`kv_k`, `kv_v`: `attention.HeadLayout.kv`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.attention import attention, attn_specs
-from repro_torch.models.layers import PSpec, gemm, padded_vocab, rmsnorm
+from repro_torch.models.attention import attention, attn_specs, head_layout
+from repro_torch.models.layers import (
+    NO_SHARD,
+    PSpec,
+    ShardCtx,
+    dense_rows,
+    gemm,
+    padded_vocab,
+    rmsnorm,
+)
 from repro_torch.models.moe import swiglu, swiglu_specs
-from repro_torch.models.transformer import _layer, embed_tokens, stack_specs, unembed
+from repro_torch.models.transformer import (
+    _layer,
+    _no_model_training,
+    embed_tokens,
+    stack_specs,
+    unembed,
+)
 
 __all__ = [
+    "MAMBA_LAYOUT",
+    "mamba_segments",
     "ssd_chunked",
     "ssd_scan",
     "ssd_step",
@@ -147,9 +179,33 @@ def _mamba_specs(cfg) -> Dict[str, Any]:
     }
 
 
-def _split_proj(cfg, z_xbc_dt):
-    """(z, x, B, C, dt) at the reference's split *indices* (tensor_split)."""
-    d_in = cfg.ssm_expand * cfg.d_model
+# The segments of the Mamba2 weights' 'mlp' dim, by key: "heads" is a
+# segment of ssm_num_heads units of `unit` channels, of which each process
+# holds its heads' (z, x, dt and their channels), "whole" one that every
+# process holds whole (B and C: n_groups is 1).
+MAMBA_LAYOUT = {
+    "in_proj": (("heads", "p"), ("heads", "p"), ("whole", "n"), ("whole", "n"), ("heads", 1)),
+    "conv_w": (("heads", "p"), ("whole", "n"), ("whole", "n")),
+    "conv_b": (("heads", "p"), ("whole", "n"), ("whole", "n")),
+    "out_norm": (("heads", "p"),),
+    "out_proj": (("heads", "p"),),
+}
+
+
+def mamba_segments(cfg, key: str):
+    """[(kind, units, unit)] of `MAMBA_LAYOUT[key]` at cfg's sizes, in
+    order: `units` heads of `unit` channels ("heads"), or one whole block
+    of `unit` channels ("whole")."""
+    h = cfg.ssm_num_heads
+    sizes = {"p": cfg.ssm_expand * cfg.d_model // h, "n": cfg.ssm_state_size, 1: 1}
+    return [(kind, h if kind == "heads" else 1, sizes[u]) for kind, u in MAMBA_LAYOUT[key]]
+
+
+def _split_proj(cfg, z_xbc_dt, heads: Optional[int] = None):
+    """(z, x, B, C, dt) at the reference's split *indices* (tensor_split),
+    for `heads` of the cfg's SSM heads (None: all of them)."""
+    h = cfg.ssm_num_heads
+    d_in = cfg.ssm_expand * cfg.d_model * (h if heads is None else heads) // h
     n = cfg.ssm_state_size
     return torch.tensor_split(
         z_xbc_dt, [d_in, 2 * d_in, 2 * d_in + n, 2 * d_in + 2 * n], dim=-1)
@@ -169,24 +225,45 @@ def _causal_conv(xbc, w, bias, conv_state=None):
     return y, full[:, -(_CONV_K - 1):, :]
 
 
-def _mamba_block(p, x, cfg, state, *, chunked: bool):
-    """state = {"h": (B, H, P, N), "conv": (B, 3, Cd)}; returns (y, new_state)."""
+def _gated_norm(y, z, gamma, cfg, ctx: ShardCtx, hp, d_in: int):
+    """rmsnorm(y, gamma) * silu(z) over the whole d_in: under a mesh `y`
+    holds this process's channels, and its f32 sum of squares is
+    all-reduced before the scale (the one f32 mean of `rmsnorm`, summed in
+    another order)."""
+    if hp.count == 1:
+        return rmsnorm(y, gamma, cfg.norm_eps) * F.silu(z)
+    yf = y.float()
+    ss = torch.sum(yf * yf, dim=-1, keepdim=True)
+    ss = ctx.c(ss, ("batch", "seq", None), (None, y.shape[1], 1), partial=hp)
+    out = (yf * torch.rsqrt(ss / d_in + cfg.norm_eps)).to(y.dtype) * gamma.to(y.dtype)
+    return out * F.silu(z)
+
+
+def _mamba_block(p, x, cfg, ctx, state, *, chunked: bool):
+    """state = {"h": (B, H, P, N), "conv": (B, 3, Cd)}; returns (y, new_state).
+    Under a mesh H, Cd and the channels are this process's (module
+    docstring)."""
     b, t, d = x.shape
     d_in = cfg.ssm_expand * d
-    n, h = cfg.ssm_state_size, cfg.ssm_num_heads
-    p_dim = d_in // h
+    n = cfg.ssm_state_size
+    p_dim = d_in // cfg.ssm_num_heads
+    hp = ctx.part("mlp", cfg.ssm_num_heads)
+    h, d_loc = hp.size, hp.size * p_dim  # this process's heads and x channels
     f32 = torch.float32
 
     zxbcdt = gemm(x, p["in_proj"].to(x.dtype), cfg)
-    z, xin, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
+    z, xin, bmat, cmat, dt = _split_proj(cfg, zxbcdt, h)
     xbc = torch.cat([xin, bmat, cmat], dim=-1)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], state["conv"])
-    xin, bmat, cmat = torch.tensor_split(xbc, [d_in, d_in + n], dim=-1)
+    xin, bmat, cmat = torch.tensor_split(xbc, [d_loc, d_loc + n], dim=-1)
+
+    def mine(v):  # this process's heads of a per-head (H,) parameter
+        return v if hp.count == 1 else v.narrow(0, hp.start, h)
 
     xh = xin.reshape(b, t, h, p_dim).to(f32)
-    dtv = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))
+    dtv = F.softplus(dt.to(f32) + mine(p["dt_bias"]).to(f32))
     bf, cf = bmat.to(f32), cmat.to(f32)
-    a_log, d_skip = p["a_log"].to(f32), p["d_skip"].to(f32)
+    a_log, d_skip = mine(p["a_log"]).to(f32), mine(p["d_skip"]).to(f32)
 
     if t == 1:
         y, h_new = ssd_step(state["h"], xh[:, 0], dtv[:, 0], a_log, bf[:, 0], cf[:, 0], d_skip)
@@ -196,9 +273,12 @@ def _mamba_block(p, x, cfg, state, *, chunked: bool):
     else:
         y, h_new = ssd_scan(xh, dtv, a_log, bf, cf, d_skip, state["h"])
 
-    y = y.reshape(b, t, d_in).to(x.dtype)
-    y = rmsnorm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)
-    out = gemm(y, p["out_proj"].to(x.dtype), cfg)
+    y = y.reshape(b, t, d_loc).to(x.dtype)
+    y = _gated_norm(y, z, p["out_norm"], cfg, ctx, hp, d_in)
+    if hp.count > 1:
+        y = ctx.c(y, ("batch", "seq", "mlp"), (None, t, d_in))
+    out = dense_rows(y, p["out_proj"].to(x.dtype), cfg, ctx, hp, ("batch", "seq", "embed"),
+                     (None, t, d))
     return out, {"h": h_new, "conv": conv_state}
 
 
@@ -234,54 +314,58 @@ def zamba_specs(cfg) -> Dict[str, Any]:
     return specs
 
 
-def zamba_state_specs(cfg, batch: int, max_len: int):
+def zamba_state_specs(cfg, batch: int, max_len: int, ctx: ShardCtx = NO_SHARD):
     """Decode state as {name: (shape, dtype)}: per-layer SSM and conv
-    states, per-application KV caches."""
+    states, per-application KV caches; under a mesh, this process's SSM
+    heads, conv channels and kv heads."""
     n_seg, _, _ = _segments(cfg)
     d_in = cfg.ssm_expand * cfg.d_model
     n, h = cfg.ssm_state_size, cfg.ssm_num_heads
-    cd = d_in + 2 * n
-    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+    hl = ctx.part("mlp", h).size
+    cd = d_in // h * hl + 2 * n
+    kv, hd = head_layout(cfg, ctx).kv.size, cfg.head_dim_
     L = cfg.num_layers
     return {
-        "h": ((L, batch, h, d_in // h, n), torch.float32),
+        "h": ((L, batch, hl, d_in // h, n), torch.float32),
         "conv": ((L, batch, _CONV_K - 1, cd), cfg.adtype),
         "kv_k": ((n_seg, batch, max_len, kv, hd), cfg.adtype),
         "kv_v": ((n_seg, batch, max_len, kv, hd), cfg.adtype),
     }
 
 
-def _zero_state(cfg, batch: int, max_len: int, device):
+def _zero_state(cfg, batch: int, max_len: int, device, ctx: ShardCtx = NO_SHARD):
     return {name: torch.zeros(shape, dtype=dt, device=device)
-            for name, (shape, dt) in zamba_state_specs(cfg, batch, max_len).items()}
+            for name, (shape, dt) in zamba_state_specs(cfg, batch, max_len, ctx).items()}
 
 
-def _shared_block(p, x, cfg, kv=None, cache_pos=None, write_cache=False):
+def _shared_block(p, x, cfg, ctx, kv=None, cache_pos=None, write_cache=False):
     h, new_cache = attention(
         p["attn"],
         rmsnorm(x, p["ln1"], cfg.norm_eps),
         cfg,
+        ctx,
         cache=kv,
         cache_pos=cache_pos,
         write_cache=write_cache,
     )
     x = x + h
-    x = x + swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+    x = x + swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, ctx)
     return x, new_cache
 
 
-def _run(params, tokens, cfg, state, *, mode: str, pos=None, chunked=True):
+def _run(params, tokens, cfg, ctx, state, *, mode: str, pos=None, chunked=True):
     """mode: 'forward' (no cache IO) | 'prefill' | 'decode'."""
     n_seg, period, tail = _segments(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    t = tokens.shape[1]
+    x = embed_tokens(params, tokens, cfg, ctx)
     L = cfg.num_layers
     new_h, new_conv, new_k, new_v = [], [], [], []
 
     def mamba_stack(x, stacked, n, lo):
         for i in range(n):
             st = {"h": state["h"][lo + i], "conv": state["conv"][lo + i]}
-            y, st_new = _mamba_block(_layer(stacked, i), x, cfg, st, chunked=chunked)
-            x = x + y
+            y, st_new = _mamba_block(_layer(stacked, i), x, cfg, ctx, st, chunked=chunked)
+            x = ctx.c(x + y, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
             new_h.append(st_new["h"])
             new_conv.append(st_new["conv"])
         return x
@@ -289,19 +373,19 @@ def _run(params, tokens, cfg, state, *, mode: str, pos=None, chunked=True):
     for seg in range(n_seg):
         x = mamba_stack(x, _layer(params["mamba_seg"], seg), period, seg * period)
         if mode == "forward":
-            x, _ = _shared_block(params["shared"], x, cfg)
+            x, _ = _shared_block(params["shared"], x, cfg, ctx)
             continue
         if mode == "prefill":
-            x, kvc = _shared_block(params["shared"], x, cfg, write_cache=True)
+            x, kvc = _shared_block(params["shared"], x, cfg, ctx, write_cache=True)
         else:  # decode
             kv = {"k": state["kv_k"][seg], "v": state["kv_v"][seg]}
-            x, kvc = _shared_block(params["shared"], x, cfg, kv=kv, cache_pos=pos)
+            x, kvc = _shared_block(params["shared"], x, cfg, ctx, kv=kv, cache_pos=pos)
         new_k.append(kvc["k"])
         new_v.append(kvc["v"])
     if tail:
         x = mamba_stack(x, params["mamba_tail"], tail, L - tail)
 
-    logits = unembed(params, x, cfg)
+    logits = unembed(params, x, cfg, ctx)
     new_state = {"h": torch.stack(new_h), "conv": torch.stack(new_conv)}
     if mode != "forward":
         new_state["kv_k"] = torch.stack(new_k)
@@ -309,16 +393,18 @@ def _run(params, tokens, cfg, state, *, mode: str, pos=None, chunked=True):
     return logits, new_state
 
 
-def zamba_forward(params, tokens, cfg, *, chunked=True):
-    state = _zero_state(cfg, tokens.shape[0], 1, params["embed"].device)
-    logits, _ = _run(params, tokens, cfg, state, mode="forward", chunked=chunked)
+def zamba_forward(params, tokens, cfg, ctx: ShardCtx = NO_SHARD, *, chunked=True):
+    _no_model_training(ctx)
+    state = _zero_state(cfg, tokens.shape[0], 1, params["embed"].device, ctx)
+    logits, _ = _run(params, tokens, cfg, ctx, state, mode="forward", chunked=chunked)
     return logits, {}
 
 
-def zamba_prefill(params, tokens, cfg, *, chunked=True):
-    state = _zero_state(cfg, tokens.shape[0], 1, params["embed"].device)
-    return _run(params, tokens, cfg, state, mode="prefill", chunked=chunked)
+def zamba_prefill(params, tokens, cfg, ctx: ShardCtx = NO_SHARD, *, chunked=True):
+    _no_model_training(ctx)
+    state = _zero_state(cfg, tokens.shape[0], 1, params["embed"].device, ctx)
+    return _run(params, tokens, cfg, ctx, state, mode="prefill", chunked=chunked)
 
 
-def zamba_decode(params, tokens, state, pos, cfg):
-    return _run(params, tokens, cfg, state, mode="decode", pos=int(pos))
+def zamba_decode(params, tokens, state, pos, cfg, ctx: ShardCtx = NO_SHARD):
+    return _run(params, tokens, cfg, ctx, state, mode="decode", pos=int(pos))

@@ -35,8 +35,9 @@ feed-forward of `attention` and `moe`, and the lm head is vocab-parallel:
 `unembed` leaves the logits sharded over 'vocab' (the padded-vocab mask
 on the global index), and the serving steps gather them where they take
 the argmax.  Caches and page pools hold this process's rows and kv heads.
-Training under a model mesh is not ported (ROADMAP 13(d)): the
-collectives here carry no gradient, so `lm_forward` refuses to record one.
+Training under a model mesh is not ported (ROADMAP 13(d)2): the
+collectives here carry no gradient, so `lm_forward` refuses to record one
+(as do the other families' forward and prefill).
 """
 
 from __future__ import annotations
@@ -183,11 +184,11 @@ def _ffn(p: Dict[str, Any], x: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
 def _no_model_training(ctx: ShardCtx) -> None:
     if ctx.axis_size("model") > 1 and torch.is_grad_enabled():
         raise NotImplementedError(
-            "training under a 'model' mesh axis is not ported (ROADMAP 13(d)): the"
+            "training under a 'model' mesh axis is not ported (ROADMAP 13(d)2): the"
             " tensor-parallel collectives carry no gradient; run under torch.no_grad()")
     if ctx.axes_of("seq_sp") is not None:
         raise NotImplementedError("the 'seq_sp' rule (sequence-parallel training) is not"
-                                  " ported (ROADMAP 13(d))")
+                                  " ported (ROADMAP 13(d)2)")
 
 
 # The ops whose outputs `dots` saves: 2-D products with no batch dim (the
@@ -363,8 +364,10 @@ def paged_pool_specs(cfg, num_pages: int, page_size: int,
     return {"k": (shp, cfg.adtype), "v": (shp, cfg.adtype)}
 
 
-def decode_cache_specs(cfg, batch: int, max_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
-    """Stacked dense KV cache shapes, as {name: (shape, dtype)}."""
-    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+def decode_cache_specs(cfg, batch: int, max_len: int,
+                       ctx: ShardCtx = NO_SHARD) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Stacked dense KV cache shapes, as {name: (shape, dtype)}; under a
+    mesh, of this process's kv heads (`attention.HeadLayout.kv`)."""
+    kv, hd = head_layout(cfg, ctx).kv.size, cfg.head_dim_
     shp = (cfg.num_layers, batch, max_len, kv, hd)
     return {"k": (shp, cfg.adtype), "v": (shp, cfg.adtype)}

@@ -11,6 +11,16 @@ encoder output.  As in the reference, the cross K/V are recomputed from
 decode state carries `enc_out` itself.  RoPE gives positions in both stacks
 (the reference's adaptation of Whisper's learned absolute embeddings);
 cross-attention rotates nothing.
+
+Tensor parallelism (a `ShardCtx` with a live mesh), SPMD by hand: the
+attention and SwiGLU blocks are the dense family's (column-parallel q, k,
+v and wi, row-parallel wo); the encoder runs its non-causal attention (K6
+on the card) on this process's heads; `_cross_kv` projects this process's
+kv heads of the cross K/V; frame_proj stays replicated.  The decoder's
+token lookup is `transformer.embed_tokens`' vocab-parallel one (a masked
+lookup of this process's rows, one all-reduce: bitwise the full table's
+take), and the head is vocab-parallel.  The decode state's self-attention
+caches hold this process's kv heads; `enc_out` stays whole.
 """
 
 from __future__ import annotations
@@ -19,10 +29,24 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.models.attention import attention, attn_specs
-from repro_torch.models.layers import PSpec, dense, gemm, padded_vocab, rmsnorm
+from repro_torch.models.attention import attention, attn_specs, head_layout
+from repro_torch.models.layers import (
+    NO_SHARD,
+    PSpec,
+    ShardCtx,
+    dense,
+    gemm,
+    padded_vocab,
+    rmsnorm,
+)
 from repro_torch.models.moe import swiglu, swiglu_specs
-from repro_torch.models.transformer import _layer, embed_tokens, stack_specs, unembed
+from repro_torch.models.transformer import (
+    _layer,
+    _no_model_training,
+    embed_tokens,
+    stack_specs,
+    unembed,
+)
 
 __all__ = [
     "whisper_specs",
@@ -66,29 +90,36 @@ def whisper_specs(cfg) -> Dict[str, Any]:
     }
 
 
-def _encode(params, frames, cfg):
+def _encode(params, frames, cfg, ctx: ShardCtx = NO_SHARD):
     """frames: (B, T_enc, D) precomputed embeddings (stub frontend)."""
+    t, d = frames.shape[1], cfg.d_model
     x = gemm(frames.to(cfg.adtype), params["frame_proj"].to(cfg.adtype), cfg)
+    x = ctx.c(x, ("batch", "frames", "embed"), (None, t, d))
     for i in range(cfg.enc_layers):
         lp = _layer(params["enc_blocks"], i)
-        h, _ = attention(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg, causal=False)
+        h, _ = attention(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg, ctx,
+                         causal=False)
         x = x + h
-        x = x + swiglu(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
+        x = x + swiglu(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg, ctx)
+        x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, d))
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _cross_kv(lp, enc_out, cfg):
-    """Cross-attention K/V of one decoder layer from the encoder output."""
+def _cross_kv(lp, enc_out, cfg, ctx: ShardCtx = NO_SHARD):
+    """Cross-attention K/V of one decoder layer from the encoder output:
+    under a mesh, of this process's kv heads."""
     b, t, _ = enc_out.shape
-    kvh, hd = cfg.num_kv_heads, cfg.head_dim_
+    kvh, hd = head_layout(cfg, ctx).kv.size, cfg.head_dim_
     xa = lp["xattn"]
     k = dense(enc_out, xa["wk"], cfg, xa.get("bk")).reshape(b, t, kvh, hd)
     v = dense(enc_out, xa["wv"], cfg, xa.get("bv")).reshape(b, t, kvh, hd)
     return k, v
 
 
-def _decode_stack(params, tokens, enc_out, cfg, *, cache=None, pos=None, write_cache=False):
-    x = embed_tokens(params, tokens, cfg)
+def _decode_stack(params, tokens, enc_out, cfg, ctx: ShardCtx = NO_SHARD, *, cache=None,
+                  pos=None, write_cache=False):
+    t = tokens.shape[1]
+    x = embed_tokens(params, tokens, cfg, ctx)
     ks, vs = [], []
     for i in range(cfg.dec_layers):
         lp = _layer(params["dec_blocks"], i)
@@ -97,47 +128,54 @@ def _decode_stack(params, tokens, enc_out, cfg, *, cache=None, pos=None, write_c
             lp["attn"],
             rmsnorm(x, lp["ln1"], cfg.norm_eps),
             cfg,
+            ctx,
             cache=kvc,
             cache_pos=pos,
             write_cache=write_cache,
         )
         x = x + h
-        h, _ = attention(lp["xattn"], rmsnorm(x, lp["ln_x"], cfg.norm_eps), cfg,
-                         cross_kv=_cross_kv(lp, enc_out, cfg))
+        h, _ = attention(lp["xattn"], rmsnorm(x, lp["ln_x"], cfg.norm_eps), cfg, ctx,
+                         cross_kv=_cross_kv(lp, enc_out, cfg, ctx))
         x = x + h
-        x = x + swiglu(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
+        x = x + swiglu(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg, ctx)
+        x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
         if new_kv is not None:
             ks.append(new_kv["k"])
             vs.append(new_kv["v"])
-    logits = unembed(params, x, cfg)
+    logits = unembed(params, x, cfg, ctx)
     return logits, ({"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None)
 
 
-def whisper_forward(params, batch: Dict[str, torch.Tensor], cfg):
+def whisper_forward(params, batch: Dict[str, torch.Tensor], cfg, ctx: ShardCtx = NO_SHARD):
     """batch: {"frames": (B, T_enc, D), "tokens": (B, T_dec)} -> (logits, aux)."""
-    enc_out = _encode(params, batch["frames"], cfg)
-    logits, _ = _decode_stack(params, batch["tokens"], enc_out, cfg)
+    _no_model_training(ctx)
+    enc_out = _encode(params, batch["frames"], cfg, ctx)
+    logits, _ = _decode_stack(params, batch["tokens"], enc_out, cfg, ctx)
     return logits, {}
 
 
-def whisper_prefill(params, batch, cfg):
+def whisper_prefill(params, batch, cfg, ctx: ShardCtx = NO_SHARD):
     """Returns (logits, state) with the state carrying enc_out and the
     decoder's self-attention KV caches."""
-    enc_out = _encode(params, batch["frames"], cfg)
-    logits, caches = _decode_stack(params, batch["tokens"], enc_out, cfg, write_cache=True)
+    _no_model_training(ctx)
+    enc_out = _encode(params, batch["frames"], cfg, ctx)
+    logits, caches = _decode_stack(params, batch["tokens"], enc_out, cfg, ctx,
+                                   write_cache=True)
     return logits, {"enc_out": enc_out, "k": caches["k"], "v": caches["v"]}
 
 
-def whisper_decode(params, tokens, state, pos, cfg):
+def whisper_decode(params, tokens, state, pos, cfg, ctx: ShardCtx = NO_SHARD):
     cache = {"k": state["k"], "v": state["v"]}
-    logits, new_kv = _decode_stack(params, tokens, state["enc_out"], cfg, cache=cache,
+    logits, new_kv = _decode_stack(params, tokens, state["enc_out"], cfg, ctx, cache=cache,
                                    pos=int(pos))
     return logits, {"enc_out": state["enc_out"], "k": new_kv["k"], "v": new_kv["v"]}
 
 
-def whisper_cache_specs(cfg, batch: int, enc_len: int, max_dec_len: int):
-    """Decode state as {name: (shape, dtype)}."""
-    kv, hd = cfg.num_kv_heads, cfg.head_dim_
+def whisper_cache_specs(cfg, batch: int, enc_len: int, max_dec_len: int,
+                        ctx: ShardCtx = NO_SHARD):
+    """Decode state as {name: (shape, dtype)}; under a mesh the caches hold
+    this process's kv heads and enc_out stays whole."""
+    kv, hd = head_layout(cfg, ctx).kv.size, cfg.head_dim_
     L = cfg.dec_layers
     return {
         "enc_out": ((batch, enc_len, cfg.d_model), cfg.adtype),

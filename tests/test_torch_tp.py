@@ -25,10 +25,10 @@ Qwen1.5-MoE (the hidden-dim branch, shared experts) on 1x4 (prefill
 logits, aux losses, every routing decision equal across the ranks);
 Qwen2-7B with attn_chunk 8 and the 'seq_attn' rule on 'model' on 1x4 (the
 context-parallel chunked prefill: K6's plain version at a query offset);
-Pixtral on 1x2.  The port's ranks also run: RWKV-6, Zamba2 and Whisper
-refusing a 'model' axis of 2 and serving under 2x1 as one process does;
-the continuous-batching server on 1x2 against the single-process server;
-`serve --mesh 1x2`.  In this process: the serve report's sharding column,
+Pixtral on 1x2.  The port's ranks also run: RWKV-6, Zamba2 and Whisper's
+prefill step on 1x2 and 2x1 (test_torch_tp_families.py holds them against
+the reference); the continuous-batching server on 1x2 and 2x1 against the
+single-process server; `serve --mesh 1x2`.  In this process: the serve report's sharding column,
 `constrain` / `ShardCtx.c` without a mesh, first-wins, the gate/up split of
 `shard_params` against a hand-sliced tree, and `q_offset`.
 """
@@ -283,8 +283,10 @@ def _rank_main(rank, world, init_file, out_dir):
                 outs[f"{name}/generate"] = toks.numpy()
                 found[f"{name}/local_wi"] = list(params["blocks"]["mlp"]["wi"].shape)
 
-    # The families without tensor-parallel code: refused on 'model' 2, served
-    # under 2x1 as one process serves them.
+    # RWKV-6, Zamba2 and Whisper (tests/test_torch_tp_families.py holds them
+    # against the reference): the prefill step's next tokens on 1x2 (heads
+    # split, each rank its block of the parameters) and on 2x1 (rows split),
+    # and whether 2x1's equal the single process's bitwise.
     for arch in UNTP:
         cfg = get_config(arch).reduced()
         model = get_model(cfg)
@@ -300,12 +302,12 @@ def _rank_main(rank, world, init_file, out_dir):
         for shape in ((1, 2), (2, 1)):
             if rank >= shape[0] * shape[1]:
                 continue
-            prefill = tserve.serving_steps(model, ShardCtx(meshes[shape]))[0]
-            try:
-                got = prefill(params, batch)[0]
-                res[str(shape)] = bool(torch.equal(got, want))
-            except NotImplementedError as e:
-                res[str(shape)] = f"NotImplementedError: {e}"
+            ctx = ShardCtx(meshes[shape])
+            got = tserve.serving_steps(model, ctx)[0](interop.shard_params(params, model, ctx),
+                                                      batch)[0]
+            res[str(shape)] = got.tolist()
+            if shape == (2, 1):
+                res["single"] = bool(torch.equal(got, want))
         found[arch] = res
 
     # The continuous-batching server on 1x2 against the single-process one.
@@ -328,10 +330,13 @@ def _rank_main(rank, world, init_file, out_dir):
             res = server.run([dataclasses.replace(r) for r in reqs])
             tokens[tag] = {rid: r.tokens for rid, r in res.items()}
         found["server"] = tokens
-        try:
-            ContinuousBatchingServer(model, full, scfg, ShardCtx(meshes[(2, 1)]), device="cpu")
-        except NotImplementedError as e:
-            found["server_data"] = str(e)
+        # Under 2x1 the server's 2 slots split over 'data', one a rank.
+        ctx = ShardCtx(meshes[(2, 1)])
+        server = ContinuousBatchingServer(model, interop.shard_params(full, model, ctx), scfg,
+                                          ctx, device="cpu")
+        server.warmup()
+        res = server.run([dataclasses.replace(r) for r in reqs])
+        found["server_data"] = {rid: r.tokens for rid, r in res.items()}
 
     # serve --mesh 1x2 on the group's first two ranks (the others take no part).
     argv = ["--arch", "mesh-paper", "--reduced", "--device", "cpu", "--batch", "2",
@@ -481,18 +486,22 @@ def test_fused_gate_up_split_on_each_rank(runs):
 
 @pytest.mark.parametrize("arch", UNTP)
 def test_families_without_tp_refuse_model_axis_and_run_on_data(runs, arch):
+    """The families that once refused a 'model' axis: on 1x2 they run
+    tensor-parallel and give 2x1's next tokens, which equal the single
+    process's bitwise."""
     for r in range(2):
         res = runs.found[r][arch]
-        assert res["(1, 2)"].startswith("NotImplementedError") and "13(d)" in res["(1, 2)"]
-        assert res["(2, 1)"] is True
+        assert res["(1, 2)"] == res["(2, 1)"] and len(res["(1, 2)"]) == ROWS
+        assert res["single"] is True
 
 
 def test_server_under_mesh_serves_the_single_process_tokens(runs):
+    """On 1x2 (heads split) and on 2x1 (slots split over 'data')."""
     for r in range(2):
         tokens = runs.found[r]["server"]
         assert len(tokens["mesh"]) == 4 and all(len(t) == 6 for t in tokens["mesh"].values())
         assert tokens["mesh"] == tokens["single"]
-        assert "ROADMAP 13(d)" in runs.found[r]["server_data"]
+        assert runs.found[r]["server_data"] == tokens["single"]
 
 
 def test_serve_cli_mesh_1x2(runs):
