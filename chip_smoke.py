@@ -3854,13 +3854,16 @@ FAMILY_TRAIN_STEPS = 2  # 3 until the whole run outgrew its time
 # at 2 layers, 0.28 at 4, 4.3 at 12 and 1.6 at 24, and the kernel path 0.025,
 # 0.22, 1.45 and 4.6 (tools/grad_depth.py on an H100 80GB HBM3), so
 # [train]'s per-parameter limit is held at 2 layers of the full-width model;
-# at 24 the loss (within 1e-3) and finite gradients are.
+# deeper, the loss (within 1e-3) and finite gradients are, at
+# RWKV_COMPARED_LAYERS (the full 24 until the whole run outgrew its time
+# with [train_tp]: three 24-layer gradients took about 45 s).
 RWKV_HELD_LAYERS = 2
 # Without the chunk checkpoint a full-depth RWKV-6 step does not fit the
 # card's 80 GB (12 layers peak at 47.17 GiB without it, 26.81 with it, on an
 # H100 80GB HBM3), so that reading is taken at a quarter of the depth (half
 # until the whole run outgrew its time), both ways.
 RWKV_MEMORY_LAYERS = RWKV_LAYERS // 4
+RWKV_COMPARED_LAYERS = RWKV_LAYERS // 4
 RWKV_TRAIN_LAUNCHES = {"mesh_matmul": 3 * RWKV_STEP_LAUNCHES + 3 * RWKV_LAYERS,
                        "flash_attention": 0}
 ZAMBA_TRAIN_LAUNCHES = {"mesh_matmul": 3 * ZAMBA_STEP_LAUNCHES, "flash_attention": ZAMBA_APPS}
@@ -3877,7 +3880,7 @@ def phase_train_rwkv(torch):
     check((cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.wkv_chunked, cfg.wkv_chunk)
           == (RWKV_LAYERS, 2048, 7168, True, 16), f"unexpected RWKV-6 config {cfg}")
     return _train_family(torch, "train_rwkv", cfg, RWKV_TRAIN_LAUNCHES,
-                         held_layers=RWKV_HELD_LAYERS)
+                         held_layers=RWKV_HELD_LAYERS, compared_layers=RWKV_COMPARED_LAYERS)
 
 
 def phase_train_zamba(torch):
@@ -3893,7 +3896,7 @@ def phase_train_zamba(torch):
     return _train_family(torch, "train_zamba", cfg, ZAMBA_TRAIN_LAUNCHES)
 
 
-def _train_family(torch, tag, cfg, per_step, held_layers=None):
+def _train_family(torch, tag, cfg, per_step, held_layers=None, compared_layers=None):
     """One family's training through `build_trainer` and `train_loop`:
 
     (a) the kernel path's loss and gradients against the `torch` backend's
@@ -3901,7 +3904,8 @@ def _train_family(torch, tag, cfg, per_step, held_layers=None):
         (loss within 1e-3, grad norm within 0.1 %, each parameter's gradient
         within 0.05 relative; the next batch's torch gradient must fail the
         last) at `held_layers` of the model's layers (all unless given), and
-        at the full depth the loss and finite gradients;
+        at `compared_layers` (the full depth unless given) the loss and
+        finite gradients;
     (b) FAMILY_TRAIN_STEPS steps: losses finite, launches per step equal to
         `per_step`, wall ms and tokens/s, peak device memory;
     (c) RWKV: one step's peak device memory with the WKV chunk checkpoint
@@ -3912,12 +3916,12 @@ def _train_family(torch, tag, cfg, per_step, held_layers=None):
     (`check_k1_held`).
     """
     with k1_calls() as seen:
-        out = _train_family_work(torch, tag, cfg, per_step, held_layers)
+        out = _train_family_work(torch, tag, cfg, per_step, held_layers, compared_layers)
     check_k1_held(tag, seen)
     return out
 
 
-def _train_family_work(torch, tag, cfg, per_step, held_layers):
+def _train_family_work(torch, tag, cfg, per_step, held_layers, compared_layers):
     """_train_family's work, every K1 call of it recorded by the caller."""
     import dataclasses
 
@@ -3945,11 +3949,11 @@ def _train_family_work(torch, tag, cfg, per_step, held_layers):
     # `ref` forward (f32 products of the upcast operands: the same function
     # rounded otherwise, no K1) and the next batch's torch step (a wrong
     # gradient of the right size).  Held at `held_layers` (the full depth
-    # unless stated); at full depth also the loss and finite gradients.
+    # unless stated); at `compared_layers` also the loss and finite gradients.
     stream = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH, seed=0))
     batch, next_batch = stream._host_batch(0), stream._host_batch(1)
-    for depth in sorted({held_layers or cfg.num_layers, cfg.num_layers}):
+    for depth in sorted({held_layers or cfg.num_layers, compared_layers or cfg.num_layers}):
         c = dataclasses.replace(cfg, num_layers=depth)
         params = state["params"]
         if depth != cfg.num_layers:  # the full model's first `depth` layers
@@ -4684,7 +4688,8 @@ def _plan_blocks():
 def _sha(torch, t) -> str:
     import hashlib
 
-    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+    return hashlib.sha256(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+                          .numpy()).hexdigest()
 
 
 def train_dp_rank(rank, world, init, tmp):
@@ -6211,6 +6216,639 @@ def phase_serve_tp_families(torch):
             "flash_attention": sum(f[k]["k6"] for f in fams for k in ("zamba", "whisper"))}
 
 
+# [train_tp]: tensor-parallel training on ranks that share the card (gloo,
+# every collective staged through host memory), through build_trainer
+# under a ('data', 'model') mesh.  Full-width mesh-paper (4 layers, 16
+# heads, σ scramble, `dots`, [train]'s 2 x 2048 tokens of batch 0, seed 0)
+# on 1x2 (ranks 0-1: 8 heads and 4096 of 8192 d_ff columns a rank) and on
+# 2x2 (all 4 ranks, one row a data rank): one step's gradients gathered to
+# the global tree against the single-process kernel step's, then
+# TRAIN_TP_STEPS steps (launches per rank, replicated leaves bitwise across
+# the 'model' ranks, every leaf across the 'data' ranks; on 1x2 the last
+# step's checkpoint restored by the parent).  OLMoE-1B-7B at full width and
+# [train_moe]'s 2 of 16 layers on 1x2 under expert parallelism (32 of 64
+# experts a rank) on the single-process step's replayed routing (ranks
+# 0-1); RWKV-6 at 2 of its 24 layers ([train_rwkv]'s held depth) and
+# Zamba2-1.2B at full width on 1x2 (ranks 2-3, meanwhile), and at one
+# segment of its depth for its per-parameter check.  The parent
+# computes every single-process gradient and plans every shard shape
+# first, so the ranks read its autotune cache.
+TRAIN_TP_WORLD, TRAIN_TP_M, TRAIN_TP_STEPS, TRAIN_TP_TIMEOUT_S = 4, 2, 2, 420
+TRAIN_TP_CASES = ("mesh-paper 1x2", "mesh-paper 2x2", "olmoe 1x2", "rwkv 1x2", "zamba 1x2",
+                  "zamba6 1x2")
+# Zamba2's per-parameter check is held at one segment of its 38 layers (6
+# Mamba2 layers and one application of the shared block), as RWKV-6's at 2
+# of 24: at full depth its per-head a_log and dt_bias read 0.0455 and 0.0469
+# of their norms in two runs against [train]'s 0.05 (bf16 roundings 38
+# layers deep; every other leaf under 0.04), and the loss, the grad norm and
+# finite gradients are held there.
+ZAMBA_TP_HELD_LAYERS = 6
+# Limits of a TP step's gradients against the single-process kernel step's
+# (loss |d|, grad norm relative, each parameter's ||d||/||g||; None: read,
+# not held), each about 3x the larger of its first two readings and never
+# looser than [train]'s (1e-3, 0.1 %, 0.05).  Readings (NVIDIA H100 80GB
+# HBM3, 700 W, my chip runs 2-3 of PR 25; the TP shapes' timed blocks move
+# between runs): mesh-paper 1x2 4.282e-04 / 2.022e-04, 0.00656 / 0.00386 %,
+# 0.0165 / 0.0165; 2x2 3.052e-04, 0.00524 %, 0.0166 (both runs); OLMoE
+# 1.268e-04 / 7.915e-05, 0.0172 / 0.0215 %, 0.0131 / 0.0129; RWKV-6
+# 2.089e-04 / 1.154e-04, 0.0139 / 0.0208 %, 0.0246 / 0.0233; Zamba2
+# 1.802e-04 / 1.497e-04, 0.00061 / 0.00214 %, (0.0455 / 0.0469); Zamba2 at
+# 6 layers (runs 4-5, one set of blocks) (3.815e-06, 0.00087 %), 0.0155.
+# The per-parameter readings hold still when the timed blocks move (run 2
+# against 3: 0.0165 both, 0.0131 / 0.0129, 0.0246 / 0.0233), the loss and
+# the grad norm, differences of large sums, do not (up to 3.5x): so each of
+# Zamba2's two depths holds the measures it reads far from [train]'s
+# limits, the full depth its loss and grad norm, 6 layers its parameters.
+TRAIN_TP_TOL = {"mesh-paper 1x2": (1e-3, 2e-4, 0.05), "mesh-paper 2x2": (9e-4, 1.6e-4, 0.05),
+                "olmoe 1x2": (4e-4, 6.5e-4, 0.04), "rwkv 1x2": (6.3e-4, 6.2e-4, 0.05),
+                "zamba 1x2": (5.4e-4, 6.4e-5, None), "zamba6 1x2": (None, None, 0.047)}
+# Leaves each family's per-parameter check must name: Mamba2's fused
+# projection and conv (B and C replicated inside them) and RWKV-6's
+# per-channel leaves, sliced from replicated copies by the model code.
+TRAIN_TP_NAMED = {
+    "zamba6 1x2": ("mamba_seg/in_proj", "mamba_seg/conv_w", "mamba_seg/conv_b"),
+    "rwkv 1x2": ("blocks/w0", "blocks/u", "blocks/ww2", "blocks/gn_g", "blocks/gn_b")}
+
+
+def _train_tp_cfgs():
+    """{case: the config it trains} (kernel path, published widths)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    paper = get_config("mesh-paper")
+    return {
+        "mesh-paper 1x2": paper, "mesh-paper 2x2": paper,
+        "olmoe 1x2": dataclasses.replace(get_config("olmoe-1b-7b"),
+                                         num_layers=MOE_TRAIN_LAYERS, use_mesh_kernel=True),
+        "rwkv 1x2": dataclasses.replace(get_config("rwkv6-1.6b").tuned(),
+                                        num_layers=RWKV_HELD_LAYERS, use_mesh_kernel=True),
+        "zamba 1x2": dataclasses.replace(get_config("zamba2-1.2b").tuned(),
+                                         use_mesh_kernel=True),
+        "zamba6 1x2": dataclasses.replace(get_config("zamba2-1.2b").tuned(),
+                                          num_layers=ZAMBA_TP_HELD_LAYERS, use_mesh_kernel=True),
+    }
+
+
+def train_tp_products(torch):
+    """[train_tp]'s forward K1 products on a rank, (label, M, K, N, out
+    dtype), at 2 x 2048 rows (1x2) and mesh-paper's 2048 (a 2x2 data
+    rank's row): column-parallel projections of a rank's heads, gate and
+    up slices, Mamba2 segments and vocab rows, row-parallel ones with f32
+    partial sums, and the replicated ones.  The backward's dA and dB follow
+    from each forward's blocks (api.mm_backward)."""
+    from repro_torch.models.attention import head_layout
+    from repro_torch.models.layers import padded_vocab
+
+    f32, ctx, out = torch.float32, _tp_ctx(TRAIN_TP_M), []
+    cfgs = _train_tp_cfgs()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def attn(cfg):
+        d, hd, lay = cfg.d_model, cfg.head_dim_, head_layout(cfg, ctx)
+        return [("wq", d, lay.q.size * hd, None), ("wk|wv", d, lay.kv.size * hd, None),
+                ("wo", lay.q.size * hd, d, f32)]
+
+    def mlp(cfg):
+        fp = ctx.part("mlp", cfg.d_ff)
+        return [("wi", cfg.d_model, 2 * fp.size, None), ("mlp wo", fp.size, cfg.d_model, f32)]
+
+    def head(cfg):
+        return [("head", cfg.d_model, ctx.part("vocab", padded_vocab(cfg)).size, None)]
+
+    def add(name, prods, ms):
+        for m in ms:
+            out.extend((f"{name} {label} M={m}", m, k, n, dt) for label, k, n, dt in prods)
+
+    cfg = cfgs["mesh-paper 1x2"]
+    add("mesh-paper", attn(cfg) + mlp(cfg) + head(cfg), (tokens, TRAIN_SEQ))
+    cfg = cfgs["olmoe 1x2"]
+    add("olmoe", attn(cfg) + head(cfg), (tokens,))
+    cfg = cfgs["rwkv 1x2"]
+    d, hp, fp = cfg.d_model, ctx.part("heads", cfg.num_heads), ctx.part("mlp", cfg.d_ff)
+    cols = hp.size * cfg.head_dim_
+    add("rwkv", [("wr|wk|wv|wg", d, cols, None), ("wo", cols, d, f32),
+                 ("cm_wk", d, fp.size, None), ("cm_wv", fp.size, d, f32), ("cm_wr", d, d, None)]
+        + head(cfg), (tokens,))
+    cfg = cfgs["zamba 1x2"]
+    d_in, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state_size
+    hs = ctx.part("mlp", cfg.ssm_num_heads)
+    ph = d_in // cfg.ssm_num_heads
+    add("zamba", [("in_proj", cfg.d_model, 2 * hs.size * ph + 2 * n + hs.size, None),
+                  ("out_proj", hs.size * ph, cfg.d_model, f32)] + attn(cfg) + mlp(cfg)
+        + head(cfg), (tokens,))
+    return out
+
+
+@contextlib.contextmanager
+def k5_backward_calls(k5):
+    """Within the block, the `_gmm` backward's K5 calls (its f32 grouped
+    products) are recorded into `k5` as k4_k5_calls records the forward's
+    (the backward binds the kernel wrapper as a default argument, which
+    k4_k5_calls' patch does not reach)."""
+    from repro_torch.kernels import api
+    from repro_torch.kernels.grouped import grouped_mesh_matmul as run
+
+    original = api.gmm_backward
+
+    def recorded(*args, **kw):
+        kw.pop("matmul", None)
+
+        def matmul(tokens, sizes, w, **mkw):
+            k5.add((tuple(tokens.shape), tuple(w.shape), str(tokens.dtype)[6:],
+                    str(mkw.get("out_dtype") or tokens.dtype)[6:],
+                    tuple(mkw[f"block_{x}"] for x in "mnk"), mkw["stagger"],
+                    mkw.get("activation"), mkw.get("bias") is not None,
+                    mkw.get("residual") is not None, tuple(sizes.tolist())))
+            return run(tokens, sizes, w, **mkw)
+
+        return original(*args, matmul=matmul, **kw)
+
+    api.gmm_backward = recorded
+    try:
+        yield k5
+    finally:
+        api.gmm_backward = original
+
+
+def train_tp_rank(rank, world, init, tmp):
+    """One rank of [train_tp] (run by the phase in its own process): its
+    findings, K1, K5 and K6 calls and plans' blocks go to tmp as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)  # 4 ranks on the machine's cores
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world)
+    with k1_calls() as calls, k4_k5_calls() as (k4, k5, k6), k5_backward_calls(k5):
+        found = _train_tp_rank(torch, rank, tmp)
+    found["k1_calls"] = sorted(calls, key=str)
+    found["k4_calls"], found["k5_calls"] = sorted(k4, key=str), sorted(k5, key=str)
+    found["k6_calls"] = sorted(k6, key=str)
+    found["blocks"] = _plan_blocks()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(found, f)
+    dist.destroy_process_group()
+
+
+def _tp_grads(torch, tag, step, params, batch, tmp, blocks, compare):
+    """One step's gradients of `batch` on this rank's blocks (`step.grads`),
+    gathered to the global tree; where `compare`, held leaf by leaf against
+    the single-process kernel step's saved in tmp.  Returns the readings."""
+    from repro_torch.optim import global_norm
+    from repro_torch.parallel import collectives
+    from repro_torch.tree import tree_paths
+
+    for key in list(collectives.traffic):
+        collectives.traffic[key] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    grads, met = step.grads(params, batch)
+    norm = float(global_norm(grads, blocks))
+    torch.cuda.synchronize()
+    out = dict(wall_s=time.monotonic() - t0, loss=float(met["loss"]), grad_norm=norm,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               traffic=dict(collectives.traffic),
+               replicated_sha=_replicated_sha(torch, grads, blocks))
+    whole = blocks.gather(grads, device="cpu")
+    del grads
+    if compare:
+        want = torch.load(os.path.join(tmp, f"{tag}.pt"))
+        leaves = []
+        for (path, g), w in zip(tree_paths(whole), want["grads"]):
+            g, w = g.cuda().float(), w.cuda().float()
+            leaves.append((path, (g - w).norm().item() / max(w.norm().item(), 1e-30),
+                           (g - w).abs().max().item(), w.abs().max().item()))
+            del g, w
+        out.update(leaves=leaves, want_loss=want["loss"], want_norm=want["norm"])
+        del want
+    del whole
+    _free(torch)
+    return out
+
+
+def _replicated_sha(torch, tree, blocks):
+    """{path: sha256 of the leaf's replicated parts} of a tree of blocks."""
+    import hashlib
+
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    out = {}
+    for (path, leaf), rep in zip(tree_paths(tree), tree_leaves(blocks.replicated)):
+        same = blocks._parts(leaf.detach(), rep)[1]
+        if same:
+            h = hashlib.sha256()
+            for v in same:
+                h.update(v.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+            out[path] = h.hexdigest()
+    return out
+
+
+def _global_state_like(torch, model):
+    """A single-process train state of `model` as meta tensors (a
+    checkpoint's `like`: the leaves restore on the host)."""
+    from repro_torch.tree import tree_map
+
+    def meta(spec, dtype):
+        return torch.empty(spec.shape, dtype=dtype, device="meta")
+
+    specs = model.specs()
+    params = tree_map(lambda s: meta(s, s.dtype or model.cfg.pdtype), specs)
+    f32 = tree_map(lambda s: meta(s, torch.float32), specs)
+    scalar = torch.empty((), dtype=torch.int32, device="meta")
+    return {"params": params, "opt": {"m": f32, "v": f32, "count": scalar}, "step": scalar}
+
+
+def _train_tp_rank(torch, rank, tmp):
+    """train_tp_rank's work, in its process group."""
+    import io
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped import grouped_mesh_matmul
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.kernels.scramble import scramble_blocks_cuda
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.parallel.collectives import mesh_groups
+    from repro_torch.parallel.sharding import DEFAULT_RULES
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.metrics import MetricsLogger
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    cfgs = _train_tp_cfgs()
+    host = SyntheticLM(DataConfig(vocab_size=cfgs["mesh-paper 1x2"].vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=0))._host_batch(0)
+    names = ("data", "model")
+    meshes = {"2x2": make_local_mesh((2, TRAIN_TP_M), names),
+              "1x2 a": DeviceMesh("cpu", torch.arange(2).reshape(1, 2), mesh_dim_names=names),
+              "1x2 b": DeviceMesh("cpu", torch.arange(2, 4).reshape(1, 2),
+                                  mesh_dim_names=names)}
+    found = {}
+
+    def counted():
+        mesh_matmul.launches = scramble_blocks_cuda.launches = 0
+        grouped_mesh_matmul.launches = flash_attention.launches = 0
+
+    def launches():
+        return dict(k1=mesh_matmul.launches, k3=scramble_blocks_cuda.launches,
+                    k5=grouped_mesh_matmul.launches, k6=flash_attention.launches)
+
+    def paper(case, mesh, ckpt):
+        """mesh-paper through build_trainer under `mesh`: the gradients of
+        batch 0, then TRAIN_TP_STEPS steps through train_loop."""
+        cfg = cfgs[case]
+        coord = dict(zip(names, mesh.get_coordinate()))
+        step, state, data = build_trainer(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, mesh=mesh,
+                                          lr=TRAIN_LR, total_steps=TRAIN_TP_STEPS, seed=0,
+                                          device="cuda")
+        blocks = step.blocks
+        res = {"coord": coord, "state_gib": sum(t.numel() * t.element_size()
+                                                for t in tree_leaves(state)) / 2**30}
+        counted()
+        res["grads"] = _tp_grads(torch, case, step, state["params"], host, tmp, blocks,
+                                 compare=coord == {"data": 0, "model": 0})
+        res["grads"]["launches"] = launches()
+        per = []
+
+        def timed(st, b):
+            before = launches()
+            t0 = time.monotonic()
+            st, met = step(st, b)
+            torch.cuda.synchronize()
+            per.append((time.monotonic() - t0, {k: v - before[k] for k, v in launches().items()}))
+            return st, met
+
+        class Hashed:
+            """The writer's checkpointer: the sha256 of each leaf of the
+            global tree the loop gathered, then a synchronous save."""
+
+            def __init__(self, manager):
+                self.manager, self.sha = manager, None
+
+            def submit(self, step_i, tree, meta):
+                self.sha = {p: _sha(torch, t) for p, t in tree_paths(tree)}
+                self.manager.save(step_i, tree, meta)
+
+            def wait(self):
+                pass
+
+        manager = CheckpointManager(os.path.join(tmp, "ckpt")) if ckpt else None
+        writer = Hashed(manager) if ckpt and coord == {"data": 0, "model": 0} else None
+        logger = MetricsLogger(stream=io.StringIO())
+        torch.cuda.reset_peak_memory_stats()
+        state = train_loop(timed, state, data, LoopConfig(
+            total_steps=TRAIN_TP_STEPS, ckpt_every=TRAIN_TP_STEPS if ckpt else 10**9,
+            log_every=1), ckpt=manager, logger=logger, group=mesh_groups(mesh), blocks=blocks,
+            checkpointer=writer)
+        res.update(steps=per, losses=[h["loss"] for h in logger.history],
+                   grad_norms=[h["grad_norm"] for h in logger.history],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   replicated_sha=_replicated_sha(torch, state["params"], blocks),
+                   all_sha=[_sha(torch, t) for t in tree_leaves(state["params"])],
+                   replicated={p: r if r in (True, None) else [r[0], list(r[1])]
+                               for p, r in tree_paths(blocks.replicated)})
+        if writer is not None:  # the global tree the checkpoint holds, as gathered
+            res["gathered_sha"] = writer.sha
+        del state, step, data
+        _free(torch)
+        return res
+
+    def grads_only(case, mesh, replay=None):
+        """One step's gradients of `case` on this rank's blocks of the
+        seed-0 init, against the single-process kernel step's."""
+        cfg = cfgs[case]
+        model = get_model(cfg)
+        ctx = ShardCtx(mesh, DEFAULT_RULES)
+        full = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        params = shard_params(full, model, ctx)
+        del full
+        _free(torch)
+        step = make_train_step(model, constant(TRAIN_LR), AdamWConfig(), ctx)
+        batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH, seed=0))._host_batch(0)
+        coord = dict(zip(names, mesh.get_coordinate()))
+        counted()
+        with routing(replay) as seen:
+            res = _tp_grads(torch, case, step, params, batch, tmp, step.blocks,
+                            compare=coord["model"] == 0)
+        res["launches"] = launches()
+        res["routes"] = len(seen)
+        res["replicated"] = {p: r if r in (True, None) else [r[0], list(r[1])]
+                             for p, r in tree_paths(step.blocks.replicated)}
+        res["params_gib"] = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 2**30
+        del params, step
+        _free(torch)
+        return res
+
+    t0 = time.monotonic()
+    if rank < 2:
+        found["mesh-paper 1x2"] = paper("mesh-paper 1x2", meshes["1x2 a"], ckpt=True)
+        routes = [r.cuda() for r in torch.load(os.path.join(tmp, "olmoe_routes.pt"))]
+        found["olmoe 1x2"] = grads_only("olmoe 1x2", meshes["1x2 a"], replay=routes)
+        del routes
+    else:
+        for case in ("rwkv 1x2", "zamba 1x2", "zamba6 1x2"):
+            found[case] = grads_only(case, meshes["1x2 b"])
+    found["1x2 wall_s"] = time.monotonic() - t0
+    dist.barrier()
+    t0 = time.monotonic()
+    found["mesh-paper 2x2"] = paper("mesh-paper 2x2", meshes["2x2"], ckpt=False)
+    found["2x2 wall_s"] = time.monotonic() - t0
+    return found
+
+
+def phase_train_tp(torch):
+    """Tensor-parallel training on TRAIN_TP_WORLD ranks sharing the card
+    (see the constants above): the parent computes the single-process
+    kernel steps' gradients and plans every shard shape, the ranks train,
+    and the parent holds their gradients, launches, bitwise agreements,
+    checkpoint and every K1, K5 and K6 call they made.  Walls and bytes are
+    printed, never as speeds."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import get_model
+    from repro_torch.optim import global_norm
+    from repro_torch.train.train_step import _grads_of
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    cfgs = _train_tp_cfgs()
+    paper_cfg = cfgs["mesh-paper 1x2"]
+    check(paper_cfg.scramble_privacy and paper_cfg.use_mesh_kernel
+          and paper_cfg.remat_policy == "dots" and TRAIN_SEQ == paper_cfg.d_model,
+          f"[train_tp] needs mesh-paper scrambling at seq {TRAIN_SEQ} under dots: {paper_cfg}")
+    _free(torch)
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="train_tp")
+    try:
+        refs, single = {}, {}
+        with k1_calls() as parent_calls:
+            planned = plan_products(torch, train_tp_products(torch))
+            for case, cfg in cfgs.items():
+                if case == "mesh-paper 2x2":
+                    continue
+                model = get_model(cfg)
+                params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+                batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                               global_batch=TRAIN_BATCH,
+                                               seed=0))._host_batch(0)
+                batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.monotonic()
+                with routing() as seen:
+                    grads, met = _grads_of(model, params, batch)
+                torch.cuda.synchronize()
+                single[case] = dict(wall_s=time.monotonic() - t0,
+                                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                    params=sum(p.numel() for p in tree_leaves(params)),
+                                    bytes=sum(p.numel() * p.element_size()
+                                              for p in tree_leaves(params)))
+                refs[case] = {"loss": float(met["loss"]), "norm": float(global_norm(grads))}
+                torch.save({**refs[case], "grads": [g.cpu() for g in tree_leaves(grads)]},
+                           os.path.join(tmp, f"{case}.pt"))
+                if case == "mesh-paper 1x2":
+                    os.link(os.path.join(tmp, f"{case}.pt"), os.path.join(tmp, "mesh-paper 2x2.pt"))
+                    refs["mesh-paper 2x2"] = refs[case]
+                    single["mesh-paper 2x2"] = single[case]
+                if case == "olmoe 1x2":
+                    torch.save([r.cpu() for r in seen], os.path.join(tmp, "olmoe_routes.pt"))
+                    single[case]["routes"] = len(seen)
+                del params, grads, met, batch, seen, model
+                _free(torch)
+        log(f"[train_tp] single-process kernel steps' gradients of batch 0 and"
+            f" {len(planned)} shard shapes planned in {time.monotonic() - t_phase:.1f} s: "
+            + "; ".join(f"{c} loss {refs[c]['loss']:.6f} grad norm {refs[c]['norm']:.6f}"
+                        f" ({single[c]['params'] / 1e9:.3f} B parameters, peak"
+                        f" {single[c]['peak_gib']:.2f} GiB, wall {single[c]['wall_s']:.2f} s)"
+                        for c in cfgs if c != "mesh-paper 2x2"))
+        t0 = time.monotonic()
+        runs = _spawn(lambda r: (
+            "import chip_smoke; chip_smoke.train_tp_rank("
+            f"{r}, {TRAIN_TP_WORLD}, {os.path.join(tmp, 'gloo')!r}, {tmp!r})"),
+            TRAIN_TP_WORLD, TRAIN_TP_TIMEOUT_S)
+        wall = time.monotonic() - t0
+        bad = [f"rank {r}: rc={rc} {e[-3000:]}" for r, (rc, _, e) in enumerate(runs) if rc != 0]
+        check(not bad, "[train_tp] rank failures:\n" + "\n".join(bad))
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(TRAIN_TP_WORLD)]
+        parent_blocks = _plan_blocks()
+        # The 1x2 trainer's step-2 checkpoint (the global tree, written by
+        # rank 0) restored here, on one process, into a single-process
+        # state's structure, against the state the ranks gathered (sha256
+        # of each leaf).
+        ckpt = CheckpointManager(os.path.join(tmp, "ckpt"))
+        t0 = time.monotonic()
+        restored = ckpt.restore(TRAIN_TP_STEPS, _global_state_like(torch, get_model(paper_cfg)))
+        got = {p: _sha(torch, t) for p, t in tree_paths(restored)}
+        want = ranks[0]["mesh-paper 1x2"]["gathered_sha"]
+        restore_ok = ckpt.latest_step() == TRAIN_TP_STEPS and got == want
+        n_leaves, restore_s = len(got), time.monotonic() - t0
+        del restored
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[train_tp] {TRAIN_TP_WORLD} gloo ranks on one card: {wall:.1f} s wall in all, process"
+        " start, CUDA init and every model's init included (not a speed: the ranks share the card"
+        " and every collective goes through host memory)")
+
+    failed = []
+    for case in TRAIN_TP_CASES:
+        loss_tol, norm_tol, leaf_tol = TRAIN_TP_TOL[case]
+        tp_ranks = [(r, f[case]) for r, f in enumerate(ranks) if case in f]
+        for r, res in tp_ranks:
+            g = res["grads"] if "grads" in res else res
+            if "leaves" not in g:
+                continue
+            d_loss = abs(g["loss"] - g["want_loss"])
+            d_norm = abs(g["grad_norm"] - g["want_norm"]) / g["want_norm"]
+            worst = sorted(g["leaves"], key=lambda x: x[1])
+            top = ", ".join(f"{p} {rel:.3e}" for p, rel, _, _ in reversed(worst[-4:]))
+            named = {p for p, _, _, _ in g["leaves"]}
+            missing = [p for p in TRAIN_TP_NAMED.get(case, ()) if p not in named]
+            tr = g["traffic"]
+            log(f"[train_tp] {case} rank {r}: one step's gradients of batch 0 gathered against"
+                f" the single-process kernel step's: loss {g['loss']:.6f} vs {g['want_loss']:.6f}"
+                f" (|d| {d_loss:.3e}, tol {loss_tol}), grad norm {g['grad_norm']:.6f} vs"
+                f" {g['want_norm']:.6f} ({100 * d_norm:.5f} %, tol"
+                f" {'None' if norm_tol is None else f'{100 * norm_tol:g} %'}),"
+                f" per-parameter ||d||/||g|| largest: {top} (tol {leaf_tol}) of"
+                f" {len(g['leaves'])} leaves; all-reduces {tr['all_reduce']}"
+                f" ({tr['all_reduce_bytes'] / 2**20:.1f} MiB), all-gathers {tr['all_gather']}"
+                f" ({tr['all_gather_bytes'] / 2**20:.1f} MiB) in the step's forward and"
+                f" backward; wall {g['wall_s']:.2f} s (not a speed), peak {g['peak_gib']:.2f} GiB")
+            held = [(x, t) for x, t in ((d_loss, loss_tol), (d_norm, norm_tol),
+                                        (worst[-1][1], leaf_tol)) if t is not None]
+            if (any(x > t for x, t in held) or missing or not math.isfinite(d_loss + d_norm)
+                    or not all(math.isfinite(x[1]) for x in worst)):
+                failed.append(f"{case} rank {r} gradients: loss {d_loss}, norm {d_norm},"
+                              f" leaf {worst[-1]}, missing {missing}")
+        # Each rank holds its blocks: its peak in the gradients below the
+        # single-process step's, measured in this phase.
+        for r, res in tp_ranks:
+            g = res["grads"] if "grads" in res else res
+            log(f"[train_tp] {case} rank {r}: peak device memory in one step's gradients"
+                f" {g['peak_gib']:.2f} GiB, the single process's {single[case]['peak_gib']:.2f} GiB")
+            if not g["peak_gib"] < single[case]["peak_gib"]:
+                failed.append(f"{case} rank {r} peak {g['peak_gib']} GiB not below the single"
+                              f" process's {single[case]['peak_gib']}")
+        # Replicated parts bitwise across the 'model' ranks of a data rank.
+        by_data = {}
+        for r, res in tp_ranks:
+            coord = res.get("coord", {"data": 0})
+            by_data.setdefault(coord["data"], []).append(
+                (res["grads"] if "grads" in res else res)["replicated_sha"])
+        same = all(all(s == shas[0] for s in shas) and shas[0] for shas in by_data.values())
+        if not same:
+            failed.append(f"{case}: replicated gradients differ across the 'model' ranks")
+    # The trainers' steps.
+    for case in ("mesh-paper 1x2", "mesh-paper 2x2"):
+        tp_ranks = [(r, f[case]) for r, f in enumerate(ranks) if case in f]
+        per_rank = TRAIN_TP_M if case.endswith("1x2") else TRAIN_TP_WORLD
+        check(len(tp_ranks) == per_rank, f"[train_tp] {case}: {len(tp_ranks)} ranks reported")
+        for r, res in tp_ranks:
+            for i, (dt, got) in enumerate(res["steps"]):
+                log(f"[train_tp] {case} rank {r} step {i + 1}: loss {res['losses'][i]:.5f}"
+                    f" grad norm {res['grad_norms'][i]:.5f}, wall {dt * 1e3:.1f} ms (not a"
+                    f" speed), launches K1={got['k1']} K3={got['k3']}")
+            if any((got["k1"], got["k3"]) != (STEP_LAUNCHES["mesh_matmul"],
+                                              STEP_LAUNCHES["scramble_blocks"])
+                   for _, got in res["steps"]) or len(res["steps"]) != TRAIN_TP_STEPS:
+                failed.append(f"{case} rank {r} launches per step {res['steps']}")
+            if not all(math.isfinite(x) for x in res["losses"]):
+                failed.append(f"{case} rank {r} losses {res['losses']}")
+            log(f"[train_tp] {case} rank {r}: its blocks' train state {res['state_gib']:.2f} GiB"
+                f" ({single[case]['bytes'] / 1e9:.3f} GB of bf16 parameters in all), peak device"
+                f" memory over the steps {res['peak_gib']:.2f} GiB")
+        shas = {}
+        for r, res in tp_ranks:
+            shas.setdefault(res["coord"]["data"], []).append(res["replicated_sha"])
+        rep_same = all(all(s == v[0] for s in v) and v[0] for v in shas.values())
+        data_same = all(res["all_sha"] == tp_ranks[res["coord"]["model"]][1]["all_sha"]
+                        for _, res in tp_ranks)
+        if len({tuple(res["losses"]) for _, res in tp_ranks}) != 1:
+            failed.append(f"{case}: the ranks' losses differ")
+        log(f"[train_tp] {case} after {TRAIN_TP_STEPS} steps: replicated leaves bitwise equal"
+            f" across the 'model' ranks: {rep_same}; every leaf bitwise equal across the 'data'"
+            f" ranks: {data_same}")
+        if not rep_same or not data_same:
+            failed.append(f"{case}: parameters differ across ranks ({rep_same}, {data_same})")
+    log(f"[train_tp] mesh-paper 1x2's step-{TRAIN_TP_STEPS} checkpoint (the global tree,"
+        f" {n_leaves} leaves) restored on this process in {restore_s:.1f} s, bitwise equal to"
+        f" the state the ranks gathered: {restore_ok}")
+    if not restore_ok:
+        failed.append("the 1x2 checkpoint does not restore to the gathered state")
+    # Launch counts from the code: a mesh-paper step's K1 75 and K3 4 on each
+    # rank (the rank runs every product on its blocks); OLMoE's K5 2 a layer
+    # forward, 2 a layer in the backward's dtokens plus the dots recompute;
+    # Zamba2's K6 one a shared-block application.
+    for r, f in enumerate(ranks):
+        for case in ("olmoe 1x2", "rwkv 1x2", "zamba 1x2", "zamba6 1x2"):
+            if case in f:
+                log(f"[train_tp] {case} rank {r}: launches in one step's gradients"
+                    f" {f[case]['launches']}, routing decisions {f[case]['routes']} (the"
+                    f" single process {single[case].get('routes', 0)}), its blocks"
+                    f" {f[case]['params_gib']:.2f} GiB of parameters")
+        if "olmoe 1x2" in f and f["olmoe 1x2"]["routes"] != single["olmoe 1x2"]["routes"]:
+            failed.append(f"rank {r} OLMoE routing decisions {f['olmoe 1x2']['routes']}")
+        if "zamba 1x2" in f and (f["zamba 1x2"]["launches"]["k6"],
+                                 f["zamba6 1x2"]["launches"]["k6"]) != (ZAMBA_APPS, 1):
+            failed.append(f"rank {r} Zamba2 K6 launches {f['zamba 1x2']['launches']}"
+                          f" {f['zamba6 1x2']['launches']}")
+        moved = {k: (v, parent_blocks.get(k)) for k, v in f["blocks"].items()
+                 if k in parent_blocks and parent_blocks[k] != v}
+        if moved:
+            failed.append(f"rank {r} planned other blocks than this process: {moved}")
+    rep = ranks[0]["mesh-paper 1x2"]["replicated"]
+    log(f"[train_tp] replicated over 'model' (mesh-paper 1x2): "
+        f"{sorted(p for p, v in rep.items() if v is True)}; Zamba2's segments: "
+        f"{ {p: v for p, v in ranks[2]['zamba 1x2']['replicated'].items() if isinstance(v, list)} }")
+    log(f"[train_tp] ranks' walls: 1x2 cases {[round(f['1x2 wall_s'], 1) for f in ranks]} s,"
+        f" 2x2 {[round(f['2x2 wall_s'], 1) for f in ranks]} s (not speeds)")
+    calls = parent_calls | {_as_key(key) for f in ranks for key in f["k1_calls"]}
+    here, before = hold_k1_keys(torch, "train_tp", calls)
+    log(f"[train_tp] {len(calls)} distinct K1 calls of the parent and the ranks (the f32"
+        f" backward's dA and dB at the half-width shapes included): {before} held by"
+        f" [K1]/[K1 train] before, {here} held here on the same blocks")
+    k4_held, k5_held, k6_held = hold_k4_k5_calls(
+        torch, "train_tp", {_as_key(x) for f in ranks for x in f["k4_calls"]},
+        {_as_key(x) for f in ranks for x in f["k5_calls"]},
+        {_as_key(x) for f in ranks for x in f["k6_calls"]})
+    log(f"[train_tp] the ranks' distinct K5 calls ({k5_held}: OLMoE's 32 experts a rank, forward"
+        f" and the `_gmm` backward's f32 products) and K6 calls ({k6_held}: Zamba2's shared block"
+        " on 16 of 32 heads) each held against the plain version at [K5]'s and [K6]'s limits")
+    if not k5_held or not k6_held or k4_held:
+        failed.append(f"K4/K5/K6 calls recorded: {k4_held} {k5_held} {k6_held}")
+    check(not failed, "[train_tp] failed:\n" + "\n".join(failed))
+    return {"mesh_matmul": sum(f[c]["grads"]["launches"]["k1"]
+                               + sum(got["k1"] for _, got in f[c]["steps"])
+                               for f in ranks for c in ("mesh-paper 1x2", "mesh-paper 2x2")
+                               if c in f)
+            + sum(f[c]["launches"]["k1"] for f in ranks
+                  for c in ("olmoe 1x2", "rwkv 1x2", "zamba 1x2", "zamba6 1x2") if c in f),
+            "scramble_blocks": sum(f[c]["grads"]["launches"]["k3"]
+                                   + sum(got["k3"] for _, got in f[c]["steps"])
+                                   for f in ranks for c in ("mesh-paper 1x2", "mesh-paper 2x2")
+                                   if c in f),
+            "grouped_mesh_matmul": sum(f["olmoe 1x2"]["launches"]["k5"] for f in ranks
+                                       if "olmoe 1x2" in f),
+            "flash_attention": sum(f[c]["launches"]["k6"] for f in ranks
+                                   for c in ("zamba 1x2", "zamba6 1x2") if c in f)}
+
+
 def main_path_products():
     """mesh-paper's main-path K1 products (M, K, N), bf16: decode (M =
     SLOTS), prefill (M = PROMPT) and the training forward (M = TRAIN_BATCH x
@@ -6558,7 +7196,8 @@ def main() -> int:
         ("serve_zamba", phase_serve_zamba), ("serve_whisper", phase_serve_whisper),
         ("train_rwkv", phase_train_rwkv), ("train_zamba", phase_train_zamba),
         ("sharded", phase_sharded), ("train_dp", phase_train_dp),
-        ("serve_tp", phase_serve_tp), ("serve_tp_families", phase_serve_tp_families))}
+        ("serve_tp", phase_serve_tp), ("serve_tp_families", phase_serve_tp_families),
+        ("train_tp", phase_train_tp))}
     phases["paper"] = healthy("paper", lambda torch: phase_paper(torch, smi))
     phases["planner"] = phase_planner
     phases["obs"] = healthy("obs", lambda torch: phase_obs(torch, smi))
@@ -6599,6 +7238,7 @@ def main() -> int:
     train_dp = phases["train_dp"](torch)
     serve_tp = phases["serve_tp"](torch)
     serve_tpf = phases["serve_tp_families"](torch)
+    train_tp = phases["train_tp"](torch)
     phases["paper"](torch)
     planner = phases["planner"](torch)
     phases["obs"](torch)
@@ -6617,7 +7257,7 @@ def main() -> int:
             + serve_whisper["mesh_matmul"] + train_rwkv["mesh_matmul"]
             + train_zamba["mesh_matmul"] + sharded["mesh_matmul"] + train_dp["mesh_matmul"]
             + train_dp["pipeline_mesh_matmul"] + serve_tp["mesh_matmul"]
-            + serve_tpf["mesh_matmul"], k1_err, k1,
+            + serve_tpf["mesh_matmul"] + train_tp["mesh_matmul"], k1_err, k1,
             "one decode tick: 25 launches at M=4",
             launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"],
                               "serve_moe": serve_moe["mesh_matmul"],
@@ -6633,7 +7273,8 @@ def main() -> int:
                               "train_dp (2 ranks)": train_dp["mesh_matmul"],
                               "pipeline (4 ranks)": train_dp["pipeline_mesh_matmul"],
                               "serve_tp (2 ranks)": serve_tp["mesh_matmul"],
-                              "serve_tp_families (4 ranks)": serve_tpf["mesh_matmul"]},
+                              "serve_tp_families (4 ranks)": serve_tpf["mesh_matmul"],
+                              "train_tp (4 ranks)": train_tp["mesh_matmul"]},
             launches_by_tile=K1_TILES, train_step=k1_train,
             batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
                      "shape": "B=4 M=128 K=1024 N=512 bf16"}),
@@ -6657,23 +7298,25 @@ def main() -> int:
         row("scramble_blocks", "scramble_blocks.cu",
             "src/repro/kernels/scramble_kernel.py:41",
             train["scramble_blocks"] + train_dp["scramble_blocks"]
-            + train_dp["pipeline_scramble_blocks"], k3_err, k3,
+            + train_dp["pipeline_scramble_blocks"] + train_tp["scramble_blocks"], k3_err, k3,
             f"one launch: ({TRAIN_BATCH}, {TRAIN_SEQ}, 2048) bf16, 16x16 blocks of 128^2;"
             " library_ms is x.clone() (same bytes, no permutation)",
             launches_by_path={"train": train["scramble_blocks"],
                               "train_dp (2 ranks)": train_dp["scramble_blocks"],
-                              "pipeline (4 ranks)": train_dp["pipeline_scramble_blocks"]}),
+                              "pipeline (4 ranks)": train_dp["pipeline_scramble_blocks"],
+                              "train_tp (4 ranks)": train_tp["scramble_blocks"]}),
         row("grouped_mesh_matmul", "grouped_matmul.cu", "src/repro/kernels/grouped.py:119",
             serve_moe["grouped_mesh_matmul"] + serve_qwen2_moe["grouped_mesh_matmul"]
             + train_moe["grouped_mesh_matmul"] + sharded["grouped_mesh_matmul"]
-            + serve_tp["grouped_mesh_matmul"], k5_err, k5_tick,
+            + serve_tp["grouped_mesh_matmul"] + train_tp["grouped_mesh_matmul"], k5_err, k5_tick,
             f"one OLMoE decode step: 32 launches (wi, wo x 16 layers), 64 experts x 8 rows,"
             f" {SLOTS} tokens routed; library_ms is torch.bmm + segment mask",
             launches_by_path={"serve_moe": serve_moe["grouped_mesh_matmul"],
                               "serve_qwen2_moe": serve_qwen2_moe["grouped_mesh_matmul"],
                               "train_moe": train_moe["grouped_mesh_matmul"],
                               "sharded (4 ranks)": sharded["grouped_mesh_matmul"],
-                              "serve_tp (2 ranks)": serve_tp["grouped_mesh_matmul"]},
+                              "serve_tp (2 ranks)": serve_tp["grouped_mesh_matmul"],
+                              "train_tp (2 ranks)": train_tp["grouped_mesh_matmul"]},
             launches_by_tile=K5_TILES, qwen2_moe_decode_step=serve_qwen2_moe["k5_decode_step"],
             prefill={**k5_prefill, "shape": f"one {PROMPT}-token prefill: 32 launches,"
                      " 64 experts x 128 rows"}),
@@ -6682,7 +7325,7 @@ def main() -> int:
             + configs["flash_attention"] + serve_pixtral["flash_attention"]
             + serve_zamba["flash_attention"] + serve_whisper["flash_attention"]
             + train_zamba["flash_attention"] + serve_tp["flash_attention"]
-            + serve_tpf["flash_attention"], k6_err,
+            + serve_tpf["flash_attention"] + train_tp["flash_attention"], k6_err,
             k6["qwen2 T=2048"],
             "one launch: Qwen2-7B prefill B=1 T=2048 H=28 KV=4 hd=128 bf16 causal; library_ms"
             " is scaled_dot_product_attention (is_causal, enable_gqa)",
@@ -6694,7 +7337,8 @@ def main() -> int:
                               "serve_whisper": serve_whisper["flash_attention"],
                               "train_zamba": train_zamba["flash_attention"],
                               "serve_tp (2 ranks)": serve_tp["flash_attention"],
-                              "serve_tp_families (4 ranks)": serve_tpf["flash_attention"]},
+                              "serve_tp_families (4 ranks)": serve_tpf["flash_attention"],
+                              "train_tp (2 ranks)": train_tp["flash_attention"]},
             device_ms=k6["qwen2 T=2048"]["device_ms"],
             library_device_ms=k6["qwen2 T=2048"]["library_device_ms"],
             t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"],

@@ -17,6 +17,8 @@ waits for the previous write, which still reads those buffers:
     then serializes;
   * a CPU tensor is copied into its buffer and a numpy array copied.
 
+Under a 'model' axis the train loop submits the global tree, gathered by
+every rank onto the host (`train_loop(blocks=)`), from the writer rank.
 The npz write + rename happens on the worker thread.  Errors surface on the
 next submit/wait and again in `close()`/`__exit__`: a failed write never
 silently drops a checkpoint.  Transient write failures are absorbed by

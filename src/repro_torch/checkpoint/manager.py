@@ -118,7 +118,8 @@ class CheckpointManager:
     def restore(self, step: int, like: Any) -> Any:
         """Restore into the structure of `like` (a tree of tensors): each
         leaf comes back with its stored dtype, on the device of the matching
-        leaf of `like`."""
+        leaf of `like` (on the host where that leaf is a meta tensor, a
+        shape alone: `interop.ModelBlocks.global_like`)."""
         self._verify_digest(step)
         path = os.path.join(self.directory, f"step_{step:08d}", "arrays.npz")
         with np.load(path) as data:
@@ -135,7 +136,7 @@ class CheckpointManager:
                     raise ValueError(
                         f"{key}: checkpoint shape {tuple(t.shape)} != model {tuple(leaf.shape)}"
                     )
-                return t.to(leaf.device)
+                return t if str(leaf.device) == "meta" else t.to(leaf.device)
 
             return tree_map_with_path(load, like)
 

@@ -9,7 +9,12 @@ state (params, AdamW `m`/`v`/`count`, `step`), and `train_state_to_numpy`
 goes back, so a port state can be handed to the reference;
 `stack_ranks` stacks the data-parallel ranks' (1, *shape) residual slices
 into the reference's (dp, *shape) layout.  `shard_params` cuts a full
-parameter tree into this rank's blocks for tensor-parallel serving.  bfloat16 arrays arrive as `ml_dtypes.bfloat16`, which
+parameter tree, or a whole train state, into this rank's blocks for
+tensor parallelism, and `model_blocks` describes those blocks for
+training under a 'model' axis: which parts every 'model' rank holds alike
+(their gradients are shares, summed over the axis), the norm of a tree of
+blocks, and the gather back to the global tree and the cut again
+(checkpoints).  bfloat16 arrays arrive as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses; they travel as their 16-bit patterns
 (`view(np.uint16)`) and are reinterpreted as `torch.bfloat16`.  Neither
 `jax` nor `ml_dtypes` is imported here.
@@ -17,16 +22,16 @@ parameter tree into this rank's blocks for tensor-parallel serving.  bfloat16 ar
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["params_from_numpy", "shard_params", "stack_ranks", "train_state_from_numpy",
-           "train_state_to_numpy"]
+__all__ = ["ModelBlocks", "model_blocks", "params_from_numpy", "shard_params", "stack_ranks",
+           "train_state_from_numpy", "train_state_to_numpy"]
 
 
 def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -85,11 +90,90 @@ def stack_ranks(trees) -> Any:
     return np.concatenate(trees, axis=0)
 
 
+def _is_train_state(tree) -> bool:
+    return isinstance(tree, dict) and set(tree) == {"params", "opt", "step"}
+
+
+def _params_like(fn: Callable, tree):
+    """fn applied to each parameter-shaped subtree of `tree`: the tree
+    itself, or a train state's params and AdamW moments (its count and
+    step are the same on every rank and stay as they are)."""
+    if not _is_train_state(tree):
+        return fn(tree)
+    opt = tree["opt"]
+    return {"params": fn(tree["params"]),
+            "opt": {"m": fn(opt["m"]), "v": fn(opt["v"]), "count": opt["count"]},
+            "step": tree["step"]}
+
+
+def _leaf_pieces(shape, axes, key, cfg, ctx):
+    """`parallel.sharding.block_pieces` of one leaf as the model code
+    under `ctx` reads it (`shard_params`' exceptions included)."""
+    from repro_torch.models.moe import FUSED_GATE_UP
+    from repro_torch.models.ssm import MAMBA_LAYOUT, mamba_segments
+    from repro_torch.parallel.sharding import block_pieces
+
+    rules, _, lay = ctx._resolved
+    hd = cfg.head_dim_
+    units = {"heads": (cfg.num_heads, hd), "kv_heads": (cfg.num_kv_heads, hd)}
+
+    def segments(n):
+        """[(kind, units, unit)] of a fused 'mlp' dim of n, or None."""
+        if key in FUSED_GATE_UP:
+            return [("heads", n // 2, 1)] * 2
+        if cfg.family == "hybrid" and key in MAMBA_LAYOUT:
+            return mamba_segments(cfg, key)
+        return None
+
+    fused = [a == "mlp" and segments(n) is not None for n, a in zip(shape, axes)]
+    if not any(a in units for a in axes) and not any(fused):
+        return block_pieces(shape, axes, ctx.mesh, rules, lay)
+
+    def piece(off, part, unit):
+        return (off + part.start * unit, part.size * unit, part.axes if part.count > 1 else None)
+
+    out = []
+    for d, (n, a) in enumerate(zip(shape, axes)):
+        if a in units:
+            count, unit = units[a]
+            out.append((piece(0, ctx.part(a, count), unit),))
+        elif fused[d]:
+            pieces, off = [], 0
+            for kind, count, unit in segments(n):
+                pieces.append(piece(off, ctx.part(a, count), unit) if kind == "heads"
+                              else (off, count * unit, None))
+                off += count * unit
+            out.append(tuple(pieces))
+        elif a is not None:
+            out.append((piece(0, ctx.part(a, n), 1),))
+        else:
+            out.append(((0, n, None),))
+    return tuple(out)
+
+
+def _cut(t: torch.Tensor, pieces) -> torch.Tensor:
+    """The block of the global `t` that `pieces` describe, a new tensor."""
+    for d, ps in enumerate(pieces):
+        if len(ps) > 1:
+            t = torch.cat([t.narrow(d, s, n) for s, n, _ in ps], dim=d)
+        elif ps[0][1] != t.shape[d]:
+            t = t.narrow(d, ps[0][0], ps[0][1])
+    return t.contiguous().clone()
+
+
+def _walk_specs(specs, fn, key=None):
+    """fn(PSpec, its dict key) over a PSpec tree, as the same tree."""
+    if isinstance(specs, dict):
+        return {k: _walk_specs(v, fn, k) for k, v in specs.items()}
+    return fn(specs, key)
+
+
 def shard_params(params: Any, model, ctx) -> Any:
     """This rank's blocks of the full parameter tree `params` (from the
-    reference's init through `params_from_numpy`, or the port's own), laid
-    out as the model code under `ctx` (a `models.layers.ShardCtx`) reads
-    them.
+    reference's init through `params_from_numpy`, or the port's own), or
+    of a whole train state (params and AdamW moments cut alike; the count
+    and the step as they are), laid out as the model code under `ctx` (a
+    `models.layers.ShardCtx`) reads them.
 
     Each leaf is `shard_of` its `tree_shardings(model.logical_axes(), mesh,
     rules)` sharding (indivisible dims replicated), with these exceptions,
@@ -104,49 +188,142 @@ def shard_params(params: Any, model, ctx) -> Any:
         each rank its whole SSM heads of z, x and dt, and B and C whole.
     Without a live mesh the tree comes back as it is.
     """
-    from repro_torch.models.moe import FUSED_GATE_UP
-    from repro_torch.models.ssm import MAMBA_LAYOUT, mamba_segments
-    from repro_torch.parallel.sharding import named_sharding, shard_of
-
     if not ctx.active:
         return params
-    cfg, hd = model.cfg, model.cfg.head_dim_
-    rules, _, lay = ctx._resolved
-    units = {"heads": (cfg.num_heads, hd), "kv_heads": (cfg.num_kv_heads, hd)}
+    pieces = _walk_specs(model.specs(), lambda s, key: _leaf_pieces(s.shape, s.axes, key,
+                                                                     model.cfg, ctx))
+    return _params_like(lambda tree: tree_map(_cut, tree, pieces), params)
 
-    def segments(t, d, key):
-        """[(kind, units, unit)] of a fused 'mlp' dim, or None."""
-        if key in FUSED_GATE_UP:
-            return [("heads", t.shape[d] // 2, 1)] * 2
-        if cfg.family == "hybrid" and key in MAMBA_LAYOUT:
-            return mamba_segments(cfg, key)
+
+class ModelBlocks:
+    """A rank's blocks of `model`'s parameter tree under `ctx`, as
+    tensor-parallel training reads them (`model_blocks`).
+
+    `replicated` is the tree of `parallel.sharding.replicated_ranges` of
+    each leaf's block along 'model': True where every 'model' rank holds
+    the whole leaf (norms, the router, kv heads that do not divide the
+    axis, RWKV-6's per-channel parameters, which the model code slices
+    itself), None where the block is this rank's own, and (dim, ranges)
+    where a sharded block holds ranges every rank holds alike (Mamba2's B
+    and C segments of in_proj, conv_w and conv_b).  A rank's gradient of a
+    replicated part is its share (`parallel.collectives`), so
+    `reduce_replicated` sums exactly those parts over 'model' and no
+    others; `norm_squares` counts each sharded element on its own rank
+    and each replicated one once.  `gather` and `cut` move between a tree
+    (or a train state) of blocks and the global one."""
+
+    def __init__(self, model, ctx):
+        from repro_torch.parallel.collectives import axis_group
+        from repro_torch.parallel.sharding import MeshLayout, replicated_ranges
+
+        self.model, self.ctx = model, ctx
+        self.group, self.size, _ = axis_group(ctx.mesh, "model")
+        specs = model.specs()
+        self._shapes = _walk_specs(specs, lambda s, key: tuple(s.shape))
+        self._pieces = _walk_specs(specs, lambda s, key: _leaf_pieces(s.shape, s.axes, key,
+                                                                       model.cfg, ctx))
+        self.replicated = tree_map(lambda ps: replicated_ranges(ps, "model"), self._pieces)
+        # Every 'model' coordinate's pieces, for `gather`.
+        from repro_torch.models.layers import ShardCtx
+
+        rules, _, lay = ctx._resolved
+        self._pieces_at = []
+        for r in range(self.size):
+            at = MeshLayout(lay.shape, {**lay.coord, "model": r}, lay.ranks)
+            other = ShardCtx(ctx.mesh, ctx.rules, at)
+            self._pieces_at.append(_walk_specs(
+                specs, lambda s, key, c=other: _leaf_pieces(s.shape, s.axes, key, model.cfg, c)))
+
+    def _parts(self, g: torch.Tensor, rep):
+        """(own views, replicated views) of the block `g`."""
+        if rep is True:
+            return [], [g]
+        if rep is None:
+            return [g], []
+        d, ranges = rep
+        mine, off = [], 0
+        for o, n in ranges:
+            if o > off:
+                mine.append(g.narrow(d, off, o - off))
+            off = o + n
+        if off < g.shape[d]:
+            mine.append(g.narrow(d, off, g.shape[d] - off))
+        return mine, [g.narrow(d, o, n) for o, n in ranges]
+
+    @torch.no_grad()
+    def reduce_replicated(self, grads: Any) -> Any:
+        """Sums the replicated parts of every leaf of `grads` (a gradient
+        tree of blocks, f32) over 'model', in place, by one f32 all-reduce
+        of their concatenation; returns `grads`."""
+        from repro_torch.parallel.collectives import all_reduce
+
+        if self.group is None:
+            return grads
+        views = [v for g, rep in zip(tree_leaves(grads), tree_leaves(self.replicated))
+                 for v in self._parts(g, rep)[1]]
+        if views:
+            flat = torch.cat([v.reshape(-1).float() for v in views])
+            flat = all_reduce(flat, group=self.group)
+            off = 0
+            for v in views:
+                v.copy_(flat[off:off + v.numel()].view(v.shape))
+                off += v.numel()
+        return grads
+
+    def norm_squares(self, tree: Any):
+        """(sum of squares of the elements this rank owns, sum of squares
+        of the replicated ones), each f32, in tree order."""
+        leaves = tree_leaves(tree)
+        dev = leaves[0].device
+        own = torch.zeros((), dtype=torch.float32, device=dev)
+        rep = torch.zeros((), dtype=torch.float32, device=dev)
+        for g, r in zip(leaves, tree_leaves(self.replicated)):
+            mine, same = self._parts(g, r)
+            for v in mine:
+                own = own + torch.sum(torch.square(v.float()))
+            for v in same:
+                rep = rep + torch.sum(torch.square(v.float()))
+        return own, rep
+
+    @torch.no_grad()
+    def gather(self, tree: Any, device=None) -> Any:
+        """The global tree (or train state) whose blocks the 'model' ranks
+        hold, on every one of them (an all-gather over 'model' of each
+        sharded leaf), on `device` (by default each leaf's own)."""
+        from repro_torch.parallel.collectives import all_gather
+
+        def one(blk, shape, rep, *pieces_at):
+            dev = blk.device if device is None else torch.device(device)
+            if rep is True:
+                return blk.to(dev, copy=True)
+            d = next(i for i, ps in enumerate(pieces_at[0]) if len(ps) > 1 or ps[0][2])
+            every = all_gather(blk, d, self.group).to(dev)
+            out = torch.empty(shape, dtype=blk.dtype, device=dev)
+            for r, pieces in enumerate(pieces_at):
+                off = r * blk.shape[d]
+                for start, size, _ in pieces[d]:
+                    out.narrow(d, start, size).copy_(every.narrow(d, off, size))
+                    off += size
+            return out
+
+        return _params_like(lambda t: tree_map(one, t, self._shapes, self.replicated,
+                                               *self._pieces_at), tree)
+
+    def cut(self, tree: Any) -> Any:
+        """This rank's blocks of a global tree (or train state)."""
+        return _params_like(lambda t: tree_map(_cut, t, self._pieces), tree)
+
+    def global_like(self, tree: Any) -> Any:
+        """A tree (or train state) shaped as the global one, of meta
+        tensors in the dtypes of `tree`'s blocks (a checkpoint's `like`)."""
+        return _params_like(lambda t: tree_map(
+            lambda blk, shape: torch.empty(shape, dtype=blk.dtype, device="meta"),
+            t, self._shapes), tree)
+
+
+def model_blocks(model, ctx):
+    """`ModelBlocks` of `model` under `ctx`, or None where ctx's 'model'
+    axis has one rank (every leaf whole: nothing to sum or gather)."""
+    if ctx.axis_size("model") <= 1:
         return None
-
-    def cut(t, axes, key):
-        fused = [a == "mlp" and segments(t, d, key) is not None for d, a in enumerate(axes)]
-        if not any(a in units for a in axes) and not any(fused):
-            return shard_of(t, named_sharding(axes, ctx.mesh, rules, shape=t.shape), lay)
-        for d, a in enumerate(axes):
-            if a in units:
-                n, unit = units[a]
-                part = ctx.part(a, n)
-                t = t.narrow(d, part.start * unit, part.size * unit)
-            elif fused[d]:
-                pieces, off = [], 0
-                for kind, n, unit in segments(t, d, key):
-                    part = ctx.part(a, n) if kind == "heads" else None
-                    pieces.append(t.narrow(d, off, n * unit) if part is None
-                                  else t.narrow(d, off + part.start * unit, part.size * unit))
-                    off += n * unit
-                t = torch.cat(pieces, dim=d)
-            elif a is not None:
-                part = ctx.part(a, t.shape[d])
-                t = t.narrow(d, part.start, part.size)
-        return t.contiguous()
-
-    def walk(node, axes, key):
-        if isinstance(node, dict):
-            return {k: walk(v, axes[k], k) for k, v in node.items()}
-        return cut(node, axes, key).clone()
-
-    return walk(params, model.logical_axes(), None)
+    return ModelBlocks(model, ctx)

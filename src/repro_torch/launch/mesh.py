@@ -1,6 +1,6 @@
 """Device meshes and the process group (port of `repro.launch.mesh`'s
-`make_local_mesh`, with the process-group start that `--mesh local-dp`
-needs).
+`make_local_mesh`, `make_production_mesh` and `PROD_TP`, with the
+process-group start that `train --mesh local-dp | prod` needs).
 
 A mesh names the dims of a grid of ranks.  Over live ranks (a
 `torch.distributed` process group the caller started, one process per
@@ -31,7 +31,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["init_distributed", "make_local_mesh"]
+__all__ = ["PROD_TP", "init_distributed", "make_local_mesh", "make_production_mesh"]
+
+PROD_TP = 16  # 'model' axis size on the production meshes
 
 
 def make_local_mesh(shape, axes):
@@ -60,6 +62,22 @@ def make_local_mesh(shape, axes):
     if need == have:
         return init_device_mesh(device_type, shape, mesh_dim_names=axes)
     return DeviceMesh(device_type, torch.arange(need).reshape(shape), mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh over the process group: 16 x 16 =
+    256 ranks ('data', 'model'), or 2 x 16 x 16 = 512 multi-pod ('pod',
+    'data', 'model'), a rank per chip.  A group of any other size raises
+    ValueError naming the count, where the reference's `jax.make_mesh`
+    fails too."""
+    shape = (2, 16, PROD_TP) if multi_pod else (16, PROD_TP)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != need:
+        raise ValueError(f"the production mesh {'x'.join(map(str, shape))} needs {need} ranks;"
+                         f" the process group has {have}")
+    return make_local_mesh(shape, axes)
 
 
 def init_distributed(device, init_method=None, *, world_size=None, rank=None,

@@ -29,10 +29,19 @@ rank of the process group (`launch.mesh.init_distributed`: torchrun's
 environment, or one rank without it) on a ("data", "model") mesh of
 (world, 1), as the reference's `make_local_mesh((jax.device_count(), 1))`:
 every rank draws the same global batch and takes its rows
-(`train_step.make_train_step` with the mesh); rank 0 writes the checkpoints, every
-rank restores.  `--mesh prod` (the production mesh) comes with the dry
-runs and raises NotImplementedError; audio and vlm are refused, as in the
-reference.
+(`train_step.make_train_step` with the mesh).  `--mesh prod` trains on the
+reference's production mesh (`launch.mesh.make_production_mesh`: 16 x 16
+ranks, 'model' 16), data- and tensor-parallel: it needs 256 ranks (a
+smaller group raises ValueError naming the count).  Tensor-parallel
+training on a local mesh goes through `build_trainer(cfg, mesh=)`, as the
+reference's tests reach it:
+
+  mesh = make_local_mesh((D, M), ("data", "model"))  # on D x M torchrun ranks
+  step, state, data = build_trainer(cfg, batch=8, seq=128, mesh=mesh, device="cpu")
+
+Under a mesh rank 0 writes the checkpoints (the global tree, gathered by
+every rank under a 'model' axis) and every rank restores (the global tree,
+then its blocks).  Audio and vlm are refused, as in the reference.
 """
 
 from __future__ import annotations
@@ -41,16 +50,19 @@ import argparse
 import io
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import AsyncCheckpointer, CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.launch.mesh import init_distributed, make_local_mesh
+from repro_torch.interop import shard_params
+from repro_torch.launch.mesh import init_distributed, make_local_mesh, make_production_mesh
 from repro_torch.models import get_model
+from repro_torch.models.layers import NO_SHARD, ShardCtx
 from repro_torch.optim import AdamWConfig, warmup_cosine
-from repro_torch.train.loop import LoopConfig, train_loop
+from repro_torch.parallel.collectives import mesh_groups
+from repro_torch.parallel.sharding import DEFAULT_RULES
+from repro_torch.train.loop import LoopConfig, restore_state, train_loop
 from repro_torch.train.metrics import MetricsLogger
 from repro_torch.train.train_step import init_train_state, make_train_step
 
@@ -74,13 +86,21 @@ def build_trainer(
     torch generator seeded with `seed`; the data stream is the reference's
     `SyntheticLM` with the same seed.  With `mesh` (a ("data", "model")
     mesh: a DeviceMesh over the ranks, or a plain layout of one rank), the
-    step is this rank's data-parallel step on the global batch; every rank
-    draws the same parameters and the same batches."""
+    step trains under `ShardCtx(mesh, DEFAULT_RULES)`, as the reference's
+    does: data-parallel over 'data' on the global batch and, where 'model'
+    has more than one rank, tensor-parallel over it.  Every rank draws the
+    same global parameters and batches; under a 'model' axis it then keeps
+    its blocks of the parameters and of their AdamW moments
+    (`interop.shard_params`), and `train_step_fn.blocks` gathers and cuts
+    them (checkpoints)."""
     dev = resolve_device(device)
     model = get_model(cfg)
     schedule = warmup_cosine(lr, min(100, total_steps // 10 + 1), total_steps)
-    step_fn = make_train_step(model, schedule, AdamWConfig(), grad_accum=grad_accum, mesh=mesh)
+    ctx = ShardCtx(mesh, DEFAULT_RULES) if mesh is not None else NO_SHARD
+    step_fn = make_train_step(model, schedule, AdamWConfig(), ctx, grad_accum=grad_accum)
     state = init_train_state(model, torch.Generator(device=dev).manual_seed(seed), dev)
+    if step_fn.blocks is not None:
+        state = shard_params(state, model, ctx)
     data = SyntheticLM(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=seed)
     )
@@ -102,17 +122,14 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", default=None, choices=(None, "auto"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="none", choices=("none", "local-dp", "prod"),
-                    help="local-dp: data-parallel over the process group's ranks;"
-                         " 'prod' raises NotImplementedError")
+                    help="local-dp: data-parallel over the process group's ranks; prod: the"
+                         " 16x16 production mesh (256 ranks)")
     ap.add_argument("--step-deadline-s", type=float, default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (use 'cpu' to run on the host)")
     args = ap.parse_args(argv)
 
-    if args.mesh == "prod":
-        raise NotImplementedError("--mesh prod: the production mesh comes with the dry runs"
-                                  " (ROADMAP A14)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -122,10 +139,11 @@ def main(argv=None) -> None:
                          "see tests/test_models_smoke.py for audio/vlm train steps")
 
     mesh, group, world, rank = None, None, 1, 0
-    if args.mesh == "local-dp":
+    if args.mesh != "none":
         world, rank = init_distributed(device)
-        mesh = make_local_mesh((world, 1), ("data", "model"))
-        group = dist.group.WORLD if world > 1 else None
+        mesh = (make_local_mesh((world, 1), ("data", "model")) if args.mesh == "local-dp"
+                else make_production_mesh())
+        group = mesh_groups(mesh) or None
 
     step_fn, state, data = build_trainer(
         cfg, batch=args.batch, seq=args.seq, mesh=mesh, lr=args.lr, total_steps=args.steps,
@@ -138,7 +156,7 @@ def main(argv=None) -> None:
         latest = ckpt.latest_step()
         if latest is not None:
             print(f"[resume] restoring step {latest} from {args.ckpt_dir}")
-            state = ckpt.restore(latest, state)
+            state = restore_state(ckpt, latest, state, step_fn.blocks)
             data.restore(ckpt.meta(latest)["data_step"])
 
     loop_cfg = LoopConfig(
@@ -149,12 +167,12 @@ def main(argv=None) -> None:
     )
     logger = MetricsLogger(stream=None if rank == 0 else io.StringIO())  # rank 0 logs
     state = train_loop(step_fn, state, data, loop_cfg, ckpt=ckpt, logger=logger,
-                       checkpointer=writer, group=group)
+                       checkpointer=writer, group=group, blocks=step_fn.blocks)
     if writer is not None:
         writer.close()
     final_loss = logger.history[-1]["loss"] if logger.history else float("nan")
     print(f"[done] {args.arch} steps={args.steps} final_loss={final_loss:.4f} device={device}"
-          + (f" mesh=local-dp rank={rank}/{world}" if mesh is not None else ""))
+          + (f" mesh={args.mesh} rank={rank}/{world}" if mesh is not None else ""))
 
 
 if __name__ == "__main__":

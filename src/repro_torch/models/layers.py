@@ -365,11 +365,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.reshape(x.shape)
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stable mean token cross-entropy.  Returns (loss, acc)."""
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, part: Optional[Part] = None,
+                 ctx: ShardCtx = NO_SHARD) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable mean token cross-entropy.  Returns (loss, acc).
+
+    With `part` (this process's `Part` of the vocab under `ctx`, of more
+    than one rank) the logits are this process's vocab columns, read
+    without gathering them: a MAX all-reduce of the row maxima (detached),
+    a sum all-reduce of each row's sum of exp and one of the gold logit
+    (the label's column on the process that holds it, 0 elsewhere), and
+    accuracy by the global argmax with the lowest index winning a tie, as
+    `torch.argmax` on the whole row does.  The sums carry the gradient
+    (`parallel.collectives`); the padded vocab columns' -1e30 add 0."""
+    if part is None or part.count == 1:
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        loss = torch.mean(lse - gold)
+        acc = torch.mean((torch.argmax(lf, dim=-1) == labels).float())
+        return loss, acc
+    import torch.distributed as dist
+
+    from repro_torch.parallel.collectives import all_reduce, axis_group
+
+    group = axis_group(ctx.mesh, part.axes)[0]
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    local_max, local_arg = torch.max(lf.detach(), dim=-1)
+    row_max = all_reduce(local_max, dist.ReduceOp.MAX, group)
+    sum_exp = all_reduce(torch.sum(torch.exp(lf - row_max[..., None]), dim=-1), group=group)
+    lse = torch.log(sum_exp) + row_max
+    idx = labels.long() - part.start
+    mine = (idx >= 0) & (idx < part.size)
+    gold = torch.gather(lf, -1, idx.clamp(0, part.size - 1)[..., None])[..., 0]
+    gold = all_reduce(torch.where(mine, gold, torch.zeros_like(gold)), group=group)
     loss = torch.mean(lse - gold)
-    acc = torch.mean((torch.argmax(lf, dim=-1) == labels).float())
+    # The global argmax: of the processes whose maximum is the row's, the
+    # lowest global index.
+    none = torch.iinfo(torch.int64).max
+    cand = torch.where(local_max == row_max, local_arg + part.start,
+                       torch.full_like(local_arg, none))
+    arg = all_reduce(cand, dist.ReduceOp.MIN, group)
+    acc = torch.mean((arg == labels.long()).float())
     return loss, acc

@@ -5,7 +5,10 @@
   init(generator, device)                 parameter tree (1 source: PSpec)
   logical_axes()                          its logical axes, for sharding
   forward(params, batch, ctx)             train/eval logits
-  loss(params, batch, ctx)                scalar loss + metrics
+  loss(params, batch, ctx)                scalar loss + metrics (on a
+                                          rank's blocks under a mesh: its
+                                          vocab-sharded logits are read
+                                          without a gather)
   prefill / decode + decode_state_specs   dense-cache serving path
   paged_decode + paged_pool_specs         continuous-batching path (dense,
                                           moe, vlm)
@@ -34,6 +37,7 @@ from repro_torch.models.layers import (
     ShardCtx,
     init_params,
     logical_axes_tree,
+    padded_vocab,
     softmax_xent,
 )
 
@@ -69,7 +73,9 @@ class Model:
 
     def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):
         logits, aux = self.forward(params, batch, ctx)
-        loss, acc = softmax_xent(logits, batch["labels"])
+        # Under a mesh the logits are this process's vocab columns.
+        vocab = ctx.part("vocab", padded_vocab(self.cfg))
+        loss, acc = softmax_xent(logits, batch["labels"], vocab, ctx)
         if self.cfg.is_moe:
             loss = loss + self.cfg.router_aux_coef * aux["lb_loss"] + 1e-3 * aux["router_z"]
         metrics = {"loss": loss, "accuracy": acc, **aux}

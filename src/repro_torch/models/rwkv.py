@@ -35,7 +35,8 @@ Tensor parallelism (a `ShardCtx` with a live mesh), SPMD by hand as in
 and the per-head group norm on its own heads; the per-channel parameters
 of those heads (the decay LoRA's ww2 columns, w0, u, gn_g, gn_b) are
 sliced from their replicated copies, and each output column is computed
-as without a mesh.  wo is row-parallel (f32 partial sums, one all-reduce:
+as without a mesh (in training those leaves are replicated, so each
+rank's gradient of them is a share: `interop.ModelBlocks`).  wo is row-parallel (f32 partial sums, one all-reduce:
 `layers.dense_rows`).  The channel-mix's cm_wk is column-parallel over
 'mlp' and cm_wv row-parallel; cm_wr (embed x embed) stays replicated.  The
 embedding and the head are vocab-parallel (`transformer.embed_tokens`,

@@ -31,7 +31,8 @@ whole B and C channels, out_norm its x channels and out_proj their rows
 (`interop.shard_params` cuts the tree so; a flat split of in_proj's 8384
 columns would give rank 0 all of z).  The gated RMSNorm over d_in
 normalises across the processes: each sums its channels' squares in f32,
-one all-reduce makes the sum whole.  out_proj is row-parallel (f32
+one all-reduce makes the sum whole (in training it carries the gradient:
+`parallel.collectives`).  out_proj is row-parallel (f32
 partials, one all-reduce: `layers.dense_rows`).  The shared block runs the
 dense family's tensor-parallel attention and SwiGLU.  The decode state
 holds this process's heads (`h`), its conv channels (`conv`) and its kv

@@ -35,9 +35,12 @@ feed-forward of `attention` and `moe`, and the lm head is vocab-parallel:
 `unembed` leaves the logits sharded over 'vocab' (the padded-vocab mask
 on the global index), and the serving steps gather them where they take
 the argmax.  Caches and page pools hold this process's rows and kv heads.
-Training under a model mesh is not ported (ROADMAP 13(d)2): the
-collectives here carry no gradient, so `lm_forward` refuses to record one
-(as do the other families' forward and prefill).
+It trains tensor-parallel too: every collective `ShardCtx.c` issues
+carries its adjoint backward (`parallel.collectives`), the loss reads the
+vocab-sharded logits without gathering them (`layers.softmax_xent`), and
+`train_step.make_train_step(ctx=)` seeds the backward with 1/M and sums
+the replicated leaves' gradients over 'model'.  Only the 'seq_sp' rule
+(sequence-parallel training) is refused (`_no_model_training`).
 """
 
 from __future__ import annotations
@@ -182,13 +185,12 @@ def _ffn(p: Dict[str, Any], x: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
 
 
 def _no_model_training(ctx: ShardCtx) -> None:
-    if ctx.axis_size("model") > 1 and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "training under a 'model' mesh axis is not ported (ROADMAP 13(d)2): the"
-            " tensor-parallel collectives carry no gradient; run under torch.no_grad()")
+    """Refuses the one training layout the port lacks: the 'seq_sp' rule
+    on a mesh axis (Megatron sequence parallelism, the reference's
+    `TRAIN_RULES`, which only its dry runs read)."""
     if ctx.axes_of("seq_sp") is not None:
-        raise NotImplementedError("the 'seq_sp' rule (sequence-parallel training) is not"
-                                  " ported (ROADMAP 13(d)2)")
+        raise NotImplementedError("the 'seq_sp' rule (sequence-parallel training,"
+                                  " TRAIN_RULES) is not ported (ROADMAP 14)")
 
 
 # The ops whose outputs `dots` saves: 2-D products with no batch dim (the

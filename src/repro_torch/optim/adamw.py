@@ -10,7 +10,9 @@ this is not `torch.optim.AdamW`, which rounds bf16 parameters differently.
 
 Unlike the reference, which returns new trees, `adamw_update` writes the
 new parameters and moments INTO the given tensors (no second copy of the
-model and optimizer state on the card) and returns them.
+model and optimizer state on the card) and returns them.  Under a 'model'
+axis each rank updates its blocks; only the norm needs the other ranks
+(`global_norm(tree, blocks)`), the rest is elementwise.
 """
 
 from __future__ import annotations
@@ -46,7 +48,17 @@ def adamw_init(params: Any) -> Any:
     }
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, blocks=None) -> torch.Tensor:
+    """The f32 norm of every leaf of `tree`.  With `blocks` (an
+    `interop.ModelBlocks`: `tree` is a rank's blocks under a 'model' axis),
+    the norm of the global tree: the squares of each rank's own elements
+    summed over 'model' by one f32 all-reduce, each replicated leaf or
+    segment counted once; every 'model' rank gets the same value."""
+    if blocks is not None and blocks.group is not None:
+        from repro_torch.parallel.collectives import all_reduce
+
+        own, rep = blocks.norm_squares(tree)
+        return torch.sqrt(all_reduce(own, group=blocks.group) + rep)
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for g in leaves:  # the reference's tree.reduce order
@@ -54,8 +66,8 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Any, max_norm: float, blocks=None) -> Tuple[Any, torch.Tensor]:
+    norm = global_norm(grads, blocks)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -67,12 +79,14 @@ def adamw_update(
     params: Any,
     lr: torch.Tensor,
     cfg: AdamWConfig = AdamWConfig(),
+    blocks=None,
 ) -> Tuple[Any, Any, torch.Tensor]:
-    """Returns (params, opt_state, pre-clip grad norm), updated in place."""
+    """Returns (params, opt_state, pre-clip grad norm), updated in place.
+    With `blocks` the trees are a rank's blocks (`global_norm`)."""
     if cfg.clip_norm:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, blocks)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, blocks)
     count = opt_state["count"] + 1
     b1c = 1.0 - cfg.b1 ** count.float()
     b2c = 1.0 - cfg.b2 ** count.float()

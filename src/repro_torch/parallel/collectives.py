@@ -29,10 +29,45 @@ the `collective.step` fault site on entry, and the double-buffered ones at
 each step as well (with its step index), as the reference does.
 
 The data- and tensor-parallel layers' helpers live here too, outside
-`__all__` (which is the reference's): `all_reduce` and `all_gather` (a
-copy reduced or concatenated over a group, staged under gloo),
-`axis_group` (the process group along mesh axes) and `raise_together`
-(one flag all-reduce, so that every rank raises when one fails).
+`__all__` (which is the reference's): `all_reduce`, `all_gather` and
+`reduce_scatter` (a copy reduced, concatenated or reduced and cut over a
+group, staged under gloo), `axis_group` (the process group along mesh
+axes), `mesh_groups` (one group per mesh axis) and `raise_together` (one
+flag all-reduce per group, so that every rank raises when one fails).
+
+Tensor-parallel training differentiates through them, and every
+collective's backward is its linear adjoint.  The convention is GSPMD's:
+a rank's gradient of a tensor that the 'model' ranks replicate is that
+rank's share of the true gradient, and the true gradient is the sum of the
+shares over the 'model' ranks; a rank's gradient of its own block is the
+true gradient of that block.  So:
+
+  all_reduce (sum)  backward: an all-reduce of the incoming gradient over
+                    the same group (the shares summed, on every rank).
+                    The row-parallel partials (`layers.dense_rows`), the
+                    vocab-parallel embedding and the MoE combines take it.
+  all_gather        backward: a reduce-scatter, the shares summed and this
+                    rank's block kept.
+  reduce_scatter    backward: an all-gather.
+  a slice of a dim that arrives whole (`sharding.constrain`'s narrow):
+                    autograd's own zero pad, already a share.
+  column-parallel products need nothing at their input: x W_r's input
+                    gradient is rank r's share.
+  the loss          computed identically on every 'model' rank, so its
+                    backward is seeded with 1/M (M the 'model' axis's
+                    size): the shares sum to 1 (`train_step`).
+  leaves that the 'model' ranks replicate: after the backward their
+                    gradient is a share, all-reduced in f32 over 'model'
+                    (`interop.model_blocks`), then over 'data'.
+
+Every backward all-reduce runs in f32 whatever the forward's dtype (gloo
+sums bf16 hop by hop, which is not a sum of partial gradients), and
+returns the gradient in the input's dtype.  `all_reduce` with another op
+(MAX, MIN: the loss's row maxima, a flag) carries no gradient.  Every rank
+issues the same collectives in the same order, the backward's included:
+the graph is the same on every rank, and a recomputed region (remat)
+repeats its forward all-reduces on every rank alike.  `traffic` counts
+the collectives this process issued and their bytes.
 """
 
 from __future__ import annotations
@@ -307,27 +342,105 @@ def psum_if_multi(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
     return all_reduce(x, group=mesh.get_group(axis))
 
 
+# Collectives this process issued (forward and backward) and their payload
+# bytes, by kind; a caller resets them to read one step's.
+traffic = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0, "all_gather_bytes": 0}
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    traffic[kind] += 1
+    traffic[kind + "_bytes"] += x.numel() * x.element_size()
+
+
+def _reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+    buf = x.detach().cpu() if _staged(x) else x.detach().clone()
+    _count("all_reduce", buf)
+    dist.all_reduce(buf, op=op, group=group)
+    return buf.to(x.device)
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    src = x.detach().contiguous()
+    buf = src.cpu() if _staged(src) else src
+    _count("all_gather", buf)
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+def _block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    size = x.shape[dim] // dist.get_world_size(group)
+    return x.narrow(dim, dist.get_rank(group) * size, size)
+
+
+def _f32_sum(g: torch.Tensor, group) -> torch.Tensor:
+    """The shares `g` summed over `group` in f32, in g's dtype."""
+    return _reduce(g.float(), dist.ReduceOp.SUM, group).to(g.dtype)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce(x, dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _f32_sum(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(_f32_sum(g, ctx.group), ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _block(_reduce(x, dist.ReduceOp.SUM, group), dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
 def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
     """`x` reduced over `group` (None: the default group), as a new tensor
     on x's device; a CUDA tensor under gloo is staged through host memory.
     The reduction runs in x's dtype: callers reduce in f32 (gloo sums bf16
-    in bf16, hop by hop) and integer payloads as int32 (int8 overflows)."""
-    buf = x.detach().cpu() if _staged(x) else x.detach().clone()
-    dist.all_reduce(buf, op=op, group=group)
-    return buf.to(x.device)
+    in bf16, hop by hop) and integer payloads as int32 (int8 overflows).
+    A sum is differentiable (its backward sums the incoming gradient over
+    the group, in f32: module docstring); other ops carry no gradient."""
+    if op == dist.ReduceOp.SUM:
+        return _AllReduceSum.apply(x, group)
+    return _reduce(x, op, group)
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The blocks `x` of the ranks of `group`, concatenated along `dim` in
     the group's rank order (a mesh axis's coordinate order), as a new
-    tensor on x's device; staged through host memory under gloo."""
+    tensor on x's device; staged through host memory under gloo.  Its
+    backward is a reduce-scatter of the incoming gradient."""
     if group is None:
         return x
-    src = x.detach().contiguous()
-    buf = src.cpu() if _staged(src) else src
-    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, buf, group=group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    return _AllGather.apply(x, dim, group)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along `dim` of `x` summed over `group` (the
+    blocks in the group's rank order), as a new tensor on x's device.  It
+    is an all-reduce and a cut (gloo has no reduce-scatter of its own);
+    its backward is an all-gather."""
+    if group is None:
+        return x
+    return _ReduceScatter.apply(x, dim, group)
 
 
 def axis_group(mesh, axes) -> Tuple[Optional[dist.ProcessGroup], int, int]:
@@ -350,12 +463,27 @@ def axis_group(mesh, axes) -> Tuple[Optional[dist.ProcessGroup], int, int]:
     return mesh.get_group(names[0]), size, idx
 
 
+def mesh_groups(mesh) -> list:
+    """The process group along each axis of `mesh` of more than one rank,
+    in mesh order: one collective over each in turn reaches every rank of
+    the mesh (`collectives.raise_together`, `train_loop`'s barrier)."""
+    if mesh is None:
+        return []
+    return [axis_group(mesh, name)[0] for name, size in mesh_shape(mesh).items() if size > 1]
+
+
 def raise_together(error: Optional[BaseException], group, device) -> None:
-    """One all-reduce of a failure flag over `group`: if any rank passes an
-    error, every rank raises (its own error, or one naming the others), so
-    no rank goes on into a collective that the failed rank never joins."""
+    """One all-reduce of a failure flag over `group` (or over each group of
+    a sequence in turn, which reaches every rank of a mesh whose axes they
+    are): if any rank passes an error, every rank raises (its own error,
+    or one naming the others), so no rank goes on into a collective that
+    the failed rank never joins."""
+    groups = [g for g in (group if isinstance(group, (list, tuple)) else (group,))
+              if g is not None]
     flag = torch.tensor(0 if error is None else 1, dtype=torch.int32, device=device)
-    if group is not None and int(all_reduce(flag, dist.ReduceOp.MAX, group)):
+    for g in groups:
+        flag = _reduce(flag, dist.ReduceOp.MAX, g)
+    if groups and int(flag):
         raise error or RuntimeError("another rank failed this step")
     if error is not None:
         raise error

@@ -22,7 +22,11 @@ global rank at every coordinate, which SPMD execution slices shards by.
 `NamedSharding(mesh, spec)` as a frozen (mesh, PartitionSpec) pair;
 `shard_of` slices this rank's block of a global tensor by its mesh
 coordinate and `gather_global` all-gathers the blocks back (tests,
-checkpoints).
+checkpoints).  `block_pieces` says which global ranges of each dim a
+rank's block holds and along which mesh axes each is cut, and
+`replicated_ranges` reads from them which parts of the block the ranks of
+one axis all hold (tensor-parallel training sums their gradients over that
+axis and nothing else).
 
 `constrain` is the port's `with_sharding_constraint`, the one place a
 tensor moves between two layouts of the same logical axes.  The reference
@@ -56,12 +60,14 @@ __all__ = [
     "SP_DECODE_RULES",
     "ShardingRules",
     "TRAIN_RULES",
+    "block_pieces",
     "constrain",
     "gather_global",
     "logical_to_physical",
     "mesh_layout",
     "mesh_shape",
     "named_sharding",
+    "replicated_ranges",
     "shard_of",
     "tree_shardings",
 ]
@@ -137,7 +143,7 @@ DEFAULT_RULES = ShardingRules.make()
 PARAM_RULES = DEFAULT_RULES.replace(embed=("pod", "data"))
 
 # Megatron sequence parallelism for training: remat-saved layer-boundary
-# carriers stored seq-sharded over 'model'.
+# carriers stored seq-sharded over 'model' (the models refuse it: ROADMAP 14).
 TRAIN_RULES = DEFAULT_RULES.replace(seq_sp="model")
 
 # Sequence-parallel decode: long-context KV caches and recurrent streams
@@ -328,6 +334,57 @@ def gather_global(blk, sharding: NamedSharding, layout: Optional[MeshLayout] = N
 
 def _count(shape: Mapping[str, int], a) -> int:
     return 1 if a is None else _axes_size(shape, a)
+
+
+def block_pieces(shape: Sequence[int], logical_axes: Sequence[Optional[str]], mesh,
+                 rules: ShardingRules = DEFAULT_RULES,
+                 layout: Optional[MeshLayout] = None) -> Tuple[Tuple[Tuple[int, int, Any], ...],
+                                                              ...]:
+    """Per dim of a tensor of global `shape` laid out as `logical_axes` name
+    it (indivisible dims replicated): the global ranges this process's
+    block holds along it, in the block's order, as (start, size, axes),
+    where `axes` are the mesh axes of more than one rank that cut the range
+    (this process's own block of it), or None where every rank holds it
+    whole.  `shard_of`'s cut, described; a fused dim whose block joins
+    several ranges (`interop.shard_params`) has several pieces."""
+    mshape = mesh_shape(mesh)
+    spec = _drop_indivisible(logical_to_physical(logical_axes, mesh, rules), shape, mesh)
+    lay = layout or mesh_layout(mesh)
+    out = []
+    for n, a in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        count = _count(mshape, a)
+        if count == 1:
+            out.append(((0, n, None),))
+            continue
+        from repro_torch.parallel.collectives import _flat_index
+
+        idx, _ = _flat_index(lay.shape, lay.coord, a)
+        out.append(((idx * (n // count), n // count, a),))
+    return tuple(out)
+
+
+def _names(axes) -> Tuple[str, ...]:
+    return () if axes is None else ((axes,) if isinstance(axes, str) else tuple(axes))
+
+
+def replicated_ranges(pieces, axis: str):
+    """Which parts of a block with these `block_pieces` every rank along
+    the mesh axis `axis` holds alike: True (all of it), None (none: every
+    element is this rank's own), or (dim, ((offset, size), ...)), the
+    ranges of the block's dim `dim` that no cut along `axis` reaches while
+    its other pieces are cut along it (a fused dim: Mamba2's B and C beside
+    a rank's heads).  Raises ValueError where `axis` cuts several dims."""
+    cut = [d for d, ps in enumerate(pieces) if any(axis in _names(a) for _, _, a in ps)]
+    if not cut:
+        return True
+    if len(cut) > 1:
+        raise ValueError(f"mesh axis {axis!r} cuts dims {cut} of one block")
+    d, off, ranges = cut[0], 0, []
+    for _, size, a in pieces[d]:
+        if axis not in _names(a):
+            ranges.append((off, size))
+        off += size
+    return (d, tuple(ranges)) if ranges else None
 
 
 def constrain(

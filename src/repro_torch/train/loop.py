@@ -14,9 +14,14 @@ A step's time is taken after `torch.cuda.synchronize()` on the card (the
 reference's `block_until_ready`), so it is the device's time, not the
 enqueue.
 
-Data-parallel ranks (`group`, the process group of the ranks training
-together): rank 0 alone writes checkpoints and the others wait at a
-barrier; every rank restores.  The restart decision is the same on every
+Ranks (`group`, the process group of the ranks training together, or
+one group per mesh axis, which together reach every rank of the mesh):
+the rank at coordinate 0 of every group alone writes checkpoints and the
+others wait at a barrier; every rank restores.  Under a 'model' axis
+(`blocks`, the step's `interop.ModelBlocks`) every rank first gathers the
+global tree, which the writer saves, and a restore reads the global tree
+and keeps this rank's blocks (`restore_state`), so a checkpoint restores
+on any mesh, one process included.  The restart decision is the same on every
 rank: a failure before the step (the hook, the data) is agreed by one
 all-reduce of a flag, and the data-parallel step agrees on failures of its
 local computation itself (`train_step.make_train_step` with a mesh), so no rank
@@ -35,8 +40,9 @@ import torch.distributed as dist
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.parallel.collectives import raise_together
 from repro_torch.train.metrics import MetricsLogger
+from repro_torch.tree import tree_map
 
-__all__ = ["LoopConfig", "train_loop"]
+__all__ = ["LoopConfig", "restore_state", "train_loop"]
 
 
 @dataclasses.dataclass
@@ -53,6 +59,16 @@ def _sync(state: Dict[str, Any]) -> None:
         torch.cuda.synchronize(state["step"].device)
 
 
+def restore_state(ckpt: CheckpointManager, step: int, state: Dict[str, Any], blocks=None):
+    """Checkpoint `step` restored into the structure of `state`; with
+    `blocks` (a rank's blocks under a 'model' axis), the global tree read
+    on the host and this rank's blocks of it kept, on `state`'s devices."""
+    if blocks is None:
+        return ckpt.restore(step, state)
+    mine = blocks.cut(ckpt.restore(step, blocks.global_like(state)))
+    return tree_map(lambda t, like: t.to(like.device), mine, state)
+
+
 def train_loop(
     train_step: Callable,
     state: Dict[str, Any],
@@ -62,31 +78,40 @@ def train_loop(
     logger: Optional[MetricsLogger] = None,
     failure_hook: Optional[Callable[[int], None]] = None,
     checkpointer=None,  # optional AsyncCheckpointer wrapping `ckpt`
-    group=None,  # the data-parallel ranks' process group, if any
+    group=None,  # the ranks' process group, or one group per mesh axis
+    blocks=None,  # the step's interop.ModelBlocks under a 'model' axis
 ) -> Dict[str, Any]:
     """Runs to cfg.total_steps; returns the final state.
 
     `data_iter` must expose .state()/.restore(step) (see data/pipeline.py);
     checkpoint metadata records the data position so resume is exact.
-    Under `group`, only rank 0 passes a `checkpointer`.
+    Under `group`, only the writer (coordinate 0 of every group) passes a
+    `checkpointer`.
     """
     owns_logger = logger is None
     logger = logger or MetricsLogger()
     step = int(state["step"])
     restarts = 0
     stragglers = 0
-    writes = group is None or dist.get_rank(group) == 0
+    groups = [g for g in (group if isinstance(group, (list, tuple)) else [group])
+              if g is not None]
+    writes = all(dist.get_rank(g) == 0 for g in groups)
+
+    def barrier() -> None:
+        for g in groups:
+            dist.barrier(g)
 
     def save(step_i: int) -> None:
         if ckpt is None:
             return
         meta = {"data_step": data_iter.state()}
+        tree = state if blocks is None else blocks.gather(state, device="cpu")
         if checkpointer is not None:
-            checkpointer.submit(step_i, state, meta)
+            checkpointer.submit(step_i, tree, meta)
         elif writes:
-            ckpt.save(step_i, state, meta)
-        if group is not None:
-            dist.barrier(group)
+            ckpt.save(step_i, tree, meta)
+        del tree
+        barrier()
 
     while step < cfg.total_steps:
         try:
@@ -97,8 +122,8 @@ def train_loop(
                 batch = next(data_iter)
             except Exception as e:  # noqa: BLE001 - re-raised on every rank below
                 failed = e
-            if group is not None or failed is not None:
-                raise_together(failed, group, state["step"].device)
+            if groups or failed is not None:
+                raise_together(failed, groups, state["step"].device)
             t0 = time.monotonic()
             state, metrics = train_step(state, batch)
             _sync(state)
@@ -122,8 +147,7 @@ def train_loop(
                 raise
             if checkpointer is not None:
                 checkpointer.wait()
-            if group is not None:
-                dist.barrier(group)  # rank 0's writes are on disk
+            barrier()  # the writer's checkpoints are on disk
             latest = ckpt.latest_step()
             logger.warn(
                 f"step {step} failed ({type(e).__name__}: {e}); "
@@ -131,7 +155,7 @@ def train_loop(
             )
             if latest is None:
                 raise
-            state = ckpt.restore(latest, state)
+            state = restore_state(ckpt, latest, state, blocks)
             data_iter.restore(ckpt.meta(latest)["data_step"])
             step = latest
     if checkpointer is not None:

@@ -17,7 +17,20 @@ all-reduced in f32 into the global batch's, each rank weighted by its row
 count, which is exact for the token-mean loss even when the rows do not
 divide by the ranks (MoE routes the global batch: `moe.global_routing`);
 then clipping and AdamW run on every rank, so the parameters stay bitwise
-equal across ranks.  `make_dp_train_step_compressed` is the reference's
+equal across ranks.  Tensor parallelism (`make_train_step(..., ctx=)`, a `ShardCtx` on a
+('data', 'model') mesh, the reference's `ctx` argument): the state holds
+this rank's blocks (`interop.shard_params`), `model.loss` runs under the
+ctx on this data rank's rows, and its backward is seeded with 1/M (M the
+'model' axis's size): the loss is computed alike on every 'model' rank,
+and every collective's backward is its adjoint (`parallel.collectives`),
+so a rank's gradient of its own block is the true one and its gradient of
+a replicated leaf is a share.  The shares are summed over 'model' in f32
+(`interop.ModelBlocks.reduce_replicated`: whole replicated leaves and
+Mamba2's B and C segments, nothing sharded), then every gradient over
+'data' as above; clipping takes the global norm of the blocks
+(`optim.global_norm(tree, blocks)`).  With M = 1 the seed is 1 and
+nothing is summed over 'model', so the single-process and data-parallel
+steps are bitwise what they were.  `make_dp_train_step_compressed` is the reference's
 shard_map step with the int8 error-feedback all-reduce
 (`parallel.compression`): its state carries "err", each rank's own
 residual as a (1, *shape) slice of the reference's (dp, *shape) leaves
@@ -31,11 +44,17 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.interop import model_blocks
 from repro_torch.models import moe
 from repro_torch.models.layers import NO_SHARD, ShardCtx, padded_vocab
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
-from repro_torch.parallel.collectives import all_reduce, axis_group, raise_together
+from repro_torch.parallel.collectives import (
+    all_reduce,
+    axis_group,
+    mesh_groups,
+    raise_together,
+)
 from repro_torch.parallel.compression import compressed_pmean_tree, init_error_state
 from repro_torch.parallel.sharding import logical_to_physical
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -58,14 +77,17 @@ def init_train_state(model: Model, generator: torch.Generator, device=None) -> D
     return {"params": params, "opt": adamw_init(params), "step": step}
 
 
-def _grads_of(model: Model, params, batch):
-    """Gradients of model.loss at `params` (leaf dtypes) and its metrics."""
+def _grads_of(model: Model, params, batch, ctx: ShardCtx = NO_SHARD, seed=None):
+    """Gradients of model.loss at `params` (leaf dtypes) under `ctx`, its
+    backward seeded with `seed` (None: 1), and its metrics."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     with torch.enable_grad():
-        loss, metrics = model.loss(params, batch)
-        flat = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        loss, metrics = model.loss(params, batch, ctx)
+        flat = torch.autograd.grad(
+            loss, leaves, None if seed is None else torch.full_like(loss, seed),
+            allow_unused=True, materialize_grads=True)
     return tree_unflatten(params, flat), {k: v.detach() for k, v in metrics.items()}
 
 
@@ -74,11 +96,12 @@ def _on_device(batch, params) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
-def _apply(state, grads, metrics, schedule, adamw_cfg):
+def _apply(state, grads, metrics, schedule, adamw_cfg, blocks=None):
     """Clip, AdamW at the schedule's lr, step + 1: (state, metrics)."""
     params = state["params"]
     lr = schedule(state["opt"]["count"])
-    new_params, new_opt, gnorm = adamw_update(grads, state["opt"], params, lr, adamw_cfg)
+    args = (grads, state["opt"], params, lr, adamw_cfg) + (() if blocks is None else (blocks,))
+    new_params, new_opt, gnorm = adamw_update(*args)
     metrics = {**metrics, "grad_norm": gnorm, "lr": lr}
     return {"params": new_params, "opt": new_opt, "step": state["step"] + 1}, metrics
 
@@ -110,19 +133,25 @@ def make_train_step(
     model: Model,
     schedule: Callable[[torch.Tensor], torch.Tensor],
     adamw_cfg: AdamWConfig = AdamWConfig(),
+    ctx: ShardCtx = NO_SHARD,
     grad_accum: int = 1,
     mesh=None,
 ) -> Callable:
-    """The step of this process (module docstring); with `mesh`, this
-    rank's data-parallel step on the global batch.  grad_accum > 1 splits
-    the global batch on its leading dim into that many microbatches, run
-    one after another into an f32 gradient sum, as the reference's scan
-    does (under pjit too: each rank takes its rows of each microbatch); the
-    step then uses their mean.  On one rank the gradients are the
-    single-process ones, in the leaf dtypes without accumulation.  A rank
-    whose local computation raises makes every rank raise before the
-    gradient all-reduce (`collectives.raise_together`).  `step.grads(params,
-    batch)` returns the global batch's gradients and metrics alone.
+    """The step of this process (module docstring); with `ctx` on a mesh
+    (the reference's argument) or `mesh`, this rank's step on the global
+    batch: data-parallel over the mesh's 'batch' axes, tensor-parallel
+    over 'model' (ctx only; `mesh=` alone runs the model without a ctx, as
+    the data-parallel callers do).  grad_accum > 1 splits the global
+    batch on its leading dim into that many microbatches, run one after
+    another into an f32 gradient sum, as the reference's scan does (under
+    pjit too: each rank takes its rows of each microbatch); the step then
+    uses their mean.  On one rank the gradients are the single-process
+    ones, in the leaf dtypes without accumulation.  A rank whose local
+    computation raises makes every rank of the mesh raise before the
+    gradients' all-reduces (`collectives.raise_together` over each mesh
+    axis).  `step.grads(params, batch)` returns the global batch's
+    gradients (of this rank's blocks) and metrics alone; `step.blocks` is
+    the `interop.ModelBlocks` of a 'model' axis, else None.
 
     MoE under several ranks routes the global batch through
     `moe.global_routing`, a process-wide setting rather than an argument of
@@ -130,7 +159,14 @@ def make_train_step(
     backward on autograd's device thread, outside any argument or
     thread-local state of this call, so the setting spans the whole of
     `_grads_of` and is restored after it."""
+    if ctx.mesh is not None:
+        if mesh is not None and mesh is not ctx.mesh:
+            raise ValueError("make_train_step: ctx= and mesh= name different meshes")
+        mesh = ctx.mesh
     group, ranks, idx = (None, 1, 0) if mesh is None else axis_group(mesh, _dp_axes(mesh))
+    blocks = model_blocks(model, ctx)
+    every = mesh_groups(mesh)
+    seed = None if blocks is None else 1.0 / blocks.size
 
     def grads(params, batch):
         """The global batch's gradients (on every rank) and metrics."""
@@ -146,9 +182,10 @@ def make_train_step(
                 m_lo, m_hi = _row_range(total, grad_accum, mb)
                 lo, hi = _row_range(m_hi - m_lo, ranks, idx)
                 local = {k: v[m_lo + lo:m_lo + hi] for k, v in batch.items()}
+                c = NO_SHARD if ctx.mesh is None else ctx.for_rows(m_hi - m_lo)
                 with moe.global_routing(group, m_hi - m_lo):
-                    g, m = _grads_of(model, params, local)
-                if ranks == 1 and grad_accum == 1:
+                    g, m = _grads_of(model, params, local, c, seed)
+                if ranks == 1 and grad_accum == 1 and blocks is None:
                     return g, m
                 w = (hi - lo) / (m_hi - m_lo)  # this rank's share of the microbatch
                 part = tree_map(lambda x: x.float() * w, g)
@@ -158,7 +195,9 @@ def make_train_step(
                 del g, part
         except Exception as e:  # noqa: BLE001 - re-raised on every rank below
             error = e
-        raise_together(error, group, dev)
+        raise_together(error, every, dev)
+        if blocks is not None:  # the replicated leaves' shares, summed over 'model'
+            blocks.reduce_replicated(acc)
         if group is not None:
             acc = tree_map(lambda x: all_reduce(x, group=group), acc)
         if grad_accum == 1:  # the single-process step's leaf dtypes
@@ -169,9 +208,10 @@ def make_train_step(
 
     def step(state, batch):
         g, metrics = grads(state["params"], batch)
-        return _apply(state, g, metrics, schedule, adamw_cfg)
+        return _apply(state, g, metrics, schedule, adamw_cfg, blocks)
 
     step.grads = grads
+    step.blocks = blocks
     return step
 
 

@@ -223,6 +223,7 @@ def _rank_main(rank, world, init_file, out_dir):
     from repro_torch.models.layers import ShardCtx
     from repro_torch.parallel.sharding import DEFAULT_RULES
     from repro_torch.train.train_step import _local_rows
+    from repro_torch.tree import tree_leaves
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
@@ -303,11 +304,18 @@ def _rank_main(rank, world, init_file, out_dir):
             if rank >= shape[0] * shape[1]:
                 continue
             ctx = ShardCtx(meshes[shape])
-            got = tserve.serving_steps(model, ctx)[0](interop.shard_params(params, model, ctx),
-                                                      batch)[0]
+            mine = interop.shard_params(params, model, ctx)
+            got = tserve.serving_steps(model, ctx)[0](mine, batch)[0]
             res[str(shape)] = got.tolist()
             if shape == (2, 1):
                 res["single"] = bool(torch.equal(got, want))
+            else:  # under 'model' the loss records a gradient
+                leaves = [t.requires_grad_(True) for t in tree_leaves(mine)]
+                loss = model.loss(mine, batch, ctx.for_rows(ROWS))[0]
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+                res["grad"] = (all(bool(torch.isfinite(g).all()) for g in grads)
+                               and all(bool(g.any()) for g in grads[:3]))
         found[arch] = res
 
     # The continuous-batching server on 1x2 against the single-process one.
@@ -488,11 +496,14 @@ def test_fused_gate_up_split_on_each_rank(runs):
 def test_families_without_tp_refuse_model_axis_and_run_on_data(runs, arch):
     """The families that once refused a 'model' axis: on 1x2 they run
     tensor-parallel and give 2x1's next tokens, which equal the single
-    process's bitwise."""
+    process's bitwise, and their loss records a finite gradient, nonzero
+    on the first leaves (training under 'model' is no longer refused;
+    test_torch_tp_train.py holds the values)."""
     for r in range(2):
         res = runs.found[r][arch]
         assert res["(1, 2)"] == res["(2, 1)"] and len(res["(1, 2)"]) == ROWS
         assert res["single"] is True
+        assert res["grad"] is True
 
 
 def test_server_under_mesh_serves_the_single_process_tokens(runs):

@@ -394,14 +394,14 @@ def test_cli_trains_reduced_on_cpu(tmp_path):
     with redirect_stdout(io.StringIO()):
         ttrain.main(argv[:6] + ["4", *argv[7:], "--resume", "auto"])
     # --mesh local-dp with no process group: one rank on a (1, 1) mesh, the
-    # single-process step's losses; --mesh prod is not ported.
+    # single-process step's losses; --mesh prod needs 256 ranks.
     one = io.StringIO()
     with redirect_stdout(one):
         ttrain.main(argv[:11] + ["--mesh", "local-dp"])
     assert "mesh=local-dp rank=0/1" in one.getvalue()
     assert one.getvalue().split("final_loss=")[1].split()[0] == (
         out.getvalue().split("final_loss=")[1].split()[0])
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="256 ranks"):
         ttrain.main(["--arch", "mesh-paper", "--reduced", "--device", "cpu", "--mesh", "prod"])
 
 
