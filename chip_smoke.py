@@ -82,10 +82,10 @@ Phases; any failure raises and the script exits non-zero:
   9. train_moe  OLMoE-1B-7B at full width and 2 of its 16 layers on the
               kernel path, 2 x 2048 tokens (capacity 640 rows per expert,
               pairs dropped): the kernel step against the `torch` step,
-              `dots` against `none` (loss bitwise), 6 steps through
+              `dots` against `none` (loss bitwise), 4 steps through
               `train_loop` with an `AsyncCheckpointer` every 2 steps (submit
-              without a host sync, the step-4 checkpoint bitwise equal to a
-              synchronous copy, a resume of steps 5-6), and one step per
+              without a host sync, the step-2 checkpoint bitwise equal to a
+              synchronous copy, a resume of steps 3-4), and one step per
               remat policy with its peak memory and K1/K5 launches;
   10. configs  Granite-3 8B, Phi-3-medium 14B and Mistral-Large 123B through
               `tuned()` at full width and 2 layers: a 2048-token prompt
@@ -121,8 +121,9 @@ Phases; any failure raises and the script exits non-zero:
               WKV, its chunk checkpoint on) on the kernel path, 2 x 2048
               tokens: the kernel step's loss and gradients against the
               `torch` backend's ([train]'s limits), 2 AdamW steps through
-              `train_loop` (K1 651 a step), and one step's peak memory with
-              the chunk checkpoint and without it (6 of 24 layers); every
+              `train_loop` at 6 of its 24 layers (K1 165 a step), and one
+              step's peak memory with the chunk checkpoint and without it
+              (6 of 24 layers); every
               K1 call of the
               phase, the backward's too, held by [K1 train] on its blocks;
   10f. train_zamba  full-width Zamba2-1.2B the same way (K1 339 a step, K6
@@ -191,6 +192,15 @@ Phases; any failure raises and the script exits non-zero:
               K1, K4 and K6 launches per rank against the code's counts,
               every K1 call held on its blocks and every K4 and K6 call
               against its plain version;
+  12e. dryrun  the dry runs (`launch/dryrun.py`) as rank 0 of pod16x16
+              under a "fake" 256-rank process group: four cells traced on
+              the CPU in a subprocess (statuses, finite and positive FLOPs,
+              bytes and link bytes, each cell's roofline line), and
+              Granite-3 8B at 2 layers through `tuned()`'s fields: its real
+              train_4k and decode_32k steps on the card, the peak memory
+              against the dry run's argument + temp bytes, K6's launches
+              against the code's count, the step's ms beside the roofline's
+              bound (a reading);
   13. obs      observability and the cost model at mesh-paper's full width:
               (a) the blocks the autotuner picked on the card for every
               main-path product, each timed candidate's device ms, every
@@ -316,19 +326,22 @@ QMOE_STEP_LAUNCHES = {"grouped_mesh_matmul": 2 * QMOE_LAYERS, "mesh_matmul": 7 *
 # step's logits chaotically (1.379 in one run, 0.572 in the next, as the
 # timed autotuner's blocks fell): so the logits are held only at the steps
 # where no (step, layer) routing set differs, and the flips are counted:
-# over the QMOE_CHECKED requests' 7 steps x 24 layers (504 sets) the first
-# readings were 97 and 67, and the limit is about 3x the first.  The f32
+# over 3 requests' 7 steps x 24 layers (504 sets) the first readings were
+# 97 and 67, and the limit was about 3x the first; checked over
+# QMOE_CHECKED requests it scales with their count.  The f32
 # prefill witness (2 layers, kernel path vs `torch` backend, summation
 # order only): the first reading was 1.693e-05 on logits up to 5.22.
 QMOE_LOGIT_TOL = 1.0
-QMOE_FLIP_TOL = 290
+QMOE_FLIP_TOL = 290 * 2 // 3  # over QMOE_CHECKED = 2 requests
 QMOE_F32_TOL = 5e-5
 # The same teacher-forced decode with the paged step on the dense step's
 # routing, where only the attentions' roundings differ: the first readings
 # were 0.0781, 0.0774 and 0.0742 on req0-2 (logits up to 4.28-4.38), and
 # 0.25 is about 3x the largest.  With 2 f32 layers (summation order only):
-# the first reading was 1.192e-05, and 3.5e-5 is about 3x that.
-QMOE_CHECKED = 3
+# the first reading was 1.192e-05, and 3.5e-5 is about 3x that.  Two
+# requests are checked (three until the run needed the time for [dryrun]);
+# one alone may show no step without a flipped routing set.
+QMOE_CHECKED = 2
 QMOE_SAME_ROUTING_TOL = 0.25
 QMOE_F32_DECODE_TOL = 3.5e-5
 # OLMoE-1B-7B trained at full width and 2 of its 16 layers: AdamW's f32
@@ -337,6 +350,11 @@ QMOE_F32_DECODE_TOL = 3.5e-5
 # the three checkpoint writes of that state took most of the phase's
 # 209-238 s, so the depth is cut to 2 to keep the whole run within its time.
 MOE_TRAIN_LAYERS = 2
+# Its steps through train_loop with an asynchronous checkpoint every 2: the
+# step-MOE_HELD_CKPT checkpoint is held and resumed (6 steps and the step-4
+# checkpoint until the run needed the time for [dryrun]: each 9.73 GiB
+# write took about 40 s on a slow machine).
+MOE_TRAIN_STEPS, MOE_HELD_CKPT = 4, 2
 # Its capacity: 1.25 x 4096 tokens x 8 choices / 64 experts, rows per expert.
 MOE_TRAIN_CAP = 640
 # (token, choice) pairs of one step that the `torch` backend routes to
@@ -363,6 +381,29 @@ CONFIGS_LAYERS, CONFIGS_PROMPT, CONFIGS_NEW_TOKENS = 2, 2048, 9
 CONFIGS_LOGIT_TOL = {"granite-3-8b": 0.1875, "phi3-medium-14b": 0.27,
                      "mistral-large-123b": 0.375}
 CONFIGS_TIED_TOL = 0.0625
+# [dryrun]: the dry runs (`launch/dryrun.py`) of one rank of pod16x16 (256
+# ranks under a "fake" process group).  (a) cells traced on the CPU in a
+# subprocess: a dense train cell, an MoE decode cell, a recurrent cell and
+# the long_500k skip of a full-attention arch.  (b), (c) Granite-3 8B
+# through `tuned()`'s config fields (attn_chunk 1024: K6; vocab padded to a
+# multiple of 256) at DRYRUN_DEPTH of its 40 layers and full width, under
+# the untuned rules (the tuned ones carry 'seq_sp', ROADMAP 14(b)): rank
+# 0's real train_4k step and decode_32k step on the card, from seed 0,
+# their peak memory above the baseline against the dry run's argument +
+# temp bytes at the same depth (DRYRUN_MEM_TOL, relative), K6's launches
+# against the code's count (a layer's forward and its `dots` recompute).
+# The values mean nothing (the fake group moves no data), only sizes and
+# launches do.  The first readings (H100 80GB HBM3, 700 W): train 13.400
+# GiB on the card against 13.210 GiB traced, 1.44 % (the card's library
+# workspaces and the allocator's rounding), so 4.5 %, about 3x; decode
+# 6.099 GiB both ways, under 0.005 %, held at 0.5 %.
+DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
+                ("rwkv6-1.6b", "decode_32k"), ("qwen2-7b", "long_500k"))
+DRYRUN_SKIPPED = {("qwen2-7b", "long_500k")}
+DRYRUN_ARCH, DRYRUN_DEPTH = "granite-3-8b", 2
+DRYRUN_TUNED = {"attn_chunk": 1024, "vocab_pad_multiple": 256}
+DRYRUN_MEM_TOL = {"train_4k": 0.045, "decode_32k": 0.005}
+DRYRUN_CPU_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -3039,26 +3080,27 @@ def phase_train_moe(torch):
     check(remat_rel <= 1e-6, f"dots vs none gradients differ by {remat_rel}")
     del gk, gn
 
-    # Six steps through train_loop with the asynchronous writer every 2
-    # steps.  Each submit runs under the sync debug mode and is timed, with
-    # the part it waited for the previous write (`waited_s`); just before
-    # the step-4 submit a synchronous .cpu() copy of the state is taken.
-    # Before step 6 (whose save lets the manager drop step 4: keep_n=1
-    # bounds the disk), the phase waits for the step-4 write and restores it.
+    # MOE_TRAIN_STEPS steps through train_loop with the asynchronous writer
+    # every 2 steps.  Each submit runs under the sync debug mode and is
+    # timed, with the part it waited for the previous write (`waited_s`);
+    # just before the step-MOE_HELD_CKPT submit a synchronous .cpu() copy of
+    # the state is taken.  Before the last step (whose save lets the manager
+    # drop the held one: keep_n=1 bounds the disk), the phase waits for the
+    # held write and restores it.
     per_step, sync_copy, restored, submits = [], {}, {}, []
 
     def submit(step, tree, meta=None):
-        if step == 4:
+        if step == MOE_HELD_CKPT:
             sync_copy.update(tree_map(lambda t: t.detach().to("cpu", copy=True), tree))
         t0 = time.monotonic()
         no_host_sync(torch, lambda: shipped_submit(step, tree, meta))
         submits.append((step, time.monotonic() - t0, writer.waited_s))
 
     def timed(st, b):
-        if len(per_step) == 5:
+        if len(per_step) == MOE_TRAIN_STEPS - 1:
             writer.wait()
-            restored.update(ckpt.restore(4, sync_copy))
-            restored["data_step"] = ckpt.meta(4)["data_step"]
+            restored.update(ckpt.restore(MOE_HELD_CKPT, sync_copy))
+            restored["data_step"] = ckpt.meta(MOE_HELD_CKPT)["data_step"]
         k1, k5 = mesh_matmul.launches, grouped_mesh_matmul.launches
         t0 = time.monotonic()
         st, met = step_fn(st, b)
@@ -3075,7 +3117,7 @@ def phase_train_moe(torch):
         reset_k1(mesh_matmul)
         grouped_mesh_matmul.launches = 0
         t0 = time.monotonic()
-        state = train_loop(timed, state, data, LoopConfig(total_steps=TRAIN_STEPS,
+        state = train_loop(timed, state, data, LoopConfig(total_steps=MOE_TRAIN_STEPS,
                                                           ckpt_every=2, log_every=1),
                            ckpt=ckpt, logger=logger, checkpointer=writer)
         t_close = time.monotonic()
@@ -3088,7 +3130,7 @@ def phase_train_moe(torch):
         for i, (h, (dt, k1, k5)) in enumerate(zip(logger.history, per_step)):
             log(f"[train_moe] step {i + 1}: loss={h['loss']:.5f} grad_norm={h['grad_norm']:.5f}"
                 f" wall={dt * 1e3:.1f} ms tokens/s={tokens / dt:.1f} launches K1={k1} K5={k5}")
-        log(f"[train_moe] {TRAIN_STEPS} steps: wall={wall:.3f} s with the writes (the last"
+        log(f"[train_moe] {MOE_TRAIN_STEPS} steps: wall={wall:.3f} s with the writes (the last"
             f" write's wait {time.monotonic() - t_close:.1f} s); checkpoints kept"
             f" {ckpt.all_steps()}")
         for step, dt, waited in submits:
@@ -3096,7 +3138,7 @@ def phase_train_moe(torch):
                 f" syncs: {1e3 * dt:.1f} ms, of which {1e3 * waited:.1f} ms waiting for the"
                 f" previous write, {1e3 * (dt - waited):.1f} ms the snapshot"
                 + (" (the first: pinned buffers allocated)" if step == 2 else ""))
-        check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+        check(len(losses) == MOE_TRAIN_STEPS and all(math.isfinite(x) for x in losses),
               f"non-finite or missing losses: {losses}")
         check(losses[-1] < losses[0], f"loss did not fall: {losses}")
         want_k1 = 3 * (4 * cfg.num_layers + 1)
@@ -3104,27 +3146,29 @@ def phase_train_moe(torch):
         check(all((k1, k5) == (want_k1, want_k5) for _, k1, k5 in per_step),
               f"per-step launches {per_step}, want K1 {want_k1} K5 {want_k5} under dots")
 
-    # The step-4 checkpoint restores equal, bit for bit, to the copy taken
-    # at its submit; resuming from it gives steps 5-6's losses.
+    # The held checkpoint restores equal, bit for bit, to the copy taken at
+    # its submit; resuming from it gives the later steps' losses.
     del state
     _free(torch)
     data_step = restored.pop("data_step")
     unequal = [p for (p, a), (_, b) in zip(tree_paths(restored), tree_paths(sync_copy))
                if not (a.dtype == b.dtype and torch.equal(a, b))]
-    check(not unequal, f"step-4 checkpoint differs from the state at its submit: {unequal}")
+    check(not unequal, f"step-{MOE_HELD_CKPT} checkpoint differs from the state at its"
+                       f" submit: {unequal}")
     sync_copy.clear()
     resumed = tree_map(lambda t: t.to("cuda"), restored)
     restored.clear()
     data.restore(data_step)
     relog = MetricsLogger()
-    train_loop(step_fn, resumed, data, LoopConfig(total_steps=TRAIN_STEPS, log_every=1),
+    train_loop(step_fn, resumed, data, LoopConfig(total_steps=MOE_TRAIN_STEPS, log_every=1),
                logger=relog)
     again = [h["loss"] for h in relog.history]
-    gaps = [abs(a - b) for a, b in zip(again, losses[4:])]
-    log(f"[train_moe] step-4 checkpoint restores bit for bit; resumed steps 5-6 losses"
-        f" {[round(x, 6) for x in again]} vs {[round(x, 6) for x in losses[4:]]}"
-        f" (|d| {gaps}, tol 1e-3)")
-    check(len(again) == 2 and max(gaps) <= 1e-3, f"resumed losses {again} vs {losses[4:]}")
+    later = losses[MOE_HELD_CKPT:]
+    gaps = [abs(a - b) for a, b in zip(again, later)]
+    log(f"[train_moe] step-{MOE_HELD_CKPT} checkpoint restores bit for bit; resumed steps"
+        f" {MOE_HELD_CKPT + 1}-{MOE_TRAIN_STEPS} losses {[round(x, 6) for x in again]} vs"
+        f" {[round(x, 6) for x in later]} (|d| {gaps}, tol 1e-3)")
+    check(len(again) == len(later) and max(gaps) <= 1e-3, f"resumed losses {again} vs {later}")
     profile_train_step(torch, step_fn, resumed, data, tag="profile train_moe")
     del resumed, step_fn
     _free(torch)
@@ -3841,8 +3885,8 @@ def phase_serve_whisper(torch):
 
 
 # The paper's sizes (`benchmarks/bench_stepcounts.py`) and one at full scale.
-# [train_rwkv] and [train_zamba]: 3 AdamW steps at 2 x 2048 tokens, full
-# width, not cut.  K1 per step: each forward product once, its dA and dB
+# [train_rwkv] and [train_zamba]: 2 AdamW steps at 2 x 2048 tokens, full
+# width (RWKV-6 at RWKV_STEP_LAYERS of its depth).  K1 per step: each forward product once, its dA and dB
 # (`mm_backward`), and once more for each fused activation's recomputed
 # pre-activation: RWKV's silu, relu and sigmoid (3 a layer); Zamba2 fuses
 # none.  K6: Zamba2's 6 shared-block attentions forward (the backward
@@ -3864,7 +3908,13 @@ RWKV_HELD_LAYERS = 2
 # until the whole run outgrew its time), both ways.
 RWKV_MEMORY_LAYERS = RWKV_LAYERS // 4
 RWKV_COMPARED_LAYERS = RWKV_LAYERS // 4
-RWKV_TRAIN_LAUNCHES = {"mesh_matmul": 3 * RWKV_STEP_LAUNCHES + 3 * RWKV_LAYERS,
+# The steps through train_loop run at a quarter of the depth, full width
+# (the full 24 layers until the run needed the time for [dryrun], 30-37 s a
+# step; 12 until a whole run took 1123.5 s on an H100 80GB HBM3 at 700 W,
+# 17.1 s a step); each layer's 8 products, their dA and dB and 3
+# recomputed activations, and the head's product.
+RWKV_STEP_LAYERS = RWKV_LAYERS // 4
+RWKV_TRAIN_LAUNCHES = {"mesh_matmul": 3 * (8 * RWKV_STEP_LAYERS + 1) + 3 * RWKV_STEP_LAYERS,
                        "flash_attention": 0}
 ZAMBA_TRAIN_LAUNCHES = {"mesh_matmul": 3 * ZAMBA_STEP_LAUNCHES, "flash_attention": ZAMBA_APPS}
 
@@ -3880,7 +3930,8 @@ def phase_train_rwkv(torch):
     check((cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.wkv_chunked, cfg.wkv_chunk)
           == (RWKV_LAYERS, 2048, 7168, True, 16), f"unexpected RWKV-6 config {cfg}")
     return _train_family(torch, "train_rwkv", cfg, RWKV_TRAIN_LAUNCHES,
-                         held_layers=RWKV_HELD_LAYERS, compared_layers=RWKV_COMPARED_LAYERS)
+                         held_layers=RWKV_HELD_LAYERS, compared_layers=RWKV_COMPARED_LAYERS,
+                         step_layers=RWKV_STEP_LAYERS)
 
 
 def phase_train_zamba(torch):
@@ -3896,7 +3947,17 @@ def phase_train_zamba(torch):
     return _train_family(torch, "train_zamba", cfg, ZAMBA_TRAIN_LAUNCHES)
 
 
-def _train_family(torch, tag, cfg, per_step, held_layers=None, compared_layers=None):
+def _first_layers(tree, depth):
+    """A parameter (or moment) tree with its stacked 'blocks' cut to their
+    first `depth` layers, as copies (the rest is freed)."""
+    from repro_torch.tree import tree_map
+
+    return {k: (tree_map(lambda t: t[:depth].clone(), v) if k == "blocks" else v)
+            for k, v in tree.items()}
+
+
+def _train_family(torch, tag, cfg, per_step, held_layers=None, compared_layers=None,
+                  step_layers=None):
     """One family's training through `build_trainer` and `train_loop`:
 
     (a) the kernel path's loss and gradients against the `torch` backend's
@@ -3906,7 +3967,8 @@ def _train_family(torch, tag, cfg, per_step, held_layers=None, compared_layers=N
         last) at `held_layers` of the model's layers (all unless given), and
         at `compared_layers` (the full depth unless given) the loss and
         finite gradients;
-    (b) FAMILY_TRAIN_STEPS steps: losses finite, launches per step equal to
+    (b) FAMILY_TRAIN_STEPS steps (of the full model's first `step_layers`
+        layers where given): losses finite, launches per step equal to
         `per_step`, wall ms and tokens/s, peak device memory;
     (c) RWKV: one step's peak device memory with the WKV chunk checkpoint
         and one without it, from the same state, at RWKV_MEMORY_LAYERS.
@@ -3916,12 +3978,13 @@ def _train_family(torch, tag, cfg, per_step, held_layers=None, compared_layers=N
     (`check_k1_held`).
     """
     with k1_calls() as seen:
-        out = _train_family_work(torch, tag, cfg, per_step, held_layers, compared_layers)
+        out = _train_family_work(torch, tag, cfg, per_step, held_layers, compared_layers,
+                                 step_layers)
     check_k1_held(tag, seen)
     return out
 
 
-def _train_family_work(torch, tag, cfg, per_step, held_layers, compared_layers):
+def _train_family_work(torch, tag, cfg, per_step, held_layers, compared_layers, step_layers):
     """_train_family's work, every K1 call of it recorded by the caller."""
     import dataclasses
 
@@ -3973,7 +4036,17 @@ def _train_family_work(torch, tag, cfg, per_step, held_layers, compared_layers):
               f"kernel loss {lk} vs torch {lt}, finite gradients {readings['finite']}")
         del params, readings
 
-    # (b) the steps through train_loop.
+    # (b) the steps through train_loop, on the full model's first
+    # `step_layers` layers where given (its init, so (a)'s readings and
+    # these steps share the weights' scales).
+    if step_layers is not None:
+        state = {"params": _first_layers(state["params"], step_layers),
+                 "opt": {**{k: _first_layers(state["opt"][k], step_layers) for k in ("m", "v")},
+                         "count": state["opt"]["count"]},
+                 "step": state["step"]}
+        _free(torch)
+        step_fn, _, data = build_trainer(dataclasses.replace(cfg, num_layers=step_layers), **kw)
+        _free(torch)
     per, logger = [], MetricsLogger()
 
     def timed(st, b):
@@ -4875,7 +4948,7 @@ def phase_train_dp(torch):
     from repro_torch.launch.train import build_trainer
     from repro_torch.models import get_model
     from repro_torch.models.layers import softmax_xent
-    from repro_torch.models.transformer import _layer, block_apply, embed_tokens
+    from repro_torch.models.transformer import _layers, block_apply, embed_tokens
     from repro_torch.optim import global_norm
     from repro_torch.train.train_step import _grads_of
     from repro_torch.tree import tree_leaves
@@ -4936,8 +5009,8 @@ def phase_train_dp(torch):
                 want = []
                 for m in range(PIPE_MICRO):
                     h = x[m]
-                    for i in range(cfg.num_layers):
-                        h = block_apply(_layer(params["blocks"], i), h, cfg)[0]
+                    for lp in _layers(params["blocks"], cfg.num_layers):
+                        h = block_apply(lp, h, cfg)[0]
                     want.append(h)
             torch.save({"x": x.cpu(), "want": torch.stack(want).cpu()},
                        os.path.join(tmp, "pipe.pt"))
@@ -6224,8 +6297,12 @@ def phase_serve_tp_families(torch):
 # 2x2 (all 4 ranks, one row a data rank): one step's gradients gathered to
 # the global tree against the single-process kernel step's, then
 # TRAIN_TP_STEPS steps (launches per rank, replicated leaves bitwise across
-# the 'model' ranks, every leaf across the 'data' ranks; on 1x2 the last
-# step's checkpoint restored by the parent).  OLMoE-1B-7B at full width and
+# the 'model' ranks, every leaf across the 'data' ranks).  The
+# tensor-parallel checkpoint: mesh-paper at TRAIN_TP_CKPT_LAYERS of its 4
+# layers (full width) on 1x2, TRAIN_TP_STEPS steps through train_loop,
+# which gathers the global tree and writes it from coordinate 0; the
+# parent restores it on one process and holds each leaf's sha256 against
+# the tree the ranks gathered.  OLMoE-1B-7B at full width and
 # [train_moe]'s 2 of 16 layers on 1x2 under expert parallelism (32 of 64
 # experts a rank) on the single-process step's replayed routing (ranks
 # 0-1); RWKV-6 at 2 of its 24 layers ([train_rwkv]'s held depth) and
@@ -6234,6 +6311,11 @@ def phase_serve_tp_families(torch):
 # computes every single-process gradient and plans every shard shape
 # first, so the ranks read its autotune cache.
 TRAIN_TP_WORLD, TRAIN_TP_M, TRAIN_TP_STEPS, TRAIN_TP_TIMEOUT_S = 4, 2, 2, 420
+# The checkpoint's depth: at all 4 layers its train state is 4.0 GB, whose
+# write and restore took 25-35 s of the run (H100 80GB HBM3); at 1 layer
+# it is 2.0 GB (the vocab's embedding and head are half of it), written by
+# ranks 0-1 while ranks 2-3 finish their longer cases.
+TRAIN_TP_CKPT_LAYERS = 1
 TRAIN_TP_CASES = ("mesh-paper 1x2", "mesh-paper 2x2", "olmoe 1x2", "rwkv 1x2", "zamba 1x2",
                   "zamba6 1x2")
 # Zamba2's per-parameter check is held at one segment of its 38 layers (6
@@ -6446,24 +6528,11 @@ def _replicated_sha(torch, tree, blocks):
     return out
 
 
-def _global_state_like(torch, model):
-    """A single-process train state of `model` as meta tensors (a
-    checkpoint's `like`: the leaves restore on the host)."""
-    from repro_torch.tree import tree_map
-
-    def meta(spec, dtype):
-        return torch.empty(spec.shape, dtype=dtype, device="meta")
-
-    specs = model.specs()
-    params = tree_map(lambda s: meta(s, s.dtype or model.cfg.pdtype), specs)
-    f32 = tree_map(lambda s: meta(s, torch.float32), specs)
-    scalar = torch.empty((), dtype=torch.int32, device="meta")
-    return {"params": params, "opt": {"m": f32, "v": f32, "count": scalar}, "step": scalar}
-
-
 def _train_tp_rank(torch, rank, tmp):
     """train_tp_rank's work, in its process group."""
     import io
+
+    import dataclasses
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -6506,7 +6575,7 @@ def _train_tp_rank(torch, rank, tmp):
         return dict(k1=mesh_matmul.launches, k3=scramble_blocks_cuda.launches,
                     k5=grouped_mesh_matmul.launches, k6=flash_attention.launches)
 
-    def paper(case, mesh, ckpt):
+    def paper(case, mesh):
         """mesh-paper through build_trainer under `mesh`: the gradients of
         batch 0, then TRAIN_TP_STEPS steps through train_loop."""
         cfg = cfgs[case]
@@ -6531,6 +6600,33 @@ def _train_tp_rank(torch, rank, tmp):
             per.append((time.monotonic() - t0, {k: v - before[k] for k, v in launches().items()}))
             return st, met
 
+        logger = MetricsLogger(stream=io.StringIO())
+        torch.cuda.reset_peak_memory_stats()
+        state = train_loop(timed, state, data, LoopConfig(
+            total_steps=TRAIN_TP_STEPS, ckpt_every=10**9, log_every=1), logger=logger,
+            group=mesh_groups(mesh), blocks=blocks)
+        res.update(steps=per, losses=[h["loss"] for h in logger.history],
+                   grad_norms=[h["grad_norm"] for h in logger.history],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   replicated_sha=_replicated_sha(torch, state["params"], blocks),
+                   all_sha=[_sha(torch, t) for t in tree_leaves(state["params"])],
+                   replicated={p: r if r in (True, None) else [r[0], list(r[1])]
+                               for p, r in tree_paths(blocks.replicated)})
+        del state, step, data
+        _free(torch)
+        return res
+
+    def paper_ckpt(mesh):
+        """mesh-paper at TRAIN_TP_CKPT_LAYERS through build_trainer under
+        `mesh`: TRAIN_TP_STEPS steps through train_loop and the last one's
+        checkpoint, the global tree the loop gathers, written from
+        coordinate 0 (with the sha256 of each leaf it was given)."""
+        cfg = dataclasses.replace(cfgs["mesh-paper 1x2"], num_layers=TRAIN_TP_CKPT_LAYERS)
+        coord = dict(zip(names, mesh.get_coordinate()))
+        step, state, data = build_trainer(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, mesh=mesh,
+                                          lr=TRAIN_LR, total_steps=TRAIN_TP_STEPS, seed=0,
+                                          device="cuda")
+
         class Hashed:
             """The writer's checkpointer: the sha256 of each leaf of the
             global tree the loop gathered, then a synchronous save."""
@@ -6545,21 +6641,16 @@ def _train_tp_rank(torch, rank, tmp):
             def wait(self):
                 pass
 
-        manager = CheckpointManager(os.path.join(tmp, "ckpt")) if ckpt else None
-        writer = Hashed(manager) if ckpt and coord == {"data": 0, "model": 0} else None
-        logger = MetricsLogger(stream=io.StringIO())
-        torch.cuda.reset_peak_memory_stats()
-        state = train_loop(timed, state, data, LoopConfig(
-            total_steps=TRAIN_TP_STEPS, ckpt_every=TRAIN_TP_STEPS if ckpt else 10**9,
-            log_every=1), ckpt=manager, logger=logger, group=mesh_groups(mesh), blocks=blocks,
-            checkpointer=writer)
-        res.update(steps=per, losses=[h["loss"] for h in logger.history],
-                   grad_norms=[h["grad_norm"] for h in logger.history],
-                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   replicated_sha=_replicated_sha(torch, state["params"], blocks),
-                   all_sha=[_sha(torch, t) for t in tree_leaves(state["params"])],
-                   replicated={p: r if r in (True, None) else [r[0], list(r[1])]
-                               for p, r in tree_paths(blocks.replicated)})
+        manager = CheckpointManager(os.path.join(tmp, "ckpt"))
+        writer = Hashed(manager) if coord == {"data": 0, "model": 0} else None
+        res = {"state_gib": sum(t.numel() * t.element_size()
+                                for t in tree_leaves(state)) / 2**30}
+        t0 = time.monotonic()
+        state = train_loop(step, state, data, LoopConfig(
+            total_steps=TRAIN_TP_STEPS, ckpt_every=TRAIN_TP_STEPS, log_every=1), ckpt=manager,
+            logger=MetricsLogger(stream=io.StringIO()), group=mesh_groups(mesh),
+            blocks=step.blocks, checkpointer=writer)
+        res["wall_s"] = time.monotonic() - t0
         if writer is not None:  # the global tree the checkpoint holds, as gathered
             res["gathered_sha"] = writer.sha
         del state, step, data
@@ -6595,17 +6686,18 @@ def _train_tp_rank(torch, rank, tmp):
 
     t0 = time.monotonic()
     if rank < 2:
-        found["mesh-paper 1x2"] = paper("mesh-paper 1x2", meshes["1x2 a"], ckpt=True)
+        found["mesh-paper 1x2"] = paper("mesh-paper 1x2", meshes["1x2 a"])
         routes = [r.cuda() for r in torch.load(os.path.join(tmp, "olmoe_routes.pt"))]
         found["olmoe 1x2"] = grads_only("olmoe 1x2", meshes["1x2 a"], replay=routes)
         del routes
+        found["ckpt 1x2"] = paper_ckpt(meshes["1x2 a"])
     else:
         for case in ("rwkv 1x2", "zamba 1x2", "zamba6 1x2"):
             found[case] = grads_only(case, meshes["1x2 b"])
     found["1x2 wall_s"] = time.monotonic() - t0
     dist.barrier()
     t0 = time.monotonic()
-    found["mesh-paper 2x2"] = paper("mesh-paper 2x2", meshes["2x2"], ckpt=False)
+    found["mesh-paper 2x2"] = paper("mesh-paper 2x2", meshes["2x2"])
     found["2x2 wall_s"] = time.monotonic() - t0
     return found
 
@@ -6617,13 +6709,14 @@ def phase_train_tp(torch):
     and the parent holds their gradients, launches, bitwise agreements,
     checkpoint and every K1, K5 and K6 call they made.  Walls and bytes are
     printed, never as speeds."""
+    import dataclasses
     import shutil
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import get_model
     from repro_torch.optim import global_norm
-    from repro_torch.train.train_step import _grads_of
+    from repro_torch.train.train_step import _grads_of, abstract_train_state
     from repro_torch.tree import tree_leaves, tree_paths
 
     cfgs = _train_tp_cfgs()
@@ -6687,15 +6780,16 @@ def phase_train_tp(torch):
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                  for r in range(TRAIN_TP_WORLD)]
         parent_blocks = _plan_blocks()
-        # The 1x2 trainer's step-2 checkpoint (the global tree, written by
-        # rank 0) restored here, on one process, into a single-process
-        # state's structure, against the state the ranks gathered (sha256
-        # of each leaf).
+        # The 1x2 trainer's step-TRAIN_TP_STEPS checkpoint (the global tree,
+        # written by rank 0) restored here, on one process, into a
+        # single-process state's structure (meta leaves: restored on the
+        # host), against the state the ranks gathered (sha256 of each leaf).
         ckpt = CheckpointManager(os.path.join(tmp, "ckpt"))
         t0 = time.monotonic()
-        restored = ckpt.restore(TRAIN_TP_STEPS, _global_state_like(torch, get_model(paper_cfg)))
+        restored = ckpt.restore(TRAIN_TP_STEPS, abstract_train_state(get_model(
+            dataclasses.replace(paper_cfg, num_layers=TRAIN_TP_CKPT_LAYERS))))
         got = {p: _sha(torch, t) for p, t in tree_paths(restored)}
-        want = ranks[0]["mesh-paper 1x2"]["gathered_sha"]
+        want = ranks[0]["ckpt 1x2"]["gathered_sha"]
         restore_ok = ckpt.latest_step() == TRAIN_TP_STEPS and got == want
         n_leaves, restore_s = len(got), time.monotonic() - t0
         del restored
@@ -6786,9 +6880,11 @@ def phase_train_tp(torch):
             f" ranks: {data_same}")
         if not rep_same or not data_same:
             failed.append(f"{case}: parameters differ across ranks ({rep_same}, {data_same})")
-    log(f"[train_tp] mesh-paper 1x2's step-{TRAIN_TP_STEPS} checkpoint (the global tree,"
-        f" {n_leaves} leaves) restored on this process in {restore_s:.1f} s, bitwise equal to"
-        f" the state the ranks gathered: {restore_ok}")
+    log(f"[train_tp] mesh-paper 1x2 at {TRAIN_TP_CKPT_LAYERS} of 4 layers: its"
+        f" step-{TRAIN_TP_STEPS} checkpoint (the global tree, {n_leaves} leaves; a rank's"
+        f" state {ranks[0]['ckpt 1x2']['state_gib']:.2f} GiB, the ranks' {TRAIN_TP_STEPS} steps"
+        f" and write {ranks[0]['ckpt 1x2']['wall_s']:.1f} s) restored on this process in"
+        f" {restore_s:.1f} s, bitwise equal to the state the ranks gathered: {restore_ok}")
     if not restore_ok:
         failed.append("the 1x2 checkpoint does not restore to the gathered state")
     # Launch counts from the code: a mesh-paper step's K1 75 and K3 4 on each
@@ -7132,6 +7228,133 @@ def phase_obs(torch, smi: str):
     _free(torch)
     tmp.cleanup()
 
+_DRYRUN_CPU = """
+import json
+from repro_torch.launch import dryrun, roofline
+arts = []
+for arch, shape in {cells!r}:
+    art = dryrun.run_cell(arch, shape, probe=False)
+    row = roofline.analyze_artifact(art)
+    if row is not None:
+        print(f"[roofline] {{arch}} x {{shape}}: compute {{row['t_compute_s']:.4e}} s, memory"
+              f" {{row['t_memory_s']:.4e}} s, collective {{row['t_collective_s']:.4e}} s,"
+              f" dominant {{row['dominant']}}, useful FLOP ratio {{row['useful_ratio']:.3f}},"
+              f" roofline fraction {{row['roofline_fraction']:.3f}} (data-sheet rates)",
+              flush=True)
+    arts.append(art)
+print("ARTIFACTS " + json.dumps(arts))
+"""
+
+
+def _dryrun_card(torch, shape_name):
+    """Rank 0's real step of DRYRUN_ARCH x `shape_name` at DRYRUN_DEPTH on
+    the card under a fake group of 256 ranks, against the dry run's
+    artifact of the same cell: (artifact, reading)."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    over = dict(DRYRUN_TUNED, num_layers=DRYRUN_DEPTH)
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH), **over)
+    shape = SHAPES[shape_name]
+    _free(torch)
+    with dryrun.fake_group(256):
+        art = dryrun.run_cell(DRYRUN_ARCH, shape_name, cfg_overrides=over, probe=False,
+                              verbose=False)
+        mesh = make_production_mesh()
+        rules = dryrun._rules_for(cfg, shape, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def make(t):
+            if t.dim() == 0:  # the optimizer's count and step
+                return torch.zeros((), dtype=t.dtype, device="cuda")
+            if t.dtype.is_floating_point:
+                x = torch.randn(t.shape, generator=gen, dtype=torch.float32, device="cuda")
+                return x.mul_(0.02).to(t.dtype)
+            return torch.randint(0, cfg.vocab_size, t.shape, generator=gen, dtype=t.dtype,
+                                 device="cuda")
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        step, args = dryrun.build_step(cfg, shape, mesh, rules, make=make)
+        torch.cuda.synchronize()
+        args_bytes = torch.cuda.memory_allocated() - base
+        out = step(*args)  # warm: plans, library handles
+        del out
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t0 = time.monotonic()
+        out = step(*args)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        reading = dict(peak=torch.cuda.max_memory_allocated() - base, args=args_bytes, ms=ms,
+                       k6=flash_attention.launches)
+        del out, args, step
+    _free(torch)
+    return art, reading
+
+
+def phase_dryrun(torch, smi: str):
+    """(a) DRYRUN_CELLS traced on the CPU in a subprocess (run meanwhile);
+    (b), (c) rank 0's train and decode steps on the card against their
+    dry runs (constants above)."""
+    from repro_torch.launch import roofline
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               PYTHONWARNINGS="ignore")
+    env.pop("REPRO_COSTMODEL_TIMED", None)
+    t0 = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-c", _DRYRUN_CPU.format(cells=DRYRUN_CELLS)],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        card = {name: _dryrun_card(torch, name) for name in ("train_4k", "decode_32k")}
+        out, err = proc.communicate(timeout=DRYRUN_CPU_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    cpu_s = time.monotonic() - t0
+    check(proc.returncode == 0, f"[dryrun] CPU cells failed: rc={proc.returncode} {err[-3000:]}")
+    for line in out.splitlines():
+        if not line.startswith("ARTIFACTS "):
+            log(f"[dryrun] {line}")
+    arts = json.loads(next(s for s in out.splitlines() if s.startswith("ARTIFACTS "))[10:])
+    bad = []
+    for (arch, shape), art in zip(DRYRUN_CELLS, arts):
+        want = "skipped" if (arch, shape) in DRYRUN_SKIPPED else "ok"
+        if art["status"] != want:
+            bad.append(f"{arch} x {shape}: {art['status']} ({art.get('error')}), want {want}")
+        elif want == "ok" and not all(
+                math.isfinite(art[k]) and art[k] > 0
+                for k in ("flops_per_device", "bytes_per_device", "collective_link_bytes")):
+            bad.append(f"{arch} x {shape}: counts not finite and positive")
+    log(f"[dryrun] (a) {len(arts)} cells of pod16x16 traced on the CPU in {cpu_s:.1f} s (run"
+        f" beside the card's steps): statuses {[a['status'] for a in arts]}")
+    k6_want = {"train_4k": 2 * DRYRUN_DEPTH, "decode_32k": 0}
+    for name, (art, r) in card.items():
+        ma = art["memory_analysis"]
+        want = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+        rel = abs(r["peak"] - want) / want
+        bound = roofline.analyze_artifact(art)
+        log(f"[dryrun] ({'b' if name == 'train_4k' else 'c'}) {DRYRUN_ARCH} x {name} at"
+            f" {DRYRUN_DEPTH} layers, rank 0 of pod16x16 on the card ({smi}): peak above the"
+            f" baseline {r['peak'] / 2**30:.3f} GiB (its arguments {r['args'] / 2**30:.3f} GiB)"
+            f" against the dry run's argument + temp {want / 2**30:.3f} GiB (arguments"
+            f" {ma['argument_size_in_bytes'] / 2**30:.3f} GiB): off by {100 * rel:.4f} % (tol"
+            f" {100 * DRYRUN_MEM_TOL[name]:.1f} %); K6 launches {r['k6']} (want {k6_want[name]}); step"
+            f" {r['ms']:.1f} ms wall beside the roofline's t_bound"
+            f" {1e3 * bound['t_bound_s']:.3f} ms ({bound['dominant']}; a reading, not held)")
+        if rel > DRYRUN_MEM_TOL[name]:
+            bad.append(f"{name}: peak {r['peak']} vs the dry run's {want} ({100 * rel:.2f} %)")
+        if r["k6"] != k6_want[name]:
+            bad.append(f"{name}: K6 launched {r['k6']} times, want {k6_want[name]}")
+    check(not bad, "[dryrun] " + "; ".join(bad))
+    return {"flash_attention": card["train_4k"][1]["k6"]}
+
 
 def healthy(name, fn):
     """`fn` as a phase that arms no fault: the resilience ledger is cleared
@@ -7201,6 +7424,7 @@ def main() -> int:
     phases["paper"] = healthy("paper", lambda torch: phase_paper(torch, smi))
     phases["planner"] = phase_planner
     phases["obs"] = healthy("obs", lambda torch: phase_obs(torch, smi))
+    phases["dryrun"] = healthy("dryrun", lambda torch: phase_dryrun(torch, smi))
     if only is not None:
         unknown = only - set(phases)
         check(not unknown, f"unknown phases {sorted(unknown)}; known: {sorted(phases)}")
@@ -7239,6 +7463,7 @@ def main() -> int:
     serve_tp = phases["serve_tp"](torch)
     serve_tpf = phases["serve_tp_families"](torch)
     train_tp = phases["train_tp"](torch)
+    dryrun = phases["dryrun"](torch)
     phases["paper"](torch)
     planner = phases["planner"](torch)
     phases["obs"](torch)
@@ -7325,7 +7550,8 @@ def main() -> int:
             + configs["flash_attention"] + serve_pixtral["flash_attention"]
             + serve_zamba["flash_attention"] + serve_whisper["flash_attention"]
             + train_zamba["flash_attention"] + serve_tp["flash_attention"]
-            + serve_tpf["flash_attention"] + train_tp["flash_attention"], k6_err,
+            + serve_tpf["flash_attention"] + train_tp["flash_attention"]
+            + dryrun["flash_attention"], k6_err,
             k6["qwen2 T=2048"],
             "one launch: Qwen2-7B prefill B=1 T=2048 H=28 KV=4 hd=128 bf16 causal; library_ms"
             " is scaled_dot_product_attention (is_causal, enable_gqa)",
@@ -7338,7 +7564,8 @@ def main() -> int:
                               "train_zamba": train_zamba["flash_attention"],
                               "serve_tp (2 ranks)": serve_tp["flash_attention"],
                               "serve_tp_families (4 ranks)": serve_tpf["flash_attention"],
-                              "train_tp (2 ranks)": train_tp["flash_attention"]},
+                              "train_tp (2 ranks)": train_tp["flash_attention"],
+                              "dryrun": dryrun["flash_attention"]},
             device_ms=k6["qwen2 T=2048"]["device_ms"],
             library_device_ms=k6["qwen2 T=2048"]["library_device_ms"],
             t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"],

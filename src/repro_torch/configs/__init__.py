@@ -5,7 +5,7 @@ Granite-3 8B, Phi-3-medium 14B, Mistral-Large 123B), the moe family
 (OLMoE-1B-7B, Qwen1.5-MoE-A2.7B), and RWKV-6 1.6B (ssm), Zamba2-1.2B
 (hybrid), Pixtral-12B (vlm) and Whisper-medium (audio)."""
 
-from repro_torch.configs.base import CONFIGS, ArchConfig, get_config
+from repro_torch.configs.base import CONFIGS, SHAPES, ArchConfig, ShapeSpec, get_config
 from repro_torch.configs import (  # noqa: F401
     granite_3_8b,
     mesh_paper,
@@ -20,4 +20,18 @@ from repro_torch.configs import (  # noqa: F401
     zamba2_1b2,
 )
 
-__all__ = ["ArchConfig", "CONFIGS", "get_config"]
+# The ten architectures the dry runs sweep (mesh-paper is the paper's own).
+ASSIGNED_ARCHS = (
+    "olmoe-1b-7b",
+    "qwen2-moe-a2.7b",
+    "granite-3-8b",
+    "phi3-medium-14b",
+    "qwen2-7b",
+    "mistral-large-123b",
+    "rwkv6-1.6b",
+    "whisper-medium",
+    "zamba2-1.2b",
+    "pixtral-12b",
+)
+
+__all__ = ["ASSIGNED_ARCHS", "ArchConfig", "CONFIGS", "SHAPES", "ShapeSpec", "get_config"]

@@ -4,11 +4,15 @@ One frozen dataclass describes an architecture; each config module
 instantiates `ArchConfig` with its published numbers and registers it, and
 `reduced()` derives the CPU-test variant (same family and code paths, tiny
 dims).  The fields that no ported code reads are left out: those only the
-reference's XLA lowering reads (`fused_dense_epilogue`, `scan_unroll`),
-those only its dry runs read (`supports_long_context`) or nothing reads
+reference's XLA lowering reads (`fused_dense_epilogue`, `scan_unroll`: the
+port's dry run traces every layer, `launch/dryrun.py`) or nothing reads
 (`is_encoder_decoder`, `has_decode`, `ssm_conv_dim`: the conv width is
 `models.ssm._CONV_K`), and `grad_accum` (an argument of the port's
-trainer).  The dtype properties return `torch.dtype`s.
+trainer; a config field with ROADMAP 14(b)).  The dtype properties return
+`torch.dtype`s.
+
+Shapes are separate (`ShapeSpec`): the four assigned input-shape cells.
+`launch/dryrun.py` iterates ASSIGNED_ARCHS x SHAPES.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Callable, Dict
 
 import torch
 
-__all__ = ["ArchConfig", "register", "get_config", "CONFIGS"]
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "register", "get_config", "CONFIGS"]
 
 _DTYPES = {
     "float32": torch.float32,
@@ -67,6 +71,10 @@ class ArchConfig:
 
     # VLM (pixtral)
     num_stub_patches: int = 0  # stub ViT frontend: precomputed patch embeddings
+
+    # capability flag: a sub-quadratic path, so the dry run's long_500k cell
+    # runs (launch/dryrun._cell_applicable)
+    supports_long_context: bool = False
 
     # numerics / kernel levers
     param_dtype: str = "bfloat16"
@@ -166,6 +174,21 @@ class ArchConfig:
             remat_policy="none",
         )
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode | long_decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "long_decode"),
+}
 
 CONFIGS: Dict[str, Callable[[], ArchConfig]] = {}
 

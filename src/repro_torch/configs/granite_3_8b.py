@@ -18,4 +18,5 @@ def granite_3_8b() -> ArchConfig:
         vocab_size=49155,
         rope_theta=10_000.0,
         tie_embeddings=True,
+        supports_long_context=False,
     )

@@ -18,4 +18,5 @@ def mesh_paper() -> ArchConfig:
         vocab_size=32768,
         use_mesh_kernel=True,
         scramble_privacy=True,
+        supports_long_context=False,
     )

@@ -18,4 +18,5 @@ def mistral_large_123b() -> ArchConfig:
         vocab_size=32768,
         head_dim=128,
         rope_theta=1_000_000.0,
+        supports_long_context=False,
     )

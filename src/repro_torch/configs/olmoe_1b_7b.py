@@ -21,4 +21,5 @@ def olmoe_1b_7b() -> ArchConfig:
         num_shared_experts=0,
         moe_d_ff=1024,
         rope_theta=10_000.0,
+        supports_long_context=False,
     )

@@ -17,4 +17,5 @@ def phi3_medium_14b() -> ArchConfig:
         d_ff=17920,
         vocab_size=100352,
         rope_theta=10_000.0,
+        supports_long_context=False,
     )

@@ -20,4 +20,5 @@ def pixtral_12b() -> ArchConfig:
         vocab_size=131072,
         num_stub_patches=256,  # stub ViT: 256 patch embeddings prepended
         rope_theta=1_000_000.0,
+        supports_long_context=False,
     )

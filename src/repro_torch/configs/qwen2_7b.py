@@ -18,4 +18,5 @@ def qwen2_7b() -> ArchConfig:
         vocab_size=152064,
         qkv_bias=True,
         rope_theta=1_000_000.0,
+        supports_long_context=False,
     )

@@ -22,4 +22,5 @@ def qwen2_moe_a27b() -> ArchConfig:
         moe_d_ff=1408,
         qkv_bias=True,
         rope_theta=1_000_000.0,
+        supports_long_context=False,
     )

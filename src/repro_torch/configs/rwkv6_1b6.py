@@ -18,4 +18,5 @@ def rwkv6_1b6() -> ArchConfig:
         d_ff=7168,
         vocab_size=65536,
         ssm_state_size=64,  # per-head KxV state (head_dim x head_dim)
+        supports_long_context=True,
     )

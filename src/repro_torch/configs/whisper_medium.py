@@ -20,4 +20,5 @@ def whisper_medium() -> ArchConfig:
         dec_layers=24,
         dec_ratio=8,  # assigned shapes: dec_len = seq_len // 8 (enc frames = seq_len)
         rope_theta=10_000.0,  # backbone uses RoPE in this framework (adaptation note)
+        supports_long_context=False,
     )

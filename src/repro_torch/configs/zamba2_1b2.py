@@ -22,4 +22,5 @@ def zamba2_1b2() -> ArchConfig:
         ssm_num_heads=64,  # d_inner(4096) / head_p(64)
         ssm_expand=2,
         shared_attn_period=6,  # shared attn block after every 6 mamba layers
+        supports_long_context=True,
     )

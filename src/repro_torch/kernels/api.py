@@ -1769,11 +1769,14 @@ class ShardedGroupedPlan(ShardedPlan):
 
 
 _ALL = frozenset(STRUCTURES)
+# The `torch` backend also runs on the meta device: shapes and dtypes, no
+# values (the dry runs' trace, `launch/dryrun.py`).
 register_backend(
     "torch",
     _dense_impl("torch"),
     BackendCapabilities(structures=frozenset({"general", "symmetric"}), batching=True,
-                        sharding=True, grouped=True),
+                        devices=frozenset({"cpu", "cuda", "meta"}), sharding=True,
+                        grouped=True),
     grouped_impl=_torch_grouped_impl,
 )
 register_backend(
@@ -2466,8 +2469,14 @@ def execute_async(items) -> List[torch.Tensor]:
     return [h.out for h in handles]
 
 
-def clear_plan_cache() -> None:
-    """Test hook: drop all cached plans and reset the hit/miss counters."""
+def clear_plan_cache(device: Optional[str] = None) -> None:
+    """Test hook: drop all cached plans and reset the hit/miss counters;
+    with `device` (a device type), drop only the plans for that device and
+    keep the counters (the dry runs drop their meta-device plans)."""
+    if device is not None:
+        for key in [k for k in _PLAN_CACHE if k[2] == device]:
+            del _PLAN_CACHE[key]
+        return
     _PLAN_CACHE.clear()
     _PLAN_STATS.update(hits=0, misses=0)
 

@@ -242,15 +242,24 @@ def flash_attention(
 ) -> torch.Tensor:
     """SDPA with traffic Q + K + V + O: CPU tensors run
     `flash_attention_torch`; CUDA tensors launch K6 inside `_FlashAttention`
-    (gradients by recompute)."""
+    (gradients by recompute).  Meta tensors (the dry runs' trace,
+    `launch/dryrun.py`) take the card's structure, `_FlashAttention` saving
+    only q, k and v, with the plain chunked forward in the kernel's place."""
     _check(q, k, v, causal, block_q, block_k, q_offset)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, block_q=block_q, block_k=block_k,
                                      q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
-    return _FlashAttention.apply(q, k, v, causal, block_k,
-                                 functools.partial(_launch, q_offset=q_offset), q_offset)
+    if q.device.type == "meta":
+        forward = functools.partial(_plain_forward, chunk=block_k, q_offset=q_offset)
+    elif q.device.type == "cuda":
+        forward = functools.partial(_launch, q_offset=q_offset)
+    else:
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta tensors, got {q.device}")
+    return _FlashAttention.apply(q, k, v, causal, block_k, forward, q_offset)
+
+
+def _plain_forward(q, k, v, causal, chunk, q_offset=0):
+    return _sdpa_chunked(q, k, v, causal=causal, chunk=chunk, q_offset=q_offset)
 
 
 flash_attention.launches = 0

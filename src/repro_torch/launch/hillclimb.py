@@ -10,8 +10,10 @@ the cost-model calibration record format ({"terms", "ms", "source"}), so
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --gemm [--ingest]
 
-The reference's dry-run cells (`--cell`, lowered and compiled through XLA)
-arrive with the port of `launch/dryrun.py`.
+The reference's dry-run cells (`--cell`: `CELLS`, `run_variant` over
+`launch/dryrun.run_cell`) need the 'seq_sp' rule and `grad_accum` as a
+config field, which come with ROADMAP 14(b); the port's dry run itself is
+`launch/dryrun.py`.
 """
 
 from __future__ import annotations
@@ -116,8 +118,8 @@ def main(argv=None) -> None:
     )
     args = ap.parse_args(argv)
     if not args.gemm:
-        ap.error("only the measured --gemm lane is ported; the dry-run cells arrive"
-                 " with launch/dryrun.py")
+        ap.error("only the measured --gemm lane is ported; the dry-run cells (--cell)"
+                 " arrive with ROADMAP 14(b)")
     device = resolve_device(args.device)
     records = []
     names = [args.variant] if args.variant else list(GEMM_VARIANTS)

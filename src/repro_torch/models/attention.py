@@ -235,7 +235,8 @@ def attention_paged_decode(
 def _flash(q, k, v, cfg, ctx: ShardCtx, lay: HeadLayout, causal: bool, chunk: int):
     """The chunked path (K6 on the card): (out, the layout out is in).
 
-    Unless the 'seq_attn' rule takes the query heads' mesh axis, K6 runs
+    Unless the 'seq_attn' rule takes the query heads' mesh axis (or takes
+    one while the heads replicate, their count not dividing it), K6 runs
     on this process's query heads and the kv heads they read.  If it does
     (first-wins: the heads replicate in that layout), context parallelism:
     this process's block [o, o + T/M) of the query rows over all heads
@@ -245,7 +246,7 @@ def _flash(q, k, v, cfg, ctx: ShardCtx, lay: HeadLayout, causal: bool, chunk: in
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     axes = ("batch", "seq_attn", "heads", "head_dim")
     takes = ctx.axes_of("seq_attn")
-    if takes is None or lay.q.count == 1 or takes != lay.q.axes:
+    if takes is None or (lay.q.count > 1 and takes != lay.q.axes):
         q = ctx.c(q, axes, (None, t, h, hd))
         out = flash_attention(q, lay.select(k), lay.select(v), causal=causal, block_q=chunk,
                               block_k=chunk)
@@ -314,6 +315,9 @@ def attention(
         out = _sdpa(q, lay.select(k), lay.select(v), causal=False)
     elif cache is not None:
         # Decode: write the T new keys at cache_pos, attend over the prefix.
+        if ctx.axes_of("kv_seq") is not None:
+            raise NotImplementedError("the 'kv_seq' rule on a mesh axis (a sequence-sharded"
+                                      " KV cache) is not ported (ROADMAP 14(b))")
         ck = cache["k"].clone()
         cv = cache["v"].clone()
         ck[:, cache_pos : cache_pos + t] = k.to(ck.dtype)

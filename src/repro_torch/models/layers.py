@@ -33,6 +33,7 @@ __all__ = [
     "PSpec",
     "Part",
     "ShardCtx",
+    "abstract_params",
     "apply_rope",
     "dense",
     "dense_rows",
@@ -87,6 +88,13 @@ def init_params(
         return x.mul_(s.scale).to(dt)
 
     return _map_specs(make, specs)
+
+
+def abstract_params(specs, dtype: torch.dtype) -> Any:
+    """The PSpec tree as tensors on the meta device: shapes and dtypes, no
+    storage (the dry runs' abstract inputs, `launch/dryrun.py`)."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype or dtype, device="meta"),
+                      specs)
 
 
 def logical_axes_tree(specs) -> Any:

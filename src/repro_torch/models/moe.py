@@ -71,6 +71,7 @@ from repro_torch.models.layers import (
     gemm,
     grouped_gemm,
 )
+from repro_torch.parallel.collectives import note_collective
 
 __all__ = ["FUSED_GATE_UP", "global_routing", "moe_block", "moe_specs", "swiglu",
            "swiglu_specs"]
@@ -168,7 +169,9 @@ def _counts_before_and_total(counts: torch.Tensor, group):
     memory for a CUDA tensor under gloo)."""
     staged = counts.is_cuda and dist.get_backend(group) == "gloo"
     mine = counts.cpu() if staged else counts
-    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    n = dist.get_world_size(group)
+    note_collective("all-gather", n * mine.numel() * mine.element_size(), n)
+    parts = [torch.empty_like(mine) for _ in range(n)]
     dist.all_gather(parts, mine, group=group)
     allc = torch.stack(parts).to(counts.device)
     return allc[:dist.get_rank(group)].sum(0), allc.sum(0)

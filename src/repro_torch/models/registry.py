@@ -12,6 +12,8 @@
   prefill / decode + decode_state_specs   dense-cache serving path
   paged_decode + paged_pool_specs         continuous-batching path (dense,
                                           moe, vlm)
+  abstract_params / batch_specs /         meta tensors + logical axes for
+  decode_input_specs                      the dry runs (no storage)
 
 Every compute method takes a `ShardCtx` (default: none), as in the
 reference, and every family runs tensor-parallel under it: dense, moe and
@@ -25,16 +27,17 @@ the decode state under `ctx`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import rwkv, ssm, transformer, vlm, whisper
 from repro_torch.models.layers import (
     NO_SHARD,
     ShardCtx,
+    abstract_params,
     init_params,
     logical_axes_tree,
     padded_vocab,
@@ -63,6 +66,10 @@ class Model:
         caller names another; the generator must live on that device)."""
         return init_params(generator, self.specs(), self.cfg.pdtype,
                            device=resolve_device(device))
+
+    def abstract_params(self):
+        """The parameter tree as meta tensors (shapes and dtypes only)."""
+        return abstract_params(self.specs(), self.cfg.pdtype)
 
     def logical_axes(self):
         return logical_axes_tree(self.specs())
@@ -110,6 +117,56 @@ class Model:
         if self._paged_decode is None:
             raise NotImplementedError(f"family {self.cfg.family!r} has no paged decode path")
         return transformer.paged_pool_specs(self.cfg, num_pages, page_size, ctx)
+
+    # -- dry-run input specs --------------------------------------------------
+    def batch_specs(self, shape: ShapeSpec) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Training/prefill inputs of the global batch as meta tensors, and
+        their logical axes (the reference's `batch_specs`)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def meta(shp, dt=torch.int32):
+            return torch.empty(shp, dtype=dt, device="meta")
+
+        if cfg.family == "audio":
+            dec = s // cfg.dec_ratio
+            specs = {"frames": meta((b, s, cfg.d_model), cfg.adtype),
+                     "tokens": meta((b, dec)), "labels": meta((b, dec))}
+            axes = {"frames": ("batch", "frames", "embed"), "tokens": ("batch", "seq"),
+                    "labels": ("batch", "seq")}
+        elif cfg.family == "vlm":
+            specs = {"patches": meta((b, cfg.num_stub_patches, cfg.d_model), cfg.adtype),
+                     "tokens": meta((b, s)), "labels": meta((b, s))}
+            axes = {"patches": ("batch", "patches", "embed"), "tokens": ("batch", "seq"),
+                    "labels": ("batch", "seq")}
+        else:
+            specs = {"tokens": meta((b, s)), "labels": meta((b, s))}
+            axes = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+        return specs, axes
+
+    def decode_input_specs(self, shape: ShapeSpec):
+        """The serve step's inputs as meta tensors: (tokens (B, 1), the
+        global decode state, pos (), the state's logical axes), the
+        reference's `decode_input_specs`."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        tokens = torch.empty((b, 1), dtype=torch.int32, device="meta")
+        pos = torch.empty((), dtype=torch.int32, device="meta")
+        state = {k: torch.empty(shp, dtype=dt, device="meta")
+                 for k, (shp, dt) in self.decode_state_specs(b, s).items()}
+        kv = ("layers", "kv_batch", "kv_seq", "kv_heads", "head_dim")
+        if cfg.family == "audio":
+            axes = {"enc_out": ("kv_batch", "kv_seq", "embed"), "k": kv, "v": kv}
+        elif cfg.family == "ssm":
+            axes = {"wkv": ("layers", "batch", "heads", None, None),
+                    "tm_shift": ("layers", "batch", "embed"),
+                    "cm_shift": ("layers", "batch", "embed")}
+        elif cfg.family == "hybrid":
+            axes = {"h": ("layers", "batch", "heads", None, "state"),
+                    "conv": ("layers", "batch", None, "mlp"), "kv_k": kv, "kv_v": kv}
+        else:
+            axes = {"k": kv, "v": kv}
+        return tokens, state, pos, axes
 
 
 def _lm_forward(params, batch, cfg, ctx):

@@ -62,7 +62,7 @@ from repro_torch.models.layers import (
     rmsnorm,
 )
 from repro_torch.models.transformer import (
-    _layer,
+    _layers,
     _no_model_training,
     embed_tokens,
     stack_specs,
@@ -319,8 +319,7 @@ def _run(params, tokens, cfg, ctx, state):
     t = tokens.shape[1]
     x = embed_tokens(params, tokens, cfg, ctx)
     new = {"wkv": [], "tm_shift": [], "cm_shift": []}
-    for i in range(cfg.num_layers):
-        lp = _layer(params["blocks"], i)
+    for i, lp in enumerate(_layers(params["blocks"], cfg.num_layers)):
         xin = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         y, wkv, tm_last = _time_mix(lp, xin, cfg, ctx, state["wkv"][i], state["tm_shift"][i])
         x = x + y

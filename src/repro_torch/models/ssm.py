@@ -58,7 +58,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import swiglu, swiglu_specs
 from repro_torch.models.transformer import (
-    _layer,
+    _layers,
     _no_model_training,
     embed_tokens,
     stack_specs,
@@ -363,16 +363,16 @@ def _run(params, tokens, cfg, ctx, state, *, mode: str, pos=None, chunked=True):
     new_h, new_conv, new_k, new_v = [], [], [], []
 
     def mamba_stack(x, stacked, n, lo):
-        for i in range(n):
+        for i, lp in enumerate(_layers(stacked, n)):
             st = {"h": state["h"][lo + i], "conv": state["conv"][lo + i]}
-            y, st_new = _mamba_block(_layer(stacked, i), x, cfg, ctx, st, chunked=chunked)
+            y, st_new = _mamba_block(lp, x, cfg, ctx, st, chunked=chunked)
             x = ctx.c(x + y, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
             new_h.append(st_new["h"])
             new_conv.append(st_new["conv"])
         return x
 
-    for seg in range(n_seg):
-        x = mamba_stack(x, _layer(params["mamba_seg"], seg), period, seg * period)
+    for seg, stacked in enumerate(_layers(params["mamba_seg"], n_seg)):
+        x = mamba_stack(x, stacked, period, seg * period)
         if mode == "forward":
             x, _ = _shared_block(params["shared"], x, cfg, ctx)
             continue

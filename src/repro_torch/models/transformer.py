@@ -111,11 +111,16 @@ def lm_specs(cfg) -> Dict[str, Any]:
     return specs
 
 
-def _layer(tree: Any, i: int) -> Any:
-    """Layer i of a stacked (L, ...) parameter tree."""
+def _layers(tree: Any, n: int) -> list:
+    """The n layers of a stacked (n, ...) parameter tree, each leaf split
+    once (`torch.unbind`): its backward stacks the layers' gradients in
+    one op, where indexing each layer apart (`tree[i]`) adds a zero-filled
+    (n, ...) gradient per layer, n^2 leaf sizes of traffic in all (the
+    same values: the other terms are exact zeros)."""
     if isinstance(tree, torch.Tensor):
-        return tree[i]
-    return {k: _layer(v, i) for k, v in tree.items()}
+        return list(torch.unbind(tree))
+    per = {k: _layers(v, n) for k, v in tree.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
@@ -190,7 +195,7 @@ def _no_model_training(ctx: ShardCtx) -> None:
     `TRAIN_RULES`, which only its dry runs read)."""
     if ctx.axes_of("seq_sp") is not None:
         raise NotImplementedError("the 'seq_sp' rule (sequence-parallel training,"
-                                  " TRAIN_RULES) is not ported (ROADMAP 14)")
+                                  " TRAIN_RULES) is not ported (ROADMAP 14(b))")
 
 
 # The ops whose outputs `dots` saves: 2-D products with no batch dim (the
@@ -249,8 +254,8 @@ def lm_forward(params, tokens: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
 
     body = _remat(body, cfg.remat_policy)
     aux_stack = []
-    for i in range(cfg.num_layers):
-        x, aux_vec = body(x, _layer(params["blocks"], i))
+    for lp in _layers(params["blocks"], cfg.num_layers):
+        x, aux_vec = body(x, lp)
         aux_stack.append(aux_vec)
     x = _maybe_scramble(x, cfg, inverse=True)
     logits = unembed(params, x, cfg, ctx)
@@ -264,8 +269,8 @@ def lm_prefill(params, tokens: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
     t = tokens.shape[1]
     x = embed_tokens(params, tokens, cfg, ctx)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, cache, _ = block_apply(_layer(params["blocks"], i), x, cfg, ctx, write_cache=True)
+    for lp in _layers(params["blocks"], cfg.num_layers):
+        x, cache, _ = block_apply(lp, x, cfg, ctx, write_cache=True)
         x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
         ks.append(cache["k"])
         vs.append(cache["v"])
@@ -284,11 +289,9 @@ def lm_decode(
     """One decode step against per-layer KV caches; returns (logits, caches)."""
     x = embed_tokens(params, tokens, cfg, ctx)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
+    for i, lp in enumerate(_layers(params["blocks"], cfg.num_layers)):
         layer_cache = {"k": caches["k"][i], "v": caches["v"][i]}
-        x, new_cache, _ = block_apply(
-            _layer(params["blocks"], i), x, cfg, ctx, cache=layer_cache, cache_pos=int(pos)
-        )
+        x, new_cache, _ = block_apply(lp, x, cfg, ctx, cache=layer_cache, cache_pos=int(pos))
         ks.append(new_cache["k"])
         vs.append(new_cache["v"])
     logits = unembed(params, x, cfg, ctx)
@@ -340,9 +343,9 @@ def lm_decode_paged(
     `pools` in place (see `attention_paged_decode`).  Returns
     (logits (S, 1, V), pools)."""
     x = embed_tokens(params, tokens, cfg, ctx)
-    for i in range(cfg.num_layers):
+    for i, lp in enumerate(_layers(params["blocks"], cfg.num_layers)):
         x, _ = block_apply_paged(
-            _layer(params["blocks"], i),
+            lp,
             x,
             cfg,
             ctx,

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.models.layers import NO_SHARD, PSpec, ShardCtx, gemm
 from repro_torch.models.transformer import (
-    _layer,
+    _layers,
     _no_model_training,
     block_apply,
     embed_tokens,
@@ -51,8 +51,8 @@ def vlm_forward(params, batch: Dict[str, torch.Tensor], cfg, ctx: ShardCtx = NO_
     Causal over the concatenated stream."""
     _no_model_training(ctx)
     x = _embed_multimodal(params, batch, cfg, ctx)
-    for i in range(cfg.num_layers):
-        x, _, _ = block_apply(_layer(params["blocks"], i), x, cfg, ctx)
+    for lp in _layers(params["blocks"], cfg.num_layers):
+        x, _, _ = block_apply(lp, x, cfg, ctx)
         x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, *x.shape[1:]))
     n_patches = batch["patches"].shape[1]
     return unembed(params, x[:, n_patches:], cfg, ctx), {}
@@ -63,8 +63,8 @@ def vlm_prefill(params, batch, cfg, ctx: ShardCtx = NO_SHARD):
     _no_model_training(ctx)
     x = _embed_multimodal(params, batch, cfg, ctx)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, cache, _ = block_apply(_layer(params["blocks"], i), x, cfg, ctx, write_cache=True)
+    for lp in _layers(params["blocks"], cfg.num_layers):
+        x, cache, _ = block_apply(lp, x, cfg, ctx, write_cache=True)
         x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, *x.shape[1:]))
         ks.append(cache["k"])
         vs.append(cache["v"])

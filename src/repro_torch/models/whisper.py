@@ -41,7 +41,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import swiglu, swiglu_specs
 from repro_torch.models.transformer import (
-    _layer,
+    _layers,
     _no_model_training,
     embed_tokens,
     stack_specs,
@@ -95,8 +95,7 @@ def _encode(params, frames, cfg, ctx: ShardCtx = NO_SHARD):
     t, d = frames.shape[1], cfg.d_model
     x = gemm(frames.to(cfg.adtype), params["frame_proj"].to(cfg.adtype), cfg)
     x = ctx.c(x, ("batch", "frames", "embed"), (None, t, d))
-    for i in range(cfg.enc_layers):
-        lp = _layer(params["enc_blocks"], i)
+    for lp in _layers(params["enc_blocks"], cfg.enc_layers):
         h, _ = attention(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg, ctx,
                          causal=False)
         x = x + h
@@ -121,8 +120,7 @@ def _decode_stack(params, tokens, enc_out, cfg, ctx: ShardCtx = NO_SHARD, *, cac
     t = tokens.shape[1]
     x = embed_tokens(params, tokens, cfg, ctx)
     ks, vs = [], []
-    for i in range(cfg.dec_layers):
-        lp = _layer(params["dec_blocks"], i)
+    for i, lp in enumerate(_layers(params["dec_blocks"], cfg.dec_layers)):
         kvc = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
         h, new_kv = attention(
             lp["attn"],

@@ -67,12 +67,17 @@ returns the gradient in the input's dtype.  `all_reduce` with another op
 issues the same collectives in the same order, the backward's included:
 the graph is the same on every rank, and a recomputed region (remat)
 repeats its forward all-reduces on every rank alike.  `traffic` counts
-the collectives this process issued and their bytes.
+the collectives this process issued and their bytes; `record_collectives`
+lists each one as (kind, payload bytes, group size), the ring hops of
+`_Hop` too, for the dry runs' link-byte accounting (`launch/hlo_stats.py`):
+an all-gather's payload is its gathered result, and `reduce_scatter` is
+recorded as the all-reduce it issues.
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -107,6 +112,32 @@ def _staged(x: torch.Tensor) -> bool:
     return x.is_cuda and dist.get_backend() == "gloo"
 
 
+# Open `record_collectives` logs; each collective appends its record to all.
+_RECORDERS: List[list] = []
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[list]:
+    """Yields a list that receives (kind, payload bytes, group size) for
+    every collective this process issues inside the block: "all-reduce"
+    (payload: the reduced tensor), "all-gather" (payload: the gathered
+    result) and "collective-permute" (a ring hop; payload: the sent
+    tensor), the names of XLA's HLO ops."""
+    log: list = []
+    _RECORDERS.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDERS.remove(log)
+
+
+def note_collective(kind: str, nbytes: int, n: int) -> None:
+    """Adds one collective's record to every open `record_collectives` log
+    (for a collective issued outside this module: `moe`'s counts)."""
+    for log in _RECORDERS:
+        log.append((kind, int(nbytes), int(n)))
+
+
 class _Hop:
     """One ppermute in flight over a ring: this process sends `x` to the
     rank `perm` maps its index to and receives from the rank that maps to
@@ -121,6 +152,7 @@ class _Hop:
             self._out = x
             return
         send = x.detach().contiguous()
+        note_collective("collective-permute", send.numel() * send.element_size(), len(ranks))
         if _staged(send):
             send = send.cpu()
         self._buf = torch.empty_like(send)
@@ -355,6 +387,7 @@ def _count(kind: str, x: torch.Tensor) -> None:
 def _reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     buf = x.detach().cpu() if _staged(x) else x.detach().clone()
     _count("all_reduce", buf)
+    note_collective("all-reduce", buf.numel() * buf.element_size(), dist.get_world_size(group))
     dist.all_reduce(buf, op=op, group=group)
     return buf.to(x.device)
 
@@ -363,7 +396,9 @@ def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     src = x.detach().contiguous()
     buf = src.cpu() if _staged(src) else src
     _count("all_gather", buf)
-    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    n = dist.get_world_size(group)
+    note_collective("all-gather", n * buf.numel() * buf.element_size(), n)
+    parts = [torch.empty_like(buf) for _ in range(n)]
     dist.all_gather(parts, buf, group=group)
     return torch.cat(parts, dim=dim).to(x.device)
 
@@ -458,9 +493,29 @@ def axis_group(mesh, axes) -> Tuple[Optional[dist.ProcessGroup], int, int]:
     idx, size = _flat_index(lay.shape, lay.coord, names)
     if size == 1:
         return None, 1, 0
-    if len(names) > 1:
-        raise ValueError(f"a group over several mesh axes of size > 1 ({names}) is not supported")
+    if len(names) > 1:  # ('pod', 'data'): one group over the axes, in mesh order
+        return _flat_group(mesh, names), size, idx
     return mesh.get_group(names[0]), size, idx
+
+
+def _flat_group(mesh, names) -> dist.ProcessGroup:
+    """The process group of the DeviceMesh axes `names` (in mesh order)
+    flattened into one, its ranks in `_flat_index` order; made once per
+    mesh and axes (`DeviceMesh._flatten`)."""
+    key = (id(mesh), names)
+    seen = _FLAT_GROUPS.get(key)
+    if seen is None or seen[0]() is not mesh:
+        order = [n for n in mesh.mesh_dim_names if n in names]
+        if tuple(order) != tuple(names):
+            raise ValueError(f"mesh axes {names} are not in the mesh's order {order}")
+        group = mesh[names]._flatten("_".join(names)).get_group()
+        ref = weakref.ref(mesh, lambda _, k=key: _FLAT_GROUPS.pop(k, None))
+        seen = _FLAT_GROUPS[key] = (ref, group)
+    return seen[1]
+
+
+# (id(DeviceMesh), axes) -> (weakref to the mesh, its flattened group).
+_FLAT_GROUPS: dict = {}
 
 
 def mesh_groups(mesh) -> list:
@@ -477,13 +532,15 @@ def raise_together(error: Optional[BaseException], group, device) -> None:
     a sequence in turn, which reaches every rank of a mesh whose axes they
     are): if any rank passes an error, every rank raises (its own error,
     or one naming the others), so no rank goes on into a collective that
-    the failed rank never joins."""
+    the failed rank never joins.  On meta tensors (the dry runs' trace of
+    one rank's step) the flag's all-reduces are issued and the host read
+    is left out: a meta flag holds no value."""
     groups = [g for g in (group if isinstance(group, (list, tuple)) else (group,))
               if g is not None]
     flag = torch.tensor(0 if error is None else 1, dtype=torch.int32, device=device)
     for g in groups:
         flag = _reduce(flag, dist.ReduceOp.MAX, g)
-    if groups and int(flag):
+    if groups and flag.device.type != "meta" and int(flag):
         raise error or RuntimeError("another rank failed this step")
     if error is not None:
         raise error

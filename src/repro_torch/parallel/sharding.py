@@ -143,7 +143,7 @@ DEFAULT_RULES = ShardingRules.make()
 PARAM_RULES = DEFAULT_RULES.replace(embed=("pod", "data"))
 
 # Megatron sequence parallelism for training: remat-saved layer-boundary
-# carriers stored seq-sharded over 'model' (the models refuse it: ROADMAP 14).
+# carriers stored seq-sharded over 'model' (the models refuse it: ROADMAP 14(b)).
 TRAIN_RULES = DEFAULT_RULES.replace(seq_sp="model")
 
 # Sequence-parallel decode: long-context KV caches and recurrent streams

@@ -60,6 +60,7 @@ from repro_torch.parallel.sharding import logical_to_physical
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
+    "abstract_train_state",
     "init_dp_train_state_compressed",
     "init_train_state",
     "make_dp_train_step_compressed",
@@ -75,6 +76,22 @@ def init_train_state(model: Model, generator: torch.Generator, device=None) -> D
     params = model.init(generator, resolve_device(device))
     step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
     return {"params": params, "opt": adamw_init(params), "step": step}
+
+
+def abstract_train_state(model: Model) -> Dict[str, Any]:
+    """The train state as meta tensors (the dry runs' abstract state): the
+    parameters, f32 AdamW moments, and the int32 count and step."""
+    params = model.abstract_params()
+
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    def i32():
+        return torch.empty((), dtype=torch.int32, device="meta")
+
+    return {"params": params,
+            "opt": {"m": tree_map(f32, params), "v": tree_map(f32, params), "count": i32()},
+            "step": i32()}
 
 
 def _grads_of(model: Model, params, batch, ctx: ShardCtx = NO_SHARD, seed=None):

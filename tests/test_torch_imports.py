@@ -54,7 +54,8 @@ print("WALKED", " ".join(names))
                  "models.vlm", "models.whisper", "configs.rwkv6_1b6", "configs.zamba2_1b2",
                  "configs.pixtral_12b", "configs.whisper_medium", "parallel",
                  "parallel.collectives", "parallel.systolic", "parallel.sharding",
-                 "launch.mesh", "parallel.compression", "parallel.pipeline", "optim.zero"):
+                 "launch.mesh", "parallel.compression", "parallel.pipeline", "optim.zero",
+                 "launch.dryrun", "launch.hlo_stats"):
         assert "repro_torch." + name in walked, name
 
 

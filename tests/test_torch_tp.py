@@ -24,7 +24,9 @@ steps, `generate`'s tokens); OLMoE at 16 experts (expert parallelism) and
 Qwen1.5-MoE (the hidden-dim branch, shared experts) on 1x4 (prefill
 logits, aux losses, every routing decision equal across the ranks);
 Qwen2-7B with attn_chunk 8 and the 'seq_attn' rule on 'model' on 1x4 (the
-context-parallel chunked prefill: K6's plain version at a query offset);
+context-parallel chunked prefill: K6's plain version at a query offset),
+and on 1x2 at 3 query heads over 1 kv head, which replicate (prefill
+logits and caches, also against the port's single-process prefill);
 Pixtral on 1x2.  The port's ranks also run: RWKV-6, Zamba2 and Whisper's
 prefill step on 1x2 and 2x1 (test_torch_tp_families.py holds them against
 the reference); the continuous-batching server on 1x2 and 2x1 against the
@@ -79,9 +81,15 @@ CASES = {
     "qwen2-moe-1x4": Case("qwen2-moe-a2.7b", (1, 4), seed=2, aux=True),
     "qwen2-seq-attn-1x4": Case("qwen2-7b", (1, 4), seed=3, replace=(("attn_chunk", 8),),
                                seq_attn=True, tokens=32),
+    # 3 query heads over 1 kv head do not divide 'model': the heads replicate
+    # and 'seq_attn' alone takes the axis (context parallelism all the same).
+    "qwen2-seq-attn-3h-1x2": Case("qwen2-7b", (1, 2), seed=5,
+                                  replace=(("attn_chunk", 8), ("num_heads", 3),
+                                           ("num_kv_heads", 1)), seq_attn=True, tokens=32),
     "pixtral-1x2": Case("pixtral-12b", (1, 2), seed=4),
 }
 DECODE_CASES = [k for k, c in CASES.items() if c.decode]
+SEQ_ATTN_CASES = [k for k, c in CASES.items() if c.seq_attn]
 AUX_CASES = [k for k, c in CASES.items() if c.aux]
 UNTP = ("rwkv6-1.6b", "zamba2-1.2b", "whisper-medium")
 
@@ -172,10 +180,11 @@ def _reference_main(out_dir):
         if case.aux:
             _, aux = jax.jit(lambda p, b, c=ctx, m=model: m.forward(p, b, c))(params, jb)
             outs[f"{name}/aux"] = np.asarray([aux["lb_loss"], aux["router_z"]])
+        if case.decode or case.seq_attn:
+            outs[f"{name}/cache_k"], outs[f"{name}/cache_v"] = (np.asarray(caches["k"]),
+                                                                 np.asarray(caches["v"]))
         if not case.decode:
             continue
-        outs[f"{name}/cache_k"], outs[f"{name}/cache_v"] = (np.asarray(caches["k"]),
-                                                             np.asarray(caches["v"]))
         step = jax.jit(lambda p, t, s, pos, c=ctx, m=model: m.decode(p, t, s, pos, c))
         state = jax.tree.map(lambda c: jnp.pad(c, [(0, 0), (0, 0), (0, STEPS)] + [(0, 0)] * 2),
                              caches)
@@ -262,9 +271,17 @@ def _rank_main(rank, world, init_file, out_dir):
                                                   aux["router_z"].item()])
                 found[f"{name}/routes"] = [r.tolist() for r in routes]
                 found[f"{name}/layers"] = layers
-            if case.decode:
+            if case.decode or case.seq_attn:
                 outs[f"{name}/cache_k"] = whole_cache(caches["k"])
                 outs[f"{name}/cache_v"] = whole_cache(caches["v"])
+            if case.seq_attn:  # the single-process prefill of the same parameters
+                single, single_caches = model.prefill(full, tb)
+                outs[f"{name}/single_prefill"] = single.numpy()
+                outs[f"{name}/single_cache_k"] = single_caches["k"].numpy()
+                outs[f"{name}/single_cache_v"] = single_caches["v"].numpy()
+                found[f"{name}/heads"] = [head_layout(cfg, c).q.count,
+                                          list(c.part("seq_attn", case.tokens))[:3]]
+            if case.decode:
                 state = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, STEPS))
                          for k, v in caches.items()}
                 mine = c.part("batch", ROWS)
@@ -439,6 +456,25 @@ def test_reference_unsharded_agrees_with_its_mesh(runs):
 def test_prefill_caches_match_reference(runs, case):
     for r in _ranks_of(case):
         for name in ("cache_k", "cache_v"):
+            _close(runs.ranks[r][f"{case}/{name}"], runs.ref[f"{case}/{name}"])
+
+
+@pytest.mark.parametrize("case", SEQ_ATTN_CASES)
+def test_context_parallel_prefill_matches_single_process(runs, case):
+    """The context-parallel chunked prefill ('seq_attn' on 'model': each
+    rank its block of the query rows at a query offset, against the
+    gathered keys), where the query heads split over 'model' (1x4) and
+    where they replicate (3 heads on 1x2): the ranks' logits and caches
+    against the port's single-process prefill and the reference's caches
+    (the logits against the reference: the prefill test above)."""
+    tokens = CASES[case].tokens
+    for r in _ranks_of(case):
+        count, rows = runs.found[r][f"{case}/heads"]
+        assert rows[2] == CASES[case].mesh[1] and rows[1] == tokens // rows[2], rows
+        assert count == (1 if case.endswith("3h-1x2") else CASES[case].mesh[1])
+        _close(runs.ranks[r][f"{case}/prefill"], runs.ranks[r][f"{case}/single_prefill"])
+        for name in ("cache_k", "cache_v"):
+            _close(runs.ranks[r][f"{case}/{name}"], runs.ranks[r][f"{case}/single_{name}"])
             _close(runs.ranks[r][f"{case}/{name}"], runs.ref[f"{case}/{name}"])
 
 
