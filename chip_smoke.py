@@ -30,7 +30,10 @@ Phases; any failure raises and the script exits non-zero:
               (tensor cores) and f32 (SIMT), causal with Tq != Tk and at
               a query offset, held by output-relative measures, and K6
               under `_FlashAttention`
-              yielding gradients; K4 is also timed at Qwen2-7B's decode (GQA
+              yielding gradients; R1 (`[rmsnorm]`, the port's own rmsnorm
+              kernel, one CTA a row) at every d of the configs, bf16 within
+              one output ulp and f32 within 1e-6 relative, each row of a
+              call at 1-4096 rows bitwise equal to the row alone; K4 is also timed at Qwen2-7B's decode (GQA
               rep 7, 2-4k-token contexts), and K1's decode shapes, K4 and K6
               are timed by the profiler's device time beside CUDA events,
               which the host sets for short calls;
@@ -83,10 +86,11 @@ Phases; any failure raises and the script exits non-zero:
               kernel path, 2 x 2048 tokens (capacity 640 rows per expert,
               pairs dropped): the kernel step against the `torch` step,
               `dots` against `none` (loss bitwise), 4 steps through
-              `train_loop` with an `AsyncCheckpointer` every 2 steps (submit
-              without a host sync, the step-2 checkpoint bitwise equal to a
-              synchronous copy, a resume of steps 3-4), and one step per
-              remat policy with its peak memory and K1/K5 launches;
+              `train_loop` at 1 of the 2 layers with the step-2 checkpoint
+              written by an `AsyncCheckpointer` (submit without a host
+              sync, bitwise equal to a synchronous copy, a resume of steps
+              3-4), and one step per remat policy with its peak memory and
+              K1/K5 launches;
   10. configs  Granite-3 8B, Phi-3-medium 14B and Mistral-Large 123B through
               `tuned()` at full width and 2 layers: a 2048-token prompt
               through K6, 8 decode steps through the server on K4 (GQA rep
@@ -191,16 +195,30 @@ Phases; any failure raises and the script exits non-zero:
               and 8 of 16 heads a rank; its device steps teacher-forced);
               K1, K4 and K6 launches per rank against the code's counts,
               every K1 call held on its blocks and every K4 and K6 call
-              against its plain version;
+              against its plain version; each 2x1 data rank's decode
+              products planned on the single process's 4-slot blocks (the
+              bitwise check needs K1 on equal blocks; R1 makes rmsnorm
+              batch-invariant);
   12e. dryrun  the dry runs (`launch/dryrun.py`) as rank 0 of pod16x16
               under a "fake" 256-rank process group: four cells traced on
               the CPU in a subprocess (statuses, finite and positive FLOPs,
               bytes and link bytes, each cell's roofline line), and
               Granite-3 8B at 2 layers through `tuned()`'s fields: its real
-              train_4k and decode_32k steps on the card, the peak memory
-              against the dry run's argument + temp bytes, K6's launches
-              against the code's count, the step's ms beside the roofline's
-              bound (a reading);
+              train_4k and decode_32k steps on the card (decode on a
+              sequence-sharded cache: its 8 kv heads do not divide 'model'),
+              and its tuned train_4k step ('seq_sp' and FSDP), the peak
+              memory against the dry run's argument + temp bytes, K6's
+              launches against the code's count, the step's ms beside the
+              roofline's bound (a reading);
+  12f. train_sp  on 4 ranks sharing the card (gloo): full-width mesh-paper
+              through `build_trainer` under 'seq_sp' (TRAIN_RULES) on 1x2
+              and with FSDP parameters (PARAM_RULES) on 2x2, one step's
+              gradients gathered against the single-process kernel step's,
+              K1 75 and K3 4 a step on each rank, the FSDP rank's state
+              against the same mesh's without FSDP; Granite-3 8B at 2
+              layers decoding on 1x2 on a sequence-sharded cache, its
+              logits against the single process's dense decode (bf16, and
+              an f32 witness); every K1 and K6 call held;
   13. obs      observability and the cost model at mesh-paper's full width:
               (a) the blocks the autotuner picked on the card for every
               main-path product, each timed candidate's device ms, every
@@ -355,6 +373,12 @@ MOE_TRAIN_LAYERS = 2
 # checkpoint until the run needed the time for [dryrun]: each 9.73 GiB
 # write took about 40 s on a slow machine).
 MOE_TRAIN_STEPS, MOE_HELD_CKPT = 4, 2
+# The steps through train_loop and its checkpoint run at MOE_CKPT_LAYERS of
+# those layers (full width), and only the held step-MOE_HELD_CKPT
+# checkpoint is written (the loop's final one is not): one write of 5.7
+# GiB, not two of 9.73 (which took about 90 s of the phase's 107 s on a
+# slow machine), to pay for [train_sp] and [rmsnorm] in the run's time.
+MOE_CKPT_LAYERS = 1
 # Its capacity: 1.25 x 4096 tokens x 8 choices / 64 experts, rows per expert.
 MOE_TRAIN_CAP = 640
 # (token, choice) pairs of one step that the `torch` backend routes to
@@ -387,8 +411,8 @@ CONFIGS_TIED_TOL = 0.0625
 # the long_500k skip of a full-attention arch.  (b), (c) Granite-3 8B
 # through `tuned()`'s config fields (attn_chunk 1024: K6; vocab padded to a
 # multiple of 256) at DRYRUN_DEPTH of its 40 layers and full width, under
-# the untuned rules (the tuned ones carry 'seq_sp', ROADMAP 14(b)): rank
-# 0's real train_4k step and decode_32k step on the card, from seed 0,
+# the untuned rules: rank 0's real train_4k step and decode_32k step on the
+# card, from seed 0,
 # their peak memory above the baseline against the dry run's argument +
 # temp bytes at the same depth (DRYRUN_MEM_TOL, relative), K6's launches
 # against the code's count (a layer's forward and its `dots` recompute).
@@ -396,18 +420,28 @@ CONFIGS_TIED_TOL = 0.0625
 # launches do.  The first readings (H100 80GB HBM3, 700 W): train 13.400
 # GiB on the card against 13.210 GiB traced, 1.44 % (the card's library
 # workspaces and the allocator's rounding), so 4.5 %, about 3x; decode
-# 6.099 GiB both ways, under 0.005 %, held at 0.5 %.
+# 6.099 GiB both ways, under 0.005 %, held at 0.5 %.  Since the port has a
+# sequence-sharded cache, decode_32k runs the reference's rule for
+# Granite's 8 kv heads (kv_heads None, kv_seq 'model': a rank holds 1/16 of
+# each row's positions), held at the same 0.5 %; (d) the tuned train_4k
+# cell ('seq_sp' on 'model' and FSDP's PARAM_RULES) at the same depth and
+# train_4k's 4.5 %.
 DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
                 ("rwkv6-1.6b", "decode_32k"), ("qwen2-7b", "long_500k"))
 DRYRUN_SKIPPED = {("qwen2-7b", "long_500k")}
 DRYRUN_ARCH, DRYRUN_DEPTH = "granite-3-8b", 2
 DRYRUN_TUNED = {"attn_chunk": 1024, "vocab_pad_multiple": 256}
-DRYRUN_MEM_TOL = {"train_4k": 0.045, "decode_32k": 0.005}
+DRYRUN_MEM_TOL = {"train_4k": 0.045, "decode_32k": 0.005, "train_4k tuned": 0.045}
+DRYRUN_CARD = ("train_4k", "decode_32k", "train_4k tuned")
 DRYRUN_CPU_TIMEOUT_S = 300
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, with the seconds since the script started."""
+    print(f"{msg} [t+{time.monotonic() - _T0:.1f}s]", flush=True)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1133,6 +1167,117 @@ def phase_k3(torch):
         f" CUDA events over 50 back-to-back calls, host included: {events:.4f} ms;"
         f" {len(xs)} inputs cycled (cold L2)")
     return max_err, dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+# [rmsnorm]: R1 (`kernels/rmsnorm.py`, `csrc/rmsnorm.cu`), the port's own
+# kernel: rmsnorm whose order of summation is fixed per row.  Held against
+# rmsnorm_torch at every d the configs use, bf16 within one output ulp
+# elementwise and f32 within 1e-6 relative; read bitwise batch-invariant:
+# each row of a call at RMSNORM_ROWS rows equal to the same row alone, over
+# RMSNORM_DRAWS random draws.  R1's element-by-element load path (d not a
+# multiple of 16 bytes' elements, or rows at an unaligned address) is held
+# the same way at RMSNORM_ODD_D and on rows one element into their storage,
+# which must also equal the aligned rows bitwise (one order of summation).
+# Timed at mesh-paper's training activations and a decode tick against its
+# byte bound and F.rms_norm.
+RMSNORM_WIDTHS = (1024, 1536, 2048, 3584, 4096, 5120, 12288)
+RMSNORM_ODD_D = 1001
+RMSNORM_ROWS = (1, 2, 3, 4, 8, 64, 4096)
+RMSNORM_DRAWS = 4
+RMSNORM_F32_TOL = 1e-6
+# R1's launches in each phase's own process, read by `healthy` (the ranks'
+# launches of multi-rank phases are their own processes', not counted here).
+RMSNORM_BY_PHASE = {}
+
+
+def _bf16_ulp(torch, t):
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def phase_rmsnorm(torch):
+    """R1 against rmsnorm_torch at every (d, dtype), its batch invariance
+    bitwise, then its device time against the byte bound and F.rms_norm."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_cuda, rmsnorm_torch
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    eps, max_err, worst = 1e-5, 0.0, {}
+
+    def held(x, w, label):
+        nonlocal max_err
+        got, want = rmsnorm_cuda(x, w, eps), rmsnorm_torch(x, w, eps)
+        diff = (got.float() - want.float()).abs()
+        if x.dtype == torch.bfloat16:
+            rel = float((diff / _bf16_ulp(torch, want)).max())  # in output ulps
+            ok = rel <= 1.0
+        else:
+            rel = float((diff / want.float().abs().clamp_min(1e-30)).max())
+            ok = rel <= RMSNORM_F32_TOL
+        max_err = max(max_err, float(diff.max()))
+        worst[label] = rel
+        check(ok, f"[rmsnorm] {label}: {rel} against its limit")
+        return got
+
+    for d in RMSNORM_WIDTHS + (RMSNORM_ODD_D,):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(37, d, generator=g, device="cuda")
+                 * torch.rand(37, 1, generator=g, device="cuda") * 4).to(dtype)
+            w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+            got = held(x, w, f"{d} {str(dtype)[6:]}")
+            if d == 2048:
+                # The same rows one element into their storage: not 16-byte aligned.
+                buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+                shifted = buf[1:].view(x.shape)
+                shifted.copy_(x)
+                check(shifted.data_ptr() % 16 != 0, "[rmsnorm] the shifted rows are aligned")
+                check(torch.equal(held(shifted, w, f"{d} {str(dtype)[6:]} unaligned"), got),
+                      f"[rmsnorm] d={d} {dtype}: unaligned rows differ from the aligned rows")
+    log("[rmsnorm] R1 against rmsnorm_torch, 37 rows: worst per (d, dtype) (bf16 in output"
+        f" ulps, limit 1; f32 relative, limit {RMSNORM_F32_TOL}; d {RMSNORM_ODD_D} and the"
+        " unaligned rows on the element-by-element loads, the unaligned rows bitwise the"
+        " aligned): " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    # Batch invariance: every row of a call against the row alone.
+    mism, rows_checked = [], 0
+    for d in (2048, 4096, RMSNORM_ODD_D):
+        for dtype in (torch.bfloat16, torch.float32):
+            w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+            for n in RMSNORM_ROWS:
+                for _ in range(RMSNORM_DRAWS):
+                    x = (torch.randn(n, d, generator=g, device="cuda") * 3).to(dtype)
+                    whole = rmsnorm(x, w, eps)
+                    picks = sorted({0, n // 2, n - 1} | set(
+                        torch.randint(0, n, (5,), generator=g, device="cuda").tolist()))
+                    for r in picks:
+                        rows_checked += 1
+                        if not torch.equal(whole[r], rmsnorm(x[r:r + 1], w, eps)[0]):
+                            mism.append((d, str(dtype)[6:], n, r))
+    log(f"[rmsnorm] batch invariance: {rows_checked} rows of calls at {RMSNORM_ROWS} rows"
+        f" (d 2048, 4096 and {RMSNORM_ODD_D}, bf16 and f32, {RMSNORM_DRAWS} draws"
+        f" each) against the row alone:"
+        f" {len(mism)} differ")
+    check(not mism, f"[rmsnorm] rows that depend on the call's row count: {mism[:8]}")
+    # Time: mesh-paper's training activations (2 x 2048 rows of 2048, bf16),
+    # cycled past the L2, and a decode tick's 4 rows.
+    times = {}
+    for label, rows in (("train", TRAIN_BATCH * TRAIN_SEQ), ("decode", SLOTS)):
+        d = 2048
+        w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(torch.bfloat16)
+        xs = [torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16)]
+        nbytes = xs[0].numel() * 2
+        xs += [xs[0].clone() for _ in range(math.ceil(2 * L2_BYTES / nbytes))]
+        before = rmsnorm_cuda.launches
+        ms = device_ms(torch, [lambda x=x: rmsnorm_cuda(x, w, eps) for x in xs], 50)
+        plain = device_ms(torch, [lambda x=x: rmsnorm_torch(x, w, eps) for x in xs], 20)
+        lib = device_ms(torch, [lambda x=x: F.rms_norm(x, (d,), w, eps) for x in xs], 50)
+        rmsnorm_cuda.launches = before  # timing launches are not a path's
+        bms, by = bound_ms(2 * nbytes + 2 * d, 0, "bfloat16")
+        times[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+        log(f"[rmsnorm] time ({rows}, {d}) bf16 (device time): kernel={ms:.5f} ms"
+            f" plain={plain:.5f} ms F.rms_norm={lib:.5f} ms bound={bms:.5f} ms ({by});"
+            f" {len(xs)} inputs cycled")
+    return max_err, times["train"], times["decode"]
 
 
 def phase_k1_backward(torch):
@@ -2424,7 +2569,8 @@ def phase_serve_moe(torch):
         f"{cfg.num_layers} per step")
     check(worst_diff <= MOE_LOGIT_TOL, f"paged vs dense logits differ by {worst_diff}")
     check(worst_gap <= MOE_LOGIT_TOL, f"server token {worst_gap} below the dense argmax")
-    profile_window(torch, model, params, scfg, prompts[:SLOTS], tag="profile serve_moe")
+    profile_window(torch, model, params, scfg, prompts[:SLOTS], tag="profile serve_moe",
+                   new_tokens=PROFILE_TOKENS)
     return launches
 
 
@@ -2880,7 +3026,8 @@ def phase_serve_qwen2_moe(torch):
           f"paged vs dense logits on the same routing differ by {worst['same']}")
     del server
     _free(torch)
-    profile_window(torch, model, params, scfg, prompts[:SLOTS], tag="profile serve_qwen2_moe")
+    profile_window(torch, model, params, scfg, prompts[:PROFILE_REQUESTS],
+                   tag="profile serve_qwen2_moe", new_tokens=PROFILE_TOKENS)
     k5_step = qmoe_k5_decode_step(torch, params)
 
     # The tight witness: 2 of 24 layers at full width with f32 weights, the
@@ -3088,10 +3235,18 @@ def phase_train_moe(torch):
     # drop the held one: keep_n=1 bounds the disk), the phase waits for the
     # held write and restores it.
     per_step, sync_copy, restored, submits = [], {}, {}, []
+    del state, step_fn, data
+    _free(torch)
+    cfg = dataclasses.replace(cfg, num_layers=MOE_CKPT_LAYERS)
+    step_fn, state, data = build_trainer(cfg, **kw)
+    log(f"[train_moe] the steps and checkpoints below at {MOE_CKPT_LAYERS} of its layers: train"
+        f" state {sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 2**30:.2f}"
+        " GiB a write")
 
     def submit(step, tree, meta=None):
-        if step == MOE_HELD_CKPT:
-            sync_copy.update(tree_map(lambda t: t.detach().to("cpu", copy=True), tree))
+        if step != MOE_HELD_CKPT:  # one write, the held one (MOE_CKPT_LAYERS)
+            return
+        sync_copy.update(tree_map(lambda t: t.detach().to("cpu", copy=True), tree))
         t0 = time.monotonic()
         no_host_sync(torch, lambda: shipped_submit(step, tree, meta))
         submits.append((step, time.monotonic() - t0, writer.waited_s))
@@ -3174,6 +3329,7 @@ def phase_train_moe(torch):
     _free(torch)
 
     # Each policy's step: time, peak memory and launches.
+    cfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
     steps = policy_steps(torch, cfg, "train_moe", ("none", "dots", "full"), batch)
     f_d, f_g = 4 * cfg.num_layers + 1, 2 * cfg.num_layers
     want = {"none": (3 * f_d, 2 * f_g), "dots": (3 * f_d, 3 * f_g),
@@ -3386,6 +3542,14 @@ K1_PATH_GEMMS = {"serve_rwkv": RWKV_GEMMS, "serve_zamba": ZAMBA_GEMMS,
                  "serve_whisper": WHISPER_GEMMS}
 # New tokens in the four phases' profiled windows.
 PROFILE_TOKENS = 8
+# The profiler's processing of an eager window grows with its host events:
+# [serve_moe]'s and [serve_qwen2_moe]'s windows (32 tokens before) took
+# 55 s and about 85 s of their phases, [serve_rwkv]'s 8-token one 36 s; the
+# windows are cut to PROFILE_TOKENS and RWKV_PROFILE_TOKENS tokens a request,
+# and [serve_qwen2_moe]'s and [serve_rwkv]'s to PROFILE_REQUESTS requests
+# (SLOTS before: their 4 eager prefills' events still took 36 and 31 s).
+RWKV_PROFILE_TOKENS = 4
+PROFILE_REQUESTS = 2
 # Limits of the four phases' logit checks, each about 3x its first reading
 # (bf16 unless named f32).  RWKV's chunked WKV against the scan at T = 128:
 # 0.2622 on logits up to 4.59 in bf16 (the two forms round the state
@@ -3396,8 +3560,10 @@ PROFILE_TOKENS = 8
 # forward: 0.0977 and 0.1016.  Whisper's: 0.0635 and 0.0664.  Zamba2's
 # ssd_chunked against ssd_scan in f32 keeps tests/test_ssd.py's limit.
 RWKV_CHUNKED_TOL, RWKV_CHUNKED_F32_TOL = 0.8, 8e-4
-# Tokens of each 4-slot request held against its own teacher-forced decode.
-RWKV_CHECKED_TOKENS = 8
+# Tokens of each 4-slot request held against its own teacher-forced decode
+# (8 until the run needed the time for [train_sp]; every request is still
+# held, req4-7 on reused slots).
+RWKV_CHECKED_TOKENS = 4
 PIXTRAL_K6_CHUNKED_TOL, PIXTRAL_LOGIT_TOL = 1.7, 1.15
 ZAMBA_LOGIT_TOL, ZAMBA_SSD_F32_TOL = 0.3, 2e-4
 WHISPER_LOGIT_TOL = 0.2
@@ -3549,8 +3715,8 @@ def phase_serve_rwkv(torch):
           f"4-slot tokens off their teacher-forced M={SLOTS} argmax: {wrong}")
     # Profiled windows are short: the profiler's processing of an eager
     # model's host events takes seconds per thousand ops.
-    profile_window(torch, model, params, scfg, prompts[:SLOTS], tag="profile serve_rwkv",
-                   new_tokens=PROFILE_TOKENS)
+    profile_window(torch, model, params, scfg, prompts[:PROFILE_REQUESTS],
+                   tag="profile serve_rwkv", new_tokens=RWKV_PROFILE_TOKENS)
 
     # Chunked WKV (tuned) against the scan (untuned) prefill on the same
     # weights, in bf16 and with f32 weights and activations.
@@ -4746,6 +4912,36 @@ def family_train_products(blocks_of):
             keys.add(((k, m), (m, n), "float32", "float32", (bk, bn, bm), True, False, None,
                       False, False))
     return keys
+
+
+def _blocks_at_rows(rank_blocks, parent_blocks, m_rank, m_parent, kn):
+    """The rank's plans at M = m_rank of the products whose (K, N) are in
+    `kn` against this process's plans of the same product (structure, K,
+    N, types, epilogue; the batch dims aside) at M = m_parent, where this
+    process has one: (products on equal blocks, {product: (rank's, ours)}
+    on others).  A data rank's decode step runs the single process's
+    products on fewer rows; its rows agree bitwise only on equal blocks."""
+    def split(key):
+        k = json.loads(key)
+        m, kk, n = (int(x) for x in k[1].split("x"))
+        return m, (kk, n), json.dumps([k[0], kk, n] + k[2:4] + k[5:])
+
+    ours = {}
+    for key, blocks in parent_blocks.items():
+        m, _, product = split(key)
+        if m == m_parent:
+            ours[product] = blocks
+    same, other = 0, {}
+    for key, blocks in rank_blocks.items():
+        m, shape, product = split(key)
+        if m != m_rank or shape not in kn:
+            continue
+        want = ours.get(product)
+        if want == blocks:
+            same += 1
+        elif want is not None:
+            other[key] = (blocks, want)
+    return same, other
 
 
 def _plan_blocks():
@@ -6265,6 +6461,15 @@ def phase_serve_tp_families(torch):
                  if k in parent_blocks and parent_blocks[k] != v}
         if moved:
             failed.append(f"rank {r} planned other blocks than this process: {moved}")
+        if r < 2:  # a data rank of the 2x1 server: SLOTS // 2 rows a decode step
+            same, other = _blocks_at_rows(f["blocks"], parent_blocks, SLOTS // 2, SLOTS,
+                                          set(MESH_PAPER_GEMMS.values()))
+            log(f"[serve_tp_families] rank {r}: {same} products planned at M={SLOTS // 2} on"
+                f" the single process's blocks at M={SLOTS} (the 2x1 server's bitwise check"
+                f" needs K1 on equal blocks), {len(other)} on others")
+            if other or not same:
+                failed.append(f"rank {r} decode products on other blocks than the single"
+                              f" process's 4-slot ones: {other}")
     calls = parent_calls | {_as_key(key) for f in ranks for key in f["k1_calls"]}
     here, before = hold_k1_keys(torch, "serve_tp_families", calls)
     log(f"[serve_tp_families] {len(calls)} distinct K1 calls of the parent and the ranks: {before}"
@@ -6341,9 +6546,21 @@ ZAMBA_TP_HELD_LAYERS = 6
 # the grad norm, differences of large sums, do not (up to 3.5x): so each of
 # Zamba2's two depths holds the measures it reads far from [train]'s
 # limits, the full depth its loss and grad norm, 6 layers its parameters.
+# Zamba2's full-depth grad norm moved with R1 at its 38 gated norms, and
+# only there.  The single process's `ssm._gated_norm` runs R1 (its fixed
+# tree), while the 1x2 ranks' sharded branch sums two f32 partials in
+# torch and all-reduces them: the two sides sum each row in different
+# orders, where before both took torch's reduction.  Readings (NVIDIA H100
+# 80GB HBM3, 700 W, one machine, one call): the parent tree 0.00214 % and
+# 0.00061 %; this tree 0.00715 % (and 0.00843 %, 0.00715 %, 0.00715 % on
+# others); this tree with the single process's gated norm on
+# rmsnorm_torch 0.00229 %; with R1 off everywhere 0.00214 %, bitwise the
+# parent's first reading (the model code's other changes move nothing).
+# So 3x the largest with R1, 2.6e-4, still 4x under [train]'s 0.1 % (its
+# loss and per-parameter readings did not move).
 TRAIN_TP_TOL = {"mesh-paper 1x2": (1e-3, 2e-4, 0.05), "mesh-paper 2x2": (9e-4, 1.6e-4, 0.05),
                 "olmoe 1x2": (4e-4, 6.5e-4, 0.04), "rwkv 1x2": (6.3e-4, 6.2e-4, 0.05),
-                "zamba 1x2": (5.4e-4, 6.4e-5, None), "zamba6 1x2": (None, None, 0.047)}
+                "zamba 1x2": (5.4e-4, 2.6e-4, None), "zamba6 1x2": (None, None, 0.047)}
 # Leaves each family's per-parameter check must name: Mamba2's fused
 # projection and conv (B and C replicated inside them) and RWKV-6's
 # per-channel leaves, sliced from replicated copies by the model code.
@@ -6908,6 +7125,9 @@ def phase_train_tp(torch):
                  if k in parent_blocks and parent_blocks[k] != v}
         if moved:
             failed.append(f"rank {r} planned other blocks than this process: {moved}")
+    two = [f["mesh-paper 2x2"] for f in ranks if "mesh-paper 2x2" in f]
+    TRAIN_TP_2X2.update(state_gib=round(two[0]["state_gib"], 3),
+                        peak_gib=round(max(x["peak_gib"] for x in two), 3))
     rep = ranks[0]["mesh-paper 1x2"]["replicated"]
     log(f"[train_tp] replicated over 'model' (mesh-paper 1x2): "
         f"{sorted(p for p, v in rep.items() if v is True)}; Zamba2's segments: "
@@ -6943,6 +7163,400 @@ def phase_train_tp(torch):
                                        if "olmoe 1x2" in f),
             "flash_attention": sum(f[c]["launches"]["k6"] for f in ranks
                                    for c in ("zamba 1x2", "zamba6 1x2") if c in f)}
+
+
+# [train_sp]: Megatron sequence parallelism ('seq_sp', TRAIN_RULES), FSDP
+# parameter rules (PARAM_RULES) and a sequence-sharded KV cache, on
+# TRAIN_SP_WORLD gloo ranks sharing the card.  Full-width mesh-paper (the
+# sigma scramble firing, `dots`) through `build_trainer(rules=,
+# param_rules=)`: on 1x2 under TRAIN_RULES (ranks 0-1), then on 2x2 under
+# TRAIN_RULES with PARAM_RULES parameters (all ranks); one step's gradients
+# of batch 0 gathered from the ranks' blocks against the single-process
+# kernel step's (loss |d|, grad norm relative, each parameter's
+# ||d||/||g||: TRAIN_SP_TOL, about 3x a first reading, never looser than
+# [train_tp]'s), then one step, K1 75 and K3 4 on each rank.  Meanwhile
+# (ranks 2-3) Granite-3 8B through `tuned()` at KVSEQ_LAYERS of its 40
+# layers and full width decodes on 1x2 under its decode rule (its 8 kv
+# heads do not divide 'model' in production: kv_heads None, kv_seq
+# 'model'): KVSEQ_ROWS prompts of KVSEQ_PROMPT tokens prefilled (K6 on the
+# rank's heads), the caches padded and cut into the ranks' halves of the
+# positions, KVSEQ_STEPS teacher-forced steps against the single process's
+# dense decode (KVSEQ_TOL), and the same in f32 on the `torch` backend (the
+# witness, KVSEQ_F32_TOL).
+TRAIN_SP_WORLD, TRAIN_SP_TIMEOUT_S = 4, 420
+TRAIN_SP_CASES = ("mesh-paper sp 1x2", "mesh-paper fsdp 2x2")
+# First readings (NVIDIA H100 80GB HBM3, 700.00 W): 1x2 loss |d|
+# 1.898e-04, grad norm 2.28e-05, per parameter 0.0170; 2x2 2.470e-04,
+# 3.8e-06, 0.0173.  Limits about 3x (the grad norm
+# 3x the larger of the two, since it moves with the timed blocks), capped
+# at [train_tp]'s.  Granite's decode: bf16 0.0742 (3x would pass
+# [serve_tp]'s 0.15, so 0.15), f32 1.562e-05 (so 5e-5).
+TRAIN_SP_TOL = {"mesh-paper sp 1x2": (6e-4, 7e-5, 0.05),
+                "mesh-paper fsdp 2x2": (7.5e-4, 7e-5, 0.05)}
+KVSEQ_ARCH, KVSEQ_LAYERS, KVSEQ_ROWS, KVSEQ_PROMPT, KVSEQ_STEPS = "granite-3-8b", 2, 2, 2048, 8
+KVSEQ_MAX = KVSEQ_PROMPT + 2 * KVSEQ_STEPS
+KVSEQ_TOL, KVSEQ_F32_TOL = 0.15, 5e-5
+# [train_tp]'s 2x2 rank reading of its state and peak, when it ran in this
+# process, for [train_sp]'s line.
+TRAIN_TP_2X2 = {}
+
+
+def _kvseq_cfg(f32=False):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(KVSEQ_ARCH).tuned(), num_layers=KVSEQ_LAYERS,
+                              use_mesh_kernel=not f32)
+    if f32:
+        cfg = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
+    return cfg
+
+
+def _kvseq_rules():
+    from repro_torch.parallel.sharding import DEFAULT_RULES
+
+    return DEFAULT_RULES.replace(kv_heads=None, kv_seq="model")
+
+
+def _kvseq_tokens():
+    import numpy as np
+
+    cfg = _kvseq_cfg()
+    rng = np.random.default_rng(27)
+    return rng.integers(0, cfg.vocab_size, (KVSEQ_ROWS, KVSEQ_PROMPT + KVSEQ_STEPS)).astype(
+        np.int32)
+
+
+def _kvseq_decode(torch, cfg, params, model, ctx, pre):
+    """Prefill under `pre`, pad the caches to KVSEQ_MAX, keep this
+    process's block of them under `ctx`, then KVSEQ_STEPS teacher-forced
+    decode steps: (steps, rows, vocab) f32 logits on every rank."""
+    from repro_torch.models.layers import padded_vocab
+
+    toks = torch.as_tensor(_kvseq_tokens(), device="cuda")
+    axes = ("layers", "kv_batch", "kv_seq", "kv_heads", "head_dim")
+    with torch.inference_mode():
+        _, st = model.prefill(params, {"tokens": toks[:, :KVSEQ_PROMPT]}, pre)
+        st = {k: ctx.c(torch.nn.functional.pad(v, (0, 0, 0, 0, 0, KVSEQ_MAX - KVSEQ_PROMPT)),
+                       axes, (None, None, KVSEQ_MAX, None, None)) for k, v in st.items()}
+        out = []
+        for i in range(KVSEQ_STEPS):
+            lg, st = model.decode(params, toks[:, KVSEQ_PROMPT + i:KVSEQ_PROMPT + i + 1], st,
+                                  KVSEQ_PROMPT + i, ctx)
+            out.append(ctx.gather(lg, ("batch", "seq", "vocab"),
+                                  (KVSEQ_ROWS, 1, padded_vocab(cfg)))[:, 0].float())
+        shapes = {k: list(v.shape) for k, v in st.items()}
+    return torch.stack(out), shapes
+
+
+def kvseq_products():
+    """Granite's K1 products on a rank of 1x2 under its decode rule, at the
+    prefill's and a decode step's rows: q heads and the f32 row-parallel
+    products halved, k and v whole (the kv heads replicate), the gate|up
+    and vocab slices."""
+    from repro_torch.models.layers import padded_vocab
+
+    import torch
+
+    cfg, f32, out = _kvseq_cfg(), torch.float32, []
+    d, hd, ff = cfg.d_model, cfg.head_dim_, cfg.d_ff // 2
+    prods = [("wq", d, cfg.num_heads // 2 * hd, None), ("wk|wv", d, cfg.num_kv_heads * hd, None),
+             ("wo", cfg.num_heads // 2 * hd, d, f32), ("wi", d, 2 * ff, None),
+             ("mlp wo", ff, d, f32), ("head", d, padded_vocab(cfg) // 2, None)]
+    for m in (KVSEQ_ROWS * KVSEQ_PROMPT, KVSEQ_ROWS):
+        out.extend((f"granite {label} M={m}", m, k, n, dt) for label, k, n, dt in prods)
+    return out
+
+
+def train_sp_rank(rank, world, init, tmp):
+    """One rank of [train_sp] (run by the phase in its own process)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world)
+    rmsnorm_cuda.launches = 0
+    with k1_calls() as calls, k4_k5_calls() as (k4, k5, k6):
+        found = _train_sp_rank(torch, rank, tmp)
+    found["rmsnorm"] = rmsnorm_cuda.launches
+    found["k1_calls"] = sorted(calls, key=str)
+    found["k4_calls"], found["k5_calls"] = sorted(k4, key=str), sorted(k5, key=str)
+    found["k6_calls"] = sorted(k6, key=str)
+    found["blocks"] = _plan_blocks()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(found, f)
+    dist.destroy_process_group()
+
+
+def _train_sp_rank(torch, rank, tmp):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.interop import shard_params
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mesh_matmul import mesh_matmul
+    from repro_torch.kernels.scramble import scramble_blocks_cuda
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.parallel.sharding import PARAM_RULES, TRAIN_RULES
+    from repro_torch.train.train_step import abstract_train_state
+    from repro_torch.tree import tree_leaves
+
+    cfg = _train_tp_cfgs()["mesh-paper 1x2"]
+    host = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))._host_batch(0)
+    names = ("data", "model")
+    meshes = {"2x2": make_local_mesh((2, 2), names),
+              "1x2 a": DeviceMesh("cpu", torch.arange(2).reshape(1, 2), mesh_dim_names=names),
+              "1x2 b": DeviceMesh("cpu", torch.arange(2, 4).reshape(1, 2),
+                                  mesh_dim_names=names)}
+    found = {}
+
+    def launches():
+        return dict(k1=mesh_matmul.launches, k3=scramble_blocks_cuda.launches,
+                    k6=flash_attention.launches)
+
+    def gib(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)) / 2**30
+
+    def sp(case, mesh, prules):
+        step, state, data = build_trainer(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, mesh=mesh,
+                                          lr=TRAIN_LR, total_steps=2, seed=0, device="cuda",
+                                          rules=TRAIN_RULES, param_rules=prules)
+        coord = dict(zip(names, mesh.get_coordinate()))
+        model = get_model(cfg)
+        tp_only = shard_params(abstract_train_state(model), model, ShardCtx(mesh, TRAIN_RULES))
+        res = {"coord": coord, "state_gib": gib(state), "tp_state_gib": gib(tp_only)}
+        mesh_matmul.launches = scramble_blocks_cuda.launches = 0
+        res["grads"] = _tp_grads(torch, case, step, state["params"], host, tmp, step.blocks,
+                                 compare=coord == {"data": 0, "model": 0})
+        res["grads"]["launches"] = launches()
+        batch = next(data)
+        before = launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        res["step"] = dict(wall_s=time.monotonic() - t0, loss=float(met["loss"]),
+                           launches={k: v - before[k] for k, v in launches().items()},
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del state, step, data
+        _free(torch)
+        return res
+
+    def kvseq(mesh):
+        res = {}
+        rules = _kvseq_rules()
+        for tag, f32 in (("bf16", False), ("f32", True)):
+            c = _kvseq_cfg(f32)
+            model = get_model(c)
+            full = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+            ctx = ShardCtx(mesh, rules)
+            params = shard_params(full, model, ctx)
+            del full
+            _free(torch)
+            flash_attention.launches = mesh_matmul.launches = 0
+            t0 = time.monotonic()
+            logits, shapes = _kvseq_decode(torch, c, params, model, ctx,
+                                           ShardCtx(mesh, rules.replace(kv_seq=None)))
+            want = torch.load(os.path.join(tmp, f"kvseq_{tag}.pt")).cuda()
+            vocab = c.vocab_size
+            res[tag] = dict(err=(logits[..., :vocab] - want[..., :vocab]).abs().max().item(),
+                            scale=want[..., :vocab].abs().max().item(), shapes=shapes,
+                            argmax_equal=bool(torch.equal(logits[..., :vocab].argmax(-1),
+                                                          want[..., :vocab].argmax(-1))),
+                            wall_s=time.monotonic() - t0, launches=launches())
+            del params, logits, want
+            _free(torch)
+        return res
+
+    t0 = time.monotonic()
+    if rank < 2:
+        found["mesh-paper sp 1x2"] = sp("mesh-paper sp 1x2", meshes["1x2 a"], None)
+    else:
+        found["kvseq 1x2"] = kvseq(meshes["1x2 b"])
+    found["1x2 wall_s"] = time.monotonic() - t0
+    dist.barrier()
+    t0 = time.monotonic()
+    found["mesh-paper fsdp 2x2"] = sp("mesh-paper fsdp 2x2", meshes["2x2"], PARAM_RULES)
+    found["2x2 wall_s"] = time.monotonic() - t0
+    return found
+
+
+def phase_train_sp(torch):
+    """Sequence parallelism, FSDP and the sequence-sharded KV cache on
+    TRAIN_SP_WORLD ranks sharing the card (constants above): the parent
+    computes the single-process references and plans every shard shape,
+    the ranks run, and the parent holds their gradients, logits, launches
+    and every K1 and K6 call they made.  Walls are printed, never as
+    speeds."""
+    import shutil
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import NO_SHARD
+    from repro_torch.optim import global_norm
+    from repro_torch.train.train_step import _grads_of
+    from repro_torch.tree import tree_leaves
+
+    cfg = _train_tp_cfgs()["mesh-paper 1x2"]
+    _free(torch)
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="train_sp")
+    try:
+        with k1_calls() as parent_calls:
+            planned = plan_products(torch, [p for p in train_tp_products(torch)
+                                            if p[0].startswith("mesh-paper")]
+                                    + kvseq_products())
+            model = get_model(cfg)
+            params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+            batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                           global_batch=TRAIN_BATCH, seed=0))._host_batch(0)
+            batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            grads, met = _grads_of(model, params, batch)
+            single_peak = torch.cuda.max_memory_allocated() / 2**30
+            ref = {"loss": float(met["loss"]), "norm": float(global_norm(grads))}
+            torch.save({**ref, "grads": [g.cpu() for g in tree_leaves(grads)]},
+                       os.path.join(tmp, "mesh-paper sp 1x2.pt"))
+            os.link(os.path.join(tmp, "mesh-paper sp 1x2.pt"),
+                    os.path.join(tmp, "mesh-paper fsdp 2x2.pt"))
+            del params, grads, met, batch, model
+            _free(torch)
+            for tag, f32 in (("bf16", False), ("f32", True)):
+                c = _kvseq_cfg(f32)
+                model = get_model(c)
+                params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+                logits, _ = _kvseq_decode(torch, c, params, model, NO_SHARD, NO_SHARD)
+                torch.save(logits.cpu(), os.path.join(tmp, f"kvseq_{tag}.pt"))
+                del params, logits, model
+                _free(torch)
+        log(f"[train_sp] single-process references (mesh-paper's kernel step: loss"
+            f" {ref['loss']:.6f}, grad norm {ref['norm']:.6f}, peak {single_peak:.2f} GiB;"
+            f" {KVSEQ_ARCH}'s dense decode, bf16 and f32) and {len(planned)} shard shapes"
+            f" planned in {time.monotonic() - t_phase:.1f} s")
+        t0 = time.monotonic()
+        runs = _spawn(lambda r: (
+            "import chip_smoke; chip_smoke.train_sp_rank("
+            f"{r}, {TRAIN_SP_WORLD}, {os.path.join(tmp, 'gloo')!r}, {tmp!r})"),
+            TRAIN_SP_WORLD, TRAIN_SP_TIMEOUT_S)
+        wall = time.monotonic() - t0
+        bad = [f"rank {r}: rc={rc} {e[-3000:]}" for r, (rc, _, e) in enumerate(runs) if rc != 0]
+        check(not bad, "[train_sp] rank failures:\n" + "\n".join(bad))
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(TRAIN_SP_WORLD)]
+        parent_blocks = _plan_blocks()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[train_sp] {TRAIN_SP_WORLD} gloo ranks on one card: {wall:.1f} s wall in all, process"
+        " start, CUDA init and every model's init included (not a speed)")
+
+    failed = []
+    for case in TRAIN_SP_CASES:
+        loss_tol, norm_tol, leaf_tol = TRAIN_SP_TOL[case]
+        for r, f in enumerate(ranks):
+            if case not in f:
+                continue
+            res = f[case]
+            g, st = res["grads"], res["step"]
+            tr = g["traffic"]
+            if "leaves" in g:
+                d_loss = abs(g["loss"] - g["want_loss"])
+                d_norm = abs(g["grad_norm"] - g["want_norm"]) / g["want_norm"]
+                worst = sorted(g["leaves"], key=lambda x: x[1])
+                top = ", ".join(f"{p} {rel:.3e}" for p, rel, _, _ in reversed(worst[-4:]))
+                log(f"[train_sp] {case} rank {r}: one step's gradients of batch 0 gathered"
+                    f" against the single-process kernel step's: loss |d| {d_loss:.3e} (tol"
+                    f" {loss_tol}), grad norm {100 * d_norm:.5f} % (tol {100 * norm_tol:g} %),"
+                    f" per-parameter ||d||/||g|| largest: {top} (tol {leaf_tol}) of"
+                    f" {len(g['leaves'])} leaves")
+                if (d_loss > loss_tol or d_norm > norm_tol or worst[-1][1] > leaf_tol
+                        or not math.isfinite(d_loss + d_norm)
+                        or not all(math.isfinite(x[1]) for x in worst)):
+                    failed.append(f"{case} rank {r} gradients: loss {d_loss}, norm {d_norm},"
+                                  f" leaf {worst[-1]}")
+            log(f"[train_sp] {case} rank {r} {res['coord']}: its train state"
+                f" {res['state_gib']:.2f} GiB (the same mesh without FSDP"
+                f" {res['tp_state_gib']:.2f} GiB), peak {g['peak_gib']:.2f} GiB in the"
+                f" gradients and {st['peak_gib']:.2f} GiB in a step ([train_tp]'s 2x2 rank:"
+                f" {TRAIN_TP_2X2 or 'not run here'}; the single process {single_peak:.2f} GiB);"
+                f" all-reduces {tr['all_reduce']} ({tr['all_reduce_bytes'] / 2**20:.1f} MiB),"
+                f" all-gathers {tr['all_gather']} ({tr['all_gather_bytes'] / 2**20:.1f} MiB) in"
+                f" the gradients; launches: gradients {g['launches']}, the step {st['launches']}"
+                f" (loss {st['loss']:.5f}, wall {st['wall_s']:.2f} s, not a speed)")
+            for what, got in (("gradients", g["launches"]), ("step", st["launches"])):
+                if (got["k1"], got["k3"]) != (STEP_LAUNCHES["mesh_matmul"],
+                                              STEP_LAUNCHES["scramble_blocks"]):
+                    failed.append(f"{case} rank {r} {what} launches {got}")
+            if case.startswith("mesh-paper fsdp") and not (
+                    res["state_gib"] < 0.6 * res["tp_state_gib"]):
+                failed.append(f"{case} rank {r}: FSDP state {res['state_gib']} GiB, not about"
+                              f" half of {res['tp_state_gib']}")
+            if not math.isfinite(st["loss"]):
+                failed.append(f"{case} rank {r} loss {st['loss']}")
+        rep = {}
+        for f in ranks:
+            if case in f:
+                rep.setdefault(f[case]["coord"]["data"], []).append(
+                    f[case]["grads"]["replicated_sha"])
+        if not all(all(x == v[0] for x in v) and v[0] for v in rep.values()):
+            failed.append(f"{case}: replicated gradients differ across the 'model' ranks")
+    for r, f in enumerate(ranks):
+        if "kvseq 1x2" not in f:
+            continue
+        for tag, tol in (("bf16", KVSEQ_TOL), ("f32", KVSEQ_F32_TOL)):
+            k = f["kvseq 1x2"][tag]
+            log(f"[train_sp] {KVSEQ_ARCH} at {KVSEQ_LAYERS} layers, {tag}, rank {r} of 1x2"
+                f" (kv_heads None, kv_seq 'model'): {KVSEQ_STEPS} teacher-forced decode steps"
+                f" of {KVSEQ_ROWS} rows against the single process's dense decode: max |d|"
+                f" {k['err']:.4g} (tol {tol}; max |logit| {k['scale']:.3g}), argmax equal"
+                f" {k['argmax_equal']}; cache blocks {k['shapes']}; launches {k['launches']};"
+                f" wall {k['wall_s']:.1f} s (not a speed)")
+            half = KVSEQ_MAX // 2
+            if k["err"] > tol or not math.isfinite(k["err"]) or any(
+                    shp[2] != half for shp in k["shapes"].values()):
+                failed.append(f"rank {r} kvseq {tag}: {k}")
+        if f["kvseq 1x2"]["bf16"]["launches"]["k6"] != KVSEQ_LAYERS:
+            failed.append(f"rank {r} kvseq K6 launches {f['kvseq 1x2']['bf16']['launches']}")
+        moved = {k: (v, parent_blocks.get(k)) for k, v in f["blocks"].items()
+                 if k in parent_blocks and parent_blocks[k] != v}
+        if moved:
+            failed.append(f"rank {r} planned other blocks than this process: {moved}")
+    log(f"[train_sp] R1 launches on the ranks: {[f['rmsnorm'] for f in ranks]}; walls: 1x2"
+        f" {[round(f['1x2 wall_s'], 1) for f in ranks]} s, 2x2"
+        f" {[round(f['2x2 wall_s'], 1) for f in ranks]} s (not speeds)")
+    if not all(f["rmsnorm"] > 0 for f in ranks):
+        failed.append(f"R1 never launched on a rank: {[f['rmsnorm'] for f in ranks]}")
+    calls = parent_calls | {_as_key(key) for f in ranks for key in f["k1_calls"]}
+    here, before = hold_k1_keys(torch, "train_sp", calls)
+    log(f"[train_sp] {len(calls)} distinct K1 calls of the parent and the ranks: {before} held"
+        f" before, {here} held here on the same blocks")
+    k4_held, k5_held, k6_held = hold_k4_k5_calls(
+        torch, "train_sp", set(), set(), {_as_key(x) for f in ranks for x in f["k6_calls"]})
+    log(f"[train_sp] the ranks' distinct K6 calls ({k6_held}: Granite's prefill on 16 of 32"
+        " heads) each held against the plain version at [K6]'s limits")
+    if not k6_held or any(f["k4_calls"] or f["k5_calls"] for f in ranks):
+        failed.append(f"K4/K5/K6 calls recorded: {k4_held} {k5_held} {k6_held}")
+    check(not failed, "[train_sp] failed:\n" + "\n".join(failed))
+    cases = [f[c] for f in ranks for c in TRAIN_SP_CASES if c in f]
+    kv = [f["kvseq 1x2"][t]["launches"] for f in ranks if "kvseq 1x2" in f for t in ("bf16",
+                                                                                    "f32")]
+    return {"mesh_matmul": sum(c["grads"]["launches"]["k1"] + c["step"]["launches"]["k1"]
+                               for c in cases) + sum(x["k1"] for x in kv),
+            "scramble_blocks": sum(c["grads"]["launches"]["k3"] + c["step"]["launches"]["k3"]
+                                   for c in cases),
+            "flash_attention": sum(x["k6"] for x in kv),
+            "rmsnorm": sum(f["rmsnorm"] for f in ranks)}
 
 
 def main_path_products():
@@ -7246,26 +7860,30 @@ print("ARTIFACTS " + json.dumps(arts))
 """
 
 
-def _dryrun_card(torch, shape_name):
-    """Rank 0's real step of DRYRUN_ARCH x `shape_name` at DRYRUN_DEPTH on
-    the card under a fake group of 256 ranks, against the dry run's
-    artifact of the same cell: (artifact, reading)."""
+def _dryrun_card(torch, name):
+    """Rank 0's real step of DRYRUN_ARCH x the cell `name` (a shape, or
+    "train_4k tuned": 'seq_sp' and FSDP) at DRYRUN_DEPTH on the card under
+    a fake group of 256 ranks, against the dry run's artifact of the same
+    cell: (artifact, reading)."""
     import dataclasses
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel.sharding import PARAM_RULES
 
+    shape_name, tuned = name.split()[0], name.endswith("tuned")
     over = dict(DRYRUN_TUNED, num_layers=DRYRUN_DEPTH)
     cfg = dataclasses.replace(get_config(DRYRUN_ARCH), **over)
     shape = SHAPES[shape_name]
     _free(torch)
     with dryrun.fake_group(256):
         art = dryrun.run_cell(DRYRUN_ARCH, shape_name, cfg_overrides=over, probe=False,
-                              verbose=False)
+                              verbose=False, tuned=tuned)
         mesh = make_production_mesh()
-        rules = dryrun._rules_for(cfg, shape, mesh)
+        rules = dryrun._rules_for(cfg, shape, mesh, tuned=tuned)
+        param_rules = PARAM_RULES if tuned else None
         gen = torch.Generator(device="cuda").manual_seed(0)
 
         def make(t):
@@ -7279,7 +7897,7 @@ def _dryrun_card(torch, shape_name):
 
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        step, args = dryrun.build_step(cfg, shape, mesh, rules, make=make)
+        step, args = dryrun.build_step(cfg, shape, mesh, rules, param_rules, make=make)
         torch.cuda.synchronize()
         args_bytes = torch.cuda.memory_allocated() - base
         out = step(*args)  # warm: plans, library handles
@@ -7311,7 +7929,7 @@ def phase_dryrun(torch, smi: str):
     proc = subprocess.Popen([sys.executable, "-c", _DRYRUN_CPU.format(cells=DRYRUN_CELLS)],
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        card = {name: _dryrun_card(torch, name) for name in ("train_4k", "decode_32k")}
+        card = {name: _dryrun_card(torch, name) for name in DRYRUN_CARD}
         out, err = proc.communicate(timeout=DRYRUN_CPU_TIMEOUT_S)
     finally:
         if proc.poll() is None:
@@ -7334,13 +7952,14 @@ def phase_dryrun(torch, smi: str):
             bad.append(f"{arch} x {shape}: counts not finite and positive")
     log(f"[dryrun] (a) {len(arts)} cells of pod16x16 traced on the CPU in {cpu_s:.1f} s (run"
         f" beside the card's steps): statuses {[a['status'] for a in arts]}")
-    k6_want = {"train_4k": 2 * DRYRUN_DEPTH, "decode_32k": 0}
-    for name, (art, r) in card.items():
+    k6_want = {"train_4k": 2 * DRYRUN_DEPTH, "train_4k tuned": 2 * DRYRUN_DEPTH,
+               "decode_32k": 0}
+    for (name, (art, r)), letter in zip(card.items(), "bcd"):
         ma = art["memory_analysis"]
         want = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
         rel = abs(r["peak"] - want) / want
         bound = roofline.analyze_artifact(art)
-        log(f"[dryrun] ({'b' if name == 'train_4k' else 'c'}) {DRYRUN_ARCH} x {name} at"
+        log(f"[dryrun] ({letter}) {DRYRUN_ARCH} x {name} at"
             f" {DRYRUN_DEPTH} layers, rank 0 of pod16x16 on the card ({smi}): peak above the"
             f" baseline {r['peak'] / 2**30:.3f} GiB (its arguments {r['args'] / 2**30:.3f} GiB)"
             f" against the dry run's argument + temp {want / 2**30:.3f} GiB (arguments"
@@ -7353,7 +7972,7 @@ def phase_dryrun(torch, smi: str):
         if r["k6"] != k6_want[name]:
             bad.append(f"{name}: K6 launched {r['k6']} times, want {k6_want[name]}")
     check(not bad, "[dryrun] " + "; ".join(bad))
-    return {"flash_attention": card["train_4k"][1]["k6"]}
+    return {"flash_attention": sum(r["k6"] for _, r in card.values())}
 
 
 def healthy(name, fn):
@@ -7363,12 +7982,16 @@ def healthy(name, fn):
     so no main-path GEMM left its kernel unseen."""
     def run(torch, *args):
         from repro_torch.kernels import api
+        from repro_torch.kernels.rmsnorm import rmsnorm_cuda
         from repro_torch.resilience import ledger
 
         ledger.clear()
+        rmsnorm_cuda.launches = 0
         t0 = time.monotonic()
         out = fn(torch, *args)
-        log(f"[{name}] phase wall {time.monotonic() - t0:.1f} s")
+        RMSNORM_BY_PHASE[name] = rmsnorm_cuda.launches
+        log(f"[{name}] phase wall {time.monotonic() - t0:.1f} s; R1 launches"
+            f" {rmsnorm_cuda.launches}")
         bad = [(e.site, e.fallback) for e in ledger.events()
                if e.site.startswith(("plan.", "guard."))]
         moved = [(d["mkn"], d["backend"], d["health"]["active_backend"])
@@ -7409,7 +8032,8 @@ def main() -> int:
     t_start = time.monotonic()
     phase_build(torch)
     phases = {name: healthy(name, fn) for name, fn in (
-        ("k1", phase_k1), ("k4", phase_k4), ("k3", phase_k3), ("k1_bwd", phase_k1_backward),
+        ("k1", phase_k1), ("k4", phase_k4), ("k3", phase_k3), ("rmsnorm", phase_rmsnorm),
+        ("k1_bwd", phase_k1_backward),
         ("k5", phase_k5), ("k5_bwd", phase_k5_backward), ("k6", phase_k6),
         ("k6_bwd", phase_k6_backward), ("serve", phase_serve), ("train", phase_train),
         ("serve_moe", phase_serve_moe), ("serve_qwen2", phase_serve_qwen2),
@@ -7420,7 +8044,7 @@ def main() -> int:
         ("train_rwkv", phase_train_rwkv), ("train_zamba", phase_train_zamba),
         ("sharded", phase_sharded), ("train_dp", phase_train_dp),
         ("serve_tp", phase_serve_tp), ("serve_tp_families", phase_serve_tp_families),
-        ("train_tp", phase_train_tp))}
+        ("train_tp", phase_train_tp), ("train_sp", phase_train_sp))}
     phases["paper"] = healthy("paper", lambda torch: phase_paper(torch, smi))
     phases["planner"] = phase_planner
     phases["obs"] = healthy("obs", lambda torch: phase_obs(torch, smi))
@@ -7437,6 +8061,7 @@ def main() -> int:
     k1_err, k1, k1b = phases["k1"](torch)
     k4_err, k4, k4_qwen = phases["k4"](torch)
     k3_err, k3 = phases["k3"](torch)
+    r1_err, r1, r1_decode = phases["rmsnorm"](torch)
     k1_bwd_err, k1_train = phases["k1_bwd"](torch)
     k1_err = max(k1_err, k1_bwd_err)
     k5_err, k5_tick, k5_prefill = phases["k5"](torch)
@@ -7463,10 +8088,20 @@ def main() -> int:
     serve_tp = phases["serve_tp"](torch)
     serve_tpf = phases["serve_tp_families"](torch)
     train_tp = phases["train_tp"](torch)
+    train_sp = phases["train_sp"](torch)
     dryrun = phases["dryrun"](torch)
     phases["paper"](torch)
     planner = phases["planner"](torch)
     phases["obs"](torch)
+
+    # R1 runs wherever a model normalises on the card: its launches in each
+    # model phase's own process, and [train_sp]'s ranks'.
+    r1_paths = {k: v for k, v in RMSNORM_BY_PHASE.items()
+                if k not in ("k1", "k4", "k3", "rmsnorm", "k1_bwd", "k5", "k5_bwd", "k6",
+                             "k6_bwd")}
+    r1_paths["train_sp ranks (4)"] = train_sp["rmsnorm"]
+    check(r1_paths.get("serve", 0) > 0 and r1_paths.get("train", 0) > 0,
+          f"R1 never launched on the main path: {r1_paths}")
 
     def row(name, source, replaces, launches, err, t, shape, **extra):
         return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
@@ -7482,7 +8117,8 @@ def main() -> int:
             + serve_whisper["mesh_matmul"] + train_rwkv["mesh_matmul"]
             + train_zamba["mesh_matmul"] + sharded["mesh_matmul"] + train_dp["mesh_matmul"]
             + train_dp["pipeline_mesh_matmul"] + serve_tp["mesh_matmul"]
-            + serve_tpf["mesh_matmul"] + train_tp["mesh_matmul"], k1_err, k1,
+            + serve_tpf["mesh_matmul"] + train_tp["mesh_matmul"] + train_sp["mesh_matmul"],
+            k1_err, k1,
             "one decode tick: 25 launches at M=4",
             launches_by_path={"serve": serve["mesh_matmul"], "train": train["mesh_matmul"],
                               "serve_moe": serve_moe["mesh_matmul"],
@@ -7499,7 +8135,8 @@ def main() -> int:
                               "pipeline (4 ranks)": train_dp["pipeline_mesh_matmul"],
                               "serve_tp (2 ranks)": serve_tp["mesh_matmul"],
                               "serve_tp_families (4 ranks)": serve_tpf["mesh_matmul"],
-                              "train_tp (4 ranks)": train_tp["mesh_matmul"]},
+                              "train_tp (4 ranks)": train_tp["mesh_matmul"],
+                              "train_sp (4 ranks)": train_sp["mesh_matmul"]},
             launches_by_tile=K1_TILES, train_step=k1_train,
             batched={**k1b, "replaces": "src/repro/kernels/mesh_matmul.py:404",
                      "shape": "B=4 M=128 K=1024 N=512 bf16"}),
@@ -7523,13 +8160,15 @@ def main() -> int:
         row("scramble_blocks", "scramble_blocks.cu",
             "src/repro/kernels/scramble_kernel.py:41",
             train["scramble_blocks"] + train_dp["scramble_blocks"]
-            + train_dp["pipeline_scramble_blocks"] + train_tp["scramble_blocks"], k3_err, k3,
+            + train_dp["pipeline_scramble_blocks"] + train_tp["scramble_blocks"]
+            + train_sp["scramble_blocks"], k3_err, k3,
             f"one launch: ({TRAIN_BATCH}, {TRAIN_SEQ}, 2048) bf16, 16x16 blocks of 128^2;"
             " library_ms is x.clone() (same bytes, no permutation)",
             launches_by_path={"train": train["scramble_blocks"],
                               "train_dp (2 ranks)": train_dp["scramble_blocks"],
                               "pipeline (4 ranks)": train_dp["pipeline_scramble_blocks"],
-                              "train_tp (4 ranks)": train_tp["scramble_blocks"]}),
+                              "train_tp (4 ranks)": train_tp["scramble_blocks"],
+                              "train_sp (4 ranks)": train_sp["scramble_blocks"]}),
         row("grouped_mesh_matmul", "grouped_matmul.cu", "src/repro/kernels/grouped.py:119",
             serve_moe["grouped_mesh_matmul"] + serve_qwen2_moe["grouped_mesh_matmul"]
             + train_moe["grouped_mesh_matmul"] + sharded["grouped_mesh_matmul"]
@@ -7551,7 +8190,7 @@ def main() -> int:
             + serve_zamba["flash_attention"] + serve_whisper["flash_attention"]
             + train_zamba["flash_attention"] + serve_tp["flash_attention"]
             + serve_tpf["flash_attention"] + train_tp["flash_attention"]
-            + dryrun["flash_attention"], k6_err,
+            + train_sp["flash_attention"] + dryrun["flash_attention"], k6_err,
             k6["qwen2 T=2048"],
             "one launch: Qwen2-7B prefill B=1 T=2048 H=28 KV=4 hd=128 bf16 causal; library_ms"
             " is scaled_dot_product_attention (is_causal, enable_gqa)",
@@ -7565,11 +8204,18 @@ def main() -> int:
                               "serve_tp (2 ranks)": serve_tp["flash_attention"],
                               "serve_tp_families (4 ranks)": serve_tpf["flash_attention"],
                               "train_tp (2 ranks)": train_tp["flash_attention"],
+                              "train_sp (2 ranks)": train_sp["flash_attention"],
                               "dryrun": dryrun["flash_attention"]},
             device_ms=k6["qwen2 T=2048"]["device_ms"],
             library_device_ms=k6["qwen2 T=2048"]["library_device_ms"],
             t4096=k6["qwen2 T=4096"], mesh_paper_train=k6["mesh-paper train"],
             whisper_encoder=k6["whisper encoder"], zamba_shared=k6["zamba shared block"]),
+        row("rmsnorm", "rmsnorm.cu", "src/repro/models/layers.py:240 (an XLA op in the"
+            " reference: R1 is the port's own kernel, no Pallas function)",
+            sum(r1_paths.values()), r1_err, r1,
+            f"one launch: ({TRAIN_BATCH * TRAIN_SEQ}, 2048) bf16, mesh-paper's training"
+            " activations; library_ms is torch.nn.functional.rms_norm",
+            launches_by_path=r1_paths, decode={**r1_decode, "shape": f"({SLOTS}, 2048) bf16"}),
     ]
     log(f"[done] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

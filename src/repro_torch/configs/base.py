@@ -7,9 +7,7 @@ dims).  The fields that no ported code reads are left out: those only the
 reference's XLA lowering reads (`fused_dense_epilogue`, `scan_unroll`: the
 port's dry run traces every layer, `launch/dryrun.py`) or nothing reads
 (`is_encoder_decoder`, `has_decode`, `ssm_conv_dim`: the conv width is
-`models.ssm._CONV_K`), and `grad_accum` (an argument of the port's
-trainer; a config field with ROADMAP 14(b)).  The dtype properties return
-`torch.dtype`s.
+`models.ssm._CONV_K`).  The dtype properties return `torch.dtype`s.
 
 Shapes are separate (`ShapeSpec`): the four assigned input-shape cells.
 `launch/dryrun.py` iterates ASSIGNED_ARCHS x SHAPES.
@@ -91,6 +89,8 @@ class ArchConfig:
     wkv_chunked: bool = False  # rwkv6: chunk-parallel GEMM-form WKV (exact)
     # instead of the per-token scan — see models/rwkv._wkv_chunked
     wkv_chunk: int = 16
+    grad_accum: int = 1  # microbatch gradient accumulation (train_step); bounds
+    # activation residency per pass (launch/dryrun.py, launch/hillclimb.py)
 
     @property
     def head_dim_(self) -> int:

@@ -186,10 +186,13 @@ def shard_params(params: Any, model, ctx) -> Any:
       * Mamba2's 'mlp' dims (`ssm.MAMBA_LAYOUT`: in_proj's [z | x | B | C |
         dt], conv_w / conv_b's [x | B | C], out_norm and out_proj's x) give
         each rank its whole SSM heads of z, x and dt, and B and C whole.
+    Under a ctx with `param_rules` (FSDP) the leaves are cut by those rules
+    (`ShardCtx.params_ctx`): every 'embed' dim also over the DP axes.
     Without a live mesh the tree comes back as it is.
     """
     if not ctx.active:
         return params
+    ctx = ctx.params_ctx()
     pieces = _walk_specs(model.specs(), lambda s, key: _leaf_pieces(s.shape, s.axes, key,
                                                                      model.cfg, ctx))
     return _params_like(lambda tree: tree_map(_cut, tree, pieces), params)
@@ -210,23 +213,40 @@ class ModelBlocks:
     `reduce_replicated` sums exactly those parts over 'model' and no
     others; `norm_squares` counts each sharded element on its own rank
     and each replicated one once.  `gather` and `cut` move between a tree
-    (or a train state) of blocks and the global one."""
+    (or a train state) of blocks and the global one.
+
+    Under FSDP (a ctx with `param_rules`) the blocks are the parameter
+    layout's: `data_cut` is the tree of each leaf's all-gathers over the
+    DP axes (`parallel.sharding.fsdp_gathers`; empty for a leaf every DP
+    rank holds whole).  A data-cut leaf's gradient arrives summed over the
+    DP axes (the reduce-scatter of the model's per-layer gather), so the
+    step all-reduces only the others over 'data'; `data_group` sums the
+    data-cut leaves' norm squares there; `gather` joins the DP blocks
+    before the 'model' ones."""
 
     def __init__(self, model, ctx):
         from repro_torch.parallel.collectives import axis_group
-        from repro_torch.parallel.sharding import MeshLayout, replicated_ranges
+        from repro_torch.parallel.sharding import MeshLayout, fsdp_gathers, replicated_ranges
 
         self.model, self.ctx = model, ctx
+        pctx = ctx.params_ctx()
         self.group, self.size, _ = axis_group(ctx.mesh, "model")
         specs = model.specs()
         self._shapes = _walk_specs(specs, lambda s, key: tuple(s.shape))
         self._pieces = _walk_specs(specs, lambda s, key: _leaf_pieces(s.shape, s.axes, key,
-                                                                       model.cfg, ctx))
+                                                                       model.cfg, pctx))
         self.replicated = tree_map(lambda ps: replicated_ranges(ps, "model"), self._pieces)
-        # Every 'model' coordinate's pieces, for `gather`.
+        rules, _, lay = ctx._resolved
+        self.data_cut = _walk_specs(specs, lambda s, key: (
+            fsdp_gathers(s.shape, s.axes, ctx.mesh, rules, ctx.param_rules) if ctx.fsdp
+            else ()))
+        axes = sorted({a for cuts in tree_leaves(self.data_cut) for _, ax in cuts
+                       for a in ((ax,) if isinstance(ax, str) else ax)})
+        self.data_group = axis_group(ctx.mesh, tuple(axes))[0] if axes else None
+        # Every 'model' coordinate's pieces of the activation layout (the
+        # blocks once joined over the DP axes), for `gather`.
         from repro_torch.models.layers import ShardCtx
 
-        rules, _, lay = ctx._resolved
         self._pieces_at = []
         for r in range(self.size):
             at = MeshLayout(lay.shape, {**lay.coord, "model": r}, lay.ranks)
@@ -270,14 +290,34 @@ class ModelBlocks:
                 off += v.numel()
         return grads
 
-    def norm_squares(self, tree: Any):
+    def join_data(self, tree: Any) -> Any:
+        """A tree of parameter-layout blocks (or a train state) with every
+        data-cut leaf all-gathered over the DP axes: the blocks of the
+        activation layout (without FSDP, `tree` itself)."""
+        if self.data_group is None:
+            return tree
+        from repro_torch.parallel.collectives import all_gather, axis_group
+
+        def one(blk, cuts):
+            for d, axes in cuts:
+                blk = all_gather(blk, d, axis_group(self.ctx.mesh, axes)[0])
+            return blk
+
+        return _params_like(lambda t: tree_map(one, t, self.data_cut), tree)
+
+    def norm_squares(self, tree: Any, data_cut: Any = None):
         """(sum of squares of the elements this rank owns, sum of squares
-        of the replicated ones), each f32, in tree order."""
+        of the replicated ones) along 'model', each f32, in tree order; of
+        the data-cut leaves only (`data_cut` True), the others (False) or
+        every leaf (None)."""
         leaves = tree_leaves(tree)
         dev = leaves[0].device
         own = torch.zeros((), dtype=torch.float32, device=dev)
         rep = torch.zeros((), dtype=torch.float32, device=dev)
-        for g, r in zip(leaves, tree_leaves(self.replicated)):
+        cuts = tree_leaves(self.data_cut)
+        for g, r, c in zip(leaves, tree_leaves(self.replicated), cuts):
+            if data_cut is not None and bool(c) != data_cut:
+                continue
             mine, same = self._parts(g, r)
             for v in mine:
                 own = own + torch.sum(torch.square(v.float()))
@@ -287,10 +327,13 @@ class ModelBlocks:
 
     @torch.no_grad()
     def gather(self, tree: Any, device=None) -> Any:
-        """The global tree (or train state) whose blocks the 'model' ranks
-        hold, on every one of them (an all-gather over 'model' of each
-        sharded leaf), on `device` (by default each leaf's own)."""
+        """The global tree (or train state) whose blocks the ranks hold, on
+        every one of them (an all-gather over the DP axes of each data-cut
+        leaf, then over 'model' of each sharded one), on `device` (by
+        default each leaf's own)."""
         from repro_torch.parallel.collectives import all_gather
+
+        tree = self.join_data(tree)
 
         def one(blk, shape, rep, *pieces_at):
             dev = blk.device if device is None else torch.device(device)
@@ -323,7 +366,8 @@ class ModelBlocks:
 
 def model_blocks(model, ctx):
     """`ModelBlocks` of `model` under `ctx`, or None where ctx's 'model'
-    axis has one rank (every leaf whole: nothing to sum or gather)."""
-    if ctx.axis_size("model") <= 1:
+    axis has one rank and the parameters no layout of their own (every
+    leaf whole: nothing to sum or gather)."""
+    if ctx.axis_size("model") <= 1 and not ctx.fsdp:
         return None
     return ModelBlocks(model, ctx)

@@ -10,6 +10,8 @@ scramble.py         K3, the block scramble S^k (CUDA kernel + plain version)
 grouped.py          K5, the grouped (MoE) mesh GEMM (CUDA kernel + plain version)
 flash_attention.py  K6, flash attention for the chunked prefill / training
                     path (CUDA kernel + plain version, recompute backward)
+rmsnorm.py          R1, rmsnorm with a fixed order of summation per row (CUDA
+                    kernel + plain version; the port's own, no Pallas kernel)
 ops.py              scramble_blocks with its gradient (S^-k), and the legacy
                     `matmul` shim over plan/execute
 ref.py              plain-torch oracles the kernels are tested against

@@ -74,13 +74,15 @@ What the counts mean, against the reference's:
     `recurrence_bytes_in_trace: true`, and the port's
     `roofline.analyze_artifact` does not add it again.
 
-Layouts the port lacks (ROADMAP 14(b)): the 'seq_sp' rule (`--tuned`
-train cells) raises the models' NotImplementedError, and the cell is
-written with status "error"; FSDP parameter rules (`PARAM_RULES`) the
-same.  The port's decode has no sequence-sharded KV cache, so where the
-reference's rules shard the cache length ('kv_seq'), the rank holds the
-cache whole in length (its kv heads as the rules give them, replicated
-where they do not divide 'model'): `_port_rules`.
+Every layout of the reference's cells runs: the tuned train cells'
+Megatron sequence parallelism ('seq_sp') with the FSDP parameter rules
+(`PARAM_RULES`: the rank's state is its (data x model) block, and each
+layer gathers its weights over 'data'), and the decode cells'
+sequence-sharded KV caches ('kv_seq' on 'model' where the kv heads do
+not divide it, on ('pod', 'data') for long_500k): the rank holds its block
+of the cache's positions, and decode combines the ranks' partials
+(`models.attention`).  `grad_accum` is the config's field, as the
+reference's dry run reads it.
 
 Skip rules: long_500k only for supports_long_context archs.
 """
@@ -183,11 +185,20 @@ def _sig(x):
     raise _Unkeyed
 
 
+# Ops that return a view of their input without saying so in their schema
+# (`reshape` of a tensor it must copy returns `_unsafe_view` of the copy).
+_UNMARKED_VIEWS = frozenset({torch.ops.aten._unsafe_view.default})
+
+
+def _is_view(func) -> bool:
+    return func.is_view or func in _UNMARKED_VIEWS
+
+
 def _fresh(func) -> bool:
     """`func` mutates nothing and returns new tensors (no alias of an
     input): its meta output depends only on its arguments' metadata."""
     s = func._schema
-    return (not s.is_mutable and bool(s.returns)
+    return (not _is_view(func) and not s.is_mutable and bool(s.returns)
             and all(r.alias_info is None for r in s.returns)
             and all(str(r.type) in ("Tensor", "Tensor[]") for r in s.returns))
 
@@ -264,7 +275,7 @@ class _Traffic(TorchDispatchMode):
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
-        if not func.is_view and func.namespace not in self._SKIP:
+        if not _is_view(func) and func.namespace not in self._SKIP:
             self.bytes += sum(map(_nbytes, _flat_tensors(args, kwargs)))
             self.bytes += sum(map(_nbytes, outs))
         for t in outs:
@@ -354,12 +365,6 @@ def _rules_for(cfg, shape, mesh, tuned: bool = False) -> ShardingRules:
     return rules
 
 
-def _port_rules(rules: ShardingRules) -> ShardingRules:
-    """The rules as the port's models run them: no sequence-sharded KV
-    cache (module docstring), so 'kv_seq' maps to no mesh axis."""
-    return rules.replace(kv_seq=None)
-
-
 def input_specs(arch: str, shape_name: str) -> Dict[str, Any]:
     """Meta-tensor stand-ins for every input of the cell's entry point."""
     cfg = get_config(arch)
@@ -404,24 +409,16 @@ def build_step(cfg, shape, mesh, rules, param_rules=None,
     card).
 
     param_rules: a separate layout of the parameters and optimizer state
-    (the reference's FSDP `PARAM_RULES`), which the port's models do not
-    read: NotImplementedError, after the models' own refusal of the
-    'seq_sp' rule that the tuned train cells carry."""
-    from repro_torch.models.transformer import _no_model_training
-
+    (the reference's FSDP `PARAM_RULES`: 'embed' also over the DP axes),
+    the train step's `ShardCtx(param_rules=)`; activations keep `rules`."""
     model = get_model(cfg)
-    ctx = ShardCtx(mesh, _port_rules(rules))
-    if param_rules is not None and param_rules != rules:
-        if shape.kind == "train":
-            _no_model_training(ctx)
-        raise NotImplementedError("separate parameter rules (FSDP, PARAM_RULES) are not"
-                                  " ported (ROADMAP 14(b))")
+    ctx = ShardCtx(mesh, rules, param_rules=param_rules)
 
     if shape.kind == "train":
         state = tree_map(make, shard_params(abstract_train_state(model), model, ctx))
         batch = tree_map(make, model.batch_specs(shape)[0])
         step = make_train_step(model, warmup_cosine(3e-4, 100, 10_000), AdamWConfig(), ctx,
-                               grad_accum=getattr(cfg, "grad_accum", 1))
+                               grad_accum=cfg.grad_accum)
         return step, (state, batch)
     if shape.kind == "prefill":
         params = tree_map(make, shard_params(model.abstract_params(), model, ctx))
@@ -505,12 +502,13 @@ def probe_corrected_costs(cfg, shape, mesh, rules, param_rules=None) -> Dict[str
     c2 = trace_step(_probe_cfg(cfg, k2), shape, mesh, rules, param_rules)
     full = _full_depth_units(cfg)
     out: Dict[str, Any] = {"probe_depths": [k1, k2], "full_depth_units": full}
-    # The reference scales by grad_accum, whose scan XLA also counts once;
-    # the port's accumulation loop runs every microbatch, as its layers do.
-    ga = max(1, getattr(cfg, "grad_accum", 1))
+    # The reference also multiplies by cfg.grad_accum: XLA counts the
+    # microbatch scan's body once.  The port's trace runs every microbatch,
+    # as it runs every layer, so the same quantity (the whole step's cost)
+    # takes no such factor here.
     for key in ("flops", "bytes", "coll_link_bytes"):
         slope = (c2[key] - c1[key]) / (k2 - k1)
-        out[key] = (c1[key] + max(0.0, full - k1) * slope) * ga
+        out[key] = c1[key] + max(0.0, full - k1) * slope
         out[key + "_per_unit"] = slope
     return out
 

@@ -1,19 +1,28 @@
-"""The measured GEMM lane of the perf hillclimb.
+"""The perf hillclimb (port of `repro.launch.hillclimb`).
 
-Port of `repro.launch.hillclimb --gemm`: times the `GEMM_VARIANTS` through
-the plan/execute API (`kernels.api.plan` + the autotuner's
-`measure_best_ms`, device time on the card) and writes each measurement in
-the cost-model calibration record format ({"terms", "ms", "source"}), so
-`costmodel.calibrate.ingest` folds them into the coefficient fit
-(`--ingest` does it in the same run).  Runs on the card unless
-`--device cpu` is given.
+Three cells (worst roofline fraction / most collective-bound / most
+paper-representative) and a fourth for RWKV-6, with named variants, each a
+(sharding rules, parameter rules, config override, remat) tuple.  Every
+variant is traced and probe-corrected by the port's dry run exactly like
+the baseline sweep (`launch/dryrun.run_cell`: rank 0 of the 16 x 16
+production mesh on meta tensors), so before/after numbers compare; each
+writes its artifact to `artifacts/torch/hillclimb/<cell>__<variant>.json`.
 
+A second, MEASURED lane hillclimbs the GEMM layer itself: `--gemm` times
+the `GEMM_VARIANTS` through the plan/execute API (`kernels.api.plan` + the
+autotuner's `measure_best_ms`, device time on the card) and writes each
+measurement in the cost-model calibration record format ({"terms", "ms",
+"source"}), so `costmodel.calibrate.ingest` folds them into the
+coefficient fit (`--ingest` does it in the same run).  It runs on the card
+unless `--device cpu` is given.
+
+  PYTHONPATH=src python -m repro_torch.launch.hillclimb [--cell A|B|C|D] [--variant NAME]
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --gemm [--ingest]
 
-The reference's dry-run cells (`--cell`: `CELLS`, `run_variant` over
-`launch/dryrun.run_cell`) need the 'seq_sp' rule and `grad_accum` as a
-config field, which come with ROADMAP 14(b); the port's dry run itself is
-`launch/dryrun.py`.
+Where a variant's microbatch leaves a DP rank without rows (A7: 256 rows
+in 64 microbatches over 16 ranks), the port's step raises, where the
+reference replicates the batch; the variant prints FAILED, as the
+reference's script prints any variant that does not lower.
 """
 
 from __future__ import annotations
@@ -26,8 +35,142 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.parallel.sharding import DEFAULT_RULES, PARAM_RULES, TRAIN_RULES
 
-__all__ = ["GEMM_VARIANTS", "main", "run_gemm_variant"]
+__all__ = ["CELLS", "GEMM_VARIANTS", "main", "run_gemm_variant", "run_variant"]
+
+CELL_OUT = os.path.join("artifacts", "torch", "hillclimb")
+
+# variant := (arch, shape, dict(rules=..., param_rules=..., cfg=..., remat=...))
+_FSDP = PARAM_RULES
+_SP = TRAIN_RULES  # seq_sp -> 'model' (Megatron-SP remat carriers)
+_SP_ATTN = TRAIN_RULES.replace(seq_attn="model")  # + context-parallel attention
+
+CELLS: Dict[str, Dict[str, Any]] = {
+    # A: most paper-representative -- the largest dense-GEMM workload
+    # (88 layers x 12288 wide); the paper's schedule is a GEMM schedule.
+    "A": {
+        "arch": "mistral-large-123b",
+        "shape": "train_4k",
+        "variants": {
+            "A0_baseline": {},
+            "A1_fsdp": {"param_rules": _FSDP},
+            "A2_fsdp_sp": {"param_rules": _FSDP, "rules": _SP},
+            "A3_fsdp_sp_flash": {
+                "param_rules": _FSDP,
+                "rules": _SP,
+                "cfg": {"attn_chunk": 1024},
+            },
+            "A4_remat_none": {
+                "param_rules": _FSDP,
+                "rules": _SP,
+                "cfg": {"attn_chunk": 1024},
+                "remat": "none",
+            },
+            # fit pass: microbatching bounds activation residency.
+            "A5_fit_ga8": {
+                "param_rules": _FSDP,
+                "rules": _SP,
+                "cfg": {"attn_chunk": 1024, "grad_accum": 8},
+            },
+            "A6_fit_ga16": {
+                "param_rules": _FSDP,
+                "rules": _SP,
+                "cfg": {"attn_chunk": 1024, "grad_accum": 16},
+            },
+            # ga=64 -> microbatch 4 < dp=16 (module docstring)
+            "A7_fit_ga64": {
+                "param_rules": _FSDP,
+                "rules": _SP,
+                "cfg": {"attn_chunk": 1024, "grad_accum": 64},
+            },
+            "A8_fit_rematfull_ga16": {
+                "param_rules": _FSDP,
+                "rules": _SP,
+                "cfg": {"attn_chunk": 1024, "grad_accum": 16},
+                "remat": "full",
+            },
+        },
+    },
+    # B: worst roofline fraction -- O(S^2) attention bytes at S=32k, and
+    # 40 heads % 16 != 0 leaves attention unsharded on the TP axis.
+    "B": {
+        "arch": "phi3-medium-14b",
+        "shape": "prefill_32k",
+        "variants": {
+            "B0_baseline": {},
+            "B1_flash": {"cfg": {"attn_chunk": 1024}},
+            "B2_flash_seqattn": {
+                "cfg": {"attn_chunk": 1024},
+                "rules": DEFAULT_RULES.replace(seq_attn="model"),
+            },
+            "B3_flash_seqattn_c2048": {
+                "cfg": {"attn_chunk": 2048},
+                "rules": DEFAULT_RULES.replace(seq_attn="model"),
+            },
+        },
+    },
+    # C: most collective-bound + the replicated-unembed pathology
+    # (vocab 49155 % 16 != 0).
+    "C": {
+        "arch": "granite-3-8b",
+        "shape": "train_4k",
+        "variants": {
+            "C0_baseline": {},
+            "C1_vocabpad": {"cfg": {"vocab_pad_multiple": 256}},
+            "C2_vocabpad_fsdp": {
+                "cfg": {"vocab_pad_multiple": 256},
+                "param_rules": _FSDP,
+            },
+            "C3_vocabpad_fsdp_sp_flash": {
+                "cfg": {"vocab_pad_multiple": 256, "attn_chunk": 1024},
+                "param_rules": _FSDP,
+                "rules": _SP,
+            },
+            "C4_remat_none": {
+                "cfg": {"vocab_pad_multiple": 256, "attn_chunk": 1024},
+                "param_rules": _FSDP,
+                "rules": _SP,
+                "remat": "none",
+            },
+            "C5_fit_ga8": {
+                "cfg": {
+                    "vocab_pad_multiple": 256,
+                    "attn_chunk": 1024,
+                    "grad_accum": 8,
+                },
+                "param_rules": _FSDP,
+                "rules": _SP,
+            },
+            "C6_fit_rematnone_ga8": {
+                "cfg": {
+                    "vocab_pad_multiple": 256,
+                    "attn_chunk": 1024,
+                    "grad_accum": 8,
+                },
+                "param_rules": _FSDP,
+                "rules": _SP,
+                "remat": "none",
+            },
+        },
+    },
+    # D: rwkv6 train -- the sequential WKV recurrence's per-step state
+    # traffic dominates; the chunked GEMM-form WKV fixes it.
+    "D": {
+        "arch": "rwkv6-1.6b",
+        "shape": "train_4k",
+        "variants": {
+            "D0_baseline": {},
+            "D1_wkv_chunked": {"cfg": {"wkv_chunked": True}},
+            "D2_wkv_chunked_sp": {"cfg": {"wkv_chunked": True}, "rules": _SP},
+            "D3_fit_ga8": {
+                "cfg": {"wkv_chunked": True, "grad_accum": 8},
+                "rules": _SP,
+            },
+        },
+    },
+}
+
 
 # GEMM-layer variants measured through plan/execute: shapes spread to
 # separate the FLOP term from fixed overhead, plus the paper regimes the
@@ -100,10 +243,47 @@ def run_gemm_variant(
     return rec
 
 
+def run_variant(cell: str, name: str, out_dir: str = CELL_OUT):
+    """Trace one variant of a cell through the port's dry run, write its
+    artifact (with "variant") to out_dir/<cell>__<name>.json, print its
+    roofline line, and return (artifact, roofline row)."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import analyze_artifact
+
+    spec = CELLS[cell]
+    v = spec["variants"][name]
+    art = run_cell(
+        spec["arch"],
+        spec["shape"],
+        rules_override=v.get("rules"),
+        param_rules=v.get("param_rules"),
+        cfg_overrides=v.get("cfg"),
+        remat=v.get("remat"),
+        probe=True,
+        verbose=False,
+    )
+    art["variant"] = name
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{cell}__{name}.json"), "w") as f:
+        json.dump(art, f, indent=1)
+    r = analyze_artifact(art)
+    ma = art.get("memory_analysis", {})
+    hbm_gib = (ma.get("argument_size_in_bytes", 0) + ma.get("temp_size_in_bytes", 0)) / 2**30
+    print(
+        f"{name:28s} compute={r['t_compute_s']:8.3f}s memory={r['t_memory_s']:8.3f}s "
+        f"collective={r['t_collective_s']:8.3f}s dominant={r['dominant']:10s} "
+        f"useful={r['useful_ratio']:.3f} fraction={r['roofline_fraction']:.4f} "
+        f"hbm={hbm_gib:.1f}GiB"
+    )
+    return art, r
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variant", default=None, choices=sorted(GEMM_VARIANTS))
-    ap.add_argument("--out", default="artifacts/hillclimb")
+    ap.add_argument("--cell", default=None, choices=sorted(CELLS))
+    ap.add_argument("--variant", default=None)
+    ap.add_argument("--out", default=None,
+                    help=f"default {CELL_OUT} (cells), artifacts/hillclimb (--gemm)")
     ap.add_argument(
         "--gemm", action="store_true",
         help="run the measured GEMM variants (calibration-record output)",
@@ -114,18 +294,28 @@ def main(argv=None) -> None:
     )
     ap.add_argument(
         "--device", default=None,
-        help="cuda (the default; refuses to run without a CUDA device) or cpu",
+        help="--gemm: cuda (the default; refuses to run without a CUDA device) or cpu",
     )
     args = ap.parse_args(argv)
     if not args.gemm:
-        ap.error("only the measured --gemm lane is ported; the dry-run cells (--cell)"
-                 " arrive with ROADMAP 14(b)")
+        cells = [args.cell] if args.cell else sorted(CELLS)
+        for cell in cells:
+            spec = CELLS[cell]
+            print(f"\n== cell {cell}: {spec['arch']} x {spec['shape']}")
+            names = [args.variant] if args.variant else list(spec["variants"])
+            for name in names:
+                try:
+                    run_variant(cell, name, args.out or CELL_OUT)
+                except Exception as e:  # noqa: BLE001 - printed, as the reference's
+                    print(f"{name:28s} FAILED: {type(e).__name__}: {e}")
+        return
     device = resolve_device(args.device)
     records = []
     names = [args.variant] if args.variant else list(GEMM_VARIANTS)
     for name in names:
         try:
-            records.append(run_gemm_variant(name, args.out, device=device.type))
+            records.append(run_gemm_variant(name, args.out or "artifacts/hillclimb",
+                                            device=device.type))
         except Exception as e:
             print(f"{name:16s} FAILED: {type(e).__name__}: {e}")
     if args.ingest and records:

@@ -39,6 +39,15 @@ reference's tests reach it:
   mesh = make_local_mesh((D, M), ("data", "model"))  # on D x M torchrun ranks
   step, state, data = build_trainer(cfg, batch=8, seq=128, mesh=mesh, device="cpu")
 
+and from the CLI as `--mesh DxM` (D x M ranks).  `--sp` trains under the
+reference's `TRAIN_RULES` (Megatron sequence parallelism: the layers'
+carriers seq-sharded over 'model'), `--fsdp` with its `PARAM_RULES` as
+the parameters' layout (FSDP: parameters and AdamW moments cut over
+'data' too, each layer's weights gathered before use):
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch mesh-paper --reduced --device cpu --mesh 2x2 --sp --fsdp
+
 Under a mesh rank 0 writes the checkpoints (the global tree, gathered by
 every rank under a 'model' axis) and every rank restores (the global tree,
 then its blocks).  Audio and vlm are refused, as in the reference.
@@ -61,7 +70,7 @@ from repro_torch.models import get_model
 from repro_torch.models.layers import NO_SHARD, ShardCtx
 from repro_torch.optim import AdamWConfig, warmup_cosine
 from repro_torch.parallel.collectives import mesh_groups
-from repro_torch.parallel.sharding import DEFAULT_RULES
+from repro_torch.parallel.sharding import DEFAULT_RULES, PARAM_RULES, TRAIN_RULES
 from repro_torch.train.loop import LoopConfig, restore_state, train_loop
 from repro_torch.train.metrics import MetricsLogger
 from repro_torch.train.train_step import init_train_state, make_train_step
@@ -77,26 +86,34 @@ def build_trainer(
     mesh=None,
     lr: float = 3e-4,
     total_steps: int = 1000,
-    grad_accum: int = 1,
+    grad_accum=None,
     seed: int = 0,
     device=None,
+    rules=None,
+    param_rules=None,
 ):
     """Construct (train_step_fn, state, data_iter) for a config on `device`
     (cuda unless the caller names another).  Parameters are drawn from a
     torch generator seeded with `seed`; the data stream is the reference's
-    `SyntheticLM` with the same seed.  With `mesh` (a ("data", "model")
+    `SyntheticLM` with the same seed.  `grad_accum` None takes the
+    config's field.  With `mesh` (a ("data", "model")
     mesh: a DeviceMesh over the ranks, or a plain layout of one rank), the
-    step trains under `ShardCtx(mesh, DEFAULT_RULES)`, as the reference's
-    does: data-parallel over 'data' on the global batch and, where 'model'
-    has more than one rank, tensor-parallel over it.  Every rank draws the
+    step trains under `ShardCtx(mesh, rules)` (`rules` by default
+    DEFAULT_RULES; TRAIN_RULES for sequence parallelism), as the
+    reference's does: data-parallel over 'data' on the global batch and,
+    where 'model' has more than one rank, tensor-parallel over it;
+    `param_rules` (PARAM_RULES: FSDP) lays the parameters and AdamW's
+    moments out by their own rules.  Every rank draws the
     same global parameters and batches; under a 'model' axis it then keeps
     its blocks of the parameters and of their AdamW moments
     (`interop.shard_params`), and `train_step_fn.blocks` gathers and cuts
     them (checkpoints)."""
     dev = resolve_device(device)
     model = get_model(cfg)
+    grad_accum = cfg.grad_accum if grad_accum is None else grad_accum
     schedule = warmup_cosine(lr, min(100, total_steps // 10 + 1), total_steps)
-    ctx = ShardCtx(mesh, DEFAULT_RULES) if mesh is not None else NO_SHARD
+    ctx = (ShardCtx(mesh, rules or DEFAULT_RULES, param_rules=param_rules)
+           if mesh is not None else NO_SHARD)
     step_fn = make_train_step(model, schedule, AdamWConfig(), ctx, grad_accum=grad_accum)
     state = init_train_state(model, torch.Generator(device=dev).manual_seed(seed), dev)
     if step_fn.blocks is not None:
@@ -115,15 +132,21 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--grad-accum", type=int, default=None,
+                    help="microbatches a step (default: the config's grad_accum)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--async-ckpt", action="store_true")
     ap.add_argument("--resume", default=None, choices=(None, "auto"))
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mesh", default="none", choices=("none", "local-dp", "prod"),
-                    help="local-dp: data-parallel over the process group's ranks; prod: the"
-                         " 16x16 production mesh (256 ranks)")
+    ap.add_argument("--mesh", default="none",
+                    help="none; local-dp: data-parallel over the process group's ranks; DxM:"
+                         " a (data, model) mesh of D x M ranks; prod: the 16x16 production"
+                         " mesh (256 ranks)")
+    ap.add_argument("--sp", action="store_true",
+                    help="TRAIN_RULES: sequence-parallel layer carriers over 'model'")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="PARAM_RULES: parameters and optimizer state cut over 'data' too")
     ap.add_argument("--step-deadline-s", type=float, default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
@@ -141,13 +164,21 @@ def main(argv=None) -> None:
     mesh, group, world, rank = None, None, 1, 0
     if args.mesh != "none":
         world, rank = init_distributed(device)
-        mesh = (make_local_mesh((world, 1), ("data", "model")) if args.mesh == "local-dp"
-                else make_production_mesh())
+        if args.mesh == "local-dp":
+            mesh = make_local_mesh((world, 1), ("data", "model"))
+        elif args.mesh == "prod":
+            mesh = make_production_mesh()
+        else:
+            dims = tuple(int(n) for n in args.mesh.lower().split("x"))
+            if len(dims) != 2:
+                raise SystemExit(f"--mesh {args.mesh!r}: want none, local-dp, prod or DxM")
+            mesh = make_local_mesh(dims, ("data", "model"))
         group = mesh_groups(mesh) or None
 
     step_fn, state, data = build_trainer(
         cfg, batch=args.batch, seq=args.seq, mesh=mesh, lr=args.lr, total_steps=args.steps,
         grad_accum=args.grad_accum, seed=args.seed, device=device,
+        rules=TRAIN_RULES if args.sp else None, param_rules=PARAM_RULES if args.fsdp else None,
     )
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None

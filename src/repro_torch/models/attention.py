@@ -23,6 +23,23 @@ rule on 'model' the chunked path is context-parallel: q goes to a block of
 query rows over all heads (first-wins takes 'model' from 'heads'), K and V
 are gathered whole, each process attends its rows [o, o + T/M) to keys
 [0, o + T/M) through K6 with q_offset = o, and the rows are gathered back.
+
+A sequence-sharded KV cache (the 'kv_seq' rule on mesh axes of n ranks,
+the reference's decode rules where the kv heads do not divide 'model',
+and `SP_DECODE_RULES` for long contexts): a process holds positions
+[r·T/n, (r+1)·T/n) of the dense decode cache (`cache_len`), and the owner
+of a new position writes its keys.  Decode (`_decode_seq_sharded`) takes
+each process's f32 partials over its slice (row max, sum of exponentials,
+unnormalised output) and combines them exactly across the axes: an
+all-reduce of the max, then of the rescaled sums and outputs, then the
+division.  Where the query heads are cut along one of those axes (the kv
+heads replicated while 'heads' is on 'model'), the process gathers q's
+heads, combines for all of them and keeps its own for wo's row-parallel
+product.  Cross-attention over a seq-sharded encoder output (Whisper's
+decode, `cross_len`) combines the same way, unmasked.  The order of the
+f32 sums differs from one softmax over the whole row, so the results
+agree with the unsharded decode to rounding.  The paged server path has
+no such layout (the reference's server has none either).
 """
 
 from __future__ import annotations
@@ -49,7 +66,9 @@ __all__ = [
     "attn_specs",
     "attention",
     "attention_paged_decode",
+    "cache_len",
     "head_layout",
+    "kv_seq_ranks",
     "init_cache_shape",
     "Cache",
 ]
@@ -76,9 +95,34 @@ def attn_specs(cfg, *, prefix_scale: float = 1.0) -> Dict[str, PSpec]:
     return specs
 
 
+def _names(axes) -> Tuple[str, ...]:
+    return () if axes is None else ((axes,) if isinstance(axes, str) else tuple(axes))
+
+
 def init_cache_shape(cfg, batch: int, max_len: int) -> Dict[str, Tuple[int, ...]]:
     kv, hd = cfg.num_kv_heads, cfg.head_dim_
     return {"k": (batch, max_len, kv, hd), "v": (batch, max_len, kv, hd)}
+
+
+def kv_seq_ranks(ctx: ShardCtx) -> int:
+    """The ranks the 'kv_seq' rule cuts a cache's positions over (1: none)."""
+    axes = ctx.axes_of("kv_seq")
+    n = 1
+    for a in _names(axes):
+        n *= ctx.axis_size(a)
+    return n
+
+
+def cache_len(ctx: ShardCtx, length: int) -> int:
+    """This process's length of a decode cache (or encoder output) of
+    `length` positions under `ctx`: length / n where the 'kv_seq' rule
+    cuts it over n ranks.  A length that does not divide raises
+    ValueError (a sequence-sharded cache is read as n equal blocks)."""
+    n = kv_seq_ranks(ctx)
+    if length % n:
+        raise ValueError(f"a cache of {length} positions does not split over the {n} ranks"
+                         f" of 'kv_seq' ({ctx.axes_of('kv_seq')!r})")
+    return length // n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,6 +276,64 @@ def attention_paged_decode(
     return y, (k_pool, v_pool)
 
 
+def _seq_sharded_attend(q, k, v, cfg, ctx: ShardCtx, lay: HeadLayout, *, start: int,
+                        q_pos: Optional[int]):
+    """Attention of q (B, T, this process's query heads, hd) over keys and
+    values that are this process's block of a sequence-sharded whole,
+    positions [start, start + len) along the 'kv_seq' axes: the exact
+    combine of the module docstring.  `q_pos` is the first query's
+    position for a causal mask (None: unmasked, cross-attention).
+    Returns (B, T, this process's query heads, hd) in q's type."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.collectives import all_reduce, axis_group
+
+    b, t, _, hd = q.shape
+    axes = ctx.axes_of("kv_seq")
+    group = axis_group(ctx.mesh, axes)[0]
+    h = cfg.num_heads
+    take = lay.q.count > 1 and bool(set(_names(lay.q.axes)) & set(_names(axes)))
+    if take:  # every query head against this block: gather them, keep ours at the end
+        if lay.kv.count > 1:
+            raise NotImplementedError("the kv heads cut along the 'kv_seq' axes")
+        q = ctx.gather(q, ("batch", "seq", "heads", "head_dim"), (None, t, h, hd))
+    else:
+        k, v = lay.select(k), lay.select(v)
+    kvh = k.shape[2]
+    rep = q.shape[2] // kvh
+    q5 = q.reshape(b, t, kvh, rep, hd)
+    scores = torch.einsum("btkrd,bskd->bkrts", q5.float(), k.float()) / (hd**0.5)
+    if q_pos is not None:
+        kpos = torch.arange(start, start + k.shape[1], device=q.device)[None, :]
+        qpos = torch.arange(t, device=q.device)[:, None] + q_pos
+        scores = torch.where((kpos <= qpos)[None, None, None], scores, _NEG_INF)
+    row_max = all_reduce(scores.detach().amax(dim=-1, keepdim=True), dist.ReduceOp.MAX, group)
+    e = torch.exp(scores - row_max)
+    total = all_reduce(e.sum(dim=-1, keepdim=True), group=group)
+    acc = all_reduce(torch.einsum("bkrts,bskd->bkrtd", e, v.float()), group=group)
+    out = (acc / total).to(q.dtype).permute(0, 3, 1, 2, 4).reshape(b, t, kvh * rep, hd)
+    if take:
+        out = out.narrow(2, lay.q.start, lay.q.size)
+    return out
+
+
+def _decode_seq_sharded(q, k, v, cache: Cache, cache_pos: int, cfg, ctx: ShardCtx,
+                        lay: HeadLayout) -> Tuple[torch.Tensor, Cache]:
+    """Decode against this process's block of a sequence-sharded cache:
+    the process that holds a new position writes its keys and values, then
+    `_seq_sharded_attend` (module docstring).  Returns (out, new cache)."""
+    t = q.shape[1]
+    n = cache["k"].shape[1]
+    start = ctx.part("kv_seq", n * kv_seq_ranks(ctx)).start
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    lo, hi = max(cache_pos, start), min(cache_pos + t, start + n)
+    if lo < hi:
+        ck[:, lo - start:hi - start] = k[:, lo - cache_pos:hi - cache_pos].to(ck.dtype)
+        cv[:, lo - start:hi - start] = v[:, lo - cache_pos:hi - cache_pos].to(cv.dtype)
+    out = _seq_sharded_attend(q, ck, cv, cfg, ctx, lay, start=start, q_pos=cache_pos)
+    return out, {"k": ck, "v": cv}
+
+
 def _flash(q, k, v, cfg, ctx: ShardCtx, lay: HeadLayout, causal: bool, chunk: int):
     """The chunked path (K6 on the card): (out, the layout out is in).
 
@@ -274,6 +376,7 @@ def attention(
     cache_pos: Optional[int] = None,
     write_cache: bool = False,
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cross_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Returns (output (B, T, D), updated cache or None).
 
@@ -284,10 +387,14 @@ def attention(
                                         the returned cache is a new tensor
       cross_kv=(k, v)                   cross-attention: only wq projects,
                                         nothing is rotated, no mask, plain
-                                        `_sdpa`; the cache args are ignored
+                                        `_sdpa`; the cache args are ignored;
+                                        with `cross_len` (their whole
+                                        length) k and v are this process's
+                                        block along 'kv_seq'
 
     Under a mesh, x holds this process's batch rows, whole in D; the cache
-    holds its kv heads (`HeadLayout.kv`); the output is whole in D.
+    holds its kv heads (`HeadLayout.kv`), and under 'kv_seq' on mesh axes
+    its block of positions (`cache_len`); the output is whole in D.
     """
     b, t, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -311,13 +418,15 @@ def attention(
     new_cache: Optional[Cache] = None
     out_src = None  # the layout `out` is in, where it is not the heads'
     kv_axes = ("kv_batch", "kv_seq", "kv_heads", "head_dim")
-    if cross_kv is not None:
+    if cross_kv is not None and cross_len is not None and k.shape[1] != cross_len:
+        start = ctx.part("kv_seq", cross_len).start
+        out = _seq_sharded_attend(q, k, v, cfg, ctx, lay, start=start, q_pos=None)
+    elif cross_kv is not None:
         out = _sdpa(q, lay.select(k), lay.select(v), causal=False)
+    elif cache is not None and ctx.axes_of("kv_seq") is not None:
+        out, new_cache = _decode_seq_sharded(q, k, v, cache, cache_pos, cfg, ctx, lay)
     elif cache is not None:
         # Decode: write the T new keys at cache_pos, attend over the prefix.
-        if ctx.axes_of("kv_seq") is not None:
-            raise NotImplementedError("the 'kv_seq' rule on a mesh axis (a sequence-sharded"
-                                      " KV cache) is not ported (ROADMAP 14(b))")
         ck = cache["k"].clone()
         cv = cache["v"].clone()
         ck[:, cache_pos : cache_pos + t] = k.to(ck.dtype)
@@ -336,6 +445,7 @@ def attention(
         else:
             out = _sdpa(q, lay.select(k), lay.select(v), causal=causal)
         if write_cache:
+            cache_len(ctx, t)  # a sequence-sharded cache must split evenly
             new_cache = {"k": ctx.c(k, kv_axes, (None, t, kvh, hd)),
                          "v": ctx.c(v, kv_axes, (None, t, kvh, hd))}
 

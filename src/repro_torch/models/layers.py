@@ -27,6 +27,7 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import api as _api
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 
 __all__ = [
     "NO_SHARD",
@@ -137,6 +138,17 @@ class ShardCtx:
     reference's reading.  See `parallel.sharding.constrain`, which does
     the work.
 
+    `param_rules` (None: `rules`) is the parameters' own layout where it
+    differs, the reference's `param_rules` (FSDP, `PARAM_RULES`: every
+    weight's 'embed' dim also cut over the DP axes).  The parameters and
+    AdamW's moments are then this process's blocks under it
+    (`interop.shard_params` cuts them by `params_ctx()`), and the model
+    code calls `weights(tree, specs)` on a layer's parameters just before
+    it reads them: each block is all-gathered into its layout under
+    `rules` (`parallel.sharding.fsdp_gathers`), and the gathered copy is
+    dropped with the layer.  The gather's backward is a reduce-scatter, so
+    each process's gradient arrives as its block, summed over the DP axes.
+
     `part(axis, n)` is this process's `Part` of a dim of n along a logical
     axis (replicated where n does not divide the axis, the reference's
     `_drop_indivisible`); `gather(x, axes, shape)` all-gathers every dim
@@ -149,6 +161,7 @@ class ShardCtx:
     # `parallel.sharding.MeshLayout`: laying out a rank's blocks without
     # ranks, as `interop.shard_params` tests do); None reads the mesh.
     layout: Any = None
+    param_rules: Any = None
 
     @functools.cached_property
     def _resolved(self):
@@ -201,8 +214,50 @@ class ShardCtx:
         batch and its caches replicated (the rule for indivisible dims)."""
         if self.axes_of("batch") is None or self.part("batch", n).count > 1:
             return self
-        return ShardCtx(self.mesh, self._resolved[0].replace(batch=None, kv_batch=None),
-                        self.layout)
+        return dataclasses.replace(
+            self, rules=self._resolved[0].replace(batch=None, kv_batch=None))
+
+    @property
+    def fsdp(self) -> bool:
+        """The parameters have a layout of their own (`param_rules`)."""
+        return (self.active and self.param_rules is not None
+                and self.param_rules != self._resolved[0])
+
+    def params_ctx(self) -> "ShardCtx":
+        """The ctx the parameters' blocks are laid out by: `param_rules` as
+        the rules (itself without them)."""
+        if not self.fsdp:
+            return self
+        return ShardCtx(self.mesh, self.param_rules, self.layout)
+
+    @functools.cached_property
+    def _gather_plans(self) -> dict:
+        return {}
+
+    def weights(self, tree: Any, specs: Any) -> Any:
+        """`tree` (parameter blocks under `param_rules`, a dict tree) in the
+        activation rules' layout: each leaf all-gathered along the dims
+        `param_rules` cuts further (FSDP's per-layer gathers).  `specs` is
+        the matching PSpec tree; a spec with more dims than its leaf (a
+        stacked 'layers' spec of one layer's tensor) is read without its
+        leading dims.  The identity without `param_rules`."""
+        if not self.fsdp:
+            return tree
+        if isinstance(tree, dict):
+            return {k: self.weights(v, specs[k]) for k, v in tree.items()}
+        from repro_torch.parallel import collectives, sharding
+
+        extra = len(specs.shape) - tree.dim()
+        key = (specs.shape[extra:], specs.axes[extra:])
+        plan = self._gather_plans.get(key)
+        if plan is None:
+            plan = self._gather_plans[key] = tuple(
+                (d, collectives.axis_group(self.mesh, axes)[0])
+                for d, axes in sharding.fsdp_gathers(key[0], key[1], self.mesh,
+                                                     self._resolved[0], self.param_rules))
+        for d, group in plan:
+            tree = collectives.all_gather(tree, d, group)
+        return tree
 
     def c(self, x: torch.Tensor, axes: Sequence[Optional[str]],
           shape: Optional[Sequence[Optional[int]]] = None, *, src=None,
@@ -354,9 +409,10 @@ def dense_rows(x: torch.Tensor, w: torch.Tensor, cfg, ctx: ShardCtx, part: Part,
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma.to(x.dtype)
+    """The reference's rmsnorm: kernel R1 on the card, whose order of
+    summation is fixed per row (`kernels.rmsnorm`), its plain version on
+    CPU and meta tensors."""
+    return _rmsnorm(x, gamma, eps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -63,7 +63,9 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.transformer import (
     _layers,
-    _no_model_training,
+    seq_whole,
+    layer_entry,
+    top_weights,
     embed_tokens,
     stack_specs,
     unembed,
@@ -317,9 +319,12 @@ def _channel_mix(p, x, cfg, ctx, x_last):
 
 def _run(params, tokens, cfg, ctx, state):
     t = tokens.shape[1]
+    params, specs = top_weights(params, rwkv_specs, cfg, ctx)
     x = embed_tokens(params, tokens, cfg, ctx)
+    x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
     new = {"wkv": [], "tm_shift": [], "cm_shift": []}
     for i, lp in enumerate(_layers(params["blocks"], cfg.num_layers)):
+        lp, x = layer_entry(lp, x, ctx, t, specs)
         xin = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         y, wkv, tm_last = _time_mix(lp, xin, cfg, ctx, state["wkv"][i], state["tm_shift"][i])
         x = x + y
@@ -328,7 +333,7 @@ def _run(params, tokens, cfg, ctx, state):
         x = ctx.c(x + y2, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
         for name, val in (("wkv", wkv), ("tm_shift", tm_last), ("cm_shift", cm_last)):
             new[name].append(val)
-    logits = unembed(params, x, cfg, ctx)
+    logits = unembed(params, seq_whole(x, ctx, t), cfg, ctx)
     return logits, {name: torch.stack(vals) for name, vals in new.items()}
 
 
@@ -338,7 +343,6 @@ def rwkv_forward(params, tokens, cfg, ctx: ShardCtx = NO_SHARD):
 
 
 def rwkv_prefill(params, tokens, cfg, ctx: ShardCtx = NO_SHARD):
-    _no_model_training(ctx)
     state = _zero_state(cfg, tokens.shape[0], params["embed"].device, ctx)
     return _run(params, tokens, cfg, ctx, state)
 

@@ -46,7 +46,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.attention import attention, attn_specs, head_layout
+from repro_torch.models.attention import attention, attn_specs, cache_len, head_layout
 from repro_torch.models.layers import (
     NO_SHARD,
     PSpec,
@@ -59,7 +59,9 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import swiglu, swiglu_specs
 from repro_torch.models.transformer import (
     _layers,
-    _no_model_training,
+    seq_whole,
+    layer_entry,
+    top_weights,
     embed_tokens,
     stack_specs,
     unembed,
@@ -315,10 +317,12 @@ def zamba_specs(cfg) -> Dict[str, Any]:
     return specs
 
 
-def zamba_state_specs(cfg, batch: int, max_len: int, ctx: ShardCtx = NO_SHARD):
+def zamba_state_specs(cfg, batch: int, max_len: int, ctx: ShardCtx = NO_SHARD, *,
+                      caches: bool = True):
     """Decode state as {name: (shape, dtype)}: per-layer SSM and conv
-    states, per-application KV caches; under a mesh, this process's SSM
-    heads, conv channels and kv heads."""
+    states, per-application KV caches (left out with `caches` False);
+    under a mesh, this process's SSM heads, conv channels and kv heads,
+    and under 'kv_seq' its block of the caches' positions."""
     n_seg, _, _ = _segments(cfg)
     d_in = cfg.ssm_expand * cfg.d_model
     n, h = cfg.ssm_state_size, cfg.ssm_num_heads
@@ -326,17 +330,21 @@ def zamba_state_specs(cfg, batch: int, max_len: int, ctx: ShardCtx = NO_SHARD):
     cd = d_in // h * hl + 2 * n
     kv, hd = head_layout(cfg, ctx).kv.size, cfg.head_dim_
     L = cfg.num_layers
-    return {
+    out = {
         "h": ((L, batch, hl, d_in // h, n), torch.float32),
         "conv": ((L, batch, _CONV_K - 1, cd), cfg.adtype),
-        "kv_k": ((n_seg, batch, max_len, kv, hd), cfg.adtype),
-        "kv_v": ((n_seg, batch, max_len, kv, hd), cfg.adtype),
     }
+    if caches:
+        t = cache_len(ctx, max_len)
+        out["kv_k"] = ((n_seg, batch, t, kv, hd), cfg.adtype)
+        out["kv_v"] = ((n_seg, batch, t, kv, hd), cfg.adtype)
+    return out
 
 
 def _zero_state(cfg, batch: int, max_len: int, device, ctx: ShardCtx = NO_SHARD):
     return {name: torch.zeros(shape, dtype=dt, device=device)
-            for name, (shape, dt) in zamba_state_specs(cfg, batch, max_len, ctx).items()}
+            for name, (shape, dt) in zamba_state_specs(cfg, batch, max_len, ctx,
+                                                       caches=False).items()}
 
 
 def _shared_block(p, x, cfg, ctx, kv=None, cache_pos=None, write_cache=False):
@@ -358,12 +366,16 @@ def _run(params, tokens, cfg, ctx, state, *, mode: str, pos=None, chunked=True):
     """mode: 'forward' (no cache IO) | 'prefill' | 'decode'."""
     n_seg, period, tail = _segments(cfg)
     t = tokens.shape[1]
+    params, specs = top_weights(params, zamba_specs, cfg, ctx,
+                                stacked=("mamba_seg", "mamba_tail"))
     x = embed_tokens(params, tokens, cfg, ctx)
+    x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
     L = cfg.num_layers
     new_h, new_conv, new_k, new_v = [], [], [], []
 
-    def mamba_stack(x, stacked, n, lo):
+    def mamba_stack(x, stacked, n, lo, name):
         for i, lp in enumerate(_layers(stacked, n)):
+            lp, x = layer_entry(lp, x, ctx, t, specs, name)
             st = {"h": state["h"][lo + i], "conv": state["conv"][lo + i]}
             y, st_new = _mamba_block(lp, x, cfg, ctx, st, chunked=chunked)
             x = ctx.c(x + y, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
@@ -372,7 +384,7 @@ def _run(params, tokens, cfg, ctx, state, *, mode: str, pos=None, chunked=True):
         return x
 
     for seg, stacked in enumerate(_layers(params["mamba_seg"], n_seg)):
-        x = mamba_stack(x, stacked, period, seg * period)
+        x = seq_whole(mamba_stack(x, stacked, period, seg * period, "mamba_seg"), ctx, t)
         if mode == "forward":
             x, _ = _shared_block(params["shared"], x, cfg, ctx)
             continue
@@ -384,9 +396,9 @@ def _run(params, tokens, cfg, ctx, state, *, mode: str, pos=None, chunked=True):
         new_k.append(kvc["k"])
         new_v.append(kvc["v"])
     if tail:
-        x = mamba_stack(x, params["mamba_tail"], tail, L - tail)
+        x = mamba_stack(x, params["mamba_tail"], tail, L - tail, "mamba_tail")
 
-    logits = unembed(params, x, cfg, ctx)
+    logits = unembed(params, seq_whole(x, ctx, t), cfg, ctx)
     new_state = {"h": torch.stack(new_h), "conv": torch.stack(new_conv)}
     if mode != "forward":
         new_state["kv_k"] = torch.stack(new_k)
@@ -395,14 +407,12 @@ def _run(params, tokens, cfg, ctx, state, *, mode: str, pos=None, chunked=True):
 
 
 def zamba_forward(params, tokens, cfg, ctx: ShardCtx = NO_SHARD, *, chunked=True):
-    _no_model_training(ctx)
     state = _zero_state(cfg, tokens.shape[0], 1, params["embed"].device, ctx)
     logits, _ = _run(params, tokens, cfg, ctx, state, mode="forward", chunked=chunked)
     return logits, {}
 
 
 def zamba_prefill(params, tokens, cfg, ctx: ShardCtx = NO_SHARD, *, chunked=True):
-    _no_model_training(ctx)
     state = _zero_state(cfg, tokens.shape[0], 1, params["embed"].device, ctx)
     return _run(params, tokens, cfg, ctx, state, mode="prefill", chunked=chunked)
 

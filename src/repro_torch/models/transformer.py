@@ -39,8 +39,18 @@ It trains tensor-parallel too: every collective `ShardCtx.c` issues
 carries its adjoint backward (`parallel.collectives`), the loss reads the
 vocab-sharded logits without gathering them (`layers.softmax_xent`), and
 `train_step.make_train_step(ctx=)` seeds the backward with 1/M and sums
-the replicated leaves' gradients over 'model'.  Only the 'seq_sp' rule
-(sequence-parallel training) is refused (`_no_model_training`).
+the replicated leaves' gradients over 'model'.
+
+Megatron sequence parallelism (the 'seq_sp' rule on 'model', the
+reference's `TRAIN_RULES`): the carrier between two layers, the tensor the
+remat policies save, is this process's block of the sequence, (B, T/M, D)
+(`ctx.c` at the reference's carrier site slices it), and each layer
+all-gathers it whole where it starts (`seq_whole`), as the head does; the
+gather's backward is a reduce-scatter, so no other gradient path is
+needed.  A T that does not divide the axis replicates.  FSDP (a ctx with
+`param_rules`): each layer's parameters are gathered from their blocks by
+`ShardCtx.weights` inside the layer's body, so `full` and `dots` recompute
+the gathers rather than keep the whole weights.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from repro_torch.models.attention import (
     attention,
     attention_paged_decode,
     attn_specs,
+    cache_len,
     head_layout,
 )
 from repro_torch.models.layers import NO_SHARD, PSpec, ShardCtx, gemm, padded_vocab, rmsnorm
@@ -72,7 +83,10 @@ __all__ = [
     "lm_prefill",
     "lm_specs",
     "paged_pool_specs",
+    "seq_whole",
     "stack_specs",
+    "top_weights",
+    "layer_entry",
     "unembed",
 ]
 
@@ -189,13 +203,37 @@ def _ffn(p: Dict[str, Any], x: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
     return swiglu(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, ctx), {}
 
 
-def _no_model_training(ctx: ShardCtx) -> None:
-    """Refuses the one training layout the port lacks: the 'seq_sp' rule
-    on a mesh axis (Megatron sequence parallelism, the reference's
-    `TRAIN_RULES`, which only its dry runs read)."""
-    if ctx.axes_of("seq_sp") is not None:
-        raise NotImplementedError("the 'seq_sp' rule (sequence-parallel training,"
-                                  " TRAIN_RULES) is not ported (ROADMAP 14(b))")
+def seq_whole(x: torch.Tensor, ctx: ShardCtx, t: int) -> torch.Tensor:
+    """The (B, T, D) activation `x` whole along the sequence of length t:
+    all-gathered over the 'seq_sp' axes where it is this process's block
+    (a carrier of sequence parallelism), as it is otherwise."""
+    part = ctx.part("seq_sp", t)
+    if part.count == 1 or x.shape[1] == t:
+        return x
+    return ctx.c(x, ("batch", "seq", "embed"), (None, t, x.shape[2]),
+                 src=(None, part.axes, None))
+
+
+def top_weights(params, spec_fn, cfg, ctx: ShardCtx, stacked=("blocks",)):
+    """(params, specs): `params` with every entry but the `stacked` layer
+    trees gathered into the activation layout (`ShardCtx.weights`), and the
+    model's PSpec tree `spec_fn(cfg)` for `layer_entry`.  Without FSDP,
+    `params` as they are and None."""
+    if not ctx.fsdp:
+        return params, None
+    specs = spec_fn(cfg)
+    top = {k: v for k, v in params.items() if k not in stacked}
+    return {**params, **ctx.weights(top, specs)}, specs
+
+
+def layer_entry(lp, x: torch.Tensor, ctx: ShardCtx, t: int, specs, stack: str = "blocks"):
+    """Where a layer of the `stack` starts, inside its (remat) body: its
+    parameters `lp` in the activation layout (FSDP's per-layer gathers;
+    `specs` from `top_weights`) and its input `x` whole along the sequence
+    of length t (`seq_whole`).  Both gathers are recomputed, not saved."""
+    if specs is not None:
+        lp = ctx.weights(lp, specs[stack])
+    return lp, seq_whole(x, ctx, t)
 
 
 # The ops whose outputs `dots` saves: 2-D products with no batch dim (the
@@ -239,13 +277,15 @@ def _maybe_scramble(x: torch.Tensor, cfg, inverse: bool = False) -> torch.Tensor
 
 def lm_forward(params, tokens: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
     """Train/eval forward: (B, T) int32 -> (logits (B, T, V), aux dict)."""
-    _no_model_training(ctx)
     t = tokens.shape[1]
+    params, specs = top_weights(params, lm_specs, cfg, ctx)
     x = embed_tokens(params, tokens, cfg, ctx)
     x = _maybe_scramble(x, cfg)
+    x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def body(x, lp):
+        lp, x = layer_entry(lp, x, ctx, t, specs)
         y, _, aux = block_apply(lp, x, cfg, ctx)
         y = ctx.c(y, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))  # SP remat carrier
         # A dense block has no router: its entries are zeros, as in the
@@ -257,7 +297,7 @@ def lm_forward(params, tokens: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
     for lp in _layers(params["blocks"], cfg.num_layers):
         x, aux_vec = body(x, lp)
         aux_stack.append(aux_vec)
-    x = _maybe_scramble(x, cfg, inverse=True)
+    x = _maybe_scramble(seq_whole(x, ctx, t), cfg, inverse=True)
     logits = unembed(params, x, cfg, ctx)
     aux_mean = torch.stack(aux_stack).mean(dim=0)
     return logits, {"lb_loss": aux_mean[0], "router_z": aux_mean[1]}
@@ -265,16 +305,15 @@ def lm_forward(params, tokens: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
 
 def lm_prefill(params, tokens: torch.Tensor, cfg, ctx: ShardCtx = NO_SHARD):
     """Prefill: returns (logits (B, T, V), stacked caches (L, B, T, KV, hd))."""
-    _no_model_training(ctx)
     t = tokens.shape[1]
     x = embed_tokens(params, tokens, cfg, ctx)
     ks, vs = [], []
     for lp in _layers(params["blocks"], cfg.num_layers):
-        x, cache, _ = block_apply(lp, x, cfg, ctx, write_cache=True)
+        x, cache, _ = block_apply(lp, seq_whole(x, ctx, t), cfg, ctx, write_cache=True)
         x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
         ks.append(cache["k"])
         vs.append(cache["v"])
-    logits = unembed(params, x, cfg, ctx)
+    logits = unembed(params, seq_whole(x, ctx, t), cfg, ctx)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -372,7 +411,8 @@ def paged_pool_specs(cfg, num_pages: int, page_size: int,
 def decode_cache_specs(cfg, batch: int, max_len: int,
                        ctx: ShardCtx = NO_SHARD) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """Stacked dense KV cache shapes, as {name: (shape, dtype)}; under a
-    mesh, of this process's kv heads (`attention.HeadLayout.kv`)."""
+    mesh, of this process's kv heads (`attention.HeadLayout.kv`) and,
+    under 'kv_seq', its block of the positions (`attention.cache_len`)."""
     kv, hd = head_layout(cfg, ctx).kv.size, cfg.head_dim_
-    shp = (cfg.num_layers, batch, max_len, kv, hd)
+    shp = (cfg.num_layers, batch, cache_len(ctx, max_len), kv, hd)
     return {"k": (shp, cfg.adtype), "v": (shp, cfg.adtype)}

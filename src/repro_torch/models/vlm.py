@@ -22,10 +22,12 @@ import torch
 from repro_torch.models.layers import NO_SHARD, PSpec, ShardCtx, gemm
 from repro_torch.models.transformer import (
     _layers,
-    _no_model_training,
     block_apply,
     embed_tokens,
+    layer_entry,
     lm_specs,
+    seq_whole,
+    top_weights,
     unembed,
 )
 
@@ -49,25 +51,28 @@ def _embed_multimodal(params, batch, cfg, ctx: ShardCtx = NO_SHARD) -> torch.Ten
 def vlm_forward(params, batch: Dict[str, torch.Tensor], cfg, ctx: ShardCtx = NO_SHARD):
     """batch: {"patches": (B, P, D), "tokens": (B, T)} -> (text logits, aux).
     Causal over the concatenated stream."""
-    _no_model_training(ctx)
+    params, specs = top_weights(params, vlm_specs, cfg, ctx)
     x = _embed_multimodal(params, batch, cfg, ctx)
+    t = x.shape[1]
+    x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
     for lp in _layers(params["blocks"], cfg.num_layers):
+        lp, x = layer_entry(lp, x, ctx, t, specs)
         x, _, _ = block_apply(lp, x, cfg, ctx)
-        x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, *x.shape[1:]))
+        x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
     n_patches = batch["patches"].shape[1]
-    return unembed(params, x[:, n_patches:], cfg, ctx), {}
+    return unembed(params, seq_whole(x, ctx, t)[:, n_patches:], cfg, ctx), {}
 
 
 def vlm_prefill(params, batch, cfg, ctx: ShardCtx = NO_SHARD):
     """Returns (text logits, stacked caches (L, B, P+T, KV, hd))."""
-    _no_model_training(ctx)
     x = _embed_multimodal(params, batch, cfg, ctx)
+    t = x.shape[1]
     ks, vs = [], []
     for lp in _layers(params["blocks"], cfg.num_layers):
-        x, cache, _ = block_apply(lp, x, cfg, ctx, write_cache=True)
-        x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, *x.shape[1:]))
+        x, cache, _ = block_apply(lp, seq_whole(x, ctx, t), cfg, ctx, write_cache=True)
+        x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
         ks.append(cache["k"])
         vs.append(cache["v"])
     n_patches = batch["patches"].shape[1]
-    logits = unembed(params, x[:, n_patches:], cfg, ctx)
+    logits = unembed(params, seq_whole(x, ctx, t)[:, n_patches:], cfg, ctx)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}

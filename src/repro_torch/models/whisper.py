@@ -29,7 +29,13 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.models.attention import attention, attn_specs, head_layout
+from repro_torch.models.attention import (
+    attention,
+    attn_specs,
+    cache_len,
+    head_layout,
+    kv_seq_ranks,
+)
 from repro_torch.models.layers import (
     NO_SHARD,
     PSpec,
@@ -42,9 +48,11 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import swiglu, swiglu_specs
 from repro_torch.models.transformer import (
     _layers,
-    _no_model_training,
     embed_tokens,
+    layer_entry,
+    seq_whole,
     stack_specs,
+    top_weights,
     unembed,
 )
 
@@ -90,18 +98,21 @@ def whisper_specs(cfg) -> Dict[str, Any]:
     }
 
 
-def _encode(params, frames, cfg, ctx: ShardCtx = NO_SHARD):
-    """frames: (B, T_enc, D) precomputed embeddings (stub frontend)."""
+def _encode(params, frames, cfg, ctx: ShardCtx = NO_SHARD, specs=None):
+    """frames: (B, T_enc, D) precomputed embeddings (stub frontend); `specs`
+    from `top_weights` under FSDP."""
     t, d = frames.shape[1], cfg.d_model
     x = gemm(frames.to(cfg.adtype), params["frame_proj"].to(cfg.adtype), cfg)
     x = ctx.c(x, ("batch", "frames", "embed"), (None, t, d))
+    x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, d))
     for lp in _layers(params["enc_blocks"], cfg.enc_layers):
+        lp, x = layer_entry(lp, x, ctx, t, specs, "enc_blocks")
         h, _ = attention(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg, ctx,
                          causal=False)
         x = x + h
         x = x + swiglu(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg, ctx)
         x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, d))
-    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+    return rmsnorm(seq_whole(x, ctx, t), params["enc_norm"], cfg.norm_eps)
 
 
 def _cross_kv(lp, enc_out, cfg, ctx: ShardCtx = NO_SHARD):
@@ -116,11 +127,16 @@ def _cross_kv(lp, enc_out, cfg, ctx: ShardCtx = NO_SHARD):
 
 
 def _decode_stack(params, tokens, enc_out, cfg, ctx: ShardCtx = NO_SHARD, *, cache=None,
-                  pos=None, write_cache=False):
+                  pos=None, write_cache=False, enc_len=None, specs=None):
+    """The decoder over `enc_out`: whole, or with `enc_len` (its whole
+    length) this process's block along 'kv_seq' (the decode state's);
+    `specs` from `top_weights` under FSDP."""
     t = tokens.shape[1]
     x = embed_tokens(params, tokens, cfg, ctx)
+    x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
     ks, vs = [], []
     for i, lp in enumerate(_layers(params["dec_blocks"], cfg.dec_layers)):
+        lp, x = layer_entry(lp, x, ctx, t, specs, "dec_blocks")
         kvc = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
         h, new_kv = attention(
             lp["attn"],
@@ -133,50 +149,56 @@ def _decode_stack(params, tokens, enc_out, cfg, ctx: ShardCtx = NO_SHARD, *, cac
         )
         x = x + h
         h, _ = attention(lp["xattn"], rmsnorm(x, lp["ln_x"], cfg.norm_eps), cfg, ctx,
-                         cross_kv=_cross_kv(lp, enc_out, cfg, ctx))
+                         cross_kv=_cross_kv(lp, enc_out, cfg, ctx), cross_len=enc_len)
         x = x + h
         x = x + swiglu(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg, ctx)
         x = ctx.c(x, ("batch", "seq_sp", "embed"), (None, t, cfg.d_model))
         if new_kv is not None:
             ks.append(new_kv["k"])
             vs.append(new_kv["v"])
-    logits = unembed(params, x, cfg, ctx)
+    logits = unembed(params, seq_whole(x, ctx, t), cfg, ctx)
     return logits, ({"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None)
 
 
 def whisper_forward(params, batch: Dict[str, torch.Tensor], cfg, ctx: ShardCtx = NO_SHARD):
     """batch: {"frames": (B, T_enc, D), "tokens": (B, T_dec)} -> (logits, aux)."""
-    _no_model_training(ctx)
-    enc_out = _encode(params, batch["frames"], cfg, ctx)
-    logits, _ = _decode_stack(params, batch["tokens"], enc_out, cfg, ctx)
+    params, specs = top_weights(params, whisper_specs, cfg, ctx,
+                                stacked=("enc_blocks", "dec_blocks"))
+    enc_out = _encode(params, batch["frames"], cfg, ctx, specs)
+    logits, _ = _decode_stack(params, batch["tokens"], enc_out, cfg, ctx, specs=specs)
     return logits, {}
 
 
 def whisper_prefill(params, batch, cfg, ctx: ShardCtx = NO_SHARD):
     """Returns (logits, state) with the state carrying enc_out and the
     decoder's self-attention KV caches."""
-    _no_model_training(ctx)
     enc_out = _encode(params, batch["frames"], cfg, ctx)
     logits, caches = _decode_stack(params, batch["tokens"], enc_out, cfg, ctx,
                                    write_cache=True)
+    t_enc = enc_out.shape[1]
+    cache_len(ctx, t_enc)  # a sequence-sharded state must split evenly
+    enc_out = ctx.c(enc_out, ("kv_batch", "kv_seq", "embed"), (None, t_enc, cfg.d_model))
     return logits, {"enc_out": enc_out, "k": caches["k"], "v": caches["v"]}
 
 
 def whisper_decode(params, tokens, state, pos, cfg, ctx: ShardCtx = NO_SHARD):
     cache = {"k": state["k"], "v": state["v"]}
-    logits, new_kv = _decode_stack(params, tokens, state["enc_out"], cfg, ctx, cache=cache,
-                                   pos=int(pos))
+    enc_out = state["enc_out"]
+    logits, new_kv = _decode_stack(params, tokens, enc_out, cfg, ctx, cache=cache,
+                                   pos=int(pos), enc_len=enc_out.shape[1] * kv_seq_ranks(ctx))
     return logits, {"enc_out": state["enc_out"], "k": new_kv["k"], "v": new_kv["v"]}
 
 
 def whisper_cache_specs(cfg, batch: int, enc_len: int, max_dec_len: int,
                         ctx: ShardCtx = NO_SHARD):
     """Decode state as {name: (shape, dtype)}; under a mesh the caches hold
-    this process's kv heads and enc_out stays whole."""
+    this process's kv heads, and under 'kv_seq' the caches and enc_out its
+    block of their positions (enc_out stays whole in D)."""
     kv, hd = head_layout(cfg, ctx).kv.size, cfg.head_dim_
     L = cfg.dec_layers
+    t = cache_len(ctx, max_dec_len)
     return {
-        "enc_out": ((batch, enc_len, cfg.d_model), cfg.adtype),
-        "k": ((L, batch, max_dec_len, kv, hd), cfg.adtype),
-        "v": ((L, batch, max_dec_len, kv, hd), cfg.adtype),
+        "enc_out": ((batch, cache_len(ctx, enc_len), cfg.d_model), cfg.adtype),
+        "k": ((L, batch, t, kv, hd), cfg.adtype),
+        "v": ((L, batch, t, kv, hd), cfg.adtype),
     }

@@ -53,7 +53,18 @@ def global_norm(tree: Any, blocks=None) -> torch.Tensor:
     `interop.ModelBlocks`: `tree` is a rank's blocks under a 'model' axis),
     the norm of the global tree: the squares of each rank's own elements
     summed over 'model' by one f32 all-reduce, each replicated leaf or
-    segment counted once; every 'model' rank gets the same value."""
+    segment counted once; every 'model' rank gets the same value.  Under
+    FSDP the data-cut leaves' sum is then summed over the DP axes."""
+    if blocks is not None and blocks.data_group is not None:
+        # FSDP: the data-cut leaves' squares are summed over the DP axes too.
+        from repro_torch.parallel.collectives import all_reduce
+
+        def over_model(own, rep):
+            return (own if blocks.group is None else all_reduce(own, group=blocks.group)) + rep
+
+        cut = all_reduce(over_model(*blocks.norm_squares(tree, data_cut=True)),
+                         group=blocks.data_group)
+        return torch.sqrt(over_model(*blocks.norm_squares(tree, data_cut=False)) + cut)
     if blocks is not None and blocks.group is not None:
         from repro_torch.parallel.collectives import all_reduce
 

@@ -62,6 +62,7 @@ __all__ = [
     "TRAIN_RULES",
     "block_pieces",
     "constrain",
+    "fsdp_gathers",
     "gather_global",
     "logical_to_physical",
     "mesh_layout",
@@ -139,11 +140,13 @@ class ShardingRules:
 DEFAULT_RULES = ShardingRules.make()
 
 # FSDP parameter rules: every weight's 'embed' dim is also sharded over the
-# DP axes, so parameters and optimizer state shard across the full mesh.
+# DP axes, so parameters and optimizer state shard across the full mesh
+# (`fsdp_gathers`; the models gather a layer's weights just before use).
 PARAM_RULES = DEFAULT_RULES.replace(embed=("pod", "data"))
 
 # Megatron sequence parallelism for training: remat-saved layer-boundary
-# carriers stored seq-sharded over 'model' (the models refuse it: ROADMAP 14(b)).
+# carriers stored seq-sharded over 'model' (`models.transformer.seq_whole`
+# gathers them where the next layer reads them).
 TRAIN_RULES = DEFAULT_RULES.replace(seq_sp="model")
 
 # Sequence-parallel decode: long-context KV caches and recurrent streams
@@ -360,6 +363,31 @@ def block_pieces(shape: Sequence[int], logical_axes: Sequence[Optional[str]], me
 
         idx, _ = _flat_index(lay.shape, lay.coord, a)
         out.append(((idx * (n // count), n // count, a),))
+    return tuple(out)
+
+
+def fsdp_gathers(shape: Sequence[int], logical_axes: Sequence[Optional[str]], mesh,
+                 rules: ShardingRules, param_rules: ShardingRules) -> Tuple[Tuple[int, Any], ...]:
+    """The (dim, mesh axes) all-gathers that take a leaf of global `shape`
+    from its block under `param_rules` (FSDP: 'embed' also cut over the DP
+    axes) to its block under the activation `rules`, which the model code
+    reads: each dim that `param_rules` cuts and `rules` leaves whole
+    (indivisible dims replicated under both).  Empty where the two agree.
+    Raises NotImplementedError where they cut one dim differently."""
+    pspec = _drop_indivisible(logical_to_physical(logical_axes, mesh, param_rules), shape, mesh)
+    aspec = _drop_indivisible(logical_to_physical(logical_axes, mesh, rules), shape, mesh)
+    mshape = mesh_shape(mesh)
+    out = []
+    for d in range(len(shape)):
+        p = pspec[d] if d < len(pspec) else None
+        a = aspec[d] if d < len(aspec) else None
+        pc, ac = _count(mshape, p), _count(mshape, a)
+        if pc == 1 and ac == 1 or p == a:
+            continue
+        if ac > 1:
+            raise NotImplementedError(f"parameter rules cut dim {d} of {tuple(shape)} over {p!r}"
+                                      f" where the activation rules cut it over {a!r}")
+        out.append((d, p))
     return tuple(out)
 
 

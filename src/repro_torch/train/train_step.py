@@ -30,7 +30,13 @@ Mamba2's B and C segments, nothing sharded), then every gradient over
 'data' as above; clipping takes the global norm of the blocks
 (`optim.global_norm(tree, blocks)`).  With M = 1 the seed is 1 and
 nothing is summed over 'model', so the single-process and data-parallel
-steps are bitwise what they were.  `make_dp_train_step_compressed` is the reference's
+steps are bitwise what they were.  FSDP (a ctx with `param_rules`, the
+reference's `PARAM_RULES`): the state holds this rank's (data x model)
+blocks, the model gathers each layer's weights over the DP axes and the
+gather's backward reduce-scatters their gradients, so the backward is
+seeded with this rank's share of the microbatch over M (the weight the
+DP step applies after it), and only the leaves every DP rank holds whole
+are all-reduced over 'data' (`ModelBlocks.data_cut`).  `make_dp_train_step_compressed` is the reference's
 shard_map step with the int8 error-feedback all-reduce
 (`parallel.compression`): its state carries "err", each rank's own
 residual as a (1, *shape) slice of the reference's (dp, *shape) leaves
@@ -184,6 +190,7 @@ def make_train_step(
     blocks = model_blocks(model, ctx)
     every = mesh_groups(mesh)
     seed = None if blocks is None else 1.0 / blocks.size
+    fsdp = blocks is not None and blocks.data_group is not None
 
     def grads(params, batch):
         """The global batch's gradients (on every rank) and metrics."""
@@ -200,12 +207,12 @@ def make_train_step(
                 lo, hi = _row_range(m_hi - m_lo, ranks, idx)
                 local = {k: v[m_lo + lo:m_lo + hi] for k, v in batch.items()}
                 c = NO_SHARD if ctx.mesh is None else ctx.for_rows(m_hi - m_lo)
+                w = (hi - lo) / (m_hi - m_lo)  # this rank's share of the microbatch
                 with moe.global_routing(group, m_hi - m_lo):
-                    g, m = _grads_of(model, params, local, c, seed)
+                    g, m = _grads_of(model, params, local, c, seed * w if fsdp else seed)
                 if ranks == 1 and grad_accum == 1 and blocks is None:
                     return g, m
-                w = (hi - lo) / (m_hi - m_lo)  # this rank's share of the microbatch
-                part = tree_map(lambda x: x.float() * w, g)
+                part = tree_map(lambda x: x.float() if fsdp else x.float() * w, g)
                 acc = part if acc is None else tree_map(torch.add, acc, part)
                 mw = {k: v.float() * w for k, v in m.items()}
                 macc = mw if macc is None else {k: macc[k] + mw[k] for k in mw}
@@ -216,7 +223,8 @@ def make_train_step(
         if blocks is not None:  # the replicated leaves' shares, summed over 'model'
             blocks.reduce_replicated(acc)
         if group is not None:
-            acc = tree_map(lambda x: all_reduce(x, group=group), acc)
+            acc = tree_map(lambda x, cut: x if cut else all_reduce(x, group=group), acc,
+                           blocks.data_cut if fsdp else tree_map(lambda x: (), acc))
         if grad_accum == 1:  # the single-process step's leaf dtypes
             out = tree_map(lambda x, p: x.to(p.dtype), acc, params)
         else:  # the f32 mean

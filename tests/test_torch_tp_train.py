@@ -644,15 +644,21 @@ def _fake_ctx(model_size, coord, rules=None):
 
 
 def test_seq_sp_still_refused():
-    """The 'seq_sp' rule (Megatron sequence parallelism) is ROADMAP 14's."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import get_model
+    """Once the refusal of the 'seq_sp' rule (Megatron sequence
+    parallelism), which the port now runs (tests/test_torch_sp.py holds its
+    gradients on ranks): a layer's carrier under 'seq_sp' on 'model' is
+    the rank's block of the sequence, a T that does not divide the axis
+    replicates, and `seq_whole` leaves a whole sequence as it is."""
+    from repro_torch.models.layers import Part
+    from repro_torch.models.transformer import seq_whole
     from repro_torch.parallel.sharding import DEFAULT_RULES
 
-    model = get_model(get_config("mesh-paper").reduced())
-    ctx = _fake_ctx(2, 0, DEFAULT_RULES.replace(seq_sp="model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP 14"):
-        model.forward({}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)}, ctx)
+    ctx = _fake_ctx(2, 1, DEFAULT_RULES.replace(seq_sp="model"))
+    x = torch.arange(2 * 8 * 4, dtype=torch.float32).reshape(2, 8, 4)
+    assert torch.equal(ctx.c(x, ("batch", "seq_sp", "embed"), (None, 8, 4)), x[:, 4:])
+    assert ctx.part("seq_sp", 8) == Part(4, 4, 2, "model")
+    assert ctx.part("seq_sp", 7).count == 1
+    assert seq_whole(x, ctx, 8) is x
 
 
 def test_block_pieces_and_replicated_ranges():

@@ -9,8 +9,9 @@ smaller batch than the single-process server, so the two agree bitwise
 only where every op of the step computes a row the same way at any row
 count.  Three readings, each against the same rows computed as two calls
 of 2 rows:
-  (a) `layers.rmsnorm` and its f32 mean of squares over d = 2048 on 4 rows
-      (300 draws of random bf16 rows);
+  (a) `layers.rmsnorm` (kernel R1, whose order of summation is fixed per
+      row) over d = 2048 on 4 rows, in bf16 and f32 (300 draws of random
+      rows), beside its plain version (PyTorch's reduction);
   (b) the mesh GEMM (K1) at mesh-paper's four decode products on 4 rows,
       on the same blocks and, for scale, on other blocks;
   (c) mesh-paper at full width (random weights from seed 0, `[serve]`'s
@@ -68,24 +69,26 @@ def _rows_tf(torch, cs, model, params, prompts, lo, hi, feed):
 
 
 def _rmsnorm_rows(torch) -> None:
+    from repro_torch.kernels.rmsnorm import rmsnorm_torch
     from repro_torch.models.layers import rmsnorm
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    draws, outs, elems, means = 300, 0, 0, 0
+    draws = 300
+    rows = {(fn, dt): 0 for fn in ("R1", "plain") for dt in ("bfloat16", "float32")}
     for _ in range(draws):
-        x = (torch.randn(4, 1, 2048, generator=g, device="cuda") * 3).to(torch.bfloat16)
-        w = (1 + 0.1 * torch.randn(2048, generator=g, device="cuda")).to(torch.bfloat16)
-        whole = rmsnorm(x, w, 1e-5)
-        halves = torch.cat([rmsnorm(x[:2], w, 1e-5), rmsnorm(x[2:], w, 1e-5)])
-        d = int((whole != halves).sum())
-        outs, elems = outs + (d > 0), elems + d
-        xf = x.float()
-        m4 = torch.mean(xf * xf, dim=-1)
-        m2 = torch.cat([torch.mean(xf[:2] * xf[:2], dim=-1), torch.mean(xf[2:] * xf[2:], dim=-1)])
-        means += int((m4 != m2).sum())
-    print(f"[batch] (a) rmsnorm over d=2048, 4 rows against 2 + 2: the f32 mean of squares"
-          f" differs in {means} of {4 * draws} rows; the bf16 output in {outs} of {draws} draws"
-          f" ({elems} elements)", flush=True)
+        x = torch.randn(4, 1, 2048, generator=g, device="cuda") * 3
+        w = 1 + 0.1 * torch.randn(2048, generator=g, device="cuda")
+        for dt in ("bfloat16", "float32"):
+            xd, wd = x.to(getattr(torch, dt)), w.to(getattr(torch, dt))
+            for name, fn in (("R1", rmsnorm), ("plain", rmsnorm_torch)):
+                whole = fn(xd, wd, 1e-5)
+                halves = torch.cat([fn(xd[:2], wd, 1e-5), fn(xd[2:], wd, 1e-5)])
+                rows[name, dt] += int((whole != halves).any(dim=-1).sum())
+    print(f"[batch] (a) rmsnorm over d=2048, 4 rows against 2 + 2 ({draws} draws, {4 * draws}"
+          f" rows): rows that differ with `layers.rmsnorm` (R1) bf16 {rows['R1', 'bfloat16']},"
+          f" f32 {rows['R1', 'float32']}; with the plain version (PyTorch's reduction, whose"
+          f" order follows the row count) bf16 {rows['plain', 'bfloat16']}, f32"
+          f" {rows['plain', 'float32']}", flush=True)
 
 
 def _k1_rows(torch) -> None:
