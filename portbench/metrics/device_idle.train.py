@@ -1,0 +1,9 @@
+"""Device, training: the share of the profiled steps' sub-window in which
+no kernel, copy or set ran on the card.  Moves `train_tokens_per_s`."""
+
+
+def read(run):
+    p = run.profile
+    if p is None or p.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - p.busy_s / p.window_s)
