@@ -40,8 +40,22 @@ Robustness contract:
 
 Observability (`repro_torch.obs`): the reference's counters and histograms
 (requests by status, admissions, ticks by outcome, decode tokens, TTFT,
-TPOT) and spans (`serve.tick`, nesting `serve.prefill` and
-`serve.decode`).  With tracing off a span costs one attribute check.
+TPOT) and spans.  `serve.tick` nests every part of a tick but its own
+bookkeeping:
+
+  serve.prefill         admission to the first token on the host (rid,
+                        tokens), one a request, of:
+    serve.prefill.launch    the prompt's copy to the card and the prefill
+    serve.prefill.scatter   its caches into the pools (or its state into
+                            the slot's rows)
+    serve.prefill.read      the host read of the first token
+  serve.decode          one decode step of every ready slot (slots, tick):
+    serve.decode.launch     the inputs' copies and the step's enqueue
+    serve.decode.read       the host read of the next tokens
+  serve.retire          the step's tokens into their sequences, and the
+                        retirement of those that finished
+
+With tracing off a span costs one attribute check.
 
 Families: dense, moe and vlm serve through the paged path; vlm prefills
 carry zero stub patches, and its positions (and pages) count them.  ssm
@@ -500,15 +514,18 @@ class ContinuousBatchingServer:
             self._queue.pop(0)
             slot = self._free_slots.pop()
             with _obs.span("serve.prefill", rid=req.rid, tokens=prefill_len):
-                first_tok, state = self._run_prefill(req)
-            self._m_admitted.inc()
-            if self._paged:
-                self._scatter(state, pages)
-            else:
-                self._insert_state(state, slot)
-            # TTFT: submission -> first token on the host (prefill emits it
-            # greedily; reading it waits for the prefill).
-            first = int(first_tok[0])
+                with _obs.span("serve.prefill.launch"):
+                    first_tok, state = self._run_prefill(req)
+                self._m_admitted.inc()
+                with _obs.span("serve.prefill.scatter"):
+                    if self._paged:
+                        self._scatter(state, pages)
+                    else:
+                        self._insert_state(state, slot)
+                # TTFT: submission -> first token on the host (prefill emits
+                # it greedily; reading it waits for the prefill).
+                with _obs.span("serve.prefill.read"):
+                    first = int(first_tok[0])
             self._m_ttft.observe(time.monotonic() - submitted_at)
             seq = _Seq(
                 req=req,
@@ -602,18 +619,21 @@ class ContinuousBatchingServer:
         # histogram records.
         t0 = time.monotonic()
         with _obs.span("serve.decode", slots=len(ready), tick=self._tick):
-            nxt, state = self._decode(tokens, tables, positions)
+            with _obs.span("serve.decode.launch"):
+                nxt, state = self._decode(tokens, tables, positions)
             if not self._paged:
                 self.state = state
-            nxt = nxt.cpu().numpy()  # host sync
+            with _obs.span("serve.decode.read"):
+                nxt = nxt.cpu().numpy()  # host sync
         self._m_tpot.observe(time.monotonic() - t0)
-        for seq in ready:
-            seq.tokens.append(int(nxt[seq.slot]))
-            seq.pos += 1
-            self.counters["decode_tokens"] += 1
-            self._m_tokens.inc()
-            if len(seq.tokens) >= seq.req.max_new_tokens:
-                self._evict(seq, "ok", "")
+        with _obs.span("serve.retire"):
+            for seq in ready:
+                seq.tokens.append(int(nxt[seq.slot]))
+                seq.pos += 1
+                self.counters["decode_tokens"] += 1
+                self._m_tokens.inc()
+                if len(seq.tokens) >= seq.req.max_new_tokens:
+                    self._evict(seq, "ok", "")
 
     # -- driving -------------------------------------------------------------
 

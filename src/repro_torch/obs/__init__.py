@@ -12,7 +12,11 @@ Port of `repro.obs`.  Quickstart::
     obs.write_chrome_trace("trace.json")   # load in chrome://tracing
 
 Span names follow the `layer.verb` convention (plan.build, plan.execute,
-autotune.measure, serve.tick, serve.decode, calibrate.ingest, ...).
+autotune.measure, serve.tick, serve.decode, calibrate.ingest, ...).  The
+scheduler's tick nests serve.prefill (serve.prefill.launch,
+serve.prefill.scatter, serve.prefill.read), serve.decode
+(serve.decode.launch, serve.decode.read) and serve.retire;
+`launch/scheduler.py` says what each one covers.
 """
 
 from repro_torch.obs.bridge import (
